@@ -1,0 +1,135 @@
+"""Rules the PyTorch/CUDA port keeps, checked on the CPU.
+
+- No module of ``audiolab_tpu_torch`` and not ``chip_smoke.py`` imports
+  ``jax``, ``flax`` or the JAX package (``audiolab_tpu``).
+- The entry points default to the card and raise when there is none.
+- The kernel wrappers take their plain versions for CPU tensors and leave
+  their launch counters untouched.
+- The CUDA source exists and is built for sm_90a.
+- ``chip_smoke.py`` exits non-zero and prints no result without a card, in
+  the repository and alone in a directory.
+"""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from audiolab_tpu_torch.kernels import _build
+from audiolab_tpu_torch.kernels import attention as TA
+from audiolab_tpu_torch.models import hubert as TH
+from audiolab_tpu_torch.models import rmvpe as TRm
+from audiolab_tpu_torch.models.rvc import synthesizer as TSy
+from audiolab_tpu_torch.pipelines import rvc as TP
+from audiolab_tpu_torch.pipelines import separate as TSep
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "audiolab_tpu")
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+def _port_sources() -> list[Path]:
+    return sorted((ROOT / "audiolab_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    bad = [n for n in _imports(path) if n.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_stem_separator_defaults_to_the_card(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSep.StemSeparator([])
+    assert TSep.StemSeparator([], device="cpu").device.type == "cpu"
+
+
+def test_voice_converter_defaults_to_the_card(no_cuda):
+    synth = TSy.SynthesizerTrn(TSy.SynthesizerConfig(
+        spec_channels=129, inter_channels=8, hidden_channels=8, filter_channels=16,
+        n_layers=1, upsample_initial_channel=16, spk_embed_dim=2, gin_channels=8,
+        feat_channels=16))
+    hub = TH.HubertFeatureExtractor("v2", TH.HubertConfig(dim=16, ffn_dim=32, heads=2,
+                                                         layers=1, final_dim=8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.VoiceConverter(synth, hub)
+    assert TP.VoiceConverter(synth, hub, TRm.RMVPE(dtype=None, en_de_layers=1, inter_layers=1,
+                                                   n_blocks=1, en_out_channels=2,
+                                                   gru_hidden=4),
+                             device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_on_cpu_take_the_plain_path():
+    """CPU tensors never reach the CUDA library (there is none here) and
+    leave both launch counters at 0; the results are the plain versions'."""
+    TA.reset_launch_counts()
+    rng = np.random.default_rng(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+
+    bf = torch.bfloat16
+    q, k, v = t(1, 2, 62, 64, dtype=bf), t(1, 2, 62, 64, dtype=bf), t(1, 2, 62, 64, dtype=bf)
+    assert torch.equal(TA.attention_nk1(q, k, v), TA.attention_nk1_reference(q, k, v, 0.125))
+    assert torch.equal(TA.flash_attention(q, k, v, block_k=62),
+                       TA.attention_nk1_reference(q, k, v, 0.125))
+    q, k, v = t(1, 2, 30, 64), t(1, 2, 70, 64), t(1, 2, 70, 64)
+    assert torch.equal(TA.flash_attention_fwd(q, k, v, causal=True),
+                       TA.flash_attention_reference(q, k, v, True, 0.125))
+    assert torch.equal(TA.flash_attention(q, k, v, causal=True),
+                       TA.flash_attention_reference(q, k, v, True, 0.125))
+    assert TA.attention_nk1.launches == 0 and TA.flash_attention_fwd.launches == 0
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    f32 = torch.zeros(1, 1, 8, 64)
+    with pytest.raises(TypeError):
+        TA.attention_nk1(f32, f32, f32)             # K1 takes 16-bit inputs only
+    with pytest.raises(ValueError):
+        TA.flash_attention_fwd(f32, torch.zeros(1, 1, 8, 32), torch.zeros(1, 1, 8, 32))
+    with pytest.raises(TypeError):
+        TA.flash_attention_fwd(f32, f32, f32.double())
+
+
+def test_cuda_source_builds_for_sm90a():
+    src = _build.CSRC / "attention.cu"
+    assert src.is_file()
+    cmd = _build.nvcc_command(src, Path("build/libattention.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert "-shared" in cmd and str(src) in cmd
+    text = src.read_text()
+    for entry in ("k1_attention_nk1", "k2_flash_attention"):
+        assert f'extern "C" int {entry}(' in text
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if where == "alone":
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        cwd, script = tmp_path, tmp_path / "chip_smoke.py"
+    env = {"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": "", "HOME": str(tmp_path)}
+    res = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout

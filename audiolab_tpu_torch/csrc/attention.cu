@@ -1,15 +1,24 @@
 // Attention kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
-// K1  k1_attention_nk1      replaces audiolab_tpu/kernels/attention.py
-//                           ::_flash_kernel_nk1 (single-KV-block, non-causal).
-// K2  k2_flash_attention    replaces audiolab_tpu/kernels/attention.py
-//                           ::_flash_kernel (online softmax over KV tiles,
-//                           key-length mask, optional causal mask).
+// K1  k1_attention_nk1       replaces audiolab_tpu/kernels/attention.py
+//                            ::_flash_kernel_nk1 (single-KV-block, non-causal).
+// K2  k2_flash_attention     replaces audiolab_tpu/kernels/attention.py
+//                            ::_flash_kernel (online softmax over KV tiles,
+//                            key-length mask, optional causal mask).
+// K3  k3_attention_nk1_rope  replaces audiolab_tpu/kernels/attention.py
+//                            ::_flash_kernel_nk1_rope (K1 with half-split rope
+//                            fused onto the q and k tiles).
+// K6  k6_attention_slim      replaces tools/probe_freq_bh128.py::_nk1_slim
+//                            (K1 with the row sum as a separate fp32 reduction).
+// K7  k7_attention_packed    replaces tools/probe_packed_attn.py::_packed_kernel
+//                            (K1 reading q/k/v from the packed (b, t, h*d)
+//                            layout and writing the output in it).
 //
-// Every entry point takes device pointers to contiguous (slices, t, d)
-// tensors and a CUDA stream, launches on that stream without synchronising,
-// allocates nothing, and returns cudaGetLastError() so the Python wrapper
-// can raise on a refused launch.
+// Every entry point takes device pointers and a CUDA stream, launches on
+// that stream without synchronising, allocates nothing, and returns
+// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// K1, K2, K3 and K6 take contiguous (slices, t, d) tensors; K7 takes
+// (b, t, row stride) rows, see below.
 //
 // K1 — bound and design.
 //   Work at the RoFormer shapes (bf16): time axis 3968 slices x 690 x 64,
@@ -32,6 +41,32 @@
 //   (the TPU path folded 64 slices per grid step for the same reason).
 //   Not done yet: wgmma, TMA, cp.async pipelining, and keeping the score
 //   row in registers instead of a shared-memory round trip.
+//
+// K3, K6 and K7 are K1's core (k1_kernel) with one thing changed, chosen at
+// compile time by its variant, so K1's own instance is unchanged:
+//   K3 (K1_ROPE): q and k pass through half-split rope as they are staged
+//     into shared memory: round_T(x*cos + rot(x)*sin) in fp32, with rot the
+//     exact sign-and-swap of the two halves and no contracted multiply-add,
+//     as on the TPU.  The scale is folded into the q tables (cos*scale and
+//     sin*scale in fp32), so q is rounded once and never again by q*scale.
+//     Only table rows below tq (q) and tk (k) are read; padded keys are
+//     masked as in K1.  Same bound as K1: the rope adds 8 fp32 operations per
+//     staged element and reads the (t, d) fp32 tables through the cache.
+//   K6 (K1_SCALED, own entry): the TPU's K1 took its row sum from the p.v
+//     product with a ones-widened v; K6 took it as a separate fp32
+//     reduction over the rounded p.  On the card K1 already sums the rounded
+//     p that way (WMMA has no idle lanes to fill), so K6's function runs in
+//     K1's scaled instance.  What the probe asked (fold twice the slices per
+//     TPU grid step) is the entry's slices_per_cta, which the wrapper sets
+//     to twice K1's.  Bound: bytes, like K1's band axis.
+//   K7 (K1_PACKED): slice (batch, head) of q/k/v lives at rows of stride
+//     ld_in elements (heads*d for a packed tensor, 3*heads*d for a view of a
+//     fused qkv activation), starting at batch*t*ld_in + head*d; the output
+//     is written at stride heads*d in the same layout, so no transpose pass
+//     runs on either side.  A d = 64 bf16 row is 128 contiguous bytes, so
+//     the staging loads stay coalesced.  One CTA per (batch, head, 64-row
+//     query tile); the ragged query tail is masked (the TPU needed bq | t).
+//     Same bound as K1 on the time axis.
 //
 // K2 — bound and design.
 //   HuBERT (fp32): 96 slices x 399 x 64: 4*96*399^2*64 = 3.9e9 FLOP over
@@ -70,12 +105,29 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
-// ------------------------------------------------------------------ K1
+// ------------------------------------------------------------------ K1 core
 
 constexpr int K1_BQ = 64;      // query rows per CTA, 16 per warp
 constexpr int K1_BK = 64;      // keys per staged chunk
 constexpr int K1_WARPS = 4;
 constexpr int K1_THREADS = 32 * K1_WARPS;
+
+enum K1Variant { K1_SCALED = 0, K1_ROPE = 1, K1_PACKED = 2 };
+
+struct K1Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  const float* cos;  // K1_ROPE: (>= max(tq, tk), d) fp32 tables
+  const float* sin;
+  int bh, tq, tk;
+  float scale;       // K1_ROPE: folded into the q tables
+  int spc;           // slices per CTA
+  int heads;         // K1_PACKED: slice = batch * heads + head
+  int ld_in;         // K1_PACKED: q/k/v row stride (elements)
+  int ld_out;        // K1_PACKED: output row stride (elements)
+};
 
 template <typename T, int D>
 struct K1Layout {
@@ -91,15 +143,43 @@ struct K1Layout {
   static constexpr size_t BYTES = Q_BYTES + 2 * KV_BYTES + S_BYTES + P_BYTES;
 };
 
-// rows [r0, r0 + rows) of a (t, D) slice into shared memory with stride ld;
-// rows at or past t are zero
+// rows [r0, r0 + K1_BK) of a (t, D) slice with row stride lds into shared
+// memory with stride ld; rows at or past t are zero
 template <typename T, int D>
-__device__ __forceinline__ void k1_stage(T* dst, const T* __restrict__ src, int r0, int t, int ld) {
+__device__ __forceinline__ void k1_stage(T* dst, const T* __restrict__ src, int r0, int t, int ld,
+                                         int lds) {
   const T zero = from_f<T>(0.f);
   for (int i = threadIdx.x; i < K1_BK * D; i += K1_THREADS) {
     const int r = i / D, c = i - r * D;
     const int g = r0 + r;
-    dst[r * ld + c] = g < t ? src[(size_t)g * D + c] : zero;
+    dst[r * ld + c] = g < t ? src[(size_t)g * lds + c] : zero;
+  }
+}
+
+// rows [r0, r0 + rows) of a contiguous (t, D) slice, half-split roped with
+// the (t, D) tables times tscale: round_T(x*cos + rot(x)*sin), fp32, each
+// product and the sum rounded on its own as on the TPU; rows at or past t
+// are zero and their table rows are never read
+template <typename T, int D>
+__device__ __forceinline__ void k1_stage_rope(T* dst, const T* __restrict__ src,
+                                              const float* __restrict__ cosv,
+                                              const float* __restrict__ sinv, int r0, int rows,
+                                              int t, int ld, float tscale) {
+  constexpr int H = D / 2;
+  const T zero = from_f<T>(0.f);
+  for (int i = threadIdx.x; i < rows * D; i += K1_THREADS) {
+    const int r = i / D, c = i - r * D;
+    const int g = r0 + r;
+    T val = zero;
+    if (g < t) {
+      const T* row = src + (size_t)g * D;
+      const float x = to_f<T>(row[c]);
+      const float xr = c < H ? -to_f<T>(row[c + H]) : to_f<T>(row[c - H]);
+      const float cs = __fmul_rn(cosv[(size_t)g * D + c], tscale);
+      const float sn = __fmul_rn(sinv[(size_t)g * D + c], tscale);
+      val = from_f<T>(__fadd_rn(__fmul_rn(x, cs), __fmul_rn(xr, sn)));
+    }
+    dst[r * ld + c] = val;
   }
 }
 
@@ -123,10 +203,8 @@ __device__ __forceinline__ void k1_scores(
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(K1_THREADS)
-k1_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int bh, int tq, int tk, float scale, int spc) {
+template <typename T, int D, int V>
+__global__ void __launch_bounds__(K1_THREADS) k1_kernel(const K1Params prm) {
   using L = K1Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
@@ -134,6 +212,16 @@ k1_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   T* vs = reinterpret_cast<T*>(smem + L::Q_BYTES + L::KV_BYTES);
   float* ss = reinterpret_cast<float*>(smem + L::Q_BYTES + 2 * L::KV_BYTES);
   T* ps = reinterpret_cast<T*>(smem + L::Q_BYTES + 2 * L::KV_BYTES + L::S_BYTES);
+
+  const T* __restrict__ q = static_cast<const T*>(prm.q);
+  const T* __restrict__ k = static_cast<const T*>(prm.k);
+  const T* __restrict__ v = static_cast<const T*>(prm.v);
+  T* __restrict__ o = static_cast<T*>(prm.o);
+  const int tq = prm.tq, tk = prm.tk;
+  const float scale = prm.scale;
+  // row strides of the inputs and the output, in elements
+  const int ld = V == K1_PACKED ? prm.ld_in : D;
+  const int ldo = V == K1_PACKED ? prm.ld_out : D;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* sw = ss + warp * 16 * L::LDW;
@@ -143,21 +231,42 @@ k1_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int q0 = blockIdx.y * K1_BQ;
   const int qrow = q0 + warp * 16 + r;
   const int nchunks = (tk + K1_BK - 1) / K1_BK;
-  const int s_begin = blockIdx.x * spc;
-  const int s_end = min(s_begin + spc, bh);
+  const int s_begin = blockIdx.x * prm.spc;
+  const int s_end = min(s_begin + prm.spc, prm.bh);
 
   for (int sl = s_begin; sl < s_end; ++sl) {
-    const T* qg = q + (size_t)sl * tq * D;
-    const T* kg = k + (size_t)sl * tk * D;
-    const T* vg = v + (size_t)sl * tk * D;
+    size_t qoff, koff, ooff;
+    if constexpr (V == K1_PACKED) {
+      const int bi = sl / prm.heads, hi = sl - bi * prm.heads;
+      qoff = (size_t)bi * tq * ld + (size_t)hi * D;
+      koff = (size_t)bi * tk * ld + (size_t)hi * D;
+      ooff = (size_t)bi * tq * ldo + (size_t)hi * D;
+    } else {
+      qoff = ooff = (size_t)sl * tq * D;
+      koff = (size_t)sl * tk * D;
+    }
+    const T* qg = q + qoff;
+    const T* kg = k + koff;
+    const T* vg = v + koff;
+    auto stage_keys = [&](int k0) {
+      if constexpr (V == K1_ROPE)
+        k1_stage_rope<T, D>(ks, kg, prm.cos, prm.sin, k0, K1_BK, tk, L::LDT, 1.f);
+      else
+        k1_stage<T, D>(ks, kg, k0, tk, L::LDT, ld);
+    };
 
     __syncthreads();  // the previous slice is done with every buffer
-    // q * scale, rounded to T as the TPU kernel does (q_ref * scale in dt)
-    for (int i = threadIdx.x; i < K1_BQ * D; i += K1_THREADS) {
-      const int rr = i / D, cc = i - rr * D;
-      const int g = q0 + rr;
-      const float x = g < tq ? to_f<T>(qg[(size_t)g * D + cc]) * scale : 0.f;
-      qs[rr * L::LDT + cc] = from_f<T>(x);
+    if constexpr (V == K1_ROPE) {
+      // the scale lives in the q tables: q is rounded once, after rope
+      k1_stage_rope<T, D>(qs, qg, prm.cos, prm.sin, q0, K1_BQ, tq, L::LDT, scale);
+    } else {
+      // q * scale, rounded to T as the TPU kernel does (q_ref * scale in dt)
+      for (int i = threadIdx.x; i < K1_BQ * D; i += K1_THREADS) {
+        const int rr = i / D, cc = i - rr * D;
+        const int g = q0 + rr;
+        const float x = g < tq ? to_f<T>(qg[(size_t)g * ld + cc]) * scale : 0.f;
+        qs[rr * L::LDT + cc] = from_f<T>(x);
+      }
     }
     __syncthreads();
     wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qa[D / 16];
@@ -170,7 +279,7 @@ k1_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int c = 0; c < nchunks; ++c) {
       const int k0 = c * K1_BK;
       __syncthreads();
-      k1_stage<T, D>(ks, kg, k0, tk, L::LDT);
+      stage_keys(k0);
       __syncthreads();
       k1_scores<T, D>(qa, ks, sw);
       __syncwarp();
@@ -195,8 +304,8 @@ k1_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const int c = it == 0 ? nchunks - 1 : it - 1;
       const int k0 = c * K1_BK;
       __syncthreads();
-      if (it > 0) k1_stage<T, D>(ks, kg, k0, tk, L::LDT);
-      k1_stage<T, D>(vs, vg, k0, tk, L::LDT);
+      if (it > 0) stage_keys(k0);
+      k1_stage<T, D>(vs, vg, k0, tk, L::LDT, ld);
       __syncthreads();
       if (it > 0) {
         k1_scores<T, D>(qa, ks, sw);
@@ -233,34 +342,30 @@ k1_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     __syncwarp();
     if (qrow < tq) {
       const float den = l > 0.f ? l : 1.f;
-      T* og = o + ((size_t)sl * tq + qrow) * D;
+      T* og = o + ooff + (size_t)qrow * ldo;
       for (int cc = half; cc < D; cc += 2) og[cc] = from_f<T>(sw[r * L::LDW + cc] / den);
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t k1_launch(const void* q, const void* k, const void* v, void* o, int bh, int tq,
-                      int tk, float scale, int spc, cudaStream_t stream) {
+template <typename T, int D, int V>
+cudaError_t k1_launch(const K1Params& prm, cudaStream_t stream) {
   const size_t bytes = K1Layout<T, D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(k1_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(k1_kernel<T, D, V>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((bh + spc - 1) / spc, (tq + K1_BQ - 1) / K1_BQ);
-  k1_kernel<T, D><<<grid, K1_THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), bh, tq, tk, scale, spc);
+  dim3 grid((prm.bh + prm.spc - 1) / prm.spc, (prm.tq + K1_BQ - 1) / K1_BQ);
+  k1_kernel<T, D, V><<<grid, K1_THREADS, bytes, stream>>>(prm);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t k1_dispatch(const void* q, const void* k, const void* v, void* o, int bh, int tq,
-                        int tk, int d, float scale, int spc, cudaStream_t s) {
+template <typename T, int V>
+cudaError_t k1_dispatch(const K1Params& prm, int d, cudaStream_t s) {
   switch (d) {
-    case 16: return k1_launch<T, 16>(q, k, v, o, bh, tq, tk, scale, spc, s);
-    case 32: return k1_launch<T, 32>(q, k, v, o, bh, tq, tk, scale, spc, s);
-    case 64: return k1_launch<T, 64>(q, k, v, o, bh, tq, tk, scale, spc, s);
-    case 128: return k1_launch<T, 128>(q, k, v, o, bh, tq, tk, scale, spc, s);
+    case 16: return k1_launch<T, 16, V>(prm, s);
+    case 32: return k1_launch<T, 32, V>(prm, s);
+    case 64: return k1_launch<T, 64, V>(prm, s);
+    case 128: return k1_launch<T, 128, V>(prm, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -393,21 +498,53 @@ cudaError_t k2_dispatch(const void* q, const void* k, const void* v, void* o, in
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
 // dtype codes shared with audiolab_tpu_torch/kernels/attention.py
 enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
+
+template <int V>
+int k1_entry(const K1Params& prm, int d, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (prm.bh <= 0 || prm.tq <= 0 || prm.tk <= 0 || prm.spc <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == DT_BF16) return (int)k1_dispatch<__nv_bfloat16, V>(prm, d, s);
+  if (dtype == DT_F16) return (int)k1_dispatch<__half, V>(prm, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 extern "C" int k1_attention_nk1(const void* q, const void* k, const void* v, void* o, int bh,
                                 int tq, int tk, int d, float scale, int dtype,
                                 int slices_per_cta, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || tq <= 0 || tk <= 0 || slices_per_cta <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == DT_BF16)
-    return (int)k1_dispatch<__nv_bfloat16>(q, k, v, o, bh, tq, tk, d, scale, slices_per_cta, s);
-  if (dtype == DT_F16)
-    return (int)k1_dispatch<__half>(q, k, v, o, bh, tq, tk, d, scale, slices_per_cta, s);
-  return (int)cudaErrorInvalidValue;
+  const K1Params prm{q, k, v, o, nullptr, nullptr, bh, tq, tk, scale, slices_per_cta, 1, d, d};
+  return k1_entry<K1_SCALED>(prm, d, dtype, stream);
+}
+
+// cos/sin: (>= max(tq, tk), d) fp32 tables; scale is folded into q's
+extern "C" int k3_attention_nk1_rope(const void* q, const void* k, const void* v, void* o,
+                                     const float* cos, const float* sin, int bh, int tq, int tk,
+                                     int d, float scale, int dtype, int slices_per_cta,
+                                     void* stream) {
+  if (cos == nullptr || sin == nullptr) return (int)cudaErrorInvalidValue;
+  const K1Params prm{q, k, v, o, cos, sin, bh, tq, tk, scale, slices_per_cta, 1, d, d};
+  return k1_entry<K1_ROPE>(prm, d, dtype, stream);
+}
+
+extern "C" int k6_attention_slim(const void* q, const void* k, const void* v, void* o, int bh,
+                                 int tq, int tk, int d, float scale, int dtype,
+                                 int slices_per_cta, void* stream) {
+  const K1Params prm{q, k, v, o, nullptr, nullptr, bh, tq, tk, scale, slices_per_cta, 1, d, d};
+  return k1_entry<K1_SCALED>(prm, d, dtype, stream);
+}
+
+// q/k/v: batch b at b*t*ld_in, row i of head h at + i*ld_in + h*d; output
+// (b, t, heads*d) contiguous
+extern "C" int k7_attention_packed(const void* q, const void* k, const void* v, void* o, int b,
+                                   int heads, int t, int d, int ld_in, float scale, int dtype,
+                                   void* stream) {
+  if (b <= 0 || heads <= 0 || ld_in < heads * d) return (int)cudaErrorInvalidValue;
+  const K1Params prm{q, k, v, o, nullptr, nullptr, b * heads, t, t, scale, 1, heads, ld_in,
+                     heads * d};
+  return k1_entry<K1_PACKED>(prm, d, dtype, stream);
 }
 
 extern "C" int k2_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,

@@ -1,14 +1,23 @@
 """Softmax attention over ``(batch, heads, seq, head_dim)``: the public
-:func:`flash_attention` and the two hand-written CUDA kernels under it.
+:func:`flash_attention`, the hand-written CUDA kernels under it, and the
+two probe kernels of the JAX package's tools.
 
 ``flash_attention`` routes as the JAX package's does
 (audiolab_tpu/kernels/attention.py): a non-causal call whose keys fit one
-block goes to K1 (:func:`attention_nk1`), anything else to K2
-(:func:`flash_attention_fwd`), and ``head_dim > 256`` to the plain
+block goes to K1 (:func:`attention_nk1`), or to K3
+(:func:`attention_nk1_rope`) when rope tables are given; anything else to
+K2 (:func:`flash_attention_fwd`), with rope applied before it by
+:func:`apply_rope_tables`; and ``head_dim > 256`` to the plain
 :func:`attention_reference`.  Two differences, both forced by the card:
-K1 takes 16-bit inputs only (it runs on the tensor cores, and fp32 inputs
-must keep fp32 products), so an fp32 single-block call goes to K2, which is
-the same function; and K1 takes head dims 16/32/64/128, others go to K2.
+K1 and K3 take 16-bit inputs only (they run on the tensor cores, and fp32
+inputs must keep fp32 products), so an fp32 single-block call goes to K2,
+which is the same function; and they take head dims 16/32/64/128, others go
+to K2.
+
+K6 (:func:`slim_attention`, tools/probe_freq_bh128.py) and K7
+(:func:`packed_attention`, tools/probe_packed_attn.py) are K1's function
+with the row sum taken apart and with q/k/v read from the packed
+``(b, t, heads*d)`` layout; nothing in the package calls them.
 
 Each kernel wrapper launches its kernel for a CUDA tensor and uses the
 kernel's plain PyTorch version for a CPU tensor; there is no other route.
@@ -22,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from audiolab_tpu_torch.kernels import _build
@@ -79,6 +89,57 @@ def flash_attention_reference(q, k, v, causal: bool, scale: float):
     return (acc / torch.where(l > 0, l, torch.ones_like(l))).to(q.dtype)
 
 
+def rope_tables(t: int, d: int, scale: float = 1.0):
+    """(t, d) fp32 cos/sin tables for half-split rotary embedding,
+    duplicated across the two halves, with ``scale`` folded in; the JAX
+    package's ``rope_tables`` (attention.py:129), computed by the same numpy
+    expressions and returned as CPU tensors."""
+    half = d // 2
+    freqs = 1.0 / (10000.0 ** (np.arange(0, half, dtype=np.float32) / half))
+    ang = np.arange(t)[:, None] * freqs[None, :]
+    cos = np.concatenate([np.cos(ang)] * 2, -1).astype(np.float32) * scale
+    sin = np.concatenate([np.sin(ang)] * 2, -1).astype(np.float32) * scale
+    return torch.from_numpy(cos), torch.from_numpy(sin)
+
+
+def _table(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def apply_rope_tables(x, cos, sin):
+    """Half-split rope on ``(..., t, d)`` from ``(t, d)`` tables (tensors or
+    arrays): ``x*cos + rot(x)*sin`` in fp32, rounded to x's type once.
+    ``rot`` swaps the two halves and negates the first, which is exactly the
+    JAX package's ±1 rotate-half product (attention.py:263)."""
+    xf = x.float()
+    half = x.shape[-1] // 2
+    rot = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * _table(cos, x.device) + rot * _table(sin, x.device)).to(x.dtype)
+
+
+def attention_nk1_rope_reference(q, k, v, rope_cos, rope_sin, scale: float):
+    """K3's plain version: the scale folded into q's tables in fp32, q and k
+    roped by :func:`apply_rope_tables` (each rounded once), then K1's plain
+    version with scale 1, so q is not rounded again."""
+    tq, tk = q.shape[2], k.shape[2]
+    cos, sin = _table(rope_cos, q.device), _table(rope_sin, q.device)
+    qr = apply_rope_tables(q, cos[:tq] * scale, sin[:tq] * scale)
+    kr = apply_rope_tables(k, cos[:tk], sin[:tk])
+    return attention_nk1_reference(qr, kr, v, 1.0)
+
+
+def packed_attention_reference(q, k, v, heads: int, dim_head: int, scale: float):
+    """K7's plain version: q/k/v ``(b, t, heads*dim_head)`` split into heads,
+    K1's plain version, and the heads packed back."""
+    b, t = q.shape[0], q.shape[1]
+
+    def heads_first(x):
+        return x.reshape(b, t, heads, dim_head).transpose(1, 2)
+
+    out = attention_nk1_reference(heads_first(q), heads_first(k), heads_first(v), scale)
+    return out.transpose(1, 2).reshape(b, t, heads * dim_head)
+
+
 def _check(name: str, q, k, v, dtypes) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name}: q, k, v must be (b, h, t, d)")
@@ -104,6 +165,12 @@ def _lib() -> ctypes.CDLL:
         lib.k1_attention_nk1.restype = i
         lib.k2_flash_attention.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
         lib.k2_flash_attention.restype = i
+        lib.k3_attention_nk1_rope.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, p]
+        lib.k3_attention_nk1_rope.restype = i
+        lib.k6_attention_slim.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
+        lib.k6_attention_slim.restype = i
+        lib.k7_attention_packed.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p]
+        lib.k7_attention_packed.restype = i
         lib._typed = True
     return lib
 
@@ -176,30 +243,159 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale: float | None = Non
 flash_attention_fwd.launches = 0
 
 
+def _rope_tables_for(name: str, rope_cos, rope_sin, t: int, d: int, device):
+    """The tables as fp32 tensors on ``device``; at least ``t`` rows of width
+    ``d``, of which only the first ``t`` are used."""
+    if rope_cos is None or rope_sin is None:
+        raise ValueError(f"{name}: rope_cos and rope_sin are given together")
+    cos, sin = _table(rope_cos, device), _table(rope_sin, device)
+    for tab in (cos, sin):
+        if tab.dim() != 2 or tab.shape[1] != d or tab.shape[0] < t:
+            raise ValueError(f"{name}: rope table of shape {tuple(tab.shape)}; needs at "
+                             f"least {t} rows of width {d}")
+    return cos.contiguous(), sin.contiguous()
+
+
+def attention_nk1_rope(q, k, v, rope_cos, rope_sin, scale: float | None = None):
+    """K3: K1 with half-split rope fused onto q and k, 16-bit inputs;
+    ``rope_cos``/``rope_sin`` are tables from :func:`rope_tables` without the
+    scale, with at least max(tq, tk) rows.  CUDA tensors launch
+    ``k3_attention_nk1_rope``; CPU tensors take
+    :func:`attention_nk1_rope_reference`."""
+    _check("attention_nk1_rope", q, k, v, (torch.bfloat16, torch.float16))
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    cos, sin = _rope_tables_for("attention_nk1_rope", rope_cos, rope_sin, max(tq, tk), d,
+                                q.device)
+    if not q.is_cuda:
+        return attention_nk1_rope_reference(q, k, v, cos, sin, scale)
+    if d not in _K1_HEAD_DIMS:
+        raise ValueError(f"attention_nk1_rope: head dim {d} not in {_K1_HEAD_DIMS}")
+    out = torch.empty_like(q)
+    err = _lib().k3_attention_nk1_rope(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), b * h, tq, tk, d, scale, _DTYPE_CODE[q.dtype],
+        k1_slices_per_cta(b * h, tq), torch.cuda.current_stream(q.device).cuda_stream)
+    attention_nk1_rope.launches += 1
+    _raise_on(err, "attention_nk1_rope")
+    return out
+
+
+attention_nk1_rope.launches = 0
+
+
+def slim_attention(q, k, v, scale: float | None = None):
+    """K6: K1's function with the row sum a separate fp32 reduction over the
+    rounded p, 16-bit inputs, no causal mask.  Its plain version is
+    :func:`attention_nk1_reference`, which sums p that way.  CUDA tensors
+    launch ``k6_attention_slim`` with twice K1's slices per CTA (the probe's
+    question: a fold of 128 slices per TPU grid step against K1's 64)."""
+    _check("slim_attention", q, k, v, (torch.bfloat16, torch.float16))
+    b, h, tq, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    if not q.is_cuda:
+        return attention_nk1_reference(q, k, v, scale)
+    if d not in _K1_HEAD_DIMS:
+        raise ValueError(f"slim_attention: head dim {d} not in {_K1_HEAD_DIMS}")
+    out = torch.empty_like(q)
+    scale_dt = float(torch.tensor(scale, dtype=q.dtype))
+    err = _lib().k6_attention_slim(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, k.shape[2], d,
+        scale_dt, _DTYPE_CODE[q.dtype], 2 * k1_slices_per_cta(b * h, tq),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    slim_attention.launches += 1
+    _raise_on(err, "slim_attention")
+    return out
+
+
+slim_attention.launches = 0
+
+
+def packed_attention(q, k, v, heads: int, dim_head: int, scale: float | None = None):
+    """K7: K1's function on already-roped q/k/v in the packed
+    ``(b, t, heads*dim_head)`` layout, output in the same layout, 16-bit
+    inputs.  The rows may be strided (a view of a fused qkv activation):
+    the last axis must be unit-stride and q, k, v must share their strides.
+    CUDA tensors launch ``k7_attention_packed``; CPU tensors take
+    :func:`packed_attention_reference`."""
+    name = "packed_attention"
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q, k, v must share one (b, t, heads*dim_head) shape")
+    b, t, inner = q.shape
+    if inner != heads * dim_head or b == 0 or t == 0:
+        raise ValueError(f"{name}: shape {tuple(q.shape)} is not (b, t, {heads}*{dim_head})")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float16):
+        raise TypeError(f"{name}: dtype {q.dtype} not in (bfloat16, float16)")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"{name}: q, k, v on different devices")
+    scale = 1.0 / math.sqrt(dim_head) if scale is None else float(scale)
+    if not q.is_cuda:
+        return packed_attention_reference(q, k, v, heads, dim_head, scale)
+    if dim_head not in _K1_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dim_head} not in {_K1_HEAD_DIMS}")
+    ld = q.stride(1)
+    if (any(x.stride() != q.stride() for x in (k, v)) or q.stride(2) != 1
+            or q.stride(0) != t * ld):
+        raise ValueError(f"{name}: the kernel takes rows of one stride with a unit last "
+                         f"axis; got strides {q.stride()}, {k.stride()}, {v.stride()}")
+    out = torch.empty(b, t, inner, dtype=q.dtype, device=q.device)
+    scale_dt = float(torch.tensor(scale, dtype=q.dtype))
+    err = _lib().k7_attention_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, t, dim_head, ld,
+        scale_dt, _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    packed_attention.launches += 1
+    _raise_on(err, name)
+    return out
+
+
+packed_attention.launches = 0
+
+
 def reset_launch_counts() -> None:
     attention_nk1.launches = 0
     flash_attention_fwd.launches = 0
+    attention_nk1_rope.launches = 0
+    slim_attention.launches = 0
+    packed_attention.launches = 0
 
 
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None,
-                    block_q: int = 128, block_k: int = 128, block_h: int = 1):
+                    block_q: int = 128, block_k: int = 128, block_h: int = 1,
+                    rope_cos=None, rope_sin=None):
     """Attention over ``(b, h, t, d)`` with the JAX package's signature.
 
     ``block_k`` decides the route as on the TPU: when every key fits one
     block (``tk <= block_k``) and the call is not causal, the single-block
-    kernel K1 runs.  ``block_q`` and ``block_h`` were TPU tiling knobs; the
-    CUDA kernels pick their own tiles and ignore them."""
+    kernel K1 runs, or K3 with rope.  ``block_q`` and ``block_h`` were TPU
+    tiling knobs; the CUDA kernels pick their own tiles and ignore them.
+
+    ``rope_cos``/``rope_sin``: optional tables from :func:`rope_tables`
+    WITHOUT the scale, with at least max(tq, tk) rows (the first tq rope q,
+    the first tk rope k).  K3 fuses the rope and folds the scale into q's
+    tables; every other route applies :func:`apply_rope_tables` to q and k
+    first and keeps the scale where it was."""
     del block_q, block_h
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    bk = min(block_k, max(8, tk))
+    single_block = -(-tk // bk) == 1
+    nk1 = (single_block and not causal and q.dtype in (torch.bfloat16, torch.float16)
+           and d in _K1_HEAD_DIMS)
+    has_rope = rope_cos is not None or rope_sin is not None
+    if has_rope:
+        cos, sin = _rope_tables_for("flash_attention", rope_cos, rope_sin, max(tq, tk), d,
+                                    q.device)
+        if nk1:
+            return attention_nk1_rope(q.contiguous(), k.contiguous(), v.contiguous(), cos,
+                                      sin, scale=scale)
+        q = apply_rope_tables(q, cos[:tq], sin[:tq])
+        k = apply_rope_tables(k, cos[:tk], sin[:tk])
     if d > 256:
         return attention_reference(q, k, v, causal=causal, scale=scale)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bk = min(block_k, max(8, tk))
-    single_block = -(-tk // bk) == 1
-    if (single_block and not causal and q.dtype in (torch.bfloat16, torch.float16)
-            and d in _K1_HEAD_DIMS):
+    if nk1:
         return attention_nk1(q, k, v, scale=scale)
     return flash_attention_fwd(q, k, v, causal=causal, scale=scale)

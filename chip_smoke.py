@@ -9,7 +9,9 @@ drives the separate -> RVC chain at full width, and checks the output.
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
   card       nvidia-smi name and power limit, torch/CUDA versions, build seconds
-  kernels    K1 and K2 against their plain versions at the main path's shapes
+  kernels    K1 and K2 against their plain versions at the main path's shapes;
+             K3-K7 (off the chain) against theirs at the RoFormer's shapes,
+             and the three comparisons the TPU probes were written for
   separator  two BS-RoFormer members (dim 512, 12 axial pairs, 8 heads x 64,
              distinct seeded weights) on a 60 s stereo 44.1 kHz track: 8 chunks,
              one device batch; 48 K1 launches
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,6 +65,17 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(report: str) -> str:
+    """One line for a ``-Xptxas -v`` report: kernels compiled, the range of
+    registers a thread, and the kernels that spill (the full report stays
+    beside the library)."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", report)]
+    spilled = [n for n in spills if n]
+    return (f"{len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} registers, "
+            f"{len(spilled)} spill (at most {max(spilled, default=0)} bytes stored)")
 
 
 def sync(dev) -> None:
@@ -103,48 +117,75 @@ def attention_work(q, k, causal: bool) -> tuple[float, float]:
     return flops, nbytes
 
 
-def check_kernel(name, kernel_fn, plain_fn, library_fn, q, k, v, causal,
-                 tol_rel, tol_reason, peak, replaces):
+def norm_work(x, params) -> tuple[float, float]:
+    """(FLOPs, bytes) of one RMS/LayerNorm call: about 4 fp32 operations per
+    element (5 with a bias); x read once, the output written once, the fp32
+    parameters read once."""
+    flops = float(x.numel() * (3 + len(params)))
+    nbytes = float(2 * x.numel() * x.element_size() + sum(4 * p.numel() for p in params))
+    return flops, nbytes
+
+
+def check_kernel(name, kernel_fn, plain_fn, library_fn, args, shape, tol_rel, tol_reason,
+                 work, peak, replaces, source="audiolab_tpu_torch/csrc/attention.cu",
+                 library_note=None):
+    """Holds ``kernel_fn(*args)`` against ``plain_fn(*args)`` and times both and
+    the library yardstick (``library_fn`` None: there is no single call)."""
     import torch
 
-    out = kernel_fn(q, k, v)
+    out = kernel_fn(*args)
     torch.cuda.synchronize()
-    ref = plain_fn(q, k, v)
+    ref = plain_fn(*args)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     tol = tol_rel[0] * ref.float().abs().max().item() + tol_rel[1]
     finite = bool(torch.isfinite(out).all())
     del out, ref
-    ms = cuda_ms(lambda: kernel_fn(q, k, v), iters=10)
-    plain_ms = cuda_ms(lambda: plain_fn(q, k, v), iters=2)
-    library_ms = cuda_ms(lambda: library_fn(q, k, v), iters=10)
+    ms = cuda_ms(lambda: kernel_fn(*args), iters=10)
+    plain_ms = cuda_ms(lambda: plain_fn(*args), iters=2)
+    library_ms = None if library_fn is None else cuda_ms(lambda: library_fn(*args), iters=10)
     torch.cuda.empty_cache()
-    flops, nbytes = attention_work(q, k, causal)
+    flops, nbytes = work
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    rec = dict(name=name, route="cuda", source="audiolab_tpu_torch/csrc/attention.cu",
-               replaces=replaces,
-               shape=dict(q=list(q.shape), k=list(k.shape), dtype=str(q.dtype),
-                          causal=causal),
+    rec = dict(name=name, route="cuda", source=source, replaces=replaces, shape=shape,
                max_abs_err=err, tol=tol, tol_reason=tol_reason, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                flops=flops, bytes=nbytes)
     ok = finite and err <= tol
-    log(f"[kernels] {name} {rec['shape']} err {err:.3e} (tol {tol:.3e}: "
+    lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    log(f"[kernels] {name} {shape} err {err:.3e} (tol {tol:.3e}: "
         f"{tol_reason}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-        f"sdpa {library_ms:.3f} ms bound {rec['bound_ms']:.3f} ms "
-        f"({rec['bound_by']}) {'OK' if ok else 'FAIL'}")
+        f"library {lib_txt}{f' ({library_note})' if library_note else ''} "
+        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: err {err} > tol {tol} or non-finite")
     return rec
 
 
-def phase_kernels(dev) -> list[dict]:
+def attention_shape(q, k, causal):
+    return dict(q=list(q.shape), k=list(k.shape), dtype=str(q.dtype), causal=causal)
+
+
+def compare(label: str, fns: dict, card: str) -> None:
+    """Times two ways to the same result in turns (a, b, b, a) and prints
+    the means; a probe comparison, held against nothing."""
+    names = list(fns)
+    runs = {n: [] for n in names}
+    for n in names + names[::-1]:
+        runs[n].append(cuda_ms(fns[n], iters=10))
+    txt = ", ".join(f"{n} {np.mean(runs[n]):.3f} ms ({' / '.join(f'{r:.3f}' for r in runs[n])})"
+                    for n in names)
+    log(f"[kernels] compare {label}: {txt} | {card}")
+
+
+def phase_kernels(dev, card: str) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
     from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.kernels import norms as N
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -167,6 +208,8 @@ def phase_kernels(dev) -> list[dict]:
     k1_tol = ((2.0 ** -6, 0.0), "2 bf16 ulps of max|out|: summation order may flip "
               "an output and a few probability roundings")
     k2_tol = ((0.0, 2e-5), "fp32 sums over <=512 keys in another order")
+    norm_tol = ((2.0 ** -7, 0.0), "1 bf16 ulp of max|out|: fp32 row sums in another "
+                "order may flip one output's rounding")
     scale = 1.0 / 8.0
     recs = []
     # (label, case, kernel, q shape, k shape, dtype, causal, on the main path)
@@ -186,16 +229,124 @@ def phase_kernels(dev) -> list[dict]:
             rec = check_kernel(
                 label, lambda q, k, v: A.attention_nk1(q, k, v),
                 lambda q, k, v: A.attention_nk1_reference(q, k, v, scale),
-                sdpa(False), q, k, v, False, *k1_tol, PEAK_BF16, k1_rep)
+                sdpa(False), (q, k, v), attention_shape(q, k, False), *k1_tol,
+                attention_work(q, k, False), PEAK_BF16, k1_rep)
         else:
             rec = check_kernel(
                 label, lambda q, k, v, c=causal: A.flash_attention_fwd(q, k, v, causal=c),
                 lambda q, k, v, c=causal: A.flash_attention_reference(q, k, v, c, scale),
-                sdpa(causal), q, k, v, causal, *k2_tol, PEAK_FP32, k2_rep)
+                sdpa(causal), (q, k, v), attention_shape(q, k, causal), *k2_tol,
+                attention_work(q, k, causal), PEAK_FP32, k2_rep)
         rec.update(case=key, kernel=kern, on_main_path=main)
         recs.append(rec)
         del q, k, v
         torch.cuda.empty_cache()
+
+    # K3: the RoFormer time axis with rope fused (block_k 768 routes it here)
+    time_shape = (496, 8, 690, 64)
+    q, k, v = rnd(time_shape, bf), rnd(time_shape, bf), rnd(time_shape, bf)
+    cos, sin = (t.to(dev) for t in A.rope_tables(690, 64))
+    flops, nbytes = attention_work(q, k, False)
+    rec = check_kernel(
+        "K3 attention_nk1_rope (RoFormer time axis)",
+        lambda q, k, v: A.flash_attention(q, k, v, block_k=768, rope_cos=cos, rope_sin=sin),
+        lambda q, k, v: A.attention_nk1_rope_reference(q, k, v, cos, sin, scale),
+        None, (q, k, v), attention_shape(q, k, False), *k1_tol,
+        (flops, nbytes + 2 * cos.numel() * 4), PEAK_BF16,
+        "audiolab_tpu/kernels/attention.py:142",
+        library_note="no single PyTorch call ropes and attends")
+    rec.update(case="k3_time", kernel="K3", on_main_path=False)
+    recs.append(rec)
+    compare("K3 fused rope vs apply_rope_tables + K1 (time axis)", {
+        "K3": lambda: A.attention_nk1_rope(q, k, v, cos, sin),
+        "rope+K1": lambda: A.attention_nk1(A.apply_rope_tables(q, cos, sin),
+                                           A.apply_rope_tables(k, cos, sin), v),
+    }, card)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # K7: the time axis read straight from a fused (b, t, 3*h*d) qkv activation
+    b, t, h, d = 496, 690, 8, 64
+    inner = h * d
+    qkv = rnd((b, t, 3 * inner), bf)
+    q, k, v = (x.contiguous() for x in qkv.split(inner, dim=-1))
+    flops, nbytes = attention_work(q.view(b, t, h, d).transpose(1, 2),
+                                   k.view(b, t, h, d).transpose(1, 2), False)
+
+    def heads_first(x):
+        return x.view(b, t, h, d).transpose(1, 2)
+
+    rec = check_kernel(
+        "K7 packed_attention (RoFormer time axis, packed)",
+        lambda q, k, v: A.packed_attention(q, k, v, h, d),
+        lambda q, k, v: A.packed_attention_reference(q, k, v, h, d, scale),
+        lambda q, k, v: F.scaled_dot_product_attention(heads_first(q), heads_first(k),
+                                                       heads_first(v)),
+        (q, k, v), dict(q=list(q.shape), heads=h, dim_head=d, dtype=str(q.dtype)), *k1_tol,
+        (flops, nbytes), PEAK_BF16, "tools/probe_packed_attn.py:68")
+    rec.update(case="k7_time", kernel="K7", on_main_path=False)
+    recs.append(rec)
+    del q, k, v
+    qs, ks, vs = qkv.split(inner, dim=-1)
+
+    def split_transpose_k1():
+        o = A.attention_nk1(heads_first(qs).contiguous(), heads_first(ks).contiguous(),
+                            heads_first(vs).contiguous())
+        return o.transpose(1, 2).reshape(b, t, inner)
+
+    compare("K7 on the fused qkv's views vs split + 3 transposes + K1 + transpose back", {
+        "K7": lambda: A.packed_attention(qs, ks, vs, h, d),
+        "split+K1": split_transpose_k1,
+    }, card)
+    del qkv, qs, ks, vs
+    torch.cuda.empty_cache()
+
+    # K6: the band axis
+    band_shape = (5520, 8, 62, 64)
+    q, k, v = rnd(band_shape, bf), rnd(band_shape, bf), rnd(band_shape, bf)
+    rec = check_kernel(
+        "K6 slim_attention (RoFormer band axis)",
+        lambda q, k, v: A.slim_attention(q, k, v),
+        lambda q, k, v: A.attention_nk1_reference(q, k, v, scale),
+        sdpa(False), (q, k, v), attention_shape(q, k, False), *k1_tol,
+        attention_work(q, k, False), PEAK_BF16, "tools/probe_freq_bh128.py:36")
+    rec.update(case="k6_band", kernel="K6", on_main_path=False)
+    recs.append(rec)
+    compare("K6 vs K1 (band axis)", {
+        "K6": lambda: A.slim_attention(q, k, v),
+        "K1": lambda: A.attention_nk1(q, k, v),
+    }, card)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # K4, K5: the RoFormer's time-axis activation, 8 chunks x 62 bands x 690
+    # frames at dim 512
+    x = rnd((8 * 62 * 690, 512), bf)
+    w = 1.0 + 0.1 * rnd((512,), torch.float32)
+    bias = 0.1 * rnd((512,), torch.float32)
+    w_lib, b_lib = w.to(bf), bias.to(bf)
+    norm_shape = dict(x=list(x.shape), dtype=str(x.dtype), params="float32")
+    rec = check_kernel(
+        "K4 rms_norm (RoFormer time-axis activation)",
+        lambda x, w: N.rms_norm(x, w), lambda x, w: N.rms_norm_reference(x, w),
+        lambda x, w: F.rms_norm(x, (512,), w_lib, 1e-5), (x, w), norm_shape, *norm_tol,
+        norm_work(x, (w,)), PEAK_FP32, "audiolab_tpu/kernels/norms.py:30",
+        source="audiolab_tpu_torch/csrc/norms.cu",
+        library_note="weight in bf16: F.rms_norm's fused path needs the input's type")
+    rec.update(case="k4_time", kernel="K4", on_main_path=False)
+    recs.append(rec)
+    rec = check_kernel(
+        "K5 layer_norm (RoFormer time-axis activation)",
+        lambda x, w, bias: N.layer_norm(x, w, bias),
+        lambda x, w, bias: N.layer_norm_reference(x, w, bias),
+        lambda x, w, bias: F.layer_norm(x, (512,), w_lib, b_lib, 1e-5), (x, w, bias),
+        norm_shape, *norm_tol, norm_work(x, (w, bias)), PEAK_FP32,
+        "audiolab_tpu/kernels/norms.py:38", source="audiolab_tpu_torch/csrc/norms.cu",
+        library_note="weight and bias in bf16: F.layer_norm needs the input's type")
+    rec.update(case="k5_time", kernel="K5", on_main_path=False)
+    recs.append(rec)
+    del x
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -270,16 +421,30 @@ def mel_l1(a, b, sr: int) -> float:
     return float((ma - mb).abs().mean())
 
 
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+
 def counts() -> dict[str, int]:
     from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.kernels import norms as N
 
-    return {"K1": A.attention_nk1.launches, "K2": A.flash_attention_fwd.launches}
+    return {"K1": A.attention_nk1.launches, "K2": A.flash_attention_fwd.launches,
+            "K3": A.attention_nk1_rope.launches, "K4": N.rms_norm.launches,
+            "K5": N.layer_norm.launches, "K6": A.slim_attention.launches,
+            "K7": A.packed_attention.launches}
 
 
 def reset_counts() -> None:
     from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.kernels import norms as N
 
     A.reset_launch_counts()
+    N.reset_launch_counts()
+
+
+def only(launches: dict, kernel: str, n: int) -> bool:
+    """``kernel`` launched n times and every other kernel not at all."""
+    return all(launches[k] == (n if k == kernel else 0) for k in KERNELS)
 
 
 def expect(cond: bool, what: str) -> None:
@@ -307,8 +472,8 @@ def phase_separator(dev, sep, audio, expect_k1: int | None = 48) -> tuple[dict, 
     expect(ok_shape and finite, "separator: stem shape or finiteness")
     expect(set(stems) == {"vocals", "instrumental"}, "separator: stems")
     if expect_k1 is not None:
-        expect(launches["K1"] == expect_k1 and launches["K2"] == 0,
-               f"separator: launches {launches}, expected K1 {expect_k1} and K2 0")
+        expect(only(launches, "K1", expect_k1),
+               f"separator: launches {launches}, expected K1 {expect_k1} and no other")
     return stems, launches, secs
 
 
@@ -330,8 +495,8 @@ def phase_rvc(dev, vc, vocals, expect_k2: int | None = 12) -> tuple[object, obje
         f"{float(out.abs().max()):.4f} launches {launches} {secs:.3f} s")
     expect(tuple(out.shape) == (n_out,) and finite, "rvc: output length or finiteness")
     if expect_k2 is not None:
-        expect(launches["K2"] == expect_k2 and launches["K1"] == 0,
-               f"rvc: launches {launches}, expected K2 {expect_k2} and K1 0")
+        expect(only(launches, "K2", expect_k2),
+               f"rvc: launches {launches}, expected K2 {expect_k2} and no other")
     return x16, out, launches, secs
 
 
@@ -468,7 +633,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    libs = _build.build(["attention"])
+    libs = _build.build(["attention", "norms"])
     build_s = time.perf_counter() - t0
     card = card_line()
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -476,15 +641,13 @@ def main() -> int:
     for name, path in libs.items():
         report = path.with_suffix(".log")
         if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[card] ptxas {name}: {line.strip()}")
+            log(f"[card] ptxas {name}: {ptxas_summary(report.read_text())} ({report})")
 
     kernel_recs: list[dict] = []
     if "kernels" in phases:
-        kernel_recs = phase_kernels(dev)
+        kernel_recs = phase_kernels(dev, card)
 
-    main_launches = {"K1": 0, "K2": 0}
+    main_launches = dict.fromkeys(KERNELS, 0)
     need_chain = {"separator", "rvc", "fidelity", "reference", "timing"} & set(phases)
     if need_chain:
         t0 = time.perf_counter()

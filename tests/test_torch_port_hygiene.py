@@ -5,7 +5,7 @@
 - The entry points default to the card and raise when there is none.
 - The kernel wrappers take their plain versions for CPU tensors and leave
   their launch counters untouched.
-- The CUDA source exists and is built for sm_90a.
+- The CUDA sources exist, are built for sm_90a and export every entry.
 - ``chip_smoke.py`` exits non-zero and prints no result without a card, in
   the repository and alone in a directory.
 """
@@ -22,6 +22,7 @@ import torch
 
 from audiolab_tpu_torch.kernels import _build
 from audiolab_tpu_torch.kernels import attention as TA
+from audiolab_tpu_torch.kernels import norms as TN
 from audiolab_tpu_torch.models import hubert as TH
 from audiolab_tpu_torch.models import rmvpe as TRm
 from audiolab_tpu_torch.models.rvc import synthesizer as TSy
@@ -79,9 +80,10 @@ def test_voice_converter_defaults_to_the_card(no_cuda):
 
 
 def test_kernel_wrappers_on_cpu_take_the_plain_path():
-    """CPU tensors never reach the CUDA library (there is none here) and
-    leave both launch counters at 0; the results are the plain versions'."""
+    """CPU tensors never reach the CUDA libraries (there are none here) and
+    leave every launch counter at 0; the results are the plain versions'."""
     TA.reset_launch_counts()
+    TN.reset_launch_counts()
     rng = np.random.default_rng(0)
 
     def t(*shape, dtype=torch.float32):
@@ -97,7 +99,22 @@ def test_kernel_wrappers_on_cpu_take_the_plain_path():
                        TA.flash_attention_reference(q, k, v, True, 0.125))
     assert torch.equal(TA.flash_attention(q, k, v, causal=True),
                        TA.flash_attention_reference(q, k, v, True, 0.125))
-    assert TA.attention_nk1.launches == 0 and TA.flash_attention_fwd.launches == 0
+    q, k, v = t(1, 2, 62, 64, dtype=bf), t(1, 2, 62, 64, dtype=bf), t(1, 2, 62, 64, dtype=bf)
+    cos, sin = TA.rope_tables(80, 64)
+    assert torch.equal(TA.attention_nk1_rope(q, k, v, cos, sin),
+                       TA.attention_nk1_rope_reference(q, k, v, cos, sin, 0.125))
+    assert torch.equal(TA.flash_attention(q, k, v, rope_cos=cos, rope_sin=sin),
+                       TA.attention_nk1_rope_reference(q, k, v, cos, sin, 0.125))
+    assert torch.equal(TA.slim_attention(q, k, v), TA.attention_nk1_reference(q, k, v, 0.125))
+    qp, kp, vp = (x.transpose(1, 2).reshape(1, 62, 128) for x in (q, k, v))
+    assert torch.equal(TA.packed_attention(qp, kp, vp, 2, 64),
+                       TA.packed_attention_reference(qp, kp, vp, 2, 64, 0.125))
+    x, w, b = t(3, 96), t(96), t(96)
+    assert torch.equal(TN.rms_norm(x, w), TN.rms_norm_reference(x, w))
+    assert torch.equal(TN.layer_norm(x, w, b), TN.layer_norm_reference(x, w, b))
+    assert all(f.launches == 0 for f in (
+        TA.attention_nk1, TA.flash_attention_fwd, TA.attention_nk1_rope, TA.slim_attention,
+        TA.packed_attention, TN.rms_norm, TN.layer_norm))
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
@@ -110,15 +127,23 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         TA.flash_attention_fwd(f32, f32, f32.double())
 
 
+CUDA_ENTRIES = {
+    "attention": ("k1_attention_nk1", "k2_flash_attention", "k3_attention_nk1_rope",
+                  "k6_attention_slim", "k7_attention_packed"),
+    "norms": ("k4_rms_norm", "k5_layer_norm"),
+}
+
+
 def test_cuda_source_builds_for_sm90a():
-    src = _build.CSRC / "attention.cu"
-    assert src.is_file()
-    cmd = _build.nvcc_command(src, Path("build/libattention.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and str(src) in cmd
-    text = src.read_text()
-    for entry in ("k1_attention_nk1", "k2_flash_attention"):
-        assert f'extern "C" int {entry}(' in text
+    for name, entries in CUDA_ENTRIES.items():
+        src = _build.CSRC / f"{name}.cu"
+        assert src.is_file()
+        cmd = _build.nvcc_command(src, Path(f"build/lib{name}.so"))
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-shared" in cmd and str(src) in cmd
+        text = src.read_text()
+        for entry in entries:
+            assert f'extern "C" int {entry}(' in text, f"{name}.cu lacks {entry}"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

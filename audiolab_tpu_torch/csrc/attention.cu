@@ -1,7 +1,11 @@
 // Attention kernels for Hopper (sm_90a), bound to Python with ctypes.
 //
-// K1  k1_attention_nk1       replaces audiolab_tpu/kernels/attention.py
-//                            ::_flash_kernel_nk1 (single-KV-block, non-causal).
+// K1  k1_attention_nk1_sm90  replaces audiolab_tpu/kernels/attention.py
+//                            ::_flash_kernel_nk1 (single-KV-block, non-causal)
+//                            at d = 64 and tk <= 768: TMA, wgmma, warp
+//                            specialisation.
+//     k1_attention_nk1       the same function on the PR-1 core (WMMA), for
+//                            every other shape.
 // K2  k2_flash_attention     replaces audiolab_tpu/kernels/attention.py
 //                            ::_flash_kernel (online softmax over KV tiles,
 //                            key-length mask, optional causal mask).
@@ -20,12 +24,52 @@
 // K1, K2, K3 and K6 take contiguous (slices, t, d) tensors; K7 takes
 // (b, t, row stride) rows, see below.
 //
-// K1 — bound and design.
+// K1 — bound.
 //   Work at the RoFormer shapes (bf16): time axis 3968 slices x 690 x 64,
-//   4*3968*690^2*64 = 4.84e11 FLOP over 1.40e9 bytes, so it is bound by
-//   tensor-core operations (989 TFLOP/s bf16: 0.49 ms; bytes: 0.42 ms).
-//   Band axis 44,160 slices x 62 x 64: 4.35e10 FLOP over 1.40e9 bytes, bound
-//   by bytes (0.42 ms at 3.35 TB/s).
+//   4*3968*690^2*64 = 4.84e11 FLOP over 1.40e9 bytes and 1.89e9
+//   exponentials (one per query-key pair): tensor cores 0.489 ms at
+//   989 TFLOP/s, exponentials 0.485 ms at about 3.9e12/s (the MUFU rate the
+//   FlashAttention-3 paper gives for H100 SXM), bytes 0.418 ms; so it is
+//   bound by operations, and the exponentials weigh as much as the products.
+//   Band axis 44,160 slices x 62 x 64: 4.35e10 FLOP, 1.70e8 exponentials
+//   (0.044 ms) over 1.40e9 bytes, bound by bytes (0.418 ms at 3.35 TB/s).
+//
+// K1 — the Hopper design (k1_attention_nk1_sm90: d = 64, 16-bit, tk <= 768).
+//   Q, K and V arrive by TMA from 3-D tensor maps (slice, t, d) in
+//   (1, 64, 64) boxes, 128-byte swizzled (a d = 64 row is 128 bytes); a box
+//   past t is zero-filled and never reads the next slice.  Both products are
+//   wgmma with fp32 accumulators and A from registers: q.k^T (m64n64k16)
+//   with q's fragments (scaled and rounded to the input type as they are
+//   read from shared memory) and K-major keys; p.v (m64n72k16) with the
+//   rounded p straight from the score accumulators and V MN-major (the
+//   transpose bit), widened by an all-ones atom that the descriptor's
+//   leading offset reaches, so columns 64..71 carry the row sum of the same
+//   rounded p on the tensor cores.  A CTA is persistent (one per SM, walking
+//   the slices) and warp-specialised: one thread of warpgroup 2 issues the
+//   loads and gives its registers away (setmaxnreg 40, the consumers take
+//   232), warpgroups 0 and 1 compute, each on its own 64-row query tile;
+//   mbarriers carry every hand-off.  Padded keys (key >= tk) are masked
+//   before the max: TMA's zero fill gives them score 0, not -inf.  Only the
+//   last chunk of a row is masked; the others take an unmasked path.
+//   Time route (every other tk): the slice's K and V stay resident in
+//   shared memory (2 x 12 x 8 KB at most) for all its query tiles, so they
+//   come from device memory once per slice; K is loaded before V and each
+//   64-key chunk has its own barrier, so pass 1 starts on the first chunk.
+//   Within a warpgroup the products are asynchronous: pass 1 reduces chunk
+//   c while chunk c + 1's scores run; pass 2 issues chunk c + 1's scores
+//   before chunk c's softmax, and chunk c's p.v runs under chunk c + 1's
+//   softmax (two score and two p register sets).
+//   Band route (tq <= 64 and tk <= 64): one slice is one tile and one chunk,
+//   one pass; the producer keeps 8 slices (q, k, v: 24 KB each) in flight.
+//   Why two passes: p is rounded to the input type against the FINAL row
+//   max, so the max must be known before any p exists.  Pass 1 runs q.k^T
+//   for the max only; pass 2 runs q.k^T again, then exp, rounding, the row
+//   sum and p.v per 64-key chunk.  One pass would hold a whole 64 x 704
+//   score row (352 registers a thread) in a warpgroup.  Pass 1 has no
+//   exponentials, so one warpgroup's pass 1 can overlap the other's pass 2
+//   on the MUFU (the two warpgroups run free; nothing forces the pairing).
+//
+// K1 — the PR-1 core (k1_attention_nk1: every other shape, and K3/K6/K7).
 //   The kernel reproduces the TPU kernel's rounding: q*scale rounded to the
 //   input type, fp32 scores, p = exp(s - rowmax) rounded to the input type,
 //   numerator and row sum both from the rounded p, out = acc / l.  Rounding
@@ -76,11 +120,19 @@
 //   kv_len masked to -1e30; causal mask key <= query + (tk - tq); KV tiles
 //   entirely above the diagonal skipped; l <= 0 -> 1.  As in the TPU kernel
 //   the row sum takes the unrounded p and the numerator takes p rounded to
-//   v's type.  Scalar fp32 FMAs (fp32 inputs must keep fp32 products):
-//   TPR threads share one query row, each holding 16 of its dims, and
-//   reduce the q.k dot product with warp shuffles.  64-key tiles of K and V
-//   are staged in shared memory as fp32.
+//   v's type.
+//   fp32 inputs (k2f_kernel): fp32 inputs must keep fp32 products, so no
+//   tensor cores.  One CTA of 256 threads per (slice, 64-query tile); 64-key
+//   tiles of K and V (32 for d > 128) double-buffered in shared memory by
+//   16-byte cp.async; q.k^T and p.v as register-blocked 4 x 4 micro-tiles,
+//   so every value read from shared memory feeds 4 FMAs; the row state
+//   (m, l) is reduced over the 16 threads of a row group by shuffles, and p
+//   goes through shared memory transposed, in fp32.
+//   bf16/fp16 inputs (k2_kernel, PR 1): TPR threads share one query row,
+//   each holding 16 of its dims, and reduce the q.k dot product with warp
+//   shuffles.  64-key tiles of K and V are staged in shared memory as fp32.
 
+#include <cuda.h>  // CUtensorMap and its enums only; the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -370,6 +422,609 @@ cudaError_t k1_dispatch(const K1Params& prm, int d, cudaStream_t s) {
   }
 }
 
+// ------------------------------------------------------------------ K1 on Hopper
+
+// Shared by both routes: a 64 x 64 16-bit tile is one TMA box of 8 KB,
+// 128-byte swizzled, at a 1024-byte aligned address.
+constexpr int K1H_CONS = 2;                        // consumer warpgroups 0 and 1
+constexpr int K1H_THREADS = 128 * (K1H_CONS + 1);  // and the producer warpgroup
+// setmaxnreg moves registers from the producer warpgroup to the consumers:
+// 168 a thread at launch (65536 / 384), 40 and 232 after
+constexpr int K1H_PRODUCER_REGS = 40;
+constexpr int K1H_CONSUMER_REGS = 232;
+constexpr int K1H_TILE = 8192;
+constexpr int K1H_MAX_CHUNKS = 12; // 768 keys
+constexpr int K1H_STAGES = 8;      // band route: slices in flight per CTA
+constexpr float K1H_LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// returns once the phase of this parity has completed; a wait of more than
+// about 2^32 cycles (2 s) is a pipeline fault and traps instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 32)) __trap();
+}
+
+// one (64 d, 64 rows, 1 slice) box at (0, row, slice); rows past the map's t
+// arrive as zeros
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row, int slice) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(slice)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// keep the compiler from moving register traffic across an async product
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; offsets in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) | ((uint64_t)sbo << 32) |
+         (1ull << 62);
+}
+
+#define K1H_WGMMA_RS(TY)                                                                      \
+  asm volatile(                                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"                                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),   \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),            \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),         \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),         \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+        "+f"(d[31])                                                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(scale_d))
+
+// D(64 x 64, fp32) (+)= A(64 x 16, registers) . B(16 x 64, shared memory);
+// TB = 0: B's rows are K-major (q.k^T), TB = 1: MN-major (p.v)
+template <typename T, int TB> struct Wgmma;
+template <int TB> struct Wgmma<__nv_bfloat16, TB> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    K1H_WGMMA_RS("bf16");
+  }
+};
+template <int TB> struct Wgmma<__half, TB> {
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    K1H_WGMMA_RS("f16");
+  }
+};
+#undef K1H_WGMMA_RS
+
+
+// D(64 x 72) (+)= A(64 x 16, registers) . B(16 x 72, MN-major): columns
+// 0..63 from one 128-byte swizzle atom, 64..71 from the next, LBO bytes on
+template <typename T> struct WgmmaN72;
+#define K1H_WGMMA_RS_N72(TY) \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n" \
+               "wgmma.mma_async.sync.aligned.m64n72k16.f32." TY "." TY " " \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n" \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]) \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+template <> struct WgmmaN72<__nv_bfloat16> {
+  static __device__ __forceinline__ void rs(float (&d)[36], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    K1H_WGMMA_RS_N72("bf16");
+  }
+};
+template <> struct WgmmaN72<__half> {
+  static __device__ __forceinline__ void rs(float (&d)[36], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    K1H_WGMMA_RS_N72("f16");
+  }
+};
+#undef K1H_WGMMA_RS_N72
+
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t x);
+template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+}
+template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t x) {
+  return __half22float2(*reinterpret_cast<__half2*>(&x));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Register layouts (per warp wi of a warpgroup, lane = 4g + t): accumulator
+// element d[4j + e] is row 16wi + g + 8(e >> 1), column 8j + 2t + (e & 1);
+// an A fragment a[kk][i] holds row 16wi + g + 8(i & 1), columns
+// 16kk + 8(i >> 1) + 2t and +1.
+
+// q's A fragments from a swizzled tile, times the scale rounded to T: the
+// TPU kernel's q_ref * scale in the input type
+template <typename T>
+__device__ __forceinline__ void k1h_load_q(uint32_t (&qa)[4][4], uint32_t tile, int wi, int lane,
+                                           float scale) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * wi + g + 8 * (i & 1);
+      const int c = 16 * kk + 8 * (i >> 1) + 2 * t;
+      const uint32_t addr = tile + r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+      uint32_t raw;
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(raw) : "r"(addr));
+      const float2 x = unpack2<T>(raw);
+      qa[kk][i] = pack2<T>(x.x * scale, x.y * scale);
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Asynchronous products, one commit group each; the caller waits.  A
+// register array an in-flight product reads or writes is fenced after the
+// wait that completes it, so the compiler keeps it intact until then.
+
+// s = q . k^T over one 64-key chunk (keys K-major in a swizzled tile)
+template <typename T>
+__device__ __forceinline__ void k1h_issue_scores(float (&s)[32], const uint32_t (&qa)[4][4],
+                                                 uint32_t ktile) {
+  reg_fence(s);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    Wgmma<T, 0>::rs(s, qa[kk], sw128_desc(ktile + kk * 32, 1, 64), kk > 0);
+  wg_commit();
+}
+
+// o += p . [v | ones] over one 64-key chunk: v MN-major in a swizzled tile
+// (the transpose bit), columns 64..71 from an all-ones atom LBO bytes
+// further on, so o[32..35] carry the row sum of the rounded p, the same p
+// the numerator takes, summed in fp32 on the tensor cores
+template <typename T>
+__device__ __forceinline__ void k1h_issue_pv(float (&o)[36], const uint32_t (&pa)[4][4],
+                                               uint32_t vtile, uint32_t ones_mn) {
+  reg_fence(o);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t b = vtile + kk * 2048;
+    WgmmaN72<T>::rs(o, pa[kk], sw128_desc(b, (ones_mn - b) >> 4, 64), 1);
+  }
+  wg_commit();
+}
+
+// m = max(m, s) over the chunk's keys below tk (padded keys masked, never 0);
+// MASK = false for a chunk wholly below tk
+template <bool MASK>
+__device__ __forceinline__ void k1h_row_max(float (&m)[2], const float (&s)[32], int k0, int tk,
+                                            int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t + (e & 1);
+      if (!MASK || key < tk) m[e >> 1] = fmaxf(m[e >> 1], s[4 * j + e]);
+    }
+}
+
+__device__ __forceinline__ void k1h_max(float (&m)[2], const float (&s)[32], int k0, int tk,
+                                        int t) {
+  if (k0 + 64 <= tk)
+    k1h_row_max<false>(m, s, k0, tk, t);
+  else
+    k1h_row_max<true>(m, s, k0, tk, t);
+}
+
+// p = round_T(exp(s - m)) into A fragments (ml = m * log2 e)
+template <typename T, bool MASK>
+__device__ __forceinline__ void k1h_probs_m(uint32_t (&pa)[4][4], const float (&s)[32],
+                                            const float (&ml)[2], int k0, int tk, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = 8 * kk + 2 * i;
+      const int key = k0 + 16 * kk + 8 * (i >> 1) + 2 * t;
+      const int h = i & 1;
+      const float p0 = !MASK || key < tk ? ex2(fmaf(s[idx], K1H_LOG2E, -ml[h])) : 0.f;
+      const float p1 = !MASK || key + 1 < tk ? ex2(fmaf(s[idx + 1], K1H_LOG2E, -ml[h])) : 0.f;
+      pa[kk][i] = pack2<T>(p0, p1);
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void k1h_probs(uint32_t (&pa)[4][4], const float (&s)[32],
+                                          const float (&ml)[2], int k0, int tk, int t) {
+  if (k0 + 64 <= tk)
+    k1h_probs_m<T, false>(pa, s, ml, k0, tk, t);
+  else
+    k1h_probs_m<T, true>(pa, s, ml, k0, tk, t);
+}
+
+// out = o / l for the warp's rows below tq
+template <typename T>
+__device__ __forceinline__ void k1h_store(T* __restrict__ out, const float (&o)[36],
+                                          const float (&l)[2], int row0, int tq, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    if (row >= tq) continue;
+    const float den = l[h] > 0.f ? l[h] : 1.f;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)row * 64 + 2 * t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[4 * j] = pack2<T>(o[4 * j + 2 * h] / den, o[4 * j + 2 * h + 1] / den);
+  }
+}
+
+struct K1HParams {
+  void* o;
+  int bh, tq, tk;
+  int nch;  // 64-key chunks (time route)
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t k1h_align(const unsigned char* p) {
+  return (smem_u32(p) + 1023u) & ~1023u;
+}
+
+// 2 KB of ones in T (two 8-key swizzle atoms) for the row-sum columns,
+// made visible to wgmma (the async proxy) before the CTA's first barrier
+template <typename T>
+__device__ __forceinline__ void k1h_fill_ones(uint32_t ones) {
+  const uint32_t two = pack2<T>(1.f, 1.f);
+  for (int i = threadIdx.x; i < 512; i += K1H_THREADS)
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(ones + 4 * i), "r"(two) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Time route: K and V of a slice stay resident; the two consumer
+// warpgroups take alternate 64-row query tiles of it.
+template <typename T>
+__global__ void __launch_bounds__(K1H_THREADS, 1)
+k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, const K1HParams prm) {
+  extern __shared__ unsigned char k1h_smem[];
+  const int nch = prm.nch;
+  const uint32_t qbuf = k1h_align(k1h_smem);          // a tile per consumer
+  const uint32_t kbuf = qbuf + K1H_CONS * K1H_TILE;   // nch tiles
+  const uint32_t vbuf = kbuf + nch * K1H_TILE;        // nch tiles
+  const uint32_t ones = vbuf + nch * K1H_TILE;       // 2 KB of ones, past every v tile
+  const uint32_t bars = ones + 2048;
+  // barriers: q full[CONS], q empty[CONS], kv empty, k full[nch], v full[nch]
+  auto q_full = [&](int w) { return bars + 8 * w; };
+  auto q_empty = [&](int w) { return bars + 8 * (K1H_CONS + w); };
+  const uint32_t kv_empty = bars + 16 * K1H_CONS;
+  auto k_full = [&](int c) { return kv_empty + 8 + 8 * c; };
+  auto v_full = [&](int c) { return kv_empty + 8 + 8 * (nch + c); };
+  const int nqt = (prm.tq + 63) / 64;
+
+  k1h_fill_ones<T>(ones);
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < K1H_CONS; ++w) {
+      mbar_init(q_full(w), 1);
+      mbar_init(q_empty(w), 128);
+    }
+    mbar_init(kv_empty, 128 * K1H_CONS);
+    for (int c = 0; c < nch; ++c) {
+      mbar_init(k_full(c), 1);
+      mbar_init(v_full(c), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == K1H_CONS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(K1H_PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 128 * K1H_CONS) {
+      int n = 0, used[K1H_CONS] = {};
+      for (int s = blockIdx.x; s < prm.bh; s += gridDim.x, ++n) {
+        if (n > 0) mbar_wait(kv_empty, (n - 1) & 1);
+        for (int c = 0; c < nch; ++c) {  // every K chunk before V: pass 1 needs K only
+          mbar_expect_tx(k_full(c), K1H_TILE);
+          tma_load_tile(kbuf + c * K1H_TILE, &mk, k_full(c), 64 * c, s);
+        }
+        for (int c = 0; c < nch; ++c) {
+          mbar_expect_tx(v_full(c), K1H_TILE);
+          tma_load_tile(vbuf + c * K1H_TILE, &mv, v_full(c), 64 * c, s);
+        }
+        for (int j = 0; j < nqt; ++j) {
+          const int w = j % K1H_CONS;
+          if (used[w] > 0) mbar_wait(q_empty(w), (used[w] - 1) & 1);
+          mbar_expect_tx(q_full(w), K1H_TILE);
+          tma_load_tile(qbuf + w * K1H_TILE, &mq, q_full(w), 64 * j, s);
+          ++used[w];
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(K1H_CONSUMER_REGS) : "memory");
+    const int wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, t = lane & 3;
+    T* __restrict__ o = static_cast<T*>(prm.o);
+    int n = 0, used = 0;
+    for (int s = blockIdx.x; s < prm.bh; s += gridDim.x, ++n) {
+      const uint32_t par = n & 1;
+      for (int j = wg; j < nqt; j += K1H_CONS, ++used) {
+        uint32_t qa[4][4];
+        mbar_wait(q_full(wg), used & 1);
+        k1h_load_q<T>(qa, qbuf + wg * K1H_TILE, wi, lane, prm.scale);
+        mbar_arrive(q_empty(wg));
+
+        // pass 1: the row max over the valid keys; chunk c + 1's product
+        // runs while chunk c is reduced
+        float sa[32], sb[32];
+        float m[2] = {-INFINITY, -INFINITY};
+        mbar_wait(k_full(0), par);
+        k1h_issue_scores<T>(sa, qa, kbuf);
+        for (int c = 0; c < nch; c += 2) {
+          if (c + 1 < nch) {
+            mbar_wait(k_full(c + 1), par);
+            k1h_issue_scores<T>(sb, qa, kbuf + (c + 1) * K1H_TILE);
+            wg_wait<1>();
+          } else {
+            wg_wait<0>();
+          }
+          reg_fence(sa);
+          k1h_max(m, sa, 64 * c, prm.tk, t);
+          if (c + 1 >= nch) break;
+          if (c + 2 < nch) {
+            mbar_wait(k_full(c + 2), par);
+            k1h_issue_scores<T>(sa, qa, kbuf + (c + 2) * K1H_TILE);
+            wg_wait<1>();
+          } else {
+            wg_wait<0>();
+          }
+          reg_fence(sb);
+          k1h_max(m, sb, 64 * (c + 1), prm.tk, t);
+        }
+        const float ml[2] = {quad_max(m[0]) * K1H_LOG2E, quad_max(m[1]) * K1H_LOG2E};
+
+        // pass 2: scores again, p rounded against the final max, p.v.
+        // Chunk c + 1's scores are issued before chunk c's softmax, and
+        // chunk c's p.v runs while chunk c + 1's softmax does: scores and p
+        // alternate between two register sets each.
+        float acc[36];  // o, then the row sum in columns 64..71
+#pragma unroll
+        for (int i = 0; i < 36; ++i) acc[i] = 0.f;
+        uint32_t pa[4][4], pb[4][4];
+        k1h_issue_scores<T>(sa, qa, kbuf);
+        wg_wait<0>();
+        reg_fence(sa);
+        for (int c = 0; c < nch; c += 2) {
+          if (c + 1 < nch) k1h_issue_scores<T>(sb, qa, kbuf + (c + 1) * K1H_TILE);
+          k1h_probs<T>(pa, sa, ml, 64 * c, prm.tk, t);
+          mbar_wait(v_full(c), par);
+          k1h_issue_pv<T>(acc, pa, vbuf + c * K1H_TILE, ones);
+          if (c + 1 >= nch) break;
+          wg_wait<1>();  // scores c + 1, and p.v of chunk c - 1
+          reg_fence(sb);
+          reg_fence(pb);
+          if (c + 2 < nch) k1h_issue_scores<T>(sa, qa, kbuf + (c + 2) * K1H_TILE);
+          k1h_probs<T>(pb, sb, ml, 64 * (c + 1), prm.tk, t);
+          mbar_wait(v_full(c + 1), par);
+          k1h_issue_pv<T>(acc, pb, vbuf + (c + 1) * K1H_TILE, ones);
+          if (c + 2 >= nch) break;
+          wg_wait<1>();  // scores c + 2, and p.v of chunk c
+          reg_fence(sa);
+          reg_fence(pa);
+        }
+        wg_wait<0>();
+        reg_fence(acc);
+        reg_fence(pa);
+        reg_fence(pb);
+        reg_fence(qa);
+        const float l[2] = {acc[32], acc[34]};
+        k1h_store<T>(o + (size_t)s * prm.tq * 64, acc, l, 64 * j + 16 * wi, prm.tq, lane);
+      }
+      // a warpgroup without a tile here must not arrive for this slice
+      // before the previous slice's release has completed
+      mbar_wait(k_full(0), par);
+      mbar_arrive(kv_empty);
+    }
+  }
+}
+
+// Band route: one slice is one query tile and one key chunk; the producer
+// keeps K1H_STAGES slices (q, k, v) in flight, the consumer warpgroups take
+// alternate slices.
+template <typename T>
+__global__ void __launch_bounds__(K1H_THREADS, 1)
+k1h_band_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, const K1HParams prm) {
+  extern __shared__ unsigned char k1h_smem[];
+  const uint32_t ring = k1h_align(k1h_smem);  // stage st: q, k, v tiles at 3 * st
+  const uint32_t ones = ring + 3 * K1H_STAGES * K1H_TILE;  // 2 KB, past every v tile
+  const uint32_t bars = ones + 2048;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (K1H_STAGES + st); };
+
+  k1h_fill_ones<T>(ones);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < K1H_STAGES; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == K1H_CONS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(K1H_PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 128 * K1H_CONS) {
+      int i = 0;
+      for (int s = blockIdx.x; s < prm.bh; s += gridDim.x, ++i) {
+        const int st = i % K1H_STAGES, r = i / K1H_STAGES;
+        if (r > 0) mbar_wait(empty(st), (r - 1) & 1);
+        const uint32_t tile = ring + 3 * st * K1H_TILE;
+        mbar_expect_tx(full(st), 3 * K1H_TILE);
+        tma_load_tile(tile, &mq, full(st), 0, s);
+        tma_load_tile(tile + K1H_TILE, &mk, full(st), 0, s);
+        tma_load_tile(tile + 2 * K1H_TILE, &mv, full(st), 0, s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(K1H_CONSUMER_REGS) : "memory");
+    const int wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, t = lane & 3;
+    T* __restrict__ o = static_cast<T*>(prm.o);
+    int i = wg;
+    for (int s = blockIdx.x + wg * gridDim.x; s < prm.bh;
+         s += K1H_CONS * gridDim.x, i += K1H_CONS) {
+      const int st = i % K1H_STAGES;
+      const uint32_t tile = ring + 3 * st * K1H_TILE;
+      mbar_wait(full(st), (i / K1H_STAGES) & 1);
+      uint32_t qa[4][4];
+      k1h_load_q<T>(qa, tile, wi, lane, prm.scale);
+      float s_acc[32];
+      k1h_issue_scores<T>(s_acc, qa, tile + K1H_TILE);
+      wg_wait<0>();
+      reg_fence(s_acc);
+      float m[2] = {-INFINITY, -INFINITY};
+      k1h_max(m, s_acc, 0, prm.tk, t);
+      const float ml[2] = {quad_max(m[0]) * K1H_LOG2E, quad_max(m[1]) * K1H_LOG2E};
+      float acc[36];
+#pragma unroll
+      for (int e = 0; e < 36; ++e) acc[e] = 0.f;
+      uint32_t pa[4][4];
+      k1h_probs<T>(pa, s_acc, ml, 0, prm.tk, t);
+      k1h_issue_pv<T>(acc, pa, tile + 2 * K1H_TILE, ones);
+      wg_wait<0>();
+      reg_fence(acc);
+      reg_fence(pa);
+      reg_fence(qa);
+      mbar_arrive(empty(st));
+      const float l[2] = {acc[32], acc[34]};
+      k1h_store<T>(o + (size_t)s * prm.tq * 64, acc, l, 16 * wi, prm.tq, lane);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's encoder, found through the runtime so the build needs no -lcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// (bh, t, 64) contiguous 16-bit rows as a 3-D map with (64, 64, 1) boxes
+bool k1h_map(CUtensorMap* map, const void* ptr, int t, int bh, CUtensorMapDataType dt) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {64, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {128, (cuuint64_t)t * 128};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, dt, 3, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T>
+cudaError_t k1h_launch(const void* q, const void* k, const void* v, const K1HParams& prm,
+                       bool band, CUtensorMapDataType dt, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!k1h_map(&mq, q, prm.tq, prm.bh, dt) || !k1h_map(&mk, k, prm.tk, prm.bh, dt) ||
+      !k1h_map(&mv, v, prm.tk, prm.bh, dt))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int grid = prm.bh < sms ? prm.bh : sms;
+  auto kernel = band ? k1h_band_kernel<T> : k1h_time_kernel<T>;
+  // alignment slack, the tiles, 2 KB of ones, the barriers
+  const size_t bytes = band ? 3072 + 3 * K1H_STAGES * K1H_TILE + 16 * K1H_STAGES
+                            : 3072 + (K1H_CONS + 2 * (size_t)prm.nch) * K1H_TILE +
+                                  8 * (2 * K1H_CONS + 1 + 2 * prm.nch);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, K1H_THREADS, bytes, stream>>>(mq, mk, mv, prm);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------------ K2
 
 constexpr int K2_THREADS = 128;
@@ -498,6 +1153,238 @@ cudaError_t k2_dispatch(const void* q, const void* k, const void* v, void* o, in
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------------ K2, fp32 inputs
+
+constexpr int K2F_THREADS = 256;
+constexpr int K2F_BQ = 64;  // query rows per CTA: 16 row groups of 4
+
+// DP: head dim padded to 64, 128 or 256; VEC: floats per cp.async (4 when
+// every row starts on 16 bytes, else 1)
+template <int DP>
+struct K2FLayout {
+  static constexpr int BK = DP <= 128 ? 64 : 32;  // keys per tile
+  static constexpr int LD = DP + 4;               // q/k/v row stride (floats)
+  static constexpr int LDP = K2F_BQ + 4;          // p^T row stride
+  static constexpr int KN = BK / 16;              // keys per thread
+  static constexpr int DN = DP / 64;              // float4 output columns per thread
+  static constexpr size_t BYTES =
+      sizeof(float) * ((size_t)K2F_BQ * LD + 4 * (size_t)BK * LD + (size_t)BK * LDP);
+};
+
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok) {
+  const uint32_t d = smem_u32(dst);
+  const int n = ok ? 4 * VEC : 0;  // 0 bytes read: the destination is zero-filled
+  if constexpr (VEC == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+}
+
+// rows [r0, r0 + rows) of a (t, d) fp32 slice into shared memory (stride LD);
+// rows at or past t and columns at or past d are zero
+template <int DP, int VEC>
+__device__ __forceinline__ void k2f_stage(float* dst, const float* __restrict__ src, int r0,
+                                          int rows, int t, int d) {
+  constexpr int CPR = DP / VEC;
+  for (int i = threadIdx.x; i < rows * CPR; i += K2F_THREADS) {
+    const int r = i / CPR, c = (i - r * CPR) * VEC;
+    const int g = r0 + r;
+    const bool ok = g < t && c < d;
+    cp_async<VEC>(dst + r * K2FLayout<DP>::LD + c, ok ? src + (size_t)g * d + c : src, ok);
+  }
+}
+
+// Thread (tr, tc) = (tid / 16, tid % 16) owns query rows 4tr..4tr+3, keys
+// tc + 16j of each tile and output columns 4(tc + 16j')..+3: each value read
+// from shared memory feeds 4 FMAs, and the 16 threads of a row group share
+// its softmax state through shuffles.
+template <int DP, int VEC>
+__global__ void __launch_bounds__(K2F_THREADS)
+k2f_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           float* __restrict__ o, int tq, int tk, int d, float scale, int causal) {
+  using L = K2FLayout<DP>;
+  constexpr int BK = L::BK, LD = L::LD, LDP = L::LDP, KN = L::KN, DN = L::DN;
+  extern __shared__ __align__(16) float k2f_smem[];
+  float* qs = k2f_smem;
+  float* kvs = qs + K2F_BQ * LD;          // buffer b: k at kvs + 2b*BK*LD, v after it
+  float* pt = kvs + 4 * BK * LD;          // p^T: (BK, LDP)
+
+  const int sl = blockIdx.x, q0 = blockIdx.y * K2F_BQ;
+  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
+  const float* qg = q + (size_t)sl * tq * d;
+  const float* kg = k + (size_t)sl * tk * d;
+  const float* vg = v + (size_t)sl * tk * d;
+  const int offset = tk - tq;
+  int kend = tk;
+  if (causal) {  // tiles wholly above the diagonal of this CTA's last row are skipped
+    const int last = min(q0 + K2F_BQ, tq) - 1 + offset;
+    kend = min(tk, max(last + 1, 0));
+  }
+  const int ntiles = (kend + BK - 1) / BK;
+
+  k2f_stage<DP, VEC>(qs, qg, q0, K2F_BQ, tq, d);
+  if (ntiles > 0) {
+    k2f_stage<DP, VEC>(kvs, kg, 0, BK, tk, d);
+    k2f_stage<DP, VEC>(kvs + BK * LD, vg, 0, BK, tk, d);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  float m[4], l[4], acc[4][DN][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = K2_NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {  // the next tile streams in while this one computes
+      float* nb = kvs + ((it + 1) & 1) * 2 * BK * LD;
+      k2f_stage<DP, VEC>(nb, kg, (it + 1) * BK, BK, tk, d);
+      k2f_stage<DP, VEC>(nb + BK * LD, vg, (it + 1) * BK, BK, tk, d);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const float* ks = kvs + (it & 1) * 2 * BK * LD;
+    const float* vs = ks + BK * LD;
+    const int k0 = it * BK;
+
+    float s[4][KN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int dd = 0; dd < DP; dd += 4) {
+      float4 qv[4], kv[KN];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (4 * tr + i) * LD + dd);
+#pragma unroll
+      for (int j = 0; j < KN; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tc + 16 * j) * LD + dd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < KN; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + 4 * tr + i;
+      float mt = K2_NEG;
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        const int key = k0 + tc + 16 * j;
+        const bool valid = key < tk && (!causal || key <= qi + offset);
+        s[i][j] = valid ? s[i][j] * scale : K2_NEG;
+        mt = fmaxf(mt, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_new = fmaxf(m[i], mt);
+      const float alpha = expf(m[i] - m_new);
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < DN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        l[i] += s[i][j];
+      }
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+      *reinterpret_cast<float4*>(pt + (tc + 16 * j) * LDP + 4 * tr) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int key = 0; key < BK; ++key) {
+      const float4 p = *reinterpret_cast<const float4*>(pt + key * LDP + 4 * tr);
+      const float pr[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int j = 0; j < DN; ++j) {
+        const float4 vv = *reinterpret_cast<const float4*>(vs + key * LD + 4 * (tc + 16 * j));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j][0] = fmaf(pr[i], vv.x, acc[i][j][0]);
+          acc[i][j][1] = fmaf(pr[i], vv.y, acc[i][j][1]);
+          acc[i][j][2] = fmaf(pr[i], vv.z, acc[i][j][2]);
+          acc[i][j][3] = fmaf(pr[i], vv.w, acc[i][j][3]);
+        }
+      }
+    }
+    __syncthreads();  // p^T and this tile's buffer are free again
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // q's copy when no tile ran
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int qi = q0 + 4 * tr + i;
+    if (qi >= tq) continue;
+    const float den = l[i] > 0.f ? l[i] : 1.f;
+    float* og = o + ((size_t)sl * tq + qi) * d;
+#pragma unroll
+    for (int j = 0; j < DN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * (tc + 16 * j) + e;
+        if (c < d) og[c] = acc[i][j][e] / den;
+      }
+  }
+}
+
+template <int DP, int VEC>
+cudaError_t k2f_launch(const float* q, const float* k, const float* v, float* o, int bh, int tq,
+                       int tk, int d, float scale, int causal, cudaStream_t stream) {
+  const size_t bytes = K2FLayout<DP>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(k2f_kernel<DP, VEC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tq + K2F_BQ - 1) / K2F_BQ);
+  k2f_kernel<DP, VEC><<<grid, K2F_THREADS, bytes, stream>>>(q, k, v, o, tq, tk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int VEC>
+cudaError_t k2f_dispatch_dp(const float* q, const float* k, const float* v, float* o, int bh,
+                            int tq, int tk, int d, float scale, int causal, cudaStream_t s) {
+  if (d <= 64) return k2f_launch<64, VEC>(q, k, v, o, bh, tq, tk, d, scale, causal, s);
+  if (d <= 128) return k2f_launch<128, VEC>(q, k, v, o, bh, tq, tk, d, scale, causal, s);
+  if (d <= 256) return k2f_launch<256, VEC>(q, k, v, o, bh, tq, tk, d, scale, causal, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t k2f_dispatch(const void* q, const void* k, const void* v, void* o, int bh, int tq,
+                         int tk, int d, float scale, int causal, cudaStream_t s) {
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  const bool vec = d % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  return vec ? k2f_dispatch_dp<4>(qf, kf, vf, of, bh, tq, tk, d, scale, causal, s)
+             : k2f_dispatch_dp<1>(qf, kf, vf, of, bh, tq, tk, d, scale, causal, s);
+}
+
 // dtype codes shared with audiolab_tpu_torch/kernels/attention.py
 enum { DT_F32 = 0, DT_BF16 = 1, DT_F16 = 2 };
 
@@ -517,6 +1404,26 @@ extern "C" int k1_attention_nk1(const void* q, const void* k, const void* v, voi
                                 int slices_per_cta, void* stream) {
   const K1Params prm{q, k, v, o, nullptr, nullptr, bh, tq, tk, scale, slices_per_cta, 1, d, d};
   return k1_entry<K1_SCALED>(prm, d, dtype, stream);
+}
+
+// K1's Hopper design: d = 64, 16-bit, tk <= 768, contiguous (bh, t, 64) rows
+// on 16-byte aligned pointers.  band != 0 takes the band route (tq <= 64 and
+// tk <= 64), else the time route.  The wrapper chooses the route by shape.
+extern "C" int k1_attention_nk1_sm90(const void* q, const void* k, const void* v, void* o, int bh,
+                                     int tq, int tk, float scale, int dtype, int band,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || tq <= 0 || tk <= 0 || tk > 64 * K1H_MAX_CHUNKS) return (int)cudaErrorInvalidValue;
+  if (band && (tq > 64 || tk > 64)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const K1HParams prm{o, bh, tq, tk, (tk + 63) / 64, scale};
+  if (dtype == DT_BF16)
+    return (int)k1h_launch<__nv_bfloat16>(q, k, v, prm, band != 0,
+                                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s);
+  if (dtype == DT_F16)
+    return (int)k1h_launch<__half>(q, k, v, prm, band != 0, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // cos/sin: (>= max(tq, tk), d) fp32 tables; scale is folded into q's
@@ -552,8 +1459,7 @@ extern "C" int k2_flash_attention(const void* q, const void* k, const void* v, v
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || tq <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == DT_F32)
-    return (int)k2_dispatch<float>(q, k, v, o, bh, tq, tk, d, scale, causal, s);
+  if (dtype == DT_F32) return (int)k2f_dispatch(q, k, v, o, bh, tq, tk, d, scale, causal, s);
   if (dtype == DT_BF16)
     return (int)k2_dispatch<__nv_bfloat16>(q, k, v, o, bh, tq, tk, d, scale, causal, s);
   if (dtype == DT_F16)

@@ -19,6 +19,12 @@ K6 (:func:`slim_attention`, tools/probe_freq_bh128.py) and K7
 with the row sum taken apart and with q/k/v read from the packed
 ``(b, t, heads*d)`` layout; nothing in the package calls them.
 
+K1 has two CUDA designs, chosen by shape alone (:func:`k1_route`): the
+Hopper design (TMA, wgmma, warp specialisation) for d = 64 and tk <= 768,
+which covers both RoFormer axes, and the PR-1 core for every other shape;
+K3, K6 and K7 are variants of the PR-1 core.  K2 runs a register-tiled
+fp32 kernel for fp32 inputs and the PR-1 kernel for 16-bit ones.
+
 Each kernel wrapper launches its kernel for a CUDA tensor and uses the
 kernel's plain PyTorch version for a CPU tensor; there is no other route.
 It counts its launches in a plain integer attribute (``.launches``).
@@ -40,6 +46,7 @@ _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _K1_HEAD_DIMS = (16, 32, 64, 128)
 _K1_BLOCK_Q = 64   # query rows per CTA in csrc/attention.cu
+_K1H_MAX_KEYS = 768  # the Hopper design keeps up to 12 64-key chunks resident
 
 
 def attention_reference(q, k, v, causal: bool = False, scale: float | None = None,
@@ -163,6 +170,8 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.k1_attention_nk1.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
         lib.k1_attention_nk1.restype = i
+        lib.k1_attention_nk1_sm90.argtypes = [p, p, p, p, i, i, i, f, i, i, p]
+        lib.k1_attention_nk1_sm90.restype = i
         lib.k2_flash_attention.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
         lib.k2_flash_attention.restype = i
         lib.k3_attention_nk1_rope.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, p]
@@ -173,6 +182,12 @@ def _lib() -> ctypes.CDLL:
         lib.k7_attention_packed.restype = i
         lib._typed = True
     return lib
+
+
+def _scale_in(dtype, scale: float) -> float:
+    """The scale rounded to the input type: the TPU kernel multiplies q by
+    it in that type."""
+    return float(torch.tensor(scale, dtype=dtype))
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -186,32 +201,80 @@ def k1_slices_per_cta(bh: int, tq: int) -> int:
     return 8 if tq <= _K1_BLOCK_Q and bh >= 8 * 132 else 1
 
 
+def k1_route(bh: int, tq: int, tk: int, d: int, dtype) -> str:
+    """Which K1 kernel a CUDA call of this shape launches, by shape alone:
+    ``"band"`` or ``"time"`` for the Hopper design (d = 64, 16-bit,
+    tk <= 768; band when tq and tk both fit one 64-row tile), ``"core"`` for
+    the PR-1 core (every other shape)."""
+    del bh  # any number of slices: both designs are persistent
+    if d != 64 or dtype not in (torch.bfloat16, torch.float16) or tk > _K1H_MAX_KEYS:
+        return "core"
+    return "band" if tq <= _K1_BLOCK_Q and tk <= _K1_BLOCK_Q else "time"
+
+
+def _launch_k1_core(q, k, v, scale: float):
+    b, h, tq, d = q.shape
+    out = torch.empty_like(q)
+    err = _lib().k1_attention_nk1(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, k.shape[2], d,
+        _scale_in(q.dtype, scale), _DTYPE_CODE[q.dtype], k1_slices_per_cta(b * h, tq),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out, err
+
+
 def attention_nk1(q, k, v, scale: float | None = None):
     """K1: non-causal attention over one key block, 16-bit inputs.
-    CUDA tensors launch ``k1_attention_nk1``; CPU tensors take
+    CUDA tensors launch ``k1_attention_nk1_sm90`` on the route
+    :func:`k1_route` gives (counted in ``.sm90_launches`` too), or the
+    PR-1 core ``k1_attention_nk1``; CPU tensors take
     :func:`attention_nk1_reference`."""
     _check("attention_nk1", q, k, v, (torch.bfloat16, torch.float16))
-    d = q.shape[-1]
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if not q.is_cuda:
         return attention_nk1_reference(q, k, v, scale)
     if d not in _K1_HEAD_DIMS:
         raise ValueError(f"attention_nk1: head dim {d} not in {_K1_HEAD_DIMS}")
-    b, h, tq, _ = q.shape
-    tk = k.shape[2]
-    out = torch.empty_like(q)
-    # the TPU kernel multiplies by the scale rounded to the input type
-    scale_dt = float(torch.tensor(scale, dtype=q.dtype))
-    err = _lib().k1_attention_nk1(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, tk, d,
-        scale_dt, _DTYPE_CODE[q.dtype], k1_slices_per_cta(b * h, tq),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    route = k1_route(b * h, tq, tk, d, q.dtype)
+    if route == "core":
+        out, err = _launch_k1_core(q, k, v, scale)
+    else:
+        out = torch.empty_like(q)
+        if any(x.data_ptr() % 16 for x in (q, k, v)):
+            raise ValueError("attention_nk1: TMA needs 16-byte aligned q, k, v")
+        err = _lib().k1_attention_nk1_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, tk,
+            _scale_in(q.dtype, scale), _DTYPE_CODE[q.dtype],
+            int(route == "band"), torch.cuda.current_stream(q.device).cuda_stream)
+        attention_nk1.sm90_launches += 1
     attention_nk1.launches += 1
     _raise_on(err, "attention_nk1")
     return out
 
 
 attention_nk1.launches = 0
+attention_nk1.sm90_launches = 0
+
+
+def attention_nk1_core(q, k, v, scale: float | None = None):
+    """K1's function on the PR-1 core whatever the shape: the yardstick the
+    Hopper design is timed against.  The package routes through
+    :func:`attention_nk1`; CPU tensors take :func:`attention_nk1_reference`."""
+    _check("attention_nk1_core", q, k, v, (torch.bfloat16, torch.float16))
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    if not q.is_cuda:
+        return attention_nk1_reference(q, k, v, scale)
+    if d not in _K1_HEAD_DIMS:
+        raise ValueError(f"attention_nk1_core: head dim {d} not in {_K1_HEAD_DIMS}")
+    out, err = _launch_k1_core(q, k, v, scale)
+    attention_nk1_core.launches += 1
+    _raise_on(err, "attention_nk1_core")
+    return out
+
+
+attention_nk1_core.launches = 0
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False, scale: float | None = None):
@@ -299,10 +362,9 @@ def slim_attention(q, k, v, scale: float | None = None):
     if d not in _K1_HEAD_DIMS:
         raise ValueError(f"slim_attention: head dim {d} not in {_K1_HEAD_DIMS}")
     out = torch.empty_like(q)
-    scale_dt = float(torch.tensor(scale, dtype=q.dtype))
     err = _lib().k6_attention_slim(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, k.shape[2], d,
-        scale_dt, _DTYPE_CODE[q.dtype], 2 * k1_slices_per_cta(b * h, tq),
+        _scale_in(q.dtype, scale), _DTYPE_CODE[q.dtype], 2 * k1_slices_per_cta(b * h, tq),
         torch.cuda.current_stream(q.device).cuda_stream)
     slim_attention.launches += 1
     _raise_on(err, "slim_attention")
@@ -340,10 +402,10 @@ def packed_attention(q, k, v, heads: int, dim_head: int, scale: float | None = N
         raise ValueError(f"{name}: the kernel takes rows of one stride with a unit last "
                          f"axis; got strides {q.stride()}, {k.stride()}, {v.stride()}")
     out = torch.empty(b, t, inner, dtype=q.dtype, device=q.device)
-    scale_dt = float(torch.tensor(scale, dtype=q.dtype))
     err = _lib().k7_attention_packed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, t, dim_head, ld,
-        scale_dt, _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _scale_in(q.dtype, scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     packed_attention.launches += 1
     _raise_on(err, name)
     return out
@@ -354,6 +416,8 @@ packed_attention.launches = 0
 
 def reset_launch_counts() -> None:
     attention_nk1.launches = 0
+    attention_nk1.sm90_launches = 0
+    attention_nk1_core.launches = 0
     flash_attention_fwd.launches = 0
     attention_nk1_rope.launches = 0
     slim_attention.launches = 0

@@ -9,12 +9,13 @@ drives the separate -> RVC chain at full width, and checks the output.
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
   card       nvidia-smi name and power limit, torch/CUDA versions, build seconds
-  kernels    K1 and K2 against their plain versions at the main path's shapes;
+  kernels    K1 and K2 against their plain versions at the main path's shapes,
+             K1's Hopper design against the PR-1 core on each axis (in turns);
              K3-K7 (off the chain) against theirs at the RoFormer's shapes,
              and the three comparisons the TPU probes were written for
   separator  two BS-RoFormer members (dim 512, 12 axial pairs, 8 heads x 64,
              distinct seeded weights) on a 60 s stereo 44.1 kHz track: 8 chunks,
-             one device batch; 48 K1 launches
+             one device batch; 48 K1 launches, all on the Hopper routes
   rvc        mono mix, 44.1 -> 16 kHz, VoiceConverter.convert at v2-48k with full
              HuBERT, full RMVPE and a 4096 x 768 index; 12 K2 launches
   fidelity   the same RVC input under the fp32 and the bf16 matmul policy:
@@ -52,6 +53,9 @@ MEL_L1_GATE = 1e-2
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# exponentials a second on the SFUs (MUFU), as the FlashAttention-3 paper
+# gives it for H100 SXM
+PEAK_EXP = 3.9e12
 
 
 def log(msg: str) -> None:
@@ -78,6 +82,39 @@ def ptxas_summary(report: str) -> str:
             f"{len(spilled)} spill (at most {max(spilled, default=0)} bytes stored)")
 
 
+def ptxas_kernels(report: str) -> list[tuple[str, int, int]]:
+    """(mangled name, registers a thread, spill-store bytes) of each entry
+    in a ``-Xptxas -v`` report."""
+    out = []
+    for part in report.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out.append((name, int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
+# setmaxnreg hands the producer warpgroup's registers to the two consumer
+# warpgroups (168 -> 40 and 168 -> 232 a thread), which needs the launch to
+# hold 384 x 168 registers: the __launch_bounds__(384, 1) maximum
+K1H_LAUNCH_REGS = 168
+
+
+def check_new_kernels(report: str) -> None:
+    """One line per kernel of this design (K1's Hopper routes, K2's fp32
+    kernel) with its registers and spills; raises before any launch if a
+    Hopper K1 kernel would start with fewer registers than setmaxnreg
+    hands out."""
+    for name, regs, spill in ptxas_kernels(report):
+        if "k1h_" not in name and "k2f_" not in name:
+            continue
+        log(f"[card] ptxas {name}: {regs} registers, {spill} bytes spill stores")
+        if "k1h_" in name:
+            expect(regs == K1H_LAUNCH_REGS,
+                   f"{name}: {regs} registers at launch, setmaxnreg needs {K1H_LAUNCH_REGS}")
+
+
 def sync(dev) -> None:
     import torch
 
@@ -102,9 +139,10 @@ def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> float:
 
 # ---------------------------------------------------------------- kernels
 
-def attention_work(q, k, causal: bool) -> tuple[float, float]:
-    """(FLOPs, bytes) one attention call needs: 4*d per unmasked (query, key)
-    pair; q, k, v read once and o written once."""
+def attention_work(q, k, causal: bool) -> tuple[float, float, float]:
+    """(FLOPs, bytes, exponentials) one attention call needs: 4*d FLOPs and
+    one exponential per unmasked (query, key) pair; q, k, v read once and o
+    written once."""
     bh = q.shape[0] * q.shape[1]
     tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
     if causal:
@@ -114,7 +152,7 @@ def attention_work(q, k, causal: bool) -> tuple[float, float]:
         pairs = float(tq * tk)
     flops = 4.0 * bh * pairs * d
     nbytes = float((2 * q.numel() + 2 * k.numel()) * q.element_size())
-    return flops, nbytes
+    return flops, nbytes, float(bh * pairs)
 
 
 def norm_work(x, params) -> tuple[float, float]:
@@ -141,24 +179,28 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, args, shape, tol_rel, to
     tol = tol_rel[0] * ref.float().abs().max().item() + tol_rel[1]
     finite = bool(torch.isfinite(out).all())
     del out, ref
-    ms = cuda_ms(lambda: kernel_fn(*args), iters=10)
+    # three warm-up calls: the first kernel timed after the build ran ~15 %
+    # slow after a single one (the card still ramping its clocks)
+    ms = cuda_ms(lambda: kernel_fn(*args), iters=10, warmup=3)
     plain_ms = cuda_ms(lambda: plain_fn(*args), iters=2)
     library_ms = None if library_fn is None else cuda_ms(lambda: library_fn(*args), iters=10)
     torch.cuda.empty_cache()
-    flops, nbytes = work
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    flops, nbytes, exps = (*work, 0.0)[:3]
+    t_ops, t_bytes, t_exp = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3, exps / PEAK_EXP * 1e3
     rec = dict(name=name, route="cuda", source=source, replaces=replaces, shape=shape,
                max_abs_err=err, tol=tol, tol_reason=tol_reason, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes",
-               flops=flops, bytes=nbytes)
+               bound_ms=max(t_ops, t_bytes, t_exp),
+               bound_by="operations" if max(t_ops, t_exp) >= t_bytes else "bytes",
+               bound_parts_ms=dict(products=t_ops, exponentials=t_exp, bytes=t_bytes),
+               flops=flops, bytes=nbytes, exponentials=exps)
     ok = finite and err <= tol
     lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
     log(f"[kernels] {name} {shape} err {err:.3e} (tol {tol:.3e}: "
         f"{tol_reason}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
         f"library {lib_txt}{f' ({library_note})' if library_note else ''} "
-        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}) {'OK' if ok else 'FAIL'}")
+        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}: products {t_ops:.3f}, "
+        f"exponentials {t_exp:.3f}, bytes {t_bytes:.3f}) {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: err {err} > tol {tol} or non-finite")
     return rec
@@ -168,9 +210,9 @@ def attention_shape(q, k, causal):
     return dict(q=list(q.shape), k=list(k.shape), dtype=str(q.dtype), causal=causal)
 
 
-def compare(label: str, fns: dict, card: str) -> None:
-    """Times two ways to the same result in turns (a, b, b, a) and prints
-    the means; a probe comparison, held against nothing."""
+def compare(label: str, fns: dict, card: str) -> dict[str, float]:
+    """Times two ways to the same result in turns (a, b, b, a), prints and
+    returns the means; a comparison held against nothing."""
     names = list(fns)
     runs = {n: [] for n in names}
     for n in names + names[::-1]:
@@ -178,6 +220,7 @@ def compare(label: str, fns: dict, card: str) -> None:
     txt = ", ".join(f"{n} {np.mean(runs[n]):.3f} ms ({' / '.join(f'{r:.3f}' for r in runs[n])})"
                     for n in names)
     log(f"[kernels] compare {label}: {txt} | {card}")
+    return {n: float(np.mean(runs[n])) for n in names}
 
 
 def phase_kernels(dev, card: str) -> list[dict]:
@@ -231,6 +274,14 @@ def phase_kernels(dev, card: str) -> list[dict]:
                 lambda q, k, v: A.attention_nk1_reference(q, k, v, scale),
                 sdpa(False), (q, k, v), attention_shape(q, k, False), *k1_tol,
                 attention_work(q, k, False), PEAK_BF16, k1_rep)
+            route = A.k1_route(qs[0] * qs[1], qs[2], ks[2], qs[3], dt)
+            expect(route in ("band", "time"), f"{label}: routed to {route}")
+            # the PR-1 core through its own entry, as a yardstick only
+            means = compare(f"K1 Hopper {route} route vs PR-1 core ({key})", {
+                "hopper": lambda: A.attention_nk1(q, k, v),
+                "core": lambda: A.attention_nk1_core(q, k, v),
+            }, card)
+            rec.update(k1_route=route, core_ms=means["core"], compare_hopper_ms=means["hopper"])
         else:
             rec = check_kernel(
                 label, lambda q, k, v, c=causal: A.flash_attention_fwd(q, k, v, causal=c),
@@ -246,13 +297,13 @@ def phase_kernels(dev, card: str) -> list[dict]:
     time_shape = (496, 8, 690, 64)
     q, k, v = rnd(time_shape, bf), rnd(time_shape, bf), rnd(time_shape, bf)
     cos, sin = (t.to(dev) for t in A.rope_tables(690, 64))
-    flops, nbytes = attention_work(q, k, False)
+    flops, nbytes, exps = attention_work(q, k, False)
     rec = check_kernel(
         "K3 attention_nk1_rope (RoFormer time axis)",
         lambda q, k, v: A.flash_attention(q, k, v, block_k=768, rope_cos=cos, rope_sin=sin),
         lambda q, k, v: A.attention_nk1_rope_reference(q, k, v, cos, sin, scale),
         None, (q, k, v), attention_shape(q, k, False), *k1_tol,
-        (flops, nbytes + 2 * cos.numel() * 4), PEAK_BF16,
+        (flops, nbytes + 2 * cos.numel() * 4, exps), PEAK_BF16,
         "audiolab_tpu/kernels/attention.py:142",
         library_note="no single PyTorch call ropes and attends")
     rec.update(case="k3_time", kernel="K3", on_main_path=False)
@@ -270,8 +321,8 @@ def phase_kernels(dev, card: str) -> list[dict]:
     inner = h * d
     qkv = rnd((b, t, 3 * inner), bf)
     q, k, v = (x.contiguous() for x in qkv.split(inner, dim=-1))
-    flops, nbytes = attention_work(q.view(b, t, h, d).transpose(1, 2),
-                                   k.view(b, t, h, d).transpose(1, 2), False)
+    work = attention_work(q.view(b, t, h, d).transpose(1, 2),
+                          k.view(b, t, h, d).transpose(1, 2), False)
 
     def heads_first(x):
         return x.view(b, t, h, d).transpose(1, 2)
@@ -283,7 +334,7 @@ def phase_kernels(dev, card: str) -> list[dict]:
         lambda q, k, v: F.scaled_dot_product_attention(heads_first(q), heads_first(k),
                                                        heads_first(v)),
         (q, k, v), dict(q=list(q.shape), heads=h, dim_head=d, dtype=str(q.dtype)), *k1_tol,
-        (flops, nbytes), PEAK_BF16, "tools/probe_packed_attn.py:68")
+        work, PEAK_BF16, "tools/probe_packed_attn.py:68")
     rec.update(case="k7_time", kernel="K7", on_main_path=False)
     recs.append(rec)
     del q, k, v
@@ -456,24 +507,30 @@ def phase_separator(dev, sep, audio, expect_k1: int | None = 48) -> tuple[dict, 
     """Main path, part 1: counts reset just before, read just after."""
     import torch
 
+    from audiolab_tpu_torch.kernels import attention as A
+
     reset_counts()
     t0 = time.perf_counter()
     stems = sep.separate(audio, as_numpy=False)
     sync(dev)
     secs = time.perf_counter() - t0
     launches = counts()
+    k1_hopper = A.attention_nk1.sm90_launches
     n = audio.shape[-1]
     ok_shape = all(tuple(v.shape) == (2, n) for v in stems.values())
     finite = all(bool(torch.isfinite(v).all()) for v in stems.values())
     log(f"[separator] 2 members x {sep.members[0].apply_fn.cfg.depth} axial pairs, "
         f"dim {sep.members[0].apply_fn.cfg.dim}, {n / SEP_SR:.1f} s stereo: "
         f"stems {sorted(stems)} shapes {[tuple(v.shape) for v in stems.values()]} "
-        f"finite {finite} launches {launches} {secs:.3f} s")
+        f"finite {finite} launches {launches} (K1 on the Hopper routes: {k1_hopper}) "
+        f"{secs:.3f} s")
     expect(ok_shape and finite, "separator: stem shape or finiteness")
     expect(set(stems) == {"vocals", "instrumental"}, "separator: stems")
     if expect_k1 is not None:
         expect(only(launches, "K1", expect_k1),
                f"separator: launches {launches}, expected K1 {expect_k1} and no other")
+        expect(k1_hopper == expect_k1,
+               f"separator: {k1_hopper} of {launches['K1']} K1 launches on the Hopper routes")
     return stems, launches, secs
 
 
@@ -642,6 +699,7 @@ def main() -> int:
         report = path.with_suffix(".log")
         if report.exists():
             log(f"[card] ptxas {name}: {ptxas_summary(report.read_text())} ({report})")
+            check_new_kernels(report.read_text())
 
     kernel_recs: list[dict] = []
     if "kernels" in phases:
@@ -675,7 +733,8 @@ def main() -> int:
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
                            "plain_ms", "bound_ms", "bound_by", "library_ms")}
         | {"launches": main_launches[r["kernel"]], "case": r["case"],
-           "on_main_path": r["on_main_path"]}
+           "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
+        | {k: r[k] for k in ("k1_route", "core_ms") if k in r}
         for r in kernel_recs]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

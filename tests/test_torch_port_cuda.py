@@ -69,6 +69,84 @@ def test_k2_matches_plain_fp32(cuda_device, tq, tk, causal, d):
     assert (out - ref).abs().max().item() <= 2e-5
 
 
+@pytest.mark.parametrize("bh,tq,tk", [
+    ((2, 4), 690, 690),   # RoFormer time axis: K/V resident, 11 query tiles
+    ((2, 4), 100, 690),   # tq != tk, a ragged second tile
+    ((2, 4), 690, 62),    # many query tiles over one short key chunk
+    ((1, 3), 200, 768),   # the most keys the time route keeps resident
+    ((1, 3), 130, 65),    # one key past a chunk
+    ((1, 3), 90, 1),      # one key
+    ((1, 3), 40, 300),    # one query tile: the second warpgroup has none
+    ((3, 45), 62, 62),    # band axis, 135 slices: not a multiple of 132 CTAs
+    ((2, 4), 64, 64),     # band axis, whole tile and chunk
+    ((1, 2), 5, 33)])     # band axis, ragged both ways
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k1_hopper_route_matches_plain(cuda_device, bh, tq, tk, dtype):
+    q, k, v = _qkv(cuda_device, getattr(torch, dtype), *bh, tq, tk, 64, seed=tq + tk)
+    assert TA.k1_route(bh[0] * bh[1], tq, tk, 64, q.dtype) in ("band", "time")
+    before = TA.attention_nk1.sm90_launches
+    out = TA.attention_nk1(q, k, v)
+    ref = TA.attention_nk1_reference(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert TA.attention_nk1.sm90_launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+@pytest.mark.parametrize("tq", [62, 100])   # band route, and time route over one chunk
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k1_hopper_masks_padded_keys(cuda_device, tq, dtype):
+    """Every real score is 3.5 * -3.5 * 64 / 8 = -98: the output is the mean
+    of v's rows.  A zero-filled key left unmasked would score 0, take the
+    whole softmax and pull the output toward 0."""
+    dt = getattr(torch, dtype)
+    tk = 62
+    q = torch.full((1, 2, tq, 64), 3.5, device=cuda_device, dtype=dt)
+    k = torch.full((1, 2, tk, 64), -3.5, device=cuda_device, dtype=dt)
+    v = _qkv(cuda_device, dt, 1, 2, tk, tk, 64, seed=7)[2]
+    out = TA.attention_nk1(q, k, v)
+    ref = TA.attention_nk1_reference(q, k, v, 0.125)
+    mean = v.float().mean(dim=2, keepdim=True).expand(1, 2, tq, 64)
+    torch.cuda.synchronize()
+    assert TA.k1_route(2, tq, tk, 64, dt) == ("band" if tq <= 64 else "time")
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    assert (out.float() - mean).abs().max().item() <= _k1_tol(mean)
+
+
+def test_k1_routes_by_shape(cuda_device):
+    """The main path's two shapes take the Hopper design (second counter);
+    d = 32 and tk = 1000 take the PR-1 core; both count in ``.launches``."""
+    TA.reset_launch_counts()
+    for tq, tk, d in ((690, 690, 64), (62, 62, 64)):
+        TA.attention_nk1(*_qkv(cuda_device, torch.bfloat16, 1, 2, tq, tk, d))
+    assert (TA.attention_nk1.launches, TA.attention_nk1.sm90_launches) == (2, 2)
+    for tq, tk, d in ((100, 100, 32), (70, 1000, 64)):
+        q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 2, tq, tk, d)
+        out = TA.attention_nk1(q, k, v)
+        ref = TA.attention_nk1_reference(q, k, v, d ** -0.5)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    assert (TA.attention_nk1.launches, TA.attention_nk1.sm90_launches) == (4, 2)
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 2, 62, 62)
+    assert torch.equal(TA.attention_nk1_core(q, k, v), TA.attention_nk1_core(q, k, v))
+    assert (TA.attention_nk1.launches, TA.attention_nk1_core.launches) == (4, 2)
+    TA.reset_launch_counts()
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,causal", [
+    (8, 12, 399, 399, 64, False),   # HuBERT: 96 slices x 7 query tiles
+    (2, 3, 100, 333, 64, True),     # causal, diagonal at tk - tq
+    (2, 3, 150, 399, 80, True),     # d = 80: padded to 128
+    (1, 2, 70, 130, 256, False),    # d = 256: 32-key tiles
+    (1, 2, 90, 90, 30, True)])      # d % 4 != 0: 4-byte copies
+def test_k2_fp32_register_tiled(cuda_device, b, h, tq, tk, d, causal):
+    q, k, v = _qkv(cuda_device, torch.float32, b, h, tq, tk, d, seed=d)
+    out = TA.flash_attention_fwd(q, k, v, causal=causal)
+    ref = TA.flash_attention_reference(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 2e-5
+
+
 def test_k2_matches_plain_bf16(cuda_device):
     q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 3, 150, 260)
     out = TA.flash_attention_fwd(q, k, v, causal=True)

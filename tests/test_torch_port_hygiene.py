@@ -92,6 +92,8 @@ def test_kernel_wrappers_on_cpu_take_the_plain_path():
     bf = torch.bfloat16
     q, k, v = t(1, 2, 62, 64, dtype=bf), t(1, 2, 62, 64, dtype=bf), t(1, 2, 62, 64, dtype=bf)
     assert torch.equal(TA.attention_nk1(q, k, v), TA.attention_nk1_reference(q, k, v, 0.125))
+    assert torch.equal(TA.attention_nk1_core(q, k, v),
+                       TA.attention_nk1_reference(q, k, v, 0.125))
     assert torch.equal(TA.flash_attention(q, k, v, block_k=62),
                        TA.attention_nk1_reference(q, k, v, 0.125))
     q, k, v = t(1, 2, 30, 64), t(1, 2, 70, 64), t(1, 2, 70, 64)
@@ -114,7 +116,8 @@ def test_kernel_wrappers_on_cpu_take_the_plain_path():
     assert torch.equal(TN.layer_norm(x, w, b), TN.layer_norm_reference(x, w, b))
     assert all(f.launches == 0 for f in (
         TA.attention_nk1, TA.flash_attention_fwd, TA.attention_nk1_rope, TA.slim_attention,
-        TA.packed_attention, TN.rms_norm, TN.layer_norm))
+        TA.packed_attention, TA.attention_nk1_core, TN.rms_norm, TN.layer_norm))
+    assert TA.attention_nk1.sm90_launches == 0
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
@@ -128,8 +131,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 
 
 CUDA_ENTRIES = {
-    "attention": ("k1_attention_nk1", "k2_flash_attention", "k3_attention_nk1_rope",
-                  "k6_attention_slim", "k7_attention_packed"),
+    "attention": ("k1_attention_nk1", "k1_attention_nk1_sm90", "k2_flash_attention",
+                  "k3_attention_nk1_rope", "k6_attention_slim", "k7_attention_packed"),
     "norms": ("k4_rms_norm", "k5_layer_norm"),
 }
 

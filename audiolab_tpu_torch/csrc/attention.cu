@@ -4,7 +4,7 @@
 //                            ::_flash_kernel_nk1 (single-KV-block, non-causal)
 //                            at d = 64 and tk <= 768: TMA, wgmma, warp
 //                            specialisation.
-//     k1_attention_nk1       the same function on the PR-1 core (WMMA), for
+//     k1_attention_nk1       the same function on the WMMA core, for
 //                            every other shape.
 // K2  k2_flash_attention     replaces audiolab_tpu/kernels/attention.py
 //                            ::_flash_kernel (online softmax over KV tiles,
@@ -12,17 +12,27 @@
 // K3  k3_attention_nk1_rope  replaces audiolab_tpu/kernels/attention.py
 //                            ::_flash_kernel_nk1_rope (K1 with half-split rope
 //                            fused onto the q and k tiles).
-// K6  k6_attention_slim      replaces tools/probe_freq_bh128.py::_nk1_slim
-//                            (K1 with the row sum as a separate fp32 reduction).
-// K7  k7_attention_packed    replaces tools/probe_packed_attn.py::_packed_kernel
-//                            (K1 reading q/k/v from the packed (b, t, h*d)
-//                            layout and writing the output in it).
+// K6  k6_attention_slim_sm90 replaces tools/probe_freq_bh128.py::_nk1_slim
+//                            (K1 with the row sum as a separate fp32 reduction
+//                            and no ones-widened v) at d = 64, tq <= 64 and
+//                            tk <= 64: K1's Hopper band route.
+//     k6_attention_slim      the same function on the WMMA core, for every
+//                            other shape.
+// K7  k7_attention_packed_sm90 replaces tools/probe_packed_attn.py
+//                            ::_packed_kernel (K1 reading q/k/v from the packed
+//                            (b, t, h*d) layout and writing the output in it)
+//                            at d = 64, t <= 768 and rows TMA can address:
+//                            K1's Hopper time route over 4-D tensor maps.
+//     k7_attention_packed    the same function on the WMMA core, for every
+//                            other shape and stride.
 //
 // Every entry point takes device pointers and a CUDA stream, launches on
 // that stream without synchronising, allocates nothing, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 // K1, K2, K3 and K6 take contiguous (slices, t, d) tensors; K7 takes
-// (b, t, row stride) rows, see below.
+// (b, t, row stride) rows, see below.  The times behind the choices named
+// here were taken on an NVIDIA H100 80GB HBM3 at a 700.00 W limit by
+// chip_smoke.py's kernels phase.
 //
 // K1 — bound.
 //   Work at the RoFormer shapes (bf16): time axis 3968 slices x 690 x 64,
@@ -69,7 +79,42 @@
 //   exponentials, so one warpgroup's pass 1 can overlap the other's pass 2
 //   on the MUFU (the two warpgroups run free; nothing forces the pairing).
 //
-// K1 — the PR-1 core (k1_attention_nk1: every other shape, and K3/K6/K7).
+// K6 and K7 — on the Hopper design.
+//   Neither kernel's own function held it back on the WMMA core; the core
+//   did: it stages each 64-key chunk by plain loads once per 64-row query
+//   tile (a time-axis slice reads its keys 11 times in each of two passes),
+//   sends scores and p through shared memory and keeps four warps a CTA.
+//   Both now run K1's Hopper kernels with one compile-time parameter each,
+//   so K1's own instances are unchanged.
+//   K7 (k1h_time_kernel<T, PACKED = true>): a slice is (batch, head).  The
+//     tensor maps are 4-D, (64, heads, t, b) with byte strides (128, 2 ld,
+//     2 t ld) and (64, 1, 64, 1) boxes, so a box is the same swizzled 8 KB
+//     tile; t is a dimension of its own, so a box past t is zero-filled and
+//     never reads the next batch, and so is heads, so a view of a fused qkv
+//     activation never reads its neighbour's columns.  K and V stay resident
+//     for the slice's 11 query tiles; no transpose or copy runs on either
+//     side.  The store writes row i of slice (bi, hi) at bi*t*heads*64 +
+//     i*heads*64 + hi*64 with the same quad pattern; rows at or past t of the
+//     ragged last tile are not written (they would be the next batch's).
+//     CTAs walk s = batch*heads + head, so the heads of a batch run on
+//     neighbouring SMs at about the same time and share the DRAM pages of
+//     the same rows.  TMA needs 16-byte aligned bases and a row stride of a
+//     multiple of 16 bytes; other callers stay on the WMMA core (the wrapper
+//     chooses before the launch; nothing falls back after a failure).
+//     Bound: K1's on the time axis (operations: products and exponentials).
+//   K6 (k1h_band_kernel<T, SLIM = true>): p.v is the plain m64n64k16
+//     product, without the ones atom; the row sum is an fp32 reduction over
+//     the rounded p in registers (the packed A fragments, unpacked and
+//     summed, then over the quad by shuffles), taken while p.v runs; no 2 KB
+//     of ones in shared memory.  What the TPU probe asked (a deeper fold per
+//     grid step) is here the number of slices the producer keeps in flight:
+//     4, 6, 8 and 9 stages of 24 KB measured the same within 1 % (the kernel
+//     is bound by bytes and 4 stages already cover the latency), so K6 keeps
+//     K1's K1H_STAGES and only that depth is built.  Bound: bytes, like K1's
+//     band axis.
+//
+// K1 — the WMMA core (k1_attention_nk1: every other shape, K3, and the shapes
+// of K6 and K7 that the Hopper design does not take).
 //   The kernel reproduces the TPU kernel's rounding: q*scale rounded to the
 //   input type, fp32 scores, p = exp(s - rowmax) rounded to the input type,
 //   numerator and row sum both from the rounded p, out = acc / l.  Rounding
@@ -86,8 +131,9 @@
 //   Not done yet: wgmma, TMA, cp.async pipelining, and keeping the score
 //   row in registers instead of a shared-memory round trip.
 //
-// K3, K6 and K7 are K1's core (k1_kernel) with one thing changed, chosen at
-// compile time by its variant, so K1's own instance is unchanged:
+// K3, and K6 and K7 off the Hopper shapes, are K1's core (k1_kernel) with one
+// thing changed, chosen at compile time by its variant, so K1's own instance
+// is unchanged:
 //   K3 (K1_ROPE): q and k pass through half-split rope as they are staged
 //     into shared memory: round_T(x*cos + rot(x)*sin) in fp32, with rot the
 //     exact sign-and-swap of the two halves and no contracted multiply-add,
@@ -98,11 +144,9 @@
 //     staged element and reads the (t, d) fp32 tables through the cache.
 //   K6 (K1_SCALED, own entry): the TPU's K1 took its row sum from the p.v
 //     product with a ones-widened v; K6 took it as a separate fp32
-//     reduction over the rounded p.  On the card K1 already sums the rounded
-//     p that way (WMMA has no idle lanes to fill), so K6's function runs in
-//     K1's scaled instance.  What the probe asked (fold twice the slices per
-//     TPU grid step) is the entry's slices_per_cta, which the wrapper sets
-//     to twice K1's.  Bound: bytes, like K1's band axis.
+//     reduction over the rounded p.  The core already sums the rounded p
+//     that way (WMMA has no idle lanes to fill), so K6's function runs in
+//     K1's scaled instance, with twice K1's slices_per_cta.
 //   K7 (K1_PACKED): slice (batch, head) of q/k/v lives at rows of stride
 //     ld_in elements (heads*d for a packed tensor, 3*heads*d for a view of a
 //     fused qkv activation), starting at batch*t*ld_in + head*d; the output
@@ -110,7 +154,6 @@
 //     runs on either side.  A d = 64 bf16 row is 128 contiguous bytes, so
 //     the staging loads stay coalesced.  One CTA per (batch, head, 64-row
 //     query tile); the ragged query tail is masked (the TPU needed bq | t).
-//     Same bound as K1 on the time axis.
 //
 // K2 — bound and design.
 //   HuBERT (fp32): 96 slices x 399 x 64: 4*96*399^2*64 = 3.9e9 FLOP over
@@ -128,7 +171,7 @@
 //   so every value read from shared memory feeds 4 FMAs; the row state
 //   (m, l) is reduced over the 16 threads of a row group by shuffles, and p
 //   goes through shared memory transposed, in fp32.
-//   bf16/fp16 inputs (k2_kernel, PR 1): TPR threads share one query row,
+//   bf16/fp16 inputs (k2_kernel): TPR threads share one query row,
 //   each holding 16 of its dims, and reduce the q.k dot product with warp
 //   shuffles.  64-key tiles of K and V are staged in shared memory as fp32.
 
@@ -486,6 +529,31 @@ __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* m
       : "memory");
 }
 
+// the packed layout's (64 d, 1 head, 64 rows, 1 batch) box at
+// (0, head, row, batch): the same 8 KB tile; rows past t arrive as zeros and
+// never come from the next batch, columns never from the next head
+__device__ __forceinline__ void tma_load_tile4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                               int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// One tile of slice s.  PACKED = false: s indexes a contiguous (slices, t, 64)
+// tensor.  PACKED = true: s = batch * heads + head of (b, t, row stride) rows.
+template <bool PACKED>
+__device__ __forceinline__ void k1h_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row, int s, int heads) {
+  if constexpr (PACKED) {
+    const int bi = s / heads;
+    tma_load_tile4(dst, map, bar, s - bi * heads, row, bi);
+  } else {
+    tma_load_tile(dst, map, bar, row, s);
+  }
+}
+
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -658,6 +726,40 @@ __device__ __forceinline__ void k1h_issue_pv(float (&o)[36], const uint32_t (&pa
   wg_commit();
 }
 
+// o += p . v over one 64-key chunk as the plain m64n64k16 product (K6): no
+// ones atom; the caller takes the row sum from p itself
+template <typename T>
+__device__ __forceinline__ void k1h_issue_pv(float (&o)[32], const uint32_t (&pa)[4][4],
+                                             uint32_t vtile) {
+  reg_fence(o);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    Wgmma<T, 1>::rs(o, pa[kk], sw128_desc(vtile + kk * 2048, 1, 64), 1);
+  wg_commit();
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// l = the row sums of the rounded p held in A fragments (K6): a separate
+// fp32 reduction, each lane over its 16 keys of a row, then over the quad
+template <typename T>
+__device__ __forceinline__ void k1h_row_sum(float (&l)[2], const uint32_t (&pa)[4][4]) {
+  float part[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = unpack2<T>(pa[kk][i]);
+      part[i & 1] += x.x + x.y;
+    }
+  l[0] = quad_sum(part[0]);
+  l[1] = quad_sum(part[1]);
+}
+
 // m = max(m, s) over the chunk's keys below tk (padded keys masked, never 0);
 // MASK = false for a chunk wholly below tk
 template <bool MASK>
@@ -706,9 +808,11 @@ __device__ __forceinline__ void k1h_probs(uint32_t (&pa)[4][4], const float (&s)
     k1h_probs_m<T, true>(pa, s, ml, k0, tk, t);
 }
 
-// out = o / l for the warp's rows below tq
-template <typename T>
-__device__ __forceinline__ void k1h_store(T* __restrict__ out, const float (&o)[36],
+// out = o / l for the warp's rows below tq; `out` is the slice's row 0 and ld
+// its row stride in elements.  Rows at or past tq are never written: in the
+// packed layout they are the next batch's.
+template <typename T, int N>
+__device__ __forceinline__ void k1h_store(T* __restrict__ out, int ld, const float (&o)[N],
                                           const float (&l)[2], int row0, int tq, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -716,7 +820,7 @@ __device__ __forceinline__ void k1h_store(T* __restrict__ out, const float (&o)[
     const int row = row0 + g + 8 * h;
     if (row >= tq) continue;
     const float den = l[h] > 0.f ? l[h] : 1.f;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)row * 64 + 2 * t);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)row * ld + 2 * t);
 #pragma unroll
     for (int j = 0; j < 8; ++j) dst[4 * j] = pack2<T>(o[4 * j + 2 * h] / den, o[4 * j + 2 * h + 1] / den);
   }
@@ -727,7 +831,23 @@ struct K1HParams {
   int bh, tq, tk;
   int nch;  // 64-key chunks (time route)
   float scale;
+  int heads;  // packed layout: slice = batch * heads + head
+  int ldo;    // packed layout: the output's row stride (elements)
 };
+
+// row 0 of slice s in the output, and the output's row stride
+template <typename T, bool PACKED>
+__device__ __forceinline__ T* k1h_out(const K1HParams& prm, int s, int& ld) {
+  T* o = static_cast<T*>(prm.o);
+  if constexpr (PACKED) {
+    const int bi = s / prm.heads, hi = s - bi * prm.heads;
+    ld = prm.ldo;
+    return o + (size_t)bi * prm.tq * prm.ldo + hi * 64;
+  } else {
+    ld = 64;
+    return o + (size_t)s * prm.tq * 64;
+  }
+}
 
 __device__ __forceinline__ uint32_t k1h_align(const unsigned char* p) {
   return (smem_u32(p) + 1023u) & ~1023u;
@@ -744,8 +864,11 @@ __device__ __forceinline__ void k1h_fill_ones(uint32_t ones) {
 }
 
 // Time route: K and V of a slice stay resident; the two consumer
-// warpgroups take alternate 64-row query tiles of it.
-template <typename T>
+// warpgroups take alternate 64-row query tiles of it.  PACKED (K7): the
+// slices are the (batch, head) pairs of (b, t, row stride) rows, read through
+// 4-D tensor maps, and the output goes back in the packed layout; the
+// pipeline and the arithmetic are K1's.
+template <typename T, bool PACKED>
 __global__ void __launch_bounds__(K1H_THREADS, 1)
 k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, const K1HParams prm) {
@@ -788,17 +911,17 @@ k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
         if (n > 0) mbar_wait(kv_empty, (n - 1) & 1);
         for (int c = 0; c < nch; ++c) {  // every K chunk before V: pass 1 needs K only
           mbar_expect_tx(k_full(c), K1H_TILE);
-          tma_load_tile(kbuf + c * K1H_TILE, &mk, k_full(c), 64 * c, s);
+          k1h_load_tile<PACKED>(kbuf + c * K1H_TILE, &mk, k_full(c), 64 * c, s, prm.heads);
         }
         for (int c = 0; c < nch; ++c) {
           mbar_expect_tx(v_full(c), K1H_TILE);
-          tma_load_tile(vbuf + c * K1H_TILE, &mv, v_full(c), 64 * c, s);
+          k1h_load_tile<PACKED>(vbuf + c * K1H_TILE, &mv, v_full(c), 64 * c, s, prm.heads);
         }
         for (int j = 0; j < nqt; ++j) {
           const int w = j % K1H_CONS;
           if (used[w] > 0) mbar_wait(q_empty(w), (used[w] - 1) & 1);
           mbar_expect_tx(q_full(w), K1H_TILE);
-          tma_load_tile(qbuf + w * K1H_TILE, &mq, q_full(w), 64 * j, s);
+          k1h_load_tile<PACKED>(qbuf + w * K1H_TILE, &mq, q_full(w), 64 * j, s, prm.heads);
           ++used[w];
         }
       }
@@ -806,7 +929,6 @@ k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(K1H_CONSUMER_REGS) : "memory");
     const int wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, t = lane & 3;
-    T* __restrict__ o = static_cast<T*>(prm.o);
     int n = 0, used = 0;
     for (int s = blockIdx.x; s < prm.bh; s += gridDim.x, ++n) {
       const uint32_t par = n & 1;
@@ -880,7 +1002,9 @@ k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
         reg_fence(pb);
         reg_fence(qa);
         const float l[2] = {acc[32], acc[34]};
-        k1h_store<T>(o + (size_t)s * prm.tq * 64, acc, l, 64 * j + 16 * wi, prm.tq, lane);
+        int ld;
+        T* out = k1h_out<T, PACKED>(prm, s, ld);
+        k1h_store<T>(out, ld, acc, l, 64 * j + 16 * wi, prm.tq, lane);
       }
       // a warpgroup without a tile here must not arrive for this slice
       // before the previous slice's release has completed
@@ -892,19 +1016,21 @@ k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
 
 // Band route: one slice is one query tile and one key chunk; the producer
 // keeps K1H_STAGES slices (q, k, v) in flight, the consumer warpgroups take
-// alternate slices.
-template <typename T>
+// alternate slices.  SLIM (K6): p.v is the plain m64n64k16 product, the row
+// sum a separate fp32 reduction over the rounded p in registers, taken while
+// that product runs, and there is no ones block in shared memory.
+template <typename T, bool SLIM>
 __global__ void __launch_bounds__(K1H_THREADS, 1)
 k1h_band_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, const K1HParams prm) {
   extern __shared__ unsigned char k1h_smem[];
   const uint32_t ring = k1h_align(k1h_smem);  // stage st: q, k, v tiles at 3 * st
   const uint32_t ones = ring + 3 * K1H_STAGES * K1H_TILE;  // 2 KB, past every v tile
-  const uint32_t bars = ones + 2048;
+  const uint32_t bars = ones + (SLIM ? 0 : 2048);
   auto full = [&](int st) { return bars + 8 * st; };
   auto empty = [&](int st) { return bars + 8 * (K1H_STAGES + st); };
 
-  k1h_fill_ones<T>(ones);
+  if constexpr (!SLIM) k1h_fill_ones<T>(ones);
   if (threadIdx.x == 0) {
     for (int st = 0; st < K1H_STAGES; ++st) {
       mbar_init(full(st), 1);
@@ -948,19 +1074,28 @@ k1h_band_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
       float m[2] = {-INFINITY, -INFINITY};
       k1h_max(m, s_acc, 0, prm.tk, t);
       const float ml[2] = {quad_max(m[0]) * K1H_LOG2E, quad_max(m[1]) * K1H_LOG2E};
-      float acc[36];
+      float acc[SLIM ? 32 : 36];
 #pragma unroll
-      for (int e = 0; e < 36; ++e) acc[e] = 0.f;
+      for (int e = 0; e < (SLIM ? 32 : 36); ++e) acc[e] = 0.f;
       uint32_t pa[4][4];
       k1h_probs<T>(pa, s_acc, ml, 0, prm.tk, t);
-      k1h_issue_pv<T>(acc, pa, tile + 2 * K1H_TILE, ones);
+      float l[2];
+      if constexpr (SLIM) {
+        k1h_issue_pv<T>(acc, pa, tile + 2 * K1H_TILE);
+        k1h_row_sum<T>(l, pa);
+      } else {
+        k1h_issue_pv<T>(acc, pa, tile + 2 * K1H_TILE, ones);
+      }
       wg_wait<0>();
       reg_fence(acc);
       reg_fence(pa);
       reg_fence(qa);
       mbar_arrive(empty(st));
-      const float l[2] = {acc[32], acc[34]};
-      k1h_store<T>(o + (size_t)s * prm.tq * 64, acc, l, 16 * wi, prm.tq, lane);
+      if constexpr (!SLIM) {
+        l[0] = acc[32];
+        l[1] = acc[34];
+      }
+      k1h_store<T>(o + (size_t)s * prm.tq * 64, 64, acc, l, 16 * wi, prm.tq, lane);
     }
   }
 }
@@ -1002,27 +1137,85 @@ bool k1h_map(CUtensorMap* map, const void* ptr, int t, int bh, CUtensorMapDataTy
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T>
-cudaError_t k1h_launch(const void* q, const void* k, const void* v, const K1HParams& prm,
-                       bool band, CUtensorMapDataType dt, cudaStream_t stream) {
-  CUtensorMap mq, mk, mv;
-  if (!k1h_map(&mq, q, prm.tq, prm.bh, dt) || !k1h_map(&mk, k, prm.tk, prm.bh, dt) ||
-      !k1h_map(&mv, v, prm.tk, prm.bh, dt))
-    return cudaErrorInvalidValue;
+// (b, t, ld) 16-bit rows holding `heads` blocks of 64 columns each, as a 4-D
+// map (64, heads, t, b) with (64, 1, 64, 1) boxes: the same 8 KB tile.  t is
+// a dimension of its own, so a box past t is zero-filled and never reads the
+// next batch; so is heads, so a view of a fused qkv activation (ld = 3 *
+// heads * 64) never reads its neighbour's columns.  ld * 2 bytes must be a
+// multiple of 16, as the base address must.
+bool k1h_map_packed(CUtensorMap* map, const void* ptr, int t, int b, int heads, int ld,
+                    CUtensorMapDataType dt) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)heads, (cuuint64_t)t, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)ld * 2, (cuuint64_t)t * ld * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, dt, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct K1HMaps {
+  CUtensorMap q, k, v;
+};
+
+// one persistent CTA per SM (fewer when there are fewer slices)
+template <typename Kernel>
+cudaError_t k1h_launch(Kernel kernel, size_t smem_bytes, const K1HMaps& maps,
+                       const K1HParams& prm, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int grid = prm.bh < sms ? prm.bh : sms;
-  auto kernel = band ? k1h_band_kernel<T> : k1h_time_kernel<T>;
-  // alignment slack, the tiles, 2 KB of ones, the barriers
-  const size_t bytes = band ? 3072 + 3 * K1H_STAGES * K1H_TILE + 16 * K1H_STAGES
-                            : 3072 + (K1H_CONS + 2 * (size_t)prm.nch) * K1H_TILE +
-                                  8 * (2 * K1H_CONS + 1 + 2 * prm.nch);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, K1H_THREADS, bytes, stream>>>(mq, mk, mv, prm);
+  kernel<<<grid, K1H_THREADS, smem_bytes, stream>>>(maps.q, maps.k, maps.v, prm);
   return cudaGetLastError();
+}
+
+// shared memory of the time route: alignment slack, a q tile per consumer,
+// nch k and v tiles, 2 KB of ones, the barriers
+size_t k1h_time_bytes(int nch) {
+  return 1024 + (K1H_CONS + 2 * (size_t)nch) * K1H_TILE + 2048 +
+         8 * (2 * K1H_CONS + 1 + 2 * (size_t)nch);
+}
+
+// of the band route: alignment slack, the ring, 2 KB of ones unless SLIM, the
+// barriers
+template <bool SLIM>
+constexpr size_t k1h_band_bytes() {
+  return 1024 + 3 * (size_t)K1H_STAGES * K1H_TILE + (SLIM ? 0 : 2048) + 16 * K1H_STAGES;
+}
+
+// contiguous (bh, t, 64) tensors: K1's two routes, and K6 (slim) on the band
+// route
+template <typename T>
+cudaError_t k1h_run(const void* q, const void* k, const void* v, const K1HParams& prm, bool band,
+                    bool slim, CUtensorMapDataType dt, cudaStream_t stream) {
+  K1HMaps maps;
+  if (!k1h_map(&maps.q, q, prm.tq, prm.bh, dt) || !k1h_map(&maps.k, k, prm.tk, prm.bh, dt) ||
+      !k1h_map(&maps.v, v, prm.tk, prm.bh, dt))
+    return cudaErrorInvalidValue;
+  if (!band)
+    return k1h_launch(k1h_time_kernel<T, false>, k1h_time_bytes(prm.nch), maps, prm, stream);
+  if (slim)
+    return k1h_launch(k1h_band_kernel<T, true>, k1h_band_bytes<true>(), maps, prm, stream);
+  return k1h_launch(k1h_band_kernel<T, false>, k1h_band_bytes<false>(), maps, prm, stream);
+}
+
+// packed (b, t, ld) rows: K7 on the time route
+template <typename T>
+cudaError_t k1h_run_packed(const void* q, const void* k, const void* v, const K1HParams& prm,
+                           int b, int ld, CUtensorMapDataType dt, cudaStream_t stream) {
+  K1HMaps maps;
+  if (!k1h_map_packed(&maps.q, q, prm.tq, b, prm.heads, ld, dt) ||
+      !k1h_map_packed(&maps.k, k, prm.tk, b, prm.heads, ld, dt) ||
+      !k1h_map_packed(&maps.v, v, prm.tk, b, prm.heads, ld, dt))
+    return cudaErrorInvalidValue;
+  return k1h_launch(k1h_time_kernel<T, true>, k1h_time_bytes(prm.nch), maps, prm, stream);
 }
 
 // ------------------------------------------------------------------ K2
@@ -1397,6 +1590,27 @@ int k1_entry(const K1Params& prm, int d, int dtype, void* stream) {
   return (int)cudaErrorInvalidValue;
 }
 
+// K1's Hopper design: d = 64, 16-bit, tk <= 768, contiguous (bh, t, 64) rows
+// on 16-byte aligned pointers.  band != 0 takes the band route (tq <= 64 and
+// tk <= 64), else the time route.  The wrapper chooses the route by shape.
+// slim (band only) is K6: the row sum apart.
+int k1h_entry(const void* q, const void* k, const void* v, void* o, int bh, int tq, int tk,
+              float scale, int dtype, int band, bool slim, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || tq <= 0 || tk <= 0 || tk > 64 * K1H_MAX_CHUNKS) return (int)cudaErrorInvalidValue;
+  if (band && (tq > 64 || tk > 64)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const K1HParams prm{o, bh, tq, tk, (tk + 63) / 64, scale, 1, 64};
+  if (dtype == DT_BF16)
+    return (int)k1h_run<__nv_bfloat16>(q, k, v, prm, band != 0, slim,
+                                       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s);
+  if (dtype == DT_F16)
+    return (int)k1h_run<__half>(q, k, v, prm, band != 0, slim,
+                                CU_TENSOR_MAP_DATA_TYPE_FLOAT16, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int k1_attention_nk1(const void* q, const void* k, const void* v, void* o, int bh,
@@ -1406,23 +1620,38 @@ extern "C" int k1_attention_nk1(const void* q, const void* k, const void* v, voi
   return k1_entry<K1_SCALED>(prm, d, dtype, stream);
 }
 
-// K1's Hopper design: d = 64, 16-bit, tk <= 768, contiguous (bh, t, 64) rows
-// on 16-byte aligned pointers.  band != 0 takes the band route (tq <= 64 and
-// tk <= 64), else the time route.  The wrapper chooses the route by shape.
 extern "C" int k1_attention_nk1_sm90(const void* q, const void* k, const void* v, void* o, int bh,
                                      int tq, int tk, float scale, int dtype, int band,
                                      void* stream) {
+  return k1h_entry(q, k, v, o, bh, tq, tk, scale, dtype, band, false, stream);
+}
+
+// K6 on the Hopper band design: d = 64, 16-bit, tq <= 64 and tk <= 64,
+// contiguous (bh, t, 64) rows on 16-byte aligned pointers
+extern "C" int k6_attention_slim_sm90(const void* q, const void* k, const void* v, void* o,
+                                      int bh, int tq, int tk, float scale, int dtype,
+                                      void* stream) {
+  return k1h_entry(q, k, v, o, bh, tq, tk, scale, dtype, 1, true, stream);
+}
+
+// K7 on the Hopper time design: d = 64, 16-bit, t <= 768; q/k/v as for
+// k7_attention_packed, on 16-byte aligned pointers with ld_in * 2 bytes a
+// multiple of 16; output (b, t, heads*64) contiguous
+extern "C" int k7_attention_packed_sm90(const void* q, const void* k, const void* v, void* o,
+                                        int b, int heads, int t, int ld_in, float scale,
+                                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bh <= 0 || tq <= 0 || tk <= 0 || tk > 64 * K1H_MAX_CHUNKS) return (int)cudaErrorInvalidValue;
-  if (band && (tq > 64 || tk > 64)) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
+  if (b <= 0 || heads <= 0 || t <= 0 || t > 64 * K1H_MAX_CHUNKS || ld_in < heads * 64)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0 || ld_in % 8 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const K1HParams prm{o, bh, tq, tk, (tk + 63) / 64, scale};
+  const K1HParams prm{o, b * heads, t, t, (t + 63) / 64, scale, heads, heads * 64};
   if (dtype == DT_BF16)
-    return (int)k1h_launch<__nv_bfloat16>(q, k, v, prm, band != 0,
-                                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s);
+    return (int)k1h_run_packed<__nv_bfloat16>(q, k, v, prm, b, ld_in,
+                                              CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s);
   if (dtype == DT_F16)
-    return (int)k1h_launch<__half>(q, k, v, prm, band != 0, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, s);
+    return (int)k1h_run_packed<__half>(q, k, v, prm, b, ld_in, CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                                       s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,13 +21,24 @@ with the row sum taken apart and with q/k/v read from the packed
 
 K1 has two CUDA designs, chosen by shape alone (:func:`k1_route`): the
 Hopper design (TMA, wgmma, warp specialisation) for d = 64 and tk <= 768,
-which covers both RoFormer axes, and the PR-1 core for every other shape;
-K3, K6 and K7 are variants of the PR-1 core.  K2 runs a register-tiled
-fp32 kernel for fp32 inputs and the PR-1 kernel for 16-bit ones.
+which covers both RoFormer axes, and the WMMA core for every other shape.
+K6 and K7 run on the same two designs, because what held them back on the
+WMMA core was the core (keys staged once per query tile by plain loads,
+scores and p through shared memory), not their own functions:
+K6 takes the Hopper band route with the row sum reduced from the rounded p
+in registers and no ones-widened v (:func:`k6_route`: d = 64, 16-bit,
+tq <= 64 and tk <= 64, 16-byte aligned bases); K7 takes the Hopper time route with 4-D tensor maps
+over the packed rows, K and V resident per (batch, head) slice
+(:func:`k7_route`: d = 64, 16-bit, t <= 768, rows TMA can address); every
+other shape of either stays on its WMMA core variant.  K3 is a variant of
+the WMMA core.  A route is chosen before any launch and nothing gives way
+to another route after a failure.  K2 runs a register-tiled fp32 kernel for
+fp32 inputs and the row-per-thread-group kernel for 16-bit ones.
 
 Each kernel wrapper launches its kernel for a CUDA tensor and uses the
 kernel's plain PyTorch version for a CPU tensor; there is no other route.
-It counts its launches in a plain integer attribute (``.launches``).
+It counts its launches in a plain integer attribute (``.launches``), and
+those on the Hopper design in ``.sm90_launches`` (K1, K6, K7).
 The plain versions repeat each kernel's rounding points, so a CPU run
 computes what the card computes up to summation order.
 """
@@ -178,6 +189,10 @@ def _lib() -> ctypes.CDLL:
         lib.k3_attention_nk1_rope.restype = i
         lib.k6_attention_slim.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
         lib.k6_attention_slim.restype = i
+        lib.k6_attention_slim_sm90.argtypes = [p, p, p, p, i, i, i, f, i, p]
+        lib.k6_attention_slim_sm90.restype = i
+        lib.k7_attention_packed_sm90.argtypes = [p, p, p, p, i, i, i, i, f, i, p]
+        lib.k7_attention_packed_sm90.restype = i
         lib.k7_attention_packed.argtypes = [p, p, p, p, i, i, i, i, i, f, i, p]
         lib.k7_attention_packed.restype = i
         lib._typed = True
@@ -205,7 +220,7 @@ def k1_route(bh: int, tq: int, tk: int, d: int, dtype) -> str:
     """Which K1 kernel a CUDA call of this shape launches, by shape alone:
     ``"band"`` or ``"time"`` for the Hopper design (d = 64, 16-bit,
     tk <= 768; band when tq and tk both fit one 64-row tile), ``"core"`` for
-    the PR-1 core (every other shape)."""
+    the WMMA core (every other shape)."""
     del bh  # any number of slices: both designs are persistent
     if d != 64 or dtype not in (torch.bfloat16, torch.float16) or tk > _K1H_MAX_KEYS:
         return "core"
@@ -226,7 +241,7 @@ def attention_nk1(q, k, v, scale: float | None = None):
     """K1: non-causal attention over one key block, 16-bit inputs.
     CUDA tensors launch ``k1_attention_nk1_sm90`` on the route
     :func:`k1_route` gives (counted in ``.sm90_launches`` too), or the
-    PR-1 core ``k1_attention_nk1``; CPU tensors take
+    WMMA core ``k1_attention_nk1``; CPU tensors take
     :func:`attention_nk1_reference`."""
     _check("attention_nk1", q, k, v, (torch.bfloat16, torch.float16))
     b, h, tq, d = q.shape
@@ -258,7 +273,7 @@ attention_nk1.sm90_launches = 0
 
 
 def attention_nk1_core(q, k, v, scale: float | None = None):
-    """K1's function on the PR-1 core whatever the shape: the yardstick the
+    """K1's function on the WMMA core whatever the shape: the yardstick the
     Hopper design is timed against.  The package routes through
     :func:`attention_nk1`; CPU tensors take :func:`attention_nk1_reference`."""
     _check("attention_nk1_core", q, k, v, (torch.bfloat16, torch.float16))
@@ -348,40 +363,98 @@ def attention_nk1_rope(q, k, v, rope_cos, rope_sin, scale: float | None = None):
 attention_nk1_rope.launches = 0
 
 
-def slim_attention(q, k, v, scale: float | None = None):
-    """K6: K1's function with the row sum a separate fp32 reduction over the
-    rounded p, 16-bit inputs, no causal mask.  Its plain version is
-    :func:`attention_nk1_reference`, which sums p that way.  CUDA tensors
-    launch ``k6_attention_slim`` with twice K1's slices per CTA (the probe's
-    question: a fold of 128 slices per TPU grid step against K1's 64)."""
-    _check("slim_attention", q, k, v, (torch.bfloat16, torch.float16))
+def k6_route(bh: int, tq: int, tk: int, d: int, dtype, aligned: bool) -> str:
+    """Which K6 kernel a CUDA call launches, by shape and alignment alone:
+    ``"band"`` for the Hopper band design (d = 64, 16-bit, tq and tk both
+    within one 64-row tile, q, k and v on the 16-byte boundaries TMA needs:
+    ``aligned``), ``"core"`` for the WMMA core (everything else)."""
+    return "band" if aligned and k1_route(bh, tq, tk, d, dtype) == "band" else "core"
+
+
+def _launch_k6_core(q, k, v, scale: float):
     b, h, tq, d = q.shape
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    if not q.is_cuda:
-        return attention_nk1_reference(q, k, v, scale)
-    if d not in _K1_HEAD_DIMS:
-        raise ValueError(f"slim_attention: head dim {d} not in {_K1_HEAD_DIMS}")
     out = torch.empty_like(q)
     err = _lib().k6_attention_slim(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, k.shape[2], d,
         _scale_in(q.dtype, scale), _DTYPE_CODE[q.dtype], 2 * k1_slices_per_cta(b * h, tq),
         torch.cuda.current_stream(q.device).cuda_stream)
+    return out, err
+
+
+def _launch_k6_band(q, k, v, scale: float):
+    b, h, tq, _ = q.shape
+    out = torch.empty_like(q)
+    err = _lib().k6_attention_slim_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, k.shape[2],
+        _scale_in(q.dtype, scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out, err
+
+
+def slim_attention(q, k, v, scale: float | None = None):
+    """K6: K1's function with the row sum a separate fp32 reduction over the
+    rounded p and no ones-widened v, 16-bit inputs, no causal mask.  Its
+    plain version is :func:`attention_nk1_reference`, which sums p that way.
+    CUDA tensors launch, by :func:`k6_route`, ``k6_attention_slim_sm90``
+    (the Hopper band design, counted in ``.sm90_launches`` too) or the WMMA
+    core ``k6_attention_slim`` with twice K1's slices per CTA.  The probe's
+    question, a fold of 128 slices per TPU grid step against K1's 64, is on
+    this card the number of slices the band design keeps in flight; depths
+    of 4 to 9 measured alike, so it keeps K1's."""
+    _check("slim_attention", q, k, v, (torch.bfloat16, torch.float16))
+    b, h, tq, d = q.shape
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if not q.is_cuda:
+        return attention_nk1_reference(q, k, v, scale)
+    if d not in _K1_HEAD_DIMS:
+        raise ValueError(f"slim_attention: head dim {d} not in {_K1_HEAD_DIMS}")
+    aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
+    if k6_route(b * h, tq, k.shape[2], d, q.dtype, aligned) == "band":
+        out, err = _launch_k6_band(q, k, v, scale)
+        slim_attention.sm90_launches += 1
+    else:
+        out, err = _launch_k6_core(q, k, v, scale)
     slim_attention.launches += 1
     _raise_on(err, "slim_attention")
     return out
 
 
 slim_attention.launches = 0
+slim_attention.sm90_launches = 0
 
 
-def packed_attention(q, k, v, heads: int, dim_head: int, scale: float | None = None):
-    """K7: K1's function on already-roped q/k/v in the packed
-    ``(b, t, heads*dim_head)`` layout, output in the same layout, 16-bit
-    inputs.  The rows may be strided (a view of a fused qkv activation):
-    the last axis must be unit-stride and q, k, v must share their strides.
-    CUDA tensors launch ``k7_attention_packed``; CPU tensors take
-    :func:`packed_attention_reference`."""
-    name = "packed_attention"
+def slim_attention_core(q, k, v, scale: float | None = None):
+    """K6's function on the WMMA core whatever the shape: the yardstick the
+    Hopper band design is timed against.  The package routes through
+    :func:`slim_attention`; CPU tensors take :func:`attention_nk1_reference`."""
+    _check("slim_attention_core", q, k, v, (torch.bfloat16, torch.float16))
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if not q.is_cuda:
+        return attention_nk1_reference(q, k, v, scale)
+    if q.shape[-1] not in _K1_HEAD_DIMS:
+        raise ValueError(f"slim_attention_core: head dim {q.shape[-1]} not in {_K1_HEAD_DIMS}")
+    out, err = _launch_k6_core(q, k, v, scale)
+    slim_attention_core.launches += 1
+    _raise_on(err, "slim_attention_core")
+    return out
+
+
+slim_attention_core.launches = 0
+
+
+def k7_route(b: int, heads: int, t: int, d: int, ld: int, dtype, aligned: bool) -> str:
+    """Which K7 kernel a CUDA call launches, by shape, stride and alignment
+    alone: ``"time"`` for the Hopper time design (d = 64, 16-bit, t <= 768,
+    and rows TMA can address: q, k and v on 16-byte boundaries (``aligned``)
+    with a row stride ``ld`` (elements) whose bytes are a multiple of 16),
+    ``"core"`` for the WMMA core's packed variant (everything else)."""
+    del b, heads  # any number of slices: both designs walk them
+    if d != 64 or dtype not in (torch.bfloat16, torch.float16) or t > _K1H_MAX_KEYS:
+        return "core"
+    return "time" if aligned and (2 * ld) % 16 == 0 else "core"
+
+
+def _packed_check(name: str, q, k, v, heads: int, dim_head: int) -> None:
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{name}: q, k, v must share one (b, t, heads*dim_head) shape")
     b, t, inner = q.shape
@@ -391,27 +464,90 @@ def packed_attention(q, k, v, heads: int, dim_head: int, scale: float | None = N
         raise TypeError(f"{name}: dtype {q.dtype} not in (bfloat16, float16)")
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q, k, v on different devices")
-    scale = 1.0 / math.sqrt(dim_head) if scale is None else float(scale)
-    if not q.is_cuda:
-        return packed_attention_reference(q, k, v, heads, dim_head, scale)
+
+
+def _packed_cuda_check(name: str, q, k, v, dim_head: int) -> int:
+    """The row stride (elements) of CUDA q/k/v the kernels can walk."""
     if dim_head not in _K1_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {dim_head} not in {_K1_HEAD_DIMS}")
     ld = q.stride(1)
     if (any(x.stride() != q.stride() for x in (k, v)) or q.stride(2) != 1
-            or q.stride(0) != t * ld):
+            or q.stride(0) != q.shape[1] * ld):
         raise ValueError(f"{name}: the kernel takes rows of one stride with a unit last "
                          f"axis; got strides {q.stride()}, {k.stride()}, {v.stride()}")
+    return ld
+
+
+def _launch_k7_core(q, k, v, heads: int, dim_head: int, ld: int, scale: float):
+    b, t, inner = q.shape
     out = torch.empty(b, t, inner, dtype=q.dtype, device=q.device)
     err = _lib().k7_attention_packed(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, t, dim_head, ld,
         _scale_in(q.dtype, scale), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
+    return out, err
+
+
+def _launch_k7_time(q, k, v, out, heads: int, ld: int, scale: float) -> int:
+    """The Hopper time design on packed rows, into ``out``: ``(b, t, heads*64)``
+    contiguous and written only at rows below t of each batch."""
+    b, t, _ = q.shape
+    return _lib().k7_attention_packed_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, t, ld,
+        _scale_in(q.dtype, scale), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def packed_attention(q, k, v, heads: int, dim_head: int, scale: float | None = None):
+    """K7: K1's function on already-roped q/k/v in the packed
+    ``(b, t, heads*dim_head)`` layout, output in the same layout, 16-bit
+    inputs.  The rows may be strided (a view of a fused qkv activation):
+    the last axis must be unit-stride and q, k, v must share their strides.
+    CUDA tensors launch, by :func:`k7_route`, ``k7_attention_packed_sm90``
+    (the Hopper time design over 4-D tensor maps of the packed rows, counted
+    in ``.sm90_launches`` too) or the WMMA core ``k7_attention_packed``; CPU
+    tensors take :func:`packed_attention_reference`."""
+    name = "packed_attention"
+    _packed_check(name, q, k, v, heads, dim_head)
+    b, t, inner = q.shape
+    scale = 1.0 / math.sqrt(dim_head) if scale is None else float(scale)
+    if not q.is_cuda:
+        return packed_attention_reference(q, k, v, heads, dim_head, scale)
+    ld = _packed_cuda_check(name, q, k, v, dim_head)
+    aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
+    if k7_route(b, heads, t, dim_head, ld, q.dtype, aligned) == "time":
+        out = torch.empty(b, t, inner, dtype=q.dtype, device=q.device)
+        err = _launch_k7_time(q, k, v, out, heads, ld, scale)
+        packed_attention.sm90_launches += 1
+    else:
+        out, err = _launch_k7_core(q, k, v, heads, dim_head, ld, scale)
     packed_attention.launches += 1
     _raise_on(err, name)
     return out
 
 
 packed_attention.launches = 0
+packed_attention.sm90_launches = 0
+
+
+def packed_attention_core(q, k, v, heads: int, dim_head: int, scale: float | None = None):
+    """K7's function on the WMMA core whatever the shape: the yardstick the
+    Hopper time design is timed against.  The package routes through
+    :func:`packed_attention`; CPU tensors take
+    :func:`packed_attention_reference`."""
+    name = "packed_attention_core"
+    _packed_check(name, q, k, v, heads, dim_head)
+    scale = 1.0 / math.sqrt(dim_head) if scale is None else float(scale)
+    if not q.is_cuda:
+        return packed_attention_reference(q, k, v, heads, dim_head, scale)
+    ld = _packed_cuda_check(name, q, k, v, dim_head)
+    out, err = _launch_k7_core(q, k, v, heads, dim_head, ld, scale)
+    packed_attention_core.launches += 1
+    _raise_on(err, name)
+    return out
+
+
+packed_attention_core.launches = 0
 
 
 def reset_launch_counts() -> None:
@@ -421,7 +557,11 @@ def reset_launch_counts() -> None:
     flash_attention_fwd.launches = 0
     attention_nk1_rope.launches = 0
     slim_attention.launches = 0
+    slim_attention.sm90_launches = 0
+    slim_attention_core.launches = 0
     packed_attention.launches = 0
+    packed_attention.sm90_launches = 0
+    packed_attention_core.launches = 0
 
 
 def flash_attention(q, k, v, causal: bool = False, scale: float | None = None,

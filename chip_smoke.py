@@ -9,9 +9,12 @@ drives the separate -> RVC chain at full width, and checks the output.
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
   card       nvidia-smi name and power limit, torch/CUDA versions, build seconds
-  kernels    K1 and K2 against their plain versions at the main path's shapes,
-             K1's Hopper design against the PR-1 core on each axis (in turns);
-             K3-K7 (off the chain) against theirs at the RoFormer's shapes,
+  kernels    K1 and K2 against their plain versions at the main path's shapes
+             (K2 in fp32 and in bf16), K1's Hopper design against the WMMA core
+             on each axis (in turns); K3-K7 (off the chain) against theirs at
+             the RoFormer's shapes: K7 on the packed layout and on a fused
+             qkv's views, K6 and K7 each against its WMMA core and against
+             K1's route of the same shape, K6 at each pipeline depth built,
              and the three comparisons the TPU probes were written for
   separator  two BS-RoFormer members (dim 512, 12 axial pairs, 8 heads x 64,
              distinct seeded weights) on a 60 s stereo 44.1 kHz track: 8 chunks,
@@ -22,7 +25,8 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              mel-L1 < 1e-2 (BASELINE.md's gate, measured as tests/test_fidelity.py),
              held with retrieval off (see phase_fidelity)
   reference  small inputs at full width, the card against the CPU's plain path
-  timing     one warm chain pass: seconds and audio-seconds per second
+  timing     one warm chain pass: seconds and audio-seconds per second, and two
+             more passes for the spread
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -102,10 +106,10 @@ K1H_LAUNCH_REGS = 168
 
 
 def check_new_kernels(report: str) -> None:
-    """One line per kernel of this design (K1's Hopper routes, K2's fp32
-    kernel) with its registers and spills; raises before any launch if a
-    Hopper K1 kernel would start with fewer registers than setmaxnreg
-    hands out."""
+    """One line per kernel of this design (the Hopper routes of K1, K6 and
+    K7, all ``k1h_`` kernels, and K2's fp32 kernel) with its registers and
+    spills; raises before any launch if a ``k1h_`` kernel would start with
+    fewer registers than setmaxnreg hands out."""
     for name, regs, spill in ptxas_kernels(report):
         if "k1h_" not in name and "k2f_" not in name:
             continue
@@ -265,6 +269,10 @@ def phase_kernels(dev, card: str) -> list[dict]:
          (8, 12, 399, 64), (8, 12, 399, 64), torch.float32, False, True),
         ("K2 flash_attention_fwd (causal, tq != tk)", "k2_causal", "K2",
          (2, 8, 100, 64), (2, 8, 333, 64), torch.float32, True, False),
+        ("K2 flash_attention_fwd (HuBERT shape, bf16)", "k2_hubert_bf16", "K2",
+         (8, 12, 399, 64), (8, 12, 399, 64), bf, False, False),
+        ("K2 flash_attention_fwd (causal, tq != tk, bf16)", "k2_causal_bf16", "K2",
+         (2, 8, 100, 64), (2, 8, 333, 64), bf, True, False),
     ]
     for label, key, kern, qs, ks, dt, causal, main in cases:
         q, k, v = rnd(qs, dt), rnd(ks, dt), rnd(ks, dt)
@@ -276,8 +284,8 @@ def phase_kernels(dev, card: str) -> list[dict]:
                 attention_work(q, k, False), PEAK_BF16, k1_rep)
             route = A.k1_route(qs[0] * qs[1], qs[2], ks[2], qs[3], dt)
             expect(route in ("band", "time"), f"{label}: routed to {route}")
-            # the PR-1 core through its own entry, as a yardstick only
-            means = compare(f"K1 Hopper {route} route vs PR-1 core ({key})", {
+            # the WMMA core through its own entry, as a yardstick only
+            means = compare(f"K1 Hopper {route} route vs WMMA core ({key})", {
                 "hopper": lambda: A.attention_nk1(q, k, v),
                 "core": lambda: A.attention_nk1_core(q, k, v),
             }, card)
@@ -286,8 +294,10 @@ def phase_kernels(dev, card: str) -> list[dict]:
             rec = check_kernel(
                 label, lambda q, k, v, c=causal: A.flash_attention_fwd(q, k, v, causal=c),
                 lambda q, k, v, c=causal: A.flash_attention_reference(q, k, v, c, scale),
-                sdpa(causal), (q, k, v), attention_shape(q, k, causal), *k2_tol,
-                attention_work(q, k, causal), PEAK_FP32, k2_rep)
+                sdpa(causal), (q, k, v), attention_shape(q, k, causal),
+                *(k2_tol if dt == torch.float32 else k1_tol),
+                attention_work(q, k, causal), PEAK_FP32 if dt == torch.float32 else PEAK_BF16,
+                k2_rep)
         rec.update(case=key, kernel=kern, on_main_path=main)
         recs.append(rec)
         del q, k, v
@@ -316,35 +326,65 @@ def phase_kernels(dev, card: str) -> list[dict]:
     del q, k, v
     torch.cuda.empty_cache()
 
-    # K7: the time axis read straight from a fused (b, t, 3*h*d) qkv activation
+    # K7: the time axis in the packed (b, t, h*d) layout, contiguous and read
+    # straight from a fused (b, t, 3*h*d) qkv activation
     b, t, h, d = 496, 690, 8, 64
     inner = h * d
     qkv = rnd((b, t, 3 * inner), bf)
-    q, k, v = (x.contiguous() for x in qkv.split(inner, dim=-1))
-    work = attention_work(q.view(b, t, h, d).transpose(1, 2),
-                          k.view(b, t, h, d).transpose(1, 2), False)
 
     def heads_first(x):
         return x.view(b, t, h, d).transpose(1, 2)
 
-    rec = check_kernel(
-        "K7 packed_attention (RoFormer time axis, packed)",
-        lambda q, k, v: A.packed_attention(q, k, v, h, d),
-        lambda q, k, v: A.packed_attention_reference(q, k, v, h, d, scale),
-        lambda q, k, v: F.scaled_dot_product_attention(heads_first(q), heads_first(k),
-                                                       heads_first(v)),
-        (q, k, v), dict(q=list(q.shape), heads=h, dim_head=d, dtype=str(q.dtype)), *k1_tol,
-        work, PEAK_BF16, "tools/probe_packed_attn.py:68")
-    rec.update(case="k7_time", kernel="K7", on_main_path=False)
-    recs.append(rec)
-    del q, k, v
-    qs, ks, vs = qkv.split(inner, dim=-1)
+    def hopper_launches(fn, wrapper):
+        before = wrapper.sm90_launches
+        fn()
+        return wrapper.sm90_launches - before
+
+    k7_recs = {}
+    for layout in ("packed", "qkv views"):
+        q, k, v = qkv.split(inner, dim=-1)
+        if layout == "packed":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        route = A.k7_route(b, h, t, d, q.stride(1), bf, True)
+        expect(route == "time", f"K7 ({layout}): routed to {route}")
+        expect(hopper_launches(lambda: A.packed_attention(q, k, v, h, d),
+                               A.packed_attention) == 1,
+               f"K7 ({layout}): the launch was not on the Hopper design")
+        rec = check_kernel(
+            f"K7 packed_attention (RoFormer time axis, {layout})",
+            lambda q, k, v: A.packed_attention(q, k, v, h, d),
+            lambda q, k, v: A.packed_attention_reference(q, k, v, h, d, scale),
+            lambda q, k, v: F.scaled_dot_product_attention(heads_first(q), heads_first(k),
+                                                           heads_first(v)),
+            (q, k, v), dict(q=list(q.shape), row_stride=q.stride(1), heads=h, dim_head=d,
+                            dtype=str(q.dtype)), *k1_tol,
+            attention_work(heads_first(q), heads_first(k), False), PEAK_BF16,
+            "tools/probe_packed_attn.py:68")
+        means = compare(f"K7 Hopper time route vs WMMA core ({layout})", {
+            "hopper": lambda: A.packed_attention(q, k, v, h, d),
+            "core": lambda: A.packed_attention_core(q, k, v, h, d),
+        }, card)
+        rec.update(case="k7_time" if layout == "packed" else "k7_time_views", kernel="K7",
+                   on_main_path=False, k7_route=route, core_ms=means["core"],
+                   compare_hopper_ms=means["hopper"])
+        recs.append(rec)
+        k7_recs[layout] = (q, k, v)
+    qp, kp, vp = k7_recs["packed"]
+    qs, ks, vs = k7_recs["qkv views"]
+    q1, k1, v1 = (heads_first(x).contiguous() for x in (qp, kp, vp))
+    del k7_recs
 
     def split_transpose_k1():
         o = A.attention_nk1(heads_first(qs).contiguous(), heads_first(ks).contiguous(),
                             heads_first(vs).contiguous())
         return o.transpose(1, 2).reshape(b, t, inner)
 
+    compare("K7 on each layout vs K1's time route on the same slices", {
+        "K7 packed": lambda: A.packed_attention(qp, kp, vp, h, d),
+        "K7 qkv views": lambda: A.packed_attention(qs, ks, vs, h, d),
+        "K1": lambda: A.attention_nk1(q1, k1, v1),
+    }, card)
+    del q1, k1, v1, qp, kp, vp
     compare("K7 on the fused qkv's views vs split + 3 transposes + K1 + transpose back", {
         "K7": lambda: A.packed_attention(qs, ks, vs, h, d),
         "split+K1": split_transpose_k1,
@@ -355,13 +395,22 @@ def phase_kernels(dev, card: str) -> list[dict]:
     # K6: the band axis
     band_shape = (5520, 8, 62, 64)
     q, k, v = rnd(band_shape, bf), rnd(band_shape, bf), rnd(band_shape, bf)
+    route = A.k6_route(band_shape[0] * band_shape[1], 62, 62, 64, bf, True)
+    expect(route == "band", f"K6: routed to {route}")
+    expect(hopper_launches(lambda: A.slim_attention(q, k, v), A.slim_attention) == 1,
+           "K6: the launch was not on the Hopper design")
     rec = check_kernel(
         "K6 slim_attention (RoFormer band axis)",
         lambda q, k, v: A.slim_attention(q, k, v),
         lambda q, k, v: A.attention_nk1_reference(q, k, v, scale),
         sdpa(False), (q, k, v), attention_shape(q, k, False), *k1_tol,
         attention_work(q, k, False), PEAK_BF16, "tools/probe_freq_bh128.py:36")
-    rec.update(case="k6_band", kernel="K6", on_main_path=False)
+    means = compare("K6 Hopper band route vs WMMA core", {
+        "hopper": lambda: A.slim_attention(q, k, v),
+        "core": lambda: A.slim_attention_core(q, k, v),
+    }, card)
+    rec.update(case="k6_band", kernel="K6", on_main_path=False, k6_route=route,
+               core_ms=means["core"], compare_hopper_ms=means["hopper"])
     recs.append(rec)
     compare("K6 vs K1 (band axis)", {
         "K6": lambda: A.slim_attention(q, k, v),
@@ -648,10 +697,14 @@ def phase_timing(dev, sep, vc, audio, card: str, profile_dir: str | None) -> dic
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     total = t_sep + t_rvc
     dur = audio.shape[-1] / SEP_SR
+    # the stages are timed on the host's clock, which a shared host moves by
+    # several percent from pass to pass: two more passes show the spread
+    again = [sum(chain()[:2]) for _ in range(2)]
     rec = dict(sep_s=t_sep, rvc_s=t_rvc, chain_s=total, audio_s_per_s=dur / total,
-               peak_mem_gb=peak_gb, card=card)
+               chain_again_s=again, peak_mem_gb=peak_gb, card=card)
     log(f"[timing] warm chain on {dur:.1f} s: separate {t_sep:.3f} s, rvc {t_rvc:.3f} s, "
-        f"chain {total:.3f} s = {dur / total:.3f} audio-s/s, peak memory "
+        f"chain {total:.3f} s = {dur / total:.3f} audio-s/s (two more passes: "
+        f"{' / '.join(f'{x:.3f}' for x in again)} s), peak memory "
         f"{peak_gb:.2f} GB | {card}")
     if profile_dir:
         from pathlib import Path
@@ -734,7 +787,7 @@ def main() -> int:
                            "plain_ms", "bound_ms", "bound_by", "library_ms")}
         | {"launches": main_launches[r["kernel"]], "case": r["case"],
            "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
-        | {k: r[k] for k in ("k1_route", "core_ms") if k in r}
+        | {k: r[k] for k in ("k1_route", "k6_route", "k7_route", "core_ms") if k in r}
         for r in kernel_recs]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@ JAX, so it runs where JAX is not installed; on a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
+``.sm90_launches`` shows which design a call of K1, K6 or K7 ran on.
+
 Tolerances: K1, K3, K6 and K7 (16-bit) to 2 bf16 ulps of max|out| (the
 sums run in another order, which may flip an output's or a probability's
 rounding); K2 (fp32) to 2e-5 (fp32 sums over a few hundred
@@ -115,7 +117,7 @@ def test_k1_hopper_masks_padded_keys(cuda_device, tq, dtype):
 
 def test_k1_routes_by_shape(cuda_device):
     """The main path's two shapes take the Hopper design (second counter);
-    d = 32 and tk = 1000 take the PR-1 core; both count in ``.launches``."""
+    d = 32 and tk = 1000 take the WMMA core; both count in ``.launches``."""
     TA.reset_launch_counts()
     for tq, tk, d in ((690, 690, 64), (62, 62, 64)):
         TA.attention_nk1(*_qkv(cuda_device, torch.bfloat16, 1, 2, tq, tk, d))
@@ -200,41 +202,184 @@ def test_k3_matches_plain(cuda_device, b, h, t, d, dtype):
     assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
 
 
-@pytest.mark.parametrize("b,h,t,d", [
-    (2, 4, 62, 64),       # band axis, one slice per CTA, keys padded
-    (280, 8, 62, 64),     # >= 2112 slices of <= 64 rows: 16 slices per CTA
-    (4, 8, 64, 64),       # one whole chunk
-    (3, 2, 200, 32), (2, 2, 70, 128)])
+@pytest.mark.parametrize("b,h,tq,tk,d", [
+    (2, 4, 62, 62, 64),       # band axis, keys padded: Hopper band route
+    (280, 8, 62, 62, 64),     # 2240 slices: every stage of every CTA wraps
+    (43, 83, 62, 62, 64),     # 3569 slices, not a multiple of CTAs or stages
+    (4, 8, 64, 64, 64),       # one whole tile and chunk
+    (3, 5, 1, 1, 64),         # one row, one key
+    (2, 3, 33, 5, 64),        # ragged both ways, tq != tk
+    (2, 3, 65, 62, 64),       # a second query tile: WMMA core
+    (2, 3, 62, 65, 64),       # a second key chunk: WMMA core
+    (3, 2, 200, 200, 32), (2, 2, 70, 70, 128)])   # other head dims: WMMA core
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-def test_k6_matches_plain(cuda_device, b, h, t, d, dtype):
-    q, k, v = _qkv(cuda_device, getattr(torch, dtype), b, h, t, t, d)
+def test_k6_matches_plain(cuda_device, b, h, tq, tk, d, dtype):
+    """Each route is hit and shown by ``.sm90_launches``."""
+    q, k, v = _qkv(cuda_device, getattr(torch, dtype), b, h, tq, tk, d)
+    route = TA.k6_route(b * h, tq, tk, d, q.dtype, True)
+    assert route == ("band" if d == 64 and tq <= 64 and tk <= 64 else "core")
+    before = (TA.slim_attention.launches, TA.slim_attention.sm90_launches)
     out = TA.slim_attention(q, k, v)
     ref = TA.attention_nk1_reference(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
+    assert (TA.slim_attention.launches, TA.slim_attention.sm90_launches) == (
+        before[0] + 1, before[1] + (route == "band"))
     assert out.dtype == q.dtype and out.shape == q.shape
     assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
 
 
+def test_k6_takes_the_core_for_bases_tma_cannot_address(cuda_device):
+    """q, k and v 2 bytes off a 16-byte boundary go to the WMMA core and
+    agree with the plain version; the yardstick entry runs the core at a
+    band-route shape (3569 slices) and agrees too."""
+    b, h, t = 3, 5, 62
+    flat = torch.randn(3, b * h * t * 64 + 1, device=cuda_device).bfloat16()
+    q, k, v = (f[1:].view(b, h, t, 64) for f in flat)
+    aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
+    assert not aligned and q.is_contiguous()
+    assert TA.k6_route(b * h, t, t, 64, q.dtype, True) == "band"
+    assert TA.k6_route(b * h, t, t, 64, q.dtype, aligned) == "core"
+    before = (TA.slim_attention.launches, TA.slim_attention.sm90_launches)
+    out = TA.slim_attention(q, k, v)
+    ref = TA.attention_nk1_reference(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert (TA.slim_attention.launches, TA.slim_attention.sm90_launches) == (
+        before[0] + 1, before[1])
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 43, 83, 62, 62, 64, seed=3)
+    before = TA.slim_attention_core.launches
+    core = TA.slim_attention_core(q, k, v)
+    ref = TA.attention_nk1_reference(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert TA.slim_attention_core.launches == before + 1
+    assert (core.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k6_hopper_masks_padded_keys(cuda_device, dtype):
+    """Every real score is -98 (see test_k1_hopper_masks_padded_keys): the
+    output is the mean of v's rows; an unmasked zero-filled key would take
+    the softmax and pull the output toward 0."""
+    dt = getattr(torch, dtype)
+    t = 62
+    q = torch.full((1, 2, t, 64), 3.5, device=cuda_device, dtype=dt)
+    k = torch.full((1, 2, t, 64), -3.5, device=cuda_device, dtype=dt)
+    v = _qkv(cuda_device, dt, 1, 2, t, t, 64, seed=7)[2]
+    before = TA.slim_attention.sm90_launches
+    out = TA.slim_attention(q, k, v)
+    ref = TA.attention_nk1_reference(q, k, v, 0.125)
+    mean = v.float().mean(dim=2, keepdim=True).expand(1, 2, t, 64)
+    torch.cuda.synchronize()
+    assert TA.slim_attention.sm90_launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    assert (out.float() - mean).abs().max().item() <= _k1_tol(mean)
+
+
+def _packed_qkv(dev, dtype, b, t, heads, d, layout, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    inner = heads * d
+    qkv = torch.randn(b, t, 3 * inner, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.split(inner, dim=-1)
+    if layout == "packed":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v
+
+
 @pytest.mark.parametrize("b,t,heads,d", [
-    (3, 690, 8, 64),      # RoFormer time axis, ragged last query tile
+    (3, 690, 8, 64),      # RoFormer time axis, ragged last query tile; 24 slices
+    (20, 690, 8, 64),     # 160 slices: more than one a CTA
     (2, 64, 8, 64),       # one whole tile
-    (2, 100, 3, 32), (1, 130, 2, 128)])
+    (2, 65, 8, 64),       # one row and one key past a tile
+    (2, 768, 3, 64),      # the most keys the time route keeps resident
+    (2, 769, 3, 64),      # one more: WMMA core
+    (2, 100, 3, 32), (1, 130, 2, 128)])   # other head dims: WMMA core
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("layout", ["packed", "qkv_views"])
 def test_k7_matches_plain(cuda_device, b, t, heads, d, dtype, layout):
     """Packed (b, t, heads*d) inputs, contiguous or as views of one fused
-    (b, t, 3*heads*d) activation (rows at stride 3*heads*d)."""
-    g = torch.Generator(device=cuda_device).manual_seed(1)
+    (b, t, 3*heads*d) activation (rows at stride 3*heads*d); each route is
+    hit and shown by ``.sm90_launches``."""
+    q, k, v = _packed_qkv(cuda_device, getattr(torch, dtype), b, t, heads, d, layout)
     inner = heads * d
-    qkv = torch.randn(b, t, 3 * inner, generator=g, device=cuda_device).to(getattr(torch, dtype))
-    q, k, v = qkv.split(inner, dim=-1)
-    if layout == "packed":
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    route = TA.k7_route(b, heads, t, d, q.stride(1), q.dtype, True)
+    assert route == ("time" if d == 64 and t <= 768 else "core")
+    before = (TA.packed_attention.launches, TA.packed_attention.sm90_launches)
     out = TA.packed_attention(q, k, v, heads, d)
     ref = TA.packed_attention_reference(q, k, v, heads, d, d ** -0.5)
     torch.cuda.synchronize()
+    assert (TA.packed_attention.launches, TA.packed_attention.sm90_launches) == (
+        before[0] + 1, before[1] + (route == "time"))
     assert out.dtype == q.dtype and out.shape == (b, t, inner) and out.is_contiguous()
     assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+def test_k7_takes_the_core_for_rows_tma_cannot_address(cuda_device):
+    """A row stride of 516 elements (1032 bytes) and a base 2 bytes off a
+    16-byte boundary both go to the WMMA core and agree with the plain
+    version; the yardstick entry runs the core at a Hopper shape."""
+    heads, d, b, t = 2, 64, 2, 100
+    wide = torch.randn(b, t, 516, device=cuda_device).bfloat16()
+    odd = [wide[:, :, :128], wide[:, :, 128:256], wide[:, :, 256:384]]
+    flat = torch.randn(3, b * t * 128 + 1, device=cuda_device).bfloat16()
+    off = [f[1:].view(b, t, 128) for f in flat]
+    for q, k, v in (odd, off):
+        aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
+        assert TA.k7_route(b, heads, t, d, q.stride(1), q.dtype, aligned) == "core"
+        before = (TA.packed_attention.launches, TA.packed_attention.sm90_launches)
+        out = TA.packed_attention(q, k, v, heads, d)
+        ref = TA.packed_attention_reference(q, k, v, heads, d, 0.125)
+        torch.cuda.synchronize()
+        assert (TA.packed_attention.launches, TA.packed_attention.sm90_launches) == (
+            before[0] + 1, before[1])
+        assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    q, k, v = _packed_qkv(cuda_device, torch.bfloat16, 2, 690, 8, 64, "qkv_views")
+    assert TA.k7_route(2, 8, 690, 64, q.stride(1), q.dtype, True) == "time"
+    core = TA.packed_attention_core(q, k, v, 8, 64)
+    ref = TA.packed_attention_reference(q, k, v, 8, 64, 0.125)
+    torch.cuda.synchronize()
+    assert TA.packed_attention_core.launches >= 1
+    assert (core.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+@pytest.mark.parametrize("t", [62, 100])    # one ragged chunk, and a whole one before it
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("layout", ["packed", "qkv_views"])
+def test_k7_hopper_masks_padded_keys(cuda_device, t, dtype, layout):
+    """Every real score is -98: the output is each head's mean of v's rows.
+    A zero-filled key left unmasked would score 0 and take the softmax."""
+    dt = getattr(torch, dtype)
+    b, heads = 2, 3
+    q, k, v = _packed_qkv(cuda_device, dt, b, t, heads, 64, layout, seed=7)
+    q.fill_(3.5)          # in place: the views keep their strides
+    k.fill_(-3.5)
+    before = TA.packed_attention.sm90_launches
+    out = TA.packed_attention(q, k, v, heads, 64)
+    ref = TA.packed_attention_reference(q, k, v, heads, 64, 0.125)
+    mean = v.float().mean(dim=1, keepdim=True).expand(b, t, heads * 64)
+    torch.cuda.synchronize()
+    assert TA.packed_attention.sm90_launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    assert (out.float() - mean).abs().max().item() <= _k1_tol(mean)
+
+
+@pytest.mark.parametrize("t", [690, 65, 1])
+@pytest.mark.parametrize("layout", ["packed", "qkv_views"])
+def test_k7_ragged_last_tile_stays_inside_its_batch(cuda_device, t, layout):
+    """The last query tile of a batch holds rows at or past t (690 = 10 * 64
+    + 50); in the packed layout those would be the next batch's first rows.
+    The output buffer holds one batch more than the call and is pre-filled:
+    that batch must come back untouched, and every batch of the call must
+    agree with the plain version."""
+    b, heads = 3, 8
+    inner = heads * 64
+    q, k, v = _packed_qkv(cuda_device, torch.bfloat16, b, t, heads, 64, layout, seed=t)
+    buf = torch.full((b + 1, t, inner), 7.0, device=cuda_device, dtype=torch.bfloat16)
+    err = TA._launch_k7_time(q, k, v, buf[:b], heads, q.stride(1), 0.125)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert bool((buf[b] == 7.0).all())
+    ref = TA.packed_attention_reference(q, k, v, heads, 64, 0.125)
+    assert (buf[:b].float() - ref.float()).abs().max().item() <= _k1_tol(ref)
 
 
 @pytest.mark.parametrize("d", [96, 512, 2048, 77, 4096])
@@ -290,7 +435,12 @@ def test_rope_routes_and_counts(cuda_device):
                                        v32, False, 0.125)
     assert (out - ref).abs().max().item() <= 2e-5
     assert (TA.slim_attention.launches, TA.packed_attention.launches) == (0, 0)
+    TA.slim_attention(q, k, v)
+    packed = q.transpose(1, 2).reshape(1, 62, 128)
+    TA.packed_attention(packed, packed, packed, 2, 64)
+    assert (TA.slim_attention.sm90_launches, TA.packed_attention.sm90_launches) == (1, 1)
     TA.reset_launch_counts()
+    assert (TA.slim_attention.sm90_launches, TA.packed_attention.sm90_launches) == (0, 0)
 
 
 def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):

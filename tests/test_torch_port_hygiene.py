@@ -107,17 +107,21 @@ def test_kernel_wrappers_on_cpu_take_the_plain_path():
                        TA.attention_nk1_rope_reference(q, k, v, cos, sin, 0.125))
     assert torch.equal(TA.flash_attention(q, k, v, rope_cos=cos, rope_sin=sin),
                        TA.attention_nk1_rope_reference(q, k, v, cos, sin, 0.125))
-    assert torch.equal(TA.slim_attention(q, k, v), TA.attention_nk1_reference(q, k, v, 0.125))
+    for slim in (TA.slim_attention, TA.slim_attention_core):
+        assert torch.equal(slim(q, k, v), TA.attention_nk1_reference(q, k, v, 0.125))
     qp, kp, vp = (x.transpose(1, 2).reshape(1, 62, 128) for x in (q, k, v))
-    assert torch.equal(TA.packed_attention(qp, kp, vp, 2, 64),
-                       TA.packed_attention_reference(qp, kp, vp, 2, 64, 0.125))
+    for packed in (TA.packed_attention, TA.packed_attention_core):
+        assert torch.equal(packed(qp, kp, vp, 2, 64),
+                           TA.packed_attention_reference(qp, kp, vp, 2, 64, 0.125))
     x, w, b = t(3, 96), t(96), t(96)
     assert torch.equal(TN.rms_norm(x, w), TN.rms_norm_reference(x, w))
     assert torch.equal(TN.layer_norm(x, w, b), TN.layer_norm_reference(x, w, b))
     assert all(f.launches == 0 for f in (
         TA.attention_nk1, TA.flash_attention_fwd, TA.attention_nk1_rope, TA.slim_attention,
-        TA.packed_attention, TA.attention_nk1_core, TN.rms_norm, TN.layer_norm))
-    assert TA.attention_nk1.sm90_launches == 0
+        TA.packed_attention, TA.attention_nk1_core, TA.slim_attention_core,
+        TA.packed_attention_core, TN.rms_norm, TN.layer_norm))
+    assert all(f.sm90_launches == 0 for f in (
+        TA.attention_nk1, TA.slim_attention, TA.packed_attention))
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
@@ -132,7 +136,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 
 CUDA_ENTRIES = {
     "attention": ("k1_attention_nk1", "k1_attention_nk1_sm90", "k2_flash_attention",
-                  "k3_attention_nk1_rope", "k6_attention_slim", "k7_attention_packed"),
+                  "k3_attention_nk1_rope", "k6_attention_slim", "k6_attention_slim_sm90",
+                  "k7_attention_packed", "k7_attention_packed_sm90"),
     "norms": ("k4_rms_norm", "k5_layer_norm"),
 }
 

@@ -6,12 +6,20 @@
 //                            specialisation.
 //     k1_attention_nk1       the same function on the WMMA core, for
 //                            every other shape.
-// K2  k2_flash_attention     replaces audiolab_tpu/kernels/attention.py
+// K2  k2_flash_attention_sm90 replaces audiolab_tpu/kernels/attention.py
 //                            ::_flash_kernel (online softmax over KV tiles,
-//                            key-length mask, optional causal mask).
-// K3  k3_attention_nk1_rope  replaces audiolab_tpu/kernels/attention.py
+//                            key-length mask, optional causal mask) for 16-bit
+//                            inputs at d = 64 and 128: TMA, wgmma, warp
+//                            specialisation.
+//     k2_flash_attention     the same function for fp32 inputs (register-tiled
+//                            fp32 products) and for every other 16-bit shape.
+// K3  k3_attention_nk1_rope_sm90 replaces audiolab_tpu/kernels/attention.py
 //                            ::_flash_kernel_nk1_rope (K1 with half-split rope
-//                            fused onto the q and k tiles).
+//                            fused onto the q and k tiles) at d = 64 and
+//                            tk <= 768: K1's Hopper time route, K roped once a
+//                            slice in shared memory.
+//     k3_attention_nk1_rope  the same function on the WMMA core, for every
+//                            other shape.
 // K6  k6_attention_slim_sm90 replaces tools/probe_freq_bh128.py::_nk1_slim
 //                            (K1 with the row sum as a separate fp32 reduction
 //                            and no ones-widened v) at d = 64, tq <= 64 and
@@ -79,13 +87,26 @@
 //   exponentials, so one warpgroup's pass 1 can overlap the other's pass 2
 //   on the MUFU (the two warpgroups run free; nothing forces the pairing).
 //
-// K6 and K7 — on the Hopper design.
-//   Neither kernel's own function held it back on the WMMA core; the core
+// K3, K6 and K7 — on the Hopper design.
+//   No kernel's own function held it back on the WMMA core; the core
 //   did: it stages each 64-key chunk by plain loads once per 64-row query
 //   tile (a time-axis slice reads its keys 11 times in each of two passes),
 //   sends scores and p through shared memory and keeps four warps a CTA.
-//   Both now run K1's Hopper kernels with one compile-time parameter each,
+//   All three run K1's Hopper kernels with one compile-time parameter each,
 //   so K1's own instances are unchanged.
+//   K3 (k1h_time_kernel<T, false, ROPE = true>): the core roped every key
+//     chunk again for every query tile (11 x 11 chunk ropes a slice at
+//     t = 690).  Here a slice's K is resident, so it is roped once, in place
+//     in its swizzled tiles: the two consumer warpgroups take alternate
+//     chunks as they land (k_full), rope them (k1h_rope_tile: both halves of
+//     a 128-byte row to registers, then both back; the same rounding points
+//     as the core's k1_stage_rope), fence the writes for the async proxy and
+//     arrive on a barrier per chunk (k_roped) that every product waits for.
+//     A q tile is roped by its own warpgroup with the tables times the scale,
+//     behind a warpgroup barrier, and read with scale 1.  The fp32 tables
+//     (2 x t x 64) are read from global memory; all slices share them in L2.
+//     A band-shaped call (one chunk) takes the same kernel.  Bound: K1's on
+//     the time axis; the rope adds 2 x 353 KB of L2 reads a slice.
 //   K7 (k1h_time_kernel<T, PACKED = true>): a slice is (batch, head).  The
 //     tensor maps are 4-D, (64, heads, t, b) with byte strides (128, 2 ld,
 //     2 t ld) and (64, 1, 64, 1) boxes, so a box is the same swizzled 8 KB
@@ -131,7 +152,7 @@
 //   Not done yet: wgmma, TMA, cp.async pipelining, and keeping the score
 //   row in registers instead of a shared-memory round trip.
 //
-// K3, and K6 and K7 off the Hopper shapes, are K1's core (k1_kernel) with one
+// K3, K6 and K7 off the Hopper shapes are K1's core (k1_kernel) with one
 // thing changed, chosen at compile time by its variant, so K1's own instance
 // is unchanged:
 //   K3 (K1_ROPE): q and k pass through half-split rope as they are staged
@@ -171,7 +192,37 @@
 //   so every value read from shared memory feeds 4 FMAs; the row state
 //   (m, l) is reduced over the 16 threads of a row group by shuffles, and p
 //   goes through shared memory transposed, in fp32.
-//   bf16/fp16 inputs (k2_kernel): TPR threads share one query row,
+//   bf16/fp16 inputs at d = 64 and 128 (k2h_kernel).  Bound: products on
+//   the tensor cores and exponentials for long sequences (a causal
+//   16 x 2048 x 128 prefill: 1.7e10 FLOP, 0.017 ms), bytes and the launch for
+//   short ones (HuBERT's 96 x 399 x 64: 0.006 ms).  One CTA per (slice, 128
+//   query rows), last rows first so the longest causal tiles start first.
+//   Warp-specialised like K1: one producer thread sends TMA loads of 64-key
+//   K and V tiles (d / 64 swizzled 8 KB boxes each) through a ring of 4
+//   stages with full barriers for K and for V and one empty barrier; two
+//   consumer warpgroups take 64 query rows each and share every tile.  q
+//   stays in its swizzled tile and q.k^T is m64n64k16 with both operands from
+//   shared memory (the SS form) over d / 16 steps: K2 scales the fp32 scores,
+//   not q, so q needs no pass through registers, and ptxas keeps a consumer
+//   within the 168 registers of the launch whatever setmaxnreg grants, so
+//   registers are what d = 128 runs out of (64 for o, 2 x 32 for scores,
+//   2 x 16 for p).  scale * log2 e >= 0 is folded into one fused
+//   multiply-add ahead of exp2; the max is taken over the raw scores; keys
+//   >= tk or above the diagonal are masked only on tiles that cross either
+//   edge; the row sum is an fp32 register reduction of the unrounded p and
+//   p.v takes p rounded to T straight from registers (one m64n64k16 a key
+//   step at d = 64, one m64n128k16 at d = 128).  Tile j + 1's scores are
+//   issued before tile j's softmax and tile j's p.v runs under tile j + 1's
+//   softmax; the accumulator is rescaled by alpha only with no product in
+//   flight (a write to accumulator registers under one makes ptxas serialise
+//   every product, C7515).  Under causal the two warpgroups may stop one tile
+//   apart: the one that stops first still releases the other's last tile,
+//   after waiting for it to land.  On a long sequence every CTA pulls the
+//   slice's whole K and V from L2 again for its 128 rows (64 slices x 4096 x
+//   4096 x 64: 2.1 GB through TMA); nothing shares a tile between CTAs yet
+//   (no cluster, no multicast), and such shapes run behind the library's
+//   attention (PERF.md).
+//   Other 16-bit shapes (k2_kernel): TPR threads share one query row,
 //   each holding 16 of its dims, and reduce the q.k dot product with warp
 //   shuffles.  64-key tiles of K and V are staged in shared memory as fp32.
 
@@ -518,14 +569,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > (1ll << 32)) __trap();
 }
 
-// one (64 d, 64 rows, 1 slice) box at (0, row, slice); rows past the map's t
-// arrive as zeros
+// one (64 d, 64 rows, 1 slice) box at (col, row, slice); rows past the map's t
+// arrive as zeros.  col is 0 for d = 64; a d = 128 row is two boxes.
 __device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int row, int slice) {
+                                              int row, int slice, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(slice)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(slice)
       : "memory");
 }
 
@@ -610,6 +661,51 @@ template <int TB> struct Wgmma<__half, TB> {
   }
 };
 #undef K1H_WGMMA_RS
+
+// the same product with A from shared memory too (the SS form): A is 64 rows
+// K-major in a swizzled tile, described like B
+#define K1H_WGMMA_SS(TY) \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n" \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %34;\n}\n" \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+               : "l"(da), "l"(db), "n"(TB), "r"(scale_d))
+// D(64 x 128) (+)= A(64 x 16, registers) . B(16 x 128, MN-major): columns
+// 0..63 from one swizzled sub-tile, 64..127 from the next, LBO bytes on
+#define K1H_WGMMA_RS_N128(TY) \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+               "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+template <typename T, int TB> struct WgmmaSS;
+template <int TB> struct WgmmaSS<__nv_bfloat16, TB> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    K1H_WGMMA_SS("bf16");
+  }
+};
+template <int TB> struct WgmmaSS<__half, TB> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    K1H_WGMMA_SS("f16");
+  }
+};
+template <typename T> struct WgmmaN128;
+template <> struct WgmmaN128<__nv_bfloat16> {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    K1H_WGMMA_RS_N128("bf16");
+  }
+};
+template <> struct WgmmaN128<__half> {
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                            int scale_d) {
+    K1H_WGMMA_RS_N128("f16");
+  }
+};
+#undef K1H_WGMMA_SS
+#undef K1H_WGMMA_RS_N128
 
 
 // D(64 x 72) (+)= A(64 x 16, registers) . B(16 x 72, MN-major): columns
@@ -833,6 +929,8 @@ struct K1HParams {
   float scale;
   int heads;  // packed layout: slice = batch * heads + head
   int ldo;    // packed layout: the output's row stride (elements)
+  const float* cos;  // rope variant: (>= max(tq, tk), 64) fp32 tables, 16-byte aligned
+  const float* sin;
 };
 
 // row 0 of slice s in the output, and the output's row stride
@@ -863,12 +961,83 @@ __device__ __forceinline__ void k1h_fill_ones(uint32_t ones) {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// one element of half-split rope, the table entry times tscale first; each
+// product and the sum rounded on its own, as on the TPU (no contraction)
+__device__ __forceinline__ float k1h_rope1(float x, float xr, float c, float s, float tscale) {
+  return __fadd_rn(__fmul_rn(x, __fmul_rn(c, tscale)), __fmul_rn(xr, __fmul_rn(s, tscale)));
+}
+
+// Half-split rope, in place, of rows [row0, row0 + 64) of a slice in a
+// swizzled 64 x 64 tile, by the 128 threads of one warpgroup (tid 0..127):
+// round_T(x * cos + rot(x) * sin) with the table rows of those positions.  A
+// row is 128 bytes; the swizzle moves its 16-byte pieces by row mod 8, and a
+// column's partner (32 on) lies four pieces on in the same row: a thread
+// reads piece p and piece p + 4 of a row, then writes both.  Rows at or
+// past t are left alone (TMA zero-filled them and rope keeps zeros; their
+// table rows are never read).  Ends with the fence that makes the writes
+// visible to wgmma and orders them before the next TMA load into the tile.
+template <typename T>
+__device__ __forceinline__ void k1h_rope_tile(uint32_t tile, const float* __restrict__ cosv,
+                                              const float* __restrict__ sinv, int row0, int t,
+                                              float tscale, int tid) {
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const int item = tid + 128 * it;
+    const int r = item >> 2, p = item & 3;
+    const int g = row0 + r;
+    if (g >= t) continue;
+    const uint32_t lo = tile + r * 128 + ((p ^ (r & 7)) << 4);
+    const uint32_t hi = tile + r * 128 + (((p + 4) ^ (r & 7)) << 4);
+    uint32_t xl[4], xh[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(xl[0]), "=r"(xl[1]), "=r"(xl[2]), "=r"(xl[3])
+                 : "r"(lo));
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(xh[0]), "=r"(xh[1]), "=r"(xh[2]), "=r"(xh[3])
+                 : "r"(hi));
+    // columns 8p..8p+7 are float4 0 and 1 of the row's piece; their partners
+    // 32 floats (8 float4) on
+    const float4* cr = reinterpret_cast<const float4*>(cosv + (size_t)g * 64 + 8 * p);
+    const float4* sr = reinterpret_cast<const float4*>(sinv + (size_t)g * 64 + 8 * p);
+    const float4 c4[4] = {__ldg(cr), __ldg(cr + 1), __ldg(cr + 8), __ldg(cr + 9)};
+    const float4 s4[4] = {__ldg(sr), __ldg(sr + 1), __ldg(sr + 8), __ldg(sr + 9)};
+    const float cl[8] = {c4[0].x, c4[0].y, c4[0].z, c4[0].w, c4[1].x, c4[1].y, c4[1].z, c4[1].w};
+    const float ch[8] = {c4[2].x, c4[2].y, c4[2].z, c4[2].w, c4[3].x, c4[3].y, c4[3].z, c4[3].w};
+    const float sl[8] = {s4[0].x, s4[0].y, s4[0].z, s4[0].w, s4[1].x, s4[1].y, s4[1].z, s4[1].w};
+    const float sh[8] = {s4[2].x, s4[2].y, s4[2].z, s4[2].w, s4[3].x, s4[3].y, s4[3].z, s4[3].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = unpack2<T>(xl[e]), b = unpack2<T>(xh[e]);
+      // first half: rot(x) = -x[c + 32]; second half: rot(x) = x[c - 32]
+      xl[e] = pack2<T>(k1h_rope1(a.x, -b.x, cl[2 * e], sl[2 * e], tscale),
+                       k1h_rope1(a.y, -b.y, cl[2 * e + 1], sl[2 * e + 1], tscale));
+      xh[e] = pack2<T>(k1h_rope1(b.x, a.x, ch[2 * e], sh[2 * e], tscale),
+                       k1h_rope1(b.y, a.y, ch[2 * e + 1], sh[2 * e + 1], tscale));
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo), "r"(xl[0]), "r"(xl[1]),
+                 "r"(xl[2]), "r"(xl[3])
+                 : "memory");
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(hi), "r"(xh[0]), "r"(xh[1]),
+                 "r"(xh[2]), "r"(xh[3])
+                 : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Time route: K and V of a slice stay resident; the two consumer
 // warpgroups take alternate 64-row query tiles of it.  PACKED (K7): the
 // slices are the (batch, head) pairs of (b, t, row stride) rows, read through
 // 4-D tensor maps, and the output goes back in the packed layout; the
-// pipeline and the arithmetic are K1's.
-template <typename T, bool PACKED>
+// pipeline and the arithmetic are K1's.  ROPE (K3): q and k pass through
+// half-split rope in shared memory before any product reads them.  K is
+// resident, so it is roped once a slice: the consumer warpgroups take
+// alternate chunks as they land and announce each on its own barrier
+// (k_roped), which every product on that chunk waits for in place of k_full.
+// A q tile is roped by the warpgroup that owns it, with the scale folded
+// into the tables, and then read with scale 1, so q is rounded once.  The
+// tables come from global memory: 2 x t x 64 fp32 do not fit beside K and V,
+// and every slice shares them in L2.
+template <typename T, bool PACKED, bool ROPE = false>
 __global__ void __launch_bounds__(K1H_THREADS, 1)
 k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, const K1HParams prm) {
@@ -885,6 +1054,9 @@ k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
   const uint32_t kv_empty = bars + 16 * K1H_CONS;
   auto k_full = [&](int c) { return kv_empty + 8 + 8 * c; };
   auto v_full = [&](int c) { return kv_empty + 8 + 8 * (nch + c); };
+  auto k_roped = [&](int c) { return kv_empty + 8 + 8 * (2 * nch + c); };  // ROPE only
+  // what a product on chunk c waits for
+  auto k_ready = [&](int c) { return ROPE ? k_roped(c) : k_full(c); };
   const int nqt = (prm.tq + 63) / 64;
 
   k1h_fill_ones<T>(ones);
@@ -897,6 +1069,7 @@ k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
     for (int c = 0; c < nch; ++c) {
       mbar_init(k_full(c), 1);
       mbar_init(v_full(c), 1);
+      if constexpr (ROPE) mbar_init(k_roped(c), 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -932,21 +1105,38 @@ k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
     int n = 0, used = 0;
     for (int s = blockIdx.x; s < prm.bh; s += gridDim.x, ++n) {
       const uint32_t par = n & 1;
+      if constexpr (ROPE) {
+        // this warpgroup's share of the slice's key chunks, whether or not it
+        // has a query tile here
+        for (int c = wg; c < nch; c += K1H_CONS) {
+          mbar_wait(k_full(c), par);
+          k1h_rope_tile<T>(kbuf + c * K1H_TILE, prm.cos, prm.sin, 64 * c, prm.tk, 1.f,
+                           threadIdx.x & 127);
+          mbar_arrive(k_roped(c));
+        }
+      }
       for (int j = wg; j < nqt; j += K1H_CONS, ++used) {
         uint32_t qa[4][4];
         mbar_wait(q_full(wg), used & 1);
-        k1h_load_q<T>(qa, qbuf + wg * K1H_TILE, wi, lane, prm.scale);
+        if constexpr (ROPE) {
+          k1h_rope_tile<T>(qbuf + wg * K1H_TILE, prm.cos, prm.sin, 64 * j, prm.tq, prm.scale,
+                           threadIdx.x & 127);
+          asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");  // the warpgroup's own
+          k1h_load_q<T>(qa, qbuf + wg * K1H_TILE, wi, lane, 1.f);
+        } else {
+          k1h_load_q<T>(qa, qbuf + wg * K1H_TILE, wi, lane, prm.scale);
+        }
         mbar_arrive(q_empty(wg));
 
         // pass 1: the row max over the valid keys; chunk c + 1's product
         // runs while chunk c is reduced
         float sa[32], sb[32];
         float m[2] = {-INFINITY, -INFINITY};
-        mbar_wait(k_full(0), par);
+        mbar_wait(k_ready(0), par);
         k1h_issue_scores<T>(sa, qa, kbuf);
         for (int c = 0; c < nch; c += 2) {
           if (c + 1 < nch) {
-            mbar_wait(k_full(c + 1), par);
+            mbar_wait(k_ready(c + 1), par);
             k1h_issue_scores<T>(sb, qa, kbuf + (c + 1) * K1H_TILE);
             wg_wait<1>();
           } else {
@@ -956,7 +1146,7 @@ k1h_time_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
           k1h_max(m, sa, 64 * c, prm.tk, t);
           if (c + 1 >= nch) break;
           if (c + 2 < nch) {
-            mbar_wait(k_full(c + 2), par);
+            mbar_wait(k_ready(c + 2), par);
             k1h_issue_scores<T>(sa, qa, kbuf + (c + 2) * K1H_TILE);
             wg_wait<1>();
           } else {
@@ -1124,12 +1314,14 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// (bh, t, 64) contiguous 16-bit rows as a 3-D map with (64, 64, 1) boxes
-bool k1h_map(CUtensorMap* map, const void* ptr, int t, int bh, CUtensorMapDataType dt) {
+// (bh, t, d) contiguous 16-bit rows as a 3-D map with (64, 64, 1) boxes; a
+// d = 128 row is two boxes, each a swizzled 8 KB tile
+bool k1h_map(CUtensorMap* map, const void* ptr, int t, int bh, CUtensorMapDataType dt,
+             int d = 64) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {128, (cuuint64_t)t * 128};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
   const cuuint32_t box[3] = {64, 64, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, dt, 3, const_cast<void*>(ptr), dims, strides, box, unit,
@@ -1177,10 +1369,10 @@ cudaError_t k1h_launch(Kernel kernel, size_t smem_bytes, const K1HMaps& maps,
 }
 
 // shared memory of the time route: alignment slack, a q tile per consumer,
-// nch k and v tiles, 2 KB of ones, the barriers
-size_t k1h_time_bytes(int nch) {
+// nch k and v tiles, 2 KB of ones, the barriers (one more a chunk with rope)
+size_t k1h_time_bytes(int nch, bool rope = false) {
   return 1024 + (K1H_CONS + 2 * (size_t)nch) * K1H_TILE + 2048 +
-         8 * (2 * K1H_CONS + 1 + 2 * (size_t)nch);
+         8 * (2 * K1H_CONS + 1 + (rope ? 3 : 2) * (size_t)nch);
 }
 
 // of the band route: alignment slack, the ring, 2 KB of ones unless SLIM, the
@@ -1204,6 +1396,18 @@ cudaError_t k1h_run(const void* q, const void* k, const void* v, const K1HParams
   if (slim)
     return k1h_launch(k1h_band_kernel<T, true>, k1h_band_bytes<true>(), maps, prm, stream);
   return k1h_launch(k1h_band_kernel<T, false>, k1h_band_bytes<false>(), maps, prm, stream);
+}
+
+// contiguous (bh, t, 64) tensors through rope: K3 on the time route
+template <typename T>
+cudaError_t k1h_run_rope(const void* q, const void* k, const void* v, const K1HParams& prm,
+                         CUtensorMapDataType dt, cudaStream_t stream) {
+  K1HMaps maps;
+  if (!k1h_map(&maps.q, q, prm.tq, prm.bh, dt) || !k1h_map(&maps.k, k, prm.tk, prm.bh, dt) ||
+      !k1h_map(&maps.v, v, prm.tk, prm.bh, dt))
+    return cudaErrorInvalidValue;
+  return k1h_launch(k1h_time_kernel<T, false, true>, k1h_time_bytes(prm.nch, true), maps, prm,
+                    stream);
 }
 
 // packed (b, t, ld) rows: K7 on the time route
@@ -1343,6 +1547,307 @@ cudaError_t k2_dispatch(const void* q, const void* k, const void* v, void* o, in
   if (d <= 64) return k2_launch<T, 4>(q, k, v, o, bh, tq, tk, d, scale, causal, s);
   if (d <= 128) return k2_launch<T, 8>(q, k, v, o, bh, tq, tk, d, scale, causal, s);
   if (d <= 256) return k2_launch<T, 16>(q, k, v, o, bh, tq, tk, d, scale, causal, s);
+  return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------------ K2 on Hopper
+
+// One CTA per (slice, 128 query rows): the producer thread streams 64-key K
+// and V tiles through a ring of K2H_STAGES stages, the two consumer
+// warpgroups take 64 query rows each and share every tile.
+constexpr int K2H_STAGES = 4;
+constexpr int K2H_BQ = 64 * K1H_CONS;
+
+struct K2HParams {
+  void* o;
+  int tq, tk;
+  float scale_log2;  // scale * log2 e: one fp32 multiply ahead of exp2
+  int causal;
+};
+
+// a 64-row tile of d columns: d / 64 swizzled 8 KB sub-tiles, one TMA box each
+template <int D>
+__host__ __device__ constexpr int k2h_tile_bytes() { return (D / 64) * K1H_TILE; }
+
+// alignment slack, a q tile per consumer, the ring (k and v tile a stage),
+// the barriers: q full[CONS], k full, v full and empty per stage
+template <int D> constexpr size_t k2h_smem_bytes() {
+  return 1024 + (K1H_CONS + 2 * K2H_STAGES) * (size_t)k2h_tile_bytes<D>() +
+         8 * (K1H_CONS + 3 * K2H_STAGES);
+}
+
+__device__ __forceinline__ uint32_t k2h_k_full(uint32_t bars, int st) {
+  return bars + 8 * (K1H_CONS + st);
+}
+__device__ __forceinline__ uint32_t k2h_v_full(uint32_t bars, int st) {
+  return bars + 8 * (K1H_CONS + K2H_STAGES + st);
+}
+__device__ __forceinline__ uint32_t k2h_empty(uint32_t bars, int st) {
+  return bars + 8 * (K1H_CONS + 2 * K2H_STAGES + st);
+}
+
+// rows [row, row + 64) of slice s, all d columns, into the tile at dst
+template <int D>
+__device__ __forceinline__ void k2h_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int row, int s) {
+#pragma unroll
+  for (int sub = 0; sub < D / 64; ++sub)
+    tma_load_tile(dst + sub * K1H_TILE, map, bar, row, s, 64 * sub);
+}
+
+// the 64 columns from 64 * sub on of a flat 64 x D accumulator
+template <int N>
+__device__ __forceinline__ float (&k2h_half(float (&o)[N], int sub))[32] {
+  return *reinterpret_cast<float(*)[32]>(&o[32 * sub]);
+}
+
+// o += p . v over one 64-key tile, v MN-major in D / 64 swizzled sub-tiles of
+// 64 columns: one m64n64k16 (d = 64) or m64n128k16 (d = 128, the second
+// sub-tile found through the descriptor's leading offset) a key step
+template <typename T, int N>
+__device__ __forceinline__ void k2h_issue_pv(float (&o)[N], const uint32_t (&pa)[4][4],
+                                             uint32_t vtile) {
+  reg_fence(o);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (N == 32)
+      Wgmma<T, 1>::rs(o, pa[kk], sw128_desc(vtile + kk * 2048, 1, 64), 1);
+    else
+      WgmmaN128<T>::rs(o, pa[kk], sw128_desc(vtile + kk * 2048, K1H_TILE >> 4, 64), 1);
+  }
+  wg_commit();
+}
+
+// s = q . k^T with q read from its swizzled tile in shared memory (the SS
+// form): no q fragments in registers
+template <typename T, int D>
+__device__ __forceinline__ void k2h_issue_scores(float (&s)[32], uint32_t qtile,
+                                                 uint32_t ktile) {
+  reg_fence(s);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * K1H_TILE + (kk & 3) * 32;
+    WgmmaSS<T, 0>::ss(s, sw128_desc(qtile + off, 1, 64), sw128_desc(ktile + off, 1, 64), kk > 0);
+  }
+  wg_commit();
+}
+
+// One tile of the online softmax on a thread's 2 x 16 scores, in the log2
+// domain (c = scale * log2 e >= 0): keys past lim[row] masked (MASK = false
+// for a tile every row sees whole), the running max m, alpha = exp2(m_prev -
+// m_new), l = l * alpha + sum of the fp32 p (this thread's share; the quad is
+// summed at the end), and p rounded to T in A fragments for p.v.  The max is
+// taken over the raw scores (rounding s * c is monotonic for c >= 0, so
+// max(s * c) = max(s) * c exactly) and s * c - m is one fused multiply-add.
+// A masked score is -1e30 and never -inf: its p is exp2(-1e30 - m), which is
+// 0, or 1 in a row that has seen no key yet (m = -1e30), as in the TPU
+// kernel, and nothing becomes NaN.  s is only read: a write to a product's
+// accumulator registers while another product is in flight makes ptxas
+// serialise them (C7515).
+template <typename T, bool MASK>
+__device__ __forceinline__ void k2h_softmax(uint32_t (&pa)[4][4], const float (&s)[32],
+                                            float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                            float c, int k0, const int (&lim)[2], int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!MASK || k0 + 8 * j + 2 * t + (e & 1) <= lim[e >> 1])
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+  float pm[2];  // p of a masked key
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(m[h], quad_max(mx[h]) * c);
+    alpha[h] = ex2(m[h] - mn);
+    m[h] = mn;
+    l[h] *= alpha[h];
+    if (MASK) pm[h] = ex2(K2_NEG - mn);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int idx = 8 * kk + 2 * i, h = i & 1;
+      const int key = k0 + 16 * kk + 8 * (i >> 1) + 2 * t;
+      float p0 = ex2(fmaf(s[idx], c, -m[h])), p1 = ex2(fmaf(s[idx + 1], c, -m[h]));
+      if (MASK) {
+        p0 = key <= lim[h] ? p0 : pm[h];
+        p1 = key + 1 <= lim[h] ? p1 : pm[h];
+      }
+      l[h] += p0 + p1;
+      pa[kk][i] = pack2<T>(p0, p1);
+    }
+}
+
+// Key tile j of a consumer warpgroup.  On entry tile j's scores (sc) are
+// complete and tile j - 1's p.v (reading pp, writing acc) may be in flight.
+// Tile j + 1's scores (sn) are issued before this tile's softmax, so both run
+// under it; this tile's p.v runs under the next tile's softmax.  acc is
+// rescaled by alpha with no product in flight: the wait ahead of it costs
+// little, since tile j + 1's scores have had the whole softmax to finish.
+template <typename T, int D>
+__device__ __forceinline__ void k2h_step(int j, int nt, float (&sc)[32], float (&sn)[32],
+                                         uint32_t (&pc)[4][4], uint32_t (&pp)[4][4],
+                                         float (&acc)[D / 2], uint32_t qtile, float (&m)[2],
+                                         float (&l)[2], uint32_t ring, uint32_t bars, float c,
+                                         int free_keys, const int (&lim)[2], int t) {
+  constexpr int TILE = k2h_tile_bytes<D>();
+  const int st = j % K2H_STAGES;
+  if (j + 1 < nt) {
+    const int st1 = (j + 1) % K2H_STAGES;
+    mbar_wait(k2h_k_full(bars, st1), ((j + 1) / K2H_STAGES) & 1);
+    k2h_issue_scores<T, D>(sn, qtile, ring + 2 * st1 * TILE);
+  }
+  float alpha[2];
+  if (64 * (j + 1) <= free_keys)
+    k2h_softmax<T, false>(pc, sc, m, l, alpha, c, 64 * j, lim, t);
+  else
+    k2h_softmax<T, true>(pc, sc, m, l, alpha, c, 64 * j, lim, t);
+  wg_wait<0>();  // p.v of tile j - 1, and scores j + 1
+  reg_fence(sn);
+  reg_fence(acc);
+  reg_fence(pp);
+  if (j > 0) mbar_arrive(k2h_empty(bars, (j - 1) % K2H_STAGES));  // k and v of tile j - 1
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+  mbar_wait(k2h_v_full(bars, st), (j / K2H_STAGES) & 1);
+  k2h_issue_pv<T>(acc, pc, ring + (2 * st + 1) * TILE);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(K1H_THREADS, 1)
+k2h_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+           const __grid_constant__ CUtensorMap mv, const K2HParams prm) {
+  constexpr int TILE = k2h_tile_bytes<D>();
+  extern __shared__ unsigned char k1h_smem[];
+  const uint32_t qbuf = k1h_align(k1h_smem);         // a tile per consumer
+  const uint32_t ring = qbuf + K1H_CONS * TILE;      // stage st: k tile 2 st, v tile 2 st + 1
+  const uint32_t bars = ring + 2 * K2H_STAGES * TILE;
+  auto q_full = [&](int w) { return bars + 8 * w; };
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < K1H_CONS; ++w) mbar_init(q_full(w), 1);
+    for (int st = 0; st < K2H_STAGES; ++st) {
+      mbar_init(k2h_k_full(bars, st), 1);
+      mbar_init(k2h_v_full(bars, st), 1);
+      mbar_init(k2h_empty(bars, st), 128 * K1H_CONS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the last query tiles first: under causal they see the most keys
+  const int s = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * K2H_BQ;
+  const int tq = prm.tq, tk = prm.tk, offset = tk - tq;
+  // 64-key tiles warpgroup w consumes: none when its rows lie past tq; under
+  // causal, tiles wholly above the diagonal of its last row are skipped
+  auto tiles_of = [&](int w) {
+    const int r0 = q0 + 64 * w;
+    if (r0 >= tq) return 0;
+    const int kend = prm.causal ? min(tk, max(r0 + 63 + offset + 1, 0)) : tk;
+    return (kend + 63) / 64;
+  };
+  const int nt_cta = max(tiles_of(0), tiles_of(1));
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == K1H_CONS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(K1H_PRODUCER_REGS) : "memory");
+    if (threadIdx.x == 128 * K1H_CONS) {
+      for (int w = 0; w < K1H_CONS; ++w)
+        if (tiles_of(w) > 0) {
+          mbar_expect_tx(q_full(w), TILE);
+          k2h_load_rows<D>(qbuf + w * TILE, &mq, q_full(w), q0 + 64 * w, s);
+        }
+      for (int j = 0; j < nt_cta; ++j) {
+        const int st = j % K2H_STAGES;
+        if (j >= K2H_STAGES) mbar_wait(k2h_empty(bars, st), (j / K2H_STAGES - 1) & 1);
+        mbar_expect_tx(k2h_k_full(bars, st), TILE);
+        k2h_load_rows<D>(ring + 2 * st * TILE, &mk, k2h_k_full(bars, st), 64 * j, s);
+        mbar_expect_tx(k2h_v_full(bars, st), TILE);
+        k2h_load_rows<D>(ring + (2 * st + 1) * TILE, &mv, k2h_v_full(bars, st), 64 * j, s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(K1H_CONSUMER_REGS) : "memory");
+    const int wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int nt = tiles_of(wg);
+    const int r0 = q0 + 64 * wg;  // the warpgroup's first row
+    float acc[D / 2];  // element 4 j + e: column 8 j + 2 t + (e & 1), as K1's
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    float m[2] = {K2_NEG, K2_NEG}, l[2] = {0.f, 0.f};
+    if (nt > 0) {
+      // keys every row of the warpgroup sees: tiles below take no mask; and
+      // the last key each of this thread's two rows sees
+      const int free_keys = prm.causal ? min(tk, r0 + offset + 1) : tk;
+      const int row = r0 + 16 * wi + (lane >> 2);
+      const int lim[2] = {prm.causal ? min(tk - 1, row + offset) : tk - 1,
+                          prm.causal ? min(tk - 1, row + 8 + offset) : tk - 1};
+      const uint32_t qtile = qbuf + wg * TILE;
+      mbar_wait(q_full(wg), 0);
+      float sa[32], sb[32];
+      uint32_t pa[4][4], pb[4][4];
+      mbar_wait(k2h_k_full(bars, 0), 0);
+      k2h_issue_scores<T, D>(sa, qtile, ring);
+      wg_wait<0>();
+      reg_fence(sa);
+      for (int j = 0; j < nt; j += 2) {
+        k2h_step<T, D>(j, nt, sa, sb, pa, pb, acc, qtile, m, l, ring, bars, prm.scale_log2,
+                       free_keys, lim, lane & 3);
+        if (j + 1 >= nt) break;
+        k2h_step<T, D>(j + 1, nt, sb, sa, pb, pa, acc, qtile, m, l, ring, bars,
+                       prm.scale_log2, free_keys, lim, lane & 3);
+      }
+      wg_wait<0>();
+      reg_fence(acc);
+      reg_fence(pa);
+      reg_fence(pb);
+      mbar_arrive(k2h_empty(bars, (nt - 1) % K2H_STAGES));
+    }
+    // tiles only the other warpgroup consumes (under causal it may see one
+    // more): release each once it has landed, which is after the stage's
+    // previous release has completed
+    for (int j = nt; j < nt_cta; ++j) {
+      const int st = j % K2H_STAGES;
+      mbar_wait(k2h_k_full(bars, st), (j / K2H_STAGES) & 1);
+      mbar_arrive(k2h_empty(bars, st));
+    }
+    const float lsum[2] = {quad_sum(l[0]), quad_sum(l[1])};
+    T* out = static_cast<T*>(prm.o) + (size_t)s * tq * D;
+#pragma unroll
+    for (int sub = 0; sub < D / 64; ++sub)
+      k1h_store<T>(out + 64 * sub, D, k2h_half(acc, sub), lsum, r0 + 16 * wi, tq, lane);
+  }
+}
+
+template <typename T, int D>
+cudaError_t k2h_launch(const void* q, const void* k, const void* v, void* o, int bh, int tq,
+                       int tk, float scale, int causal, CUtensorMapDataType dt,
+                       cudaStream_t stream) {
+  K1HMaps maps;
+  if (!k1h_map(&maps.q, q, tq, bh, dt, D) || !k1h_map(&maps.k, k, tk, bh, dt, D) ||
+      !k1h_map(&maps.v, v, tk, bh, dt, D))
+    return cudaErrorInvalidValue;
+  const K2HParams prm{o, tq, tk, scale * K1H_LOG2E, causal};
+  constexpr size_t bytes = k2h_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(k2h_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (tq + K2H_BQ - 1) / K2H_BQ);
+  k2h_kernel<T, D><<<grid, K1H_THREADS, bytes, stream>>>(maps.q, maps.k, maps.v, prm);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t k2h_dispatch(const void* q, const void* k, const void* v, void* o, int bh, int tq,
+                         int tk, int d, float scale, int causal, CUtensorMapDataType dt,
+                         cudaStream_t s) {
+  if (d == 64) return k2h_launch<T, 64>(q, k, v, o, bh, tq, tk, scale, causal, dt, s);
+  if (d == 128) return k2h_launch<T, 128>(q, k, v, o, bh, tq, tk, scale, causal, dt, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1655,6 +2160,28 @@ extern "C" int k7_attention_packed_sm90(const void* q, const void* k, const void
   return (int)cudaErrorInvalidValue;
 }
 
+// K3 on the Hopper time design: d = 64, 16-bit, tk <= 768, contiguous
+// (bh, t, 64) rows and (>= max(tq, tk), 64) fp32 tables, all on 16-byte
+// aligned pointers; scale is folded into q's tables
+extern "C" int k3_attention_nk1_rope_sm90(const void* q, const void* k, const void* v, void* o,
+                                          const float* cos, const float* sin, int bh, int tq,
+                                          int tk, float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cos == nullptr || sin == nullptr || bh <= 0 || tq <= 0 || tk <= 0 ||
+      tk > 64 * K1H_MAX_CHUNKS)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)cos |
+       (uintptr_t)sin) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const K1HParams prm{o, bh, tq, tk, (tk + 63) / 64, scale, 1, 64, cos, sin};
+  if (dtype == DT_BF16)
+    return (int)k1h_run_rope<__nv_bfloat16>(q, k, v, prm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s);
+  if (dtype == DT_F16)
+    return (int)k1h_run_rope<__half>(q, k, v, prm, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3 on the WMMA core, any head dim of the core.
 // cos/sin: (>= max(tq, tk), d) fp32 tables; scale is folded into q's
 extern "C" int k3_attention_nk1_rope(const void* q, const void* k, const void* v, void* o,
                                      const float* cos, const float* sin, int bh, int tq, int tk,
@@ -1683,6 +2210,28 @@ extern "C" int k7_attention_packed(const void* q, const void* k, const void* v, 
   return k1_entry<K1_PACKED>(prm, d, dtype, stream);
 }
 
+// K2 on the Hopper design: d = 64 or 128, 16-bit, scale >= 0, contiguous
+// (bh, t, d) rows on 16-byte aligned pointers
+extern "C" int k2_flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
+                                       int bh, int tq, int tk, int d, float scale, int causal,
+                                       int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // scale >= 0: the kernel takes the row max over the raw scores
+  if (bh <= 0 || tq <= 0 || tk <= 0 || (tq + K2H_BQ - 1) / K2H_BQ > 65535 || !(scale >= 0.f))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  if (dtype == DT_BF16)
+    return (int)k2h_dispatch<__nv_bfloat16>(q, k, v, o, bh, tq, tk, d, scale, causal,
+                                            CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s);
+  if (dtype == DT_F16)
+    return (int)k2h_dispatch<__half>(q, k, v, o, bh, tq, tk, d, scale, causal,
+                                     CU_TENSOR_MAP_DATA_TYPE_FLOAT16, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2 off the Hopper design: fp32 inputs on k2f_kernel, 16-bit ones on the
+// row-per-thread-group k2_kernel, any head dim up to 256
 extern "C" int k2_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                                   int tq, int tk, int d, float scale, int causal, int dtype,
                                   void* stream) {

@@ -30,15 +30,20 @@ in registers and no ones-widened v (:func:`k6_route`: d = 64, 16-bit,
 tq <= 64 and tk <= 64, 16-byte aligned bases); K7 takes the Hopper time route with 4-D tensor maps
 over the packed rows, K and V resident per (batch, head) slice
 (:func:`k7_route`: d = 64, 16-bit, t <= 768, rows TMA can address); every
-other shape of either stays on its WMMA core variant.  K3 is a variant of
-the WMMA core.  A route is chosen before any launch and nothing gives way
-to another route after a failure.  K2 runs a register-tiled fp32 kernel for
-fp32 inputs and the row-per-thread-group kernel for 16-bit ones.
+other shape of either stays on its WMMA core variant.  K3 takes the Hopper
+time route too, with K roped once a slice in shared memory and q per tile
+(:func:`k3_route`: d = 64, 16-bit, tk <= 768, 16-byte aligned bases and
+tables; a band-shaped call runs the same kernel over one chunk), else the
+WMMA core's rope variant.  K2 runs a register-tiled fp32 kernel for fp32
+inputs; for 16-bit inputs the Hopper design of its own (TMA ring, wgmma,
+online softmax in registers) at d = 64 and 128 on 16-byte aligned bases
+(:func:`k2_route`), else the row-per-thread-group kernel.  A route is chosen
+before any launch and nothing gives way to another route after a failure.
 
 Each kernel wrapper launches its kernel for a CUDA tensor and uses the
 kernel's plain PyTorch version for a CPU tensor; there is no other route.
 It counts its launches in a plain integer attribute (``.launches``), and
-those on the Hopper design in ``.sm90_launches`` (K1, K6, K7).
+those on the Hopper design in ``.sm90_launches`` (K1, K2, K3, K6, K7).
 The plain versions repeat each kernel's rounding points, so a CPU run
 computes what the card computes up to summation order.
 """
@@ -58,6 +63,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _K1_HEAD_DIMS = (16, 32, 64, 128)
 _K1_BLOCK_Q = 64   # query rows per CTA in csrc/attention.cu
 _K1H_MAX_KEYS = 768  # the Hopper design keeps up to 12 64-key chunks resident
+_K2H_HEAD_DIMS = (64, 128)  # one or two swizzled 64-column boxes a row
+_HALF_TYPES = (torch.bfloat16, torch.float16)
 
 
 def attention_reference(q, k, v, causal: bool = False, scale: float | None = None,
@@ -185,8 +192,12 @@ def _lib() -> ctypes.CDLL:
         lib.k1_attention_nk1_sm90.restype = i
         lib.k2_flash_attention.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
         lib.k2_flash_attention.restype = i
+        lib.k2_flash_attention_sm90.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
+        lib.k2_flash_attention_sm90.restype = i
         lib.k3_attention_nk1_rope.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i, p]
         lib.k3_attention_nk1_rope.restype = i
+        lib.k3_attention_nk1_rope_sm90.argtypes = [p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.k3_attention_nk1_rope_sm90.restype = i
         lib.k6_attention_slim.argtypes = [p, p, p, p, i, i, i, i, f, i, i, p]
         lib.k6_attention_slim.restype = i
         lib.k6_attention_slim_sm90.argtypes = [p, p, p, p, i, i, i, f, i, p]
@@ -256,7 +267,7 @@ def attention_nk1(q, k, v, scale: float | None = None):
         out, err = _launch_k1_core(q, k, v, scale)
     else:
         out = torch.empty_like(q)
-        if any(x.data_ptr() % 16 for x in (q, k, v)):
+        if not _aligned(q, k, v):
             raise ValueError("attention_nk1: TMA needs 16-byte aligned q, k, v")
         err = _lib().k1_attention_nk1_sm90(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, tk,
@@ -292,10 +303,41 @@ def attention_nk1_core(q, k, v, scale: float | None = None):
 attention_nk1_core.launches = 0
 
 
+def _aligned(*tensors) -> bool:
+    """Every base on the 16-byte boundary TMA (and a 16-byte load) needs."""
+    return not any(x.data_ptr() % 16 for x in tensors)
+
+
+def k2_route(bh: int, tq: int, tk: int, d: int, dtype, causal: bool, aligned: bool) -> str:
+    """Which K2 kernel a CUDA call of 16-bit or fp32 inputs launches, by
+    shape, type and alignment alone: ``"sm90"`` for the Hopper design (16-bit,
+    d = 64 or 128, q, k and v on 16-byte boundaries: ``aligned``), ``"core"``
+    for the rest (fp32 inputs on the register-tiled kernel, other head dims
+    and bases TMA cannot address on the row-per-thread-group kernel).  Any
+    tq, tk and mask: short calls were measured on both and the Hopper design
+    did not lose (PERF.md)."""
+    del bh, tq, tk, causal
+    if d not in _K2H_HEAD_DIMS or dtype not in _HALF_TYPES or not aligned:
+        return "core"
+    return "sm90"
+
+
+def _launch_k2(entry: str, q, k, v, causal: bool, scale: float):
+    b, h, tq, d = q.shape
+    out = torch.empty_like(q)
+    err = getattr(_lib(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, k.shape[2], d,
+        scale, int(bool(causal)), _DTYPE_CODE[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    return out, err
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False, scale: float | None = None):
     """K2: online-softmax attention over key tiles, fp32/bf16/fp16 inputs,
     head dim <= 256, optional causal mask with diagonal offset tk - tq.
-    CUDA tensors launch ``k2_flash_attention``; CPU tensors take
+    CUDA tensors launch, by :func:`k2_route`, ``k2_flash_attention_sm90``
+    (the Hopper design, counted in ``.sm90_launches`` too) or
+    ``k2_flash_attention``; CPU tensors take
     :func:`flash_attention_reference`.  A causal call with tq > tk leaves
     its first tq - tk rows, which see no key, undefined: the TPU kernel's
     value there depends on its block layout, and so does this kernel's."""
@@ -306,19 +348,43 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale: float | None = Non
         return flash_attention_reference(q, k, v, causal, scale)
     if d > 256:
         raise ValueError("flash_attention_fwd: head dim > 256")
-    b, h, tq, _ = q.shape
-    tk = k.shape[2]
-    out = torch.empty_like(q)
-    err = _lib().k2_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, tq, tk, d,
-        scale, int(bool(causal)), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    bh = q.shape[0] * q.shape[1]
+    route = k2_route(bh, q.shape[2], k.shape[2], d, q.dtype, causal, _aligned(q, k, v))
+    # the Hopper kernel takes the row max over the raw scores, which is the
+    # max of the scaled ones only for a scale that is not negative
+    if route == "sm90" and scale >= 0:
+        out, err = _launch_k2("k2_flash_attention_sm90", q, k, v, causal, scale)
+        flash_attention_fwd.sm90_launches += 1
+    else:
+        out, err = _launch_k2("k2_flash_attention", q, k, v, causal, scale)
     flash_attention_fwd.launches += 1
     _raise_on(err, "flash_attention_fwd")
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.sm90_launches = 0
+
+
+def flash_attention_fwd_core(q, k, v, causal: bool = False, scale: float | None = None):
+    """K2's function for 16-bit inputs on the row-per-thread-group kernel
+    whatever the shape: the yardstick the Hopper design is timed against.
+    The package routes through :func:`flash_attention_fwd`; CPU tensors take
+    :func:`flash_attention_reference`."""
+    _check("flash_attention_fwd_core", q, k, v, _HALF_TYPES)
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, causal, scale)
+    if d > 256:
+        raise ValueError("flash_attention_fwd_core: head dim > 256")
+    out, err = _launch_k2("k2_flash_attention", q, k, v, causal, scale)
+    flash_attention_fwd_core.launches += 1
+    _raise_on(err, "flash_attention_fwd_core")
+    return out
+
+
+flash_attention_fwd_core.launches = 0
 
 
 def _rope_tables_for(name: str, rope_cos, rope_sin, t: int, d: int, device):
@@ -334,13 +400,38 @@ def _rope_tables_for(name: str, rope_cos, rope_sin, t: int, d: int, device):
     return cos.contiguous(), sin.contiguous()
 
 
+def k3_route(bh: int, tq: int, tk: int, d: int, dtype, aligned: bool) -> str:
+    """Which K3 kernel a CUDA call launches, by shape and alignment alone:
+    ``"time"`` for the rope variant of K1's Hopper time design (d = 64,
+    16-bit, tk <= 768, and q, k, v and both tables on 16-byte boundaries:
+    ``aligned``), ``"core"`` for the WMMA core's rope variant (everything
+    else).  A band-shaped call (tq and tk within one 64-row tile) takes the
+    time design over one chunk: there is no rope variant of the band
+    kernel."""
+    if not aligned or k1_route(bh, tq, tk, d, dtype) == "core":
+        return "core"
+    return "time"
+
+
+def _launch_k3_core(q, k, v, cos, sin, scale: float):
+    b, h, tq, d = q.shape
+    out = torch.empty_like(q)
+    err = _lib().k3_attention_nk1_rope(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), b * h, tq, k.shape[2], d, scale, _DTYPE_CODE[q.dtype],
+        k1_slices_per_cta(b * h, tq), torch.cuda.current_stream(q.device).cuda_stream)
+    return out, err
+
+
 def attention_nk1_rope(q, k, v, rope_cos, rope_sin, scale: float | None = None):
     """K3: K1 with half-split rope fused onto q and k, 16-bit inputs;
     ``rope_cos``/``rope_sin`` are tables from :func:`rope_tables` without the
-    scale, with at least max(tq, tk) rows.  CUDA tensors launch
+    scale, with at least max(tq, tk) rows.  CUDA tensors launch, by
+    :func:`k3_route`, ``k3_attention_nk1_rope_sm90`` (the rope variant of the
+    Hopper time design, counted in ``.sm90_launches`` too) or the WMMA core
     ``k3_attention_nk1_rope``; CPU tensors take
     :func:`attention_nk1_rope_reference`."""
-    _check("attention_nk1_rope", q, k, v, (torch.bfloat16, torch.float16))
+    _check("attention_nk1_rope", q, k, v, _HALF_TYPES)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -350,17 +441,46 @@ def attention_nk1_rope(q, k, v, rope_cos, rope_sin, scale: float | None = None):
         return attention_nk1_rope_reference(q, k, v, cos, sin, scale)
     if d not in _K1_HEAD_DIMS:
         raise ValueError(f"attention_nk1_rope: head dim {d} not in {_K1_HEAD_DIMS}")
-    out = torch.empty_like(q)
-    err = _lib().k3_attention_nk1_rope(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), b * h, tq, tk, d, scale, _DTYPE_CODE[q.dtype],
-        k1_slices_per_cta(b * h, tq), torch.cuda.current_stream(q.device).cuda_stream)
+    if k3_route(b * h, tq, tk, d, q.dtype, _aligned(q, k, v, cos, sin)) == "time":
+        out = torch.empty_like(q)
+        err = _lib().k3_attention_nk1_rope_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), b * h, tq, tk, scale, _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+        attention_nk1_rope.sm90_launches += 1
+    else:
+        out, err = _launch_k3_core(q, k, v, cos, sin, scale)
     attention_nk1_rope.launches += 1
     _raise_on(err, "attention_nk1_rope")
     return out
 
 
 attention_nk1_rope.launches = 0
+attention_nk1_rope.sm90_launches = 0
+
+
+def attention_nk1_rope_core(q, k, v, rope_cos, rope_sin, scale: float | None = None):
+    """K3's function on the WMMA core whatever the shape: the yardstick the
+    Hopper time design is timed against.  The package routes through
+    :func:`attention_nk1_rope`; CPU tensors take
+    :func:`attention_nk1_rope_reference`."""
+    name = "attention_nk1_rope_core"
+    _check(name, q, k, v, _HALF_TYPES)
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    cos, sin = _rope_tables_for(name, rope_cos, rope_sin, max(q.shape[2], k.shape[2]), d,
+                                q.device)
+    if not q.is_cuda:
+        return attention_nk1_rope_reference(q, k, v, cos, sin, scale)
+    if d not in _K1_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {_K1_HEAD_DIMS}")
+    out, err = _launch_k3_core(q, k, v, cos, sin, scale)
+    attention_nk1_rope_core.launches += 1
+    _raise_on(err, name)
+    return out
+
+
+attention_nk1_rope_core.launches = 0
 
 
 def k6_route(bh: int, tq: int, tk: int, d: int, dtype, aligned: bool) -> str:
@@ -408,7 +528,7 @@ def slim_attention(q, k, v, scale: float | None = None):
         return attention_nk1_reference(q, k, v, scale)
     if d not in _K1_HEAD_DIMS:
         raise ValueError(f"slim_attention: head dim {d} not in {_K1_HEAD_DIMS}")
-    aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
+    aligned = _aligned(q, k, v)
     if k6_route(b * h, tq, k.shape[2], d, q.dtype, aligned) == "band":
         out, err = _launch_k6_band(q, k, v, scale)
         slim_attention.sm90_launches += 1
@@ -514,7 +634,7 @@ def packed_attention(q, k, v, heads: int, dim_head: int, scale: float | None = N
     if not q.is_cuda:
         return packed_attention_reference(q, k, v, heads, dim_head, scale)
     ld = _packed_cuda_check(name, q, k, v, dim_head)
-    aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
+    aligned = _aligned(q, k, v)
     if k7_route(b, heads, t, dim_head, ld, q.dtype, aligned) == "time":
         out = torch.empty(b, t, inner, dtype=q.dtype, device=q.device)
         err = _launch_k7_time(q, k, v, out, heads, ld, scale)
@@ -555,7 +675,11 @@ def reset_launch_counts() -> None:
     attention_nk1.sm90_launches = 0
     attention_nk1_core.launches = 0
     flash_attention_fwd.launches = 0
+    flash_attention_fwd.sm90_launches = 0
+    flash_attention_fwd_core.launches = 0
     attention_nk1_rope.launches = 0
+    attention_nk1_rope.sm90_launches = 0
+    attention_nk1_rope_core.launches = 0
     slim_attention.launches = 0
     slim_attention.sm90_launches = 0
     slim_attention_core.launches = 0

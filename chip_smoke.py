@@ -11,10 +11,14 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
   card       nvidia-smi name and power limit, torch/CUDA versions, build seconds
   kernels    K1 and K2 against their plain versions at the main path's shapes
              (K2 in fp32 and in bf16), K1's Hopper design against the WMMA core
-             on each axis (in turns); K3-K7 (off the chain) against theirs at
-             the RoFormer's shapes: K7 on the packed layout and on a fused
-             qkv's views, K6 and K7 each against its WMMA core and against
-             K1's route of the same shape, K6 at each pipeline depth built,
+             on each axis (in turns); the 16-bit K2 on its Hopper design at
+             the HuBERT shape, a causal tq != tk shape, a causal language-model
+             prefill (16 x 2048 x 128) and a d = 128 shape with ragged keys,
+             each against the row-per-thread-group kernel in turns; K3-K7 (off
+             the chain) against theirs at the RoFormer's shapes: K3 on the rope
+             variant of the Hopper time design against its WMMA core, K7 on
+             the packed layout and on a fused qkv's views, K6 and K7 each
+             against its WMMA core and against K1's route of the same shape,
              and the three comparisons the TPU probes were written for
   separator  two BS-RoFormer members (dim 512, 12 axial pairs, 8 heads x 64,
              distinct seeded weights) on a 60 s stereo 44.1 kHz track: 8 chunks,
@@ -106,17 +110,19 @@ K1H_LAUNCH_REGS = 168
 
 
 def check_new_kernels(report: str) -> None:
-    """One line per kernel of this design (the Hopper routes of K1, K6 and
-    K7, all ``k1h_`` kernels, and K2's fp32 kernel) with its registers and
-    spills; raises before any launch if a ``k1h_`` kernel would start with
-    fewer registers than setmaxnreg hands out."""
+    """One line per kernel of this design (the Hopper routes of K1, K3, K6
+    and K7, all ``k1h_`` kernels, K2's Hopper kernel ``k2h_`` and its fp32
+    kernel) with its registers and spills; raises before any launch if a
+    ``k1h_`` or ``k2h_`` kernel would start with fewer registers than
+    setmaxnreg hands out, or if ptxas serialised a kernel's wgmma (C7515)."""
     for name, regs, spill in ptxas_kernels(report):
-        if "k1h_" not in name and "k2f_" not in name:
+        if not any(tag in name for tag in ("k1h_", "k2h_", "k2f_")):
             continue
         log(f"[card] ptxas {name}: {regs} registers, {spill} bytes spill stores")
-        if "k1h_" in name:
+        if "k1h_" in name or "k2h_" in name:
             expect(regs == K1H_LAUNCH_REGS,
                    f"{name}: {regs} registers at launch, setmaxnreg needs {K1H_LAUNCH_REGS}")
+    expect("C7515" not in report, "ptxas serialised a kernel's wgmma instructions (C7515)")
 
 
 def sync(dev) -> None:
@@ -242,12 +248,19 @@ def phase_kernels(dev, card: str) -> list[dict]:
     def sdpa(causal):
         # yardstick only: the port never calls it
         def call(q, k, v):
+            tq, tk = q.shape[2], k.shape[2]
+            if causal and tq == tk:     # its fused causal kernel takes no offset
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
             mask = None
             if causal:
-                tq, tk = q.shape[2], k.shape[2]
                 mask = torch.ones(tq, tk, dtype=torch.bool, device=dev).tril(tk - tq)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         return call
+
+    def hopper_launches(fn, wrapper):
+        before = wrapper.sm90_launches
+        fn()
+        return wrapper.sm90_launches - before
 
     k1_rep = "audiolab_tpu/kernels/attention.py:206"
     k2_rep = "audiolab_tpu/kernels/attention.py:56"
@@ -273,6 +286,11 @@ def phase_kernels(dev, card: str) -> list[dict]:
          (8, 12, 399, 64), (8, 12, 399, 64), bf, False, False),
         ("K2 flash_attention_fwd (causal, tq != tk, bf16)", "k2_causal_bf16", "K2",
          (2, 8, 100, 64), (2, 8, 333, 64), bf, True, False),
+        # the width and a prefill length of the JAX package's language model
+        ("K2 flash_attention_fwd (causal LM prefill, d = 128, bf16)", "k2_lm_prefill_bf16", "K2",
+         (1, 16, 2048, 128), (1, 16, 2048, 128), bf, True, False),
+        ("K2 flash_attention_fwd (d = 128, ragged keys, bf16)", "k2_d128_ragged_bf16", "K2",
+         (2, 16, 1000, 128), (2, 16, 1537, 128), bf, False, False),
     ]
     for label, key, kern, qs, ks, dt, causal, main in cases:
         q, k, v = rnd(qs, dt), rnd(ks, dt), rnd(ks, dt)
@@ -293,15 +311,47 @@ def phase_kernels(dev, card: str) -> list[dict]:
         else:
             rec = check_kernel(
                 label, lambda q, k, v, c=causal: A.flash_attention_fwd(q, k, v, causal=c),
-                lambda q, k, v, c=causal: A.flash_attention_reference(q, k, v, c, scale),
+                lambda q, k, v, c=causal: A.flash_attention_reference(q, k, v, c,
+                                                                      q.shape[-1] ** -0.5),
                 sdpa(causal), (q, k, v), attention_shape(q, k, causal),
                 *(k2_tol if dt == torch.float32 else k1_tol),
                 attention_work(q, k, causal), PEAK_FP32 if dt == torch.float32 else PEAK_BF16,
                 k2_rep)
+            if dt != torch.float32:
+                route = A.k2_route(qs[0] * qs[1], qs[2], ks[2], qs[3], dt, causal, True)
+                expect(route == "sm90", f"{label}: routed to {route}")
+                expect(hopper_launches(lambda: A.flash_attention_fwd(q, k, v, causal=causal),
+                                       A.flash_attention_fwd) == 1,
+                       f"{label}: the launch was not on the Hopper design")
+                # the row-per-thread-group kernel through its own entry, as a yardstick only
+                means = compare(f"K2 Hopper design vs row-per-thread-group kernel ({key})", {
+                    "hopper": lambda: A.flash_attention_fwd(q, k, v, causal=causal),
+                    "core": lambda: A.flash_attention_fwd_core(q, k, v, causal=causal),
+                }, card)
+                rec.update(k2_route=route, core_ms=means["core"],
+                           compare_hopper_ms=means["hopper"])
         rec.update(case=key, kernel=kern, on_main_path=main)
         recs.append(rec)
         del q, k, v
         torch.cuda.empty_cache()
+
+    # long sequences, where every CTA pulls a slice's K and V from L2 again for
+    # its 128 query rows: the 16-bit K2 beside SDPA, timed only
+    for d in (64, 128):
+        q, k, v = (rnd((4, 16, 4096, d), bf) for _ in range(3))
+        compare(f"K2 Hopper design vs SDPA, 64 x 4096 x 4096 x {d} bf16, not causal", {
+            "K2": lambda: A.flash_attention_fwd(q, k, v),
+            "SDPA": lambda: F.scaled_dot_product_attention(q, k, v),
+        }, card)
+        del q, k, v
+        torch.cuda.empty_cache()
+    # a decode step (one query row): k2_route keeps it on the Hopper design
+    q, k, v = rnd((1, 16, 1, 128), bf), rnd((1, 16, 2048, 128), bf), rnd((1, 16, 2048, 128), bf)
+    compare("K2 Hopper design vs row-per-thread-group kernel, decode step 16 x 1/2048 x 128", {
+        "hopper": lambda: A.flash_attention_fwd(q, k, v, causal=True),
+        "core": lambda: A.flash_attention_fwd_core(q, k, v, causal=True),
+    }, card)
+    del q, k, v
 
     # K3: the RoFormer time axis with rope fused (block_k 768 routes it here)
     time_shape = (496, 8, 690, 64)
@@ -316,12 +366,31 @@ def phase_kernels(dev, card: str) -> list[dict]:
         (flops, nbytes + 2 * cos.numel() * 4, exps), PEAK_BF16,
         "audiolab_tpu/kernels/attention.py:142",
         library_note="no single PyTorch call ropes and attends")
-    rec.update(case="k3_time", kernel="K3", on_main_path=False)
+    route = A.k3_route(time_shape[0] * time_shape[1], 690, 690, 64, bf, True)
+    expect(route == "time", f"K3: routed to {route}")
+    expect(hopper_launches(lambda: A.attention_nk1_rope(q, k, v, cos, sin),
+                           A.attention_nk1_rope) == 1,
+           "K3: the launch was not on the Hopper design")
+    means = compare("K3 Hopper time route vs WMMA core", {
+        "hopper": lambda: A.attention_nk1_rope(q, k, v, cos, sin),
+        "core": lambda: A.attention_nk1_rope_core(q, k, v, cos, sin),
+    }, card)
+    rec.update(case="k3_time", kernel="K3", on_main_path=False, k3_route=route,
+               core_ms=means["core"], compare_hopper_ms=means["hopper"])
     recs.append(rec)
     compare("K3 fused rope vs apply_rope_tables + K1 (time axis)", {
         "K3": lambda: A.attention_nk1_rope(q, k, v, cos, sin),
         "rope+K1": lambda: A.attention_nk1(A.apply_rope_tables(q, cos, sin),
                                            A.apply_rope_tables(k, cos, sin), v),
+    }, card)
+    del q, k, v
+    torch.cuda.empty_cache()
+    # a band-shaped call: k3_route sends it to the time design over one chunk
+    band_shape = (5520, 8, 62, 64)
+    q, k, v = rnd(band_shape, bf), rnd(band_shape, bf), rnd(band_shape, bf)
+    compare("K3 Hopper time route (one chunk) vs WMMA core (band axis)", {
+        "hopper": lambda: A.attention_nk1_rope(q, k, v, cos, sin),
+        "core": lambda: A.attention_nk1_rope_core(q, k, v, cos, sin),
     }, card)
     del q, k, v
     torch.cuda.empty_cache()
@@ -334,11 +403,6 @@ def phase_kernels(dev, card: str) -> list[dict]:
 
     def heads_first(x):
         return x.view(b, t, h, d).transpose(1, 2)
-
-    def hopper_launches(fn, wrapper):
-        before = wrapper.sm90_launches
-        fn()
-        return wrapper.sm90_launches - before
 
     k7_recs = {}
     for layout in ("packed", "qkv views"):
@@ -787,7 +851,8 @@ def main() -> int:
                            "plain_ms", "bound_ms", "bound_by", "library_ms")}
         | {"launches": main_launches[r["kernel"]], "case": r["case"],
            "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
-        | {k: r[k] for k in ("k1_route", "k6_route", "k7_route", "core_ms") if k in r}
+        | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
+                             "core_ms") if k in r}
         for r in kernel_recs]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

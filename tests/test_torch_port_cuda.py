@@ -6,9 +6,9 @@ JAX, so it runs where JAX is not installed; on a machine with a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
-``.sm90_launches`` shows which design a call of K1, K6 or K7 ran on.
+``.sm90_launches`` shows which design a call of K1, K2, K3, K6 or K7 ran on.
 
-Tolerances: K1, K3, K6 and K7 (16-bit) to 2 bf16 ulps of max|out| (the
+Tolerances: K1, K3, K6, K7 and the 16-bit K2 to 2 bf16 ulps of max|out| (the
 sums run in another order, which may flip an output's or a probability's
 rounding); K2 (fp32) to 2e-5 (fp32 sums over a few hundred
 keys in another order); K4 and K5 to 1 ulp of max|out| in 16-bit types
@@ -469,3 +469,215 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(TypeError):
         TN.rms_norm(torch.zeros(2, 64, device=cuda_device, dtype=torch.float64),
                     torch.ones(64, device=cuda_device))
+
+
+@pytest.mark.parametrize("tq,tk,causal", [
+    (399, 399, False),    # HuBERT: 4 query tiles of 128, the last ragged; 7 key tiles
+    (200, 700, False),    # tq != tk, more key tiles than ring stages
+    (129, 65, False),     # one row past a CTA's 128, one key past a tile
+    (60, 1, False),       # one key; the second warpgroup has no row
+    (100, 333, True),     # tq < tk, tk - tq = 233 not a multiple of 64
+    (300, 300, True),     # tq = tk: the diagonal crosses every tile
+    (130, 200, True),     # tk - tq = 70: the warpgroups stop a tile apart
+    (64, 64, True), (1, 77, True),
+    (1000, 1000, True)])  # 8 CTAs a slice, up to 16 key tiles: the ring wraps 4 times
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k2_hopper_matches_plain(cuda_device, tq, tk, causal, d, dtype):
+    """The 16-bit K2 on the Hopper design, shown by ``.sm90_launches``."""
+    q, k, v = _qkv(cuda_device, getattr(torch, dtype), 2, 3, tq, tk, d, seed=tq + tk + d)
+    assert TA.k2_route(6, tq, tk, d, q.dtype, causal, True) == "sm90"
+    before = (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches)
+    out = TA.flash_attention_fwd(q, k, v, causal=causal)
+    ref = TA.flash_attention_reference(q, k, v, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k2_hopper_many_slices_and_core_yardstick(cuda_device, d):
+    """More CTAs than the card holds at once (300 slices x 3 query tiles), and
+    the row-per-thread-group kernel through its own entry at the same shape."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 20, 15, 333, 333, d, seed=d)
+    out = TA.flash_attention_fwd(q, k, v, causal=True)
+    before = TA.flash_attention_fwd_core.launches
+    core = TA.flash_attention_fwd_core(q, k, v, causal=True)
+    ref = TA.flash_attention_reference(q, k, v, True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert TA.flash_attention_fwd_core.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    assert (core.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+@pytest.mark.parametrize("tq,tk", [(100, 62), (100, 130)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k2_hopper_masks_padded_keys(cuda_device, tq, tk, d, dtype):
+    """Every real score is -98 (q = 3.5, k = -3.5 over d = 64 at scale 1/8, or
+    q = 3.5, k = -1.75 over d = 128): the output is the mean of v's rows.  A
+    zero-filled key of the ragged last tile left unmasked would score 0 and
+    take the whole softmax."""
+    dt = getattr(torch, dtype)
+    q = torch.full((1, 2, tq, d), 3.5, device=cuda_device, dtype=dt)
+    k = torch.full((1, 2, tk, d), -3.5 * 64 / d, device=cuda_device, dtype=dt)
+    v = _qkv(cuda_device, dt, 1, 2, tk, tk, d, seed=7)[2]
+    before = TA.flash_attention_fwd.sm90_launches
+    out = TA.flash_attention_fwd(q, k, v, scale=0.125)
+    ref = TA.flash_attention_reference(q, k, v, False, 0.125)
+    mean = v.float().mean(dim=2, keepdim=True).expand(1, 2, tq, d)
+    torch.cuda.synchronize()
+    assert TA.flash_attention_fwd.sm90_launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    assert (out.float() - mean).abs().max().item() <= _k1_tol(mean)
+
+
+def test_k2_hopper_causal_more_queries_than_keys(cuda_device):
+    """tq > tk under causal: the first tq - tk rows see no key and are left
+    undefined (finite); every other row agrees with the plain version."""
+    tq, tk = 200, 130
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 2, tq, tk, 64, seed=5)
+    out = TA.flash_attention_fwd(q, k, v, causal=True)
+    ref = TA.flash_attention_reference(q, k, v, True, 0.125)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    seen = slice(tq - tk, tq)
+    assert ((out[:, :, seen].float() - ref[:, :, seen].float()).abs().max().item()
+            <= _k1_tol(ref[:, :, seen]))
+
+
+@pytest.mark.parametrize("d", [80, 256, 32])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_k2_takes_the_core_for_other_head_dims(cuda_device, d, dtype):
+    q, k, v = _qkv(cuda_device, getattr(torch, dtype), 2, 3, 150, 260, d, seed=d)
+    assert TA.k2_route(6, 150, 260, d, q.dtype, True, True) == "core"
+    before = (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches)
+    out = TA.flash_attention_fwd(q, k, v, causal=True)
+    ref = TA.flash_attention_reference(q, k, v, True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches) == (
+        before[0] + 1, before[1])
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+def test_k2_takes_the_core_for_bases_tma_cannot_address(cuda_device):
+    """q, k and v 2 bytes off a 16-byte boundary, and fp32 inputs, stay off
+    the Hopper design and agree with the plain version."""
+    b, h, t, d = 2, 3, 150, 64
+    flat = torch.randn(3, b * h * t * d + 1, device=cuda_device).bfloat16()
+    q, k, v = (f[1:].view(b, h, t, d) for f in flat)
+    aligned = not any(x.data_ptr() % 16 for x in (q, k, v))
+    assert not aligned and q.is_contiguous()
+    assert TA.k2_route(b * h, t, t, d, q.dtype, False, aligned) == "core"
+    before = (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches)
+    out = TA.flash_attention_fwd(q, k, v)
+    ref = TA.flash_attention_reference(q, k, v, False, 0.125)
+    TA.flash_attention_fwd(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches) == (
+        before[0] + 2, before[1])
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+def test_k2_takes_the_core_for_a_negative_scale(cuda_device):
+    """The Hopper kernel takes the row max over the raw scores, which holds
+    only for a scale that is not negative: a negative one stays off it."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 3, 150, 260, 64, seed=11)
+    before = (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches)
+    out = TA.flash_attention_fwd(q, k, v, causal=True, scale=-0.125)
+    zero = TA.flash_attention_fwd(q, k, v, causal=True, scale=0.0)
+    ref = TA.flash_attention_reference(q, k, v, True, -0.125)
+    ref0 = TA.flash_attention_reference(q, k, v, True, 0.0)
+    torch.cuda.synchronize()
+    assert (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    assert (zero.float() - ref0.float()).abs().max().item() <= _k1_tol(ref0)
+
+
+@pytest.mark.parametrize("bh,tq,tk", [
+    ((2, 4), 690, 690),    # RoFormer time axis: 11 chunks roped once, 11 query tiles
+    ((40, 8), 690, 690),   # 320 slices: more than one a CTA, barrier phases wrap
+    ((2, 3), 100, 100),    # a ragged second chunk and tile
+    ((2, 3), 65, 65),      # one row and one key past a tile
+    ((2, 3), 40, 300),     # tq != tk; one query tile: the second warpgroup only ropes
+    ((2, 3), 300, 40),     # one chunk: the second warpgroup ropes nothing
+    ((1, 3), 200, 768),    # the most keys kept resident
+    ((3, 50), 62, 62)])    # band-shaped: the time design over one chunk
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("tables", ["rope", "random"])
+def test_k3_hopper_route_matches_plain(cuda_device, bh, tq, tk, dtype, tables):
+    """K3 on the rope variant of the Hopper time design, shown by
+    ``.sm90_launches``.  The tables hold more rows than max(tq, tk); the
+    random ones have halves that differ, which rope's own tables never do."""
+    q, k, v = _qkv(cuda_device, getattr(torch, dtype), *bh, tq, tk, 64, seed=tq + tk)
+    rows = max(tq, tk) + 37
+    if tables == "rope":
+        cos, sin = (x.to(cuda_device) for x in TA.rope_tables(rows, 64))
+    else:
+        g = torch.Generator(device=cuda_device).manual_seed(rows)
+        cos, sin = (torch.randn(rows, 64, generator=g, device=cuda_device) for _ in range(2))
+    assert TA.k3_route(bh[0] * bh[1], tq, tk, 64, q.dtype, True) == "time"
+    before = (TA.attention_nk1_rope.launches, TA.attention_nk1_rope.sm90_launches)
+    out = TA.attention_nk1_rope(q, k, v, cos, sin)
+    ref = TA.attention_nk1_rope_reference(q, k, v, cos, sin, 0.125)
+    torch.cuda.synchronize()
+    assert (TA.attention_nk1_rope.launches, TA.attention_nk1_rope.sm90_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+def test_k3_takes_the_core_off_the_hopper_shapes(cuda_device):
+    """d = 32, tk = 800, and tables 4 bytes off a 16-byte boundary go to the
+    WMMA core and agree with the plain version; the yardstick entry runs the
+    core at a Hopper shape."""
+    cases = []
+    for tq, tk, d in ((100, 100, 32), (70, 800, 64)):
+        q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 2, tq, tk, d, seed=tk)
+        cos, sin = (x.to(cuda_device) for x in TA.rope_tables(max(tq, tk), d))
+        assert TA.k3_route(2, tq, tk, d, q.dtype, True) == "core"
+        cases.append((q, k, v, cos, sin, d))
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 2, 100, 100, 64, seed=9)
+    flat = torch.randn(2, 100 * 64 + 1, device=cuda_device)
+    cos, sin = (f[1:].view(100, 64) for f in flat)
+    assert cos.is_contiguous() and cos.data_ptr() % 16 != 0
+    cases.append((q, k, v, cos, sin, 64))
+    for q, k, v, cos, sin, d in cases:
+        before = (TA.attention_nk1_rope.launches, TA.attention_nk1_rope.sm90_launches)
+        out = TA.attention_nk1_rope(q, k, v, cos, sin)
+        ref = TA.attention_nk1_rope_reference(q, k, v, cos, sin, d ** -0.5)
+        torch.cuda.synchronize()
+        assert (TA.attention_nk1_rope.launches, TA.attention_nk1_rope.sm90_launches) == (
+            before[0] + 1, before[1])
+        assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 4, 690, 690, 64, seed=3)
+    cos, sin = (x.to(cuda_device) for x in TA.rope_tables(690, 64))
+    before = TA.attention_nk1_rope_core.launches
+    core = TA.attention_nk1_rope_core(q, k, v, cos, sin)
+    ref = TA.attention_nk1_rope_reference(q, k, v, cos, sin, 0.125)
+    torch.cuda.synchronize()
+    assert TA.attention_nk1_rope_core.launches == before + 1
+    assert (core.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+@pytest.mark.parametrize("tq", [62, 100])
+def test_k3_hopper_masks_padded_keys(cuda_device, tq):
+    """Unit tables (cos 1, sin 0) make rope the identity; every real score is
+    -98 and the output the mean of v's rows: the zero-filled keys of the
+    ragged chunk stay masked after the in-place rope."""
+    tk = 62
+    q = torch.full((1, 2, tq, 64), 3.5, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.full((1, 2, tk, 64), -3.5, device=cuda_device, dtype=torch.bfloat16)
+    v = _qkv(cuda_device, torch.bfloat16, 1, 2, tk, tk, 64, seed=7)[2]
+    cos = torch.ones(128, 64, device=cuda_device)
+    sin = torch.zeros(128, 64, device=cuda_device)
+    before = TA.attention_nk1_rope.sm90_launches
+    out = TA.attention_nk1_rope(q, k, v, cos, sin)
+    mean = v.float().mean(dim=2, keepdim=True).expand(1, 2, tq, 64)
+    torch.cuda.synchronize()
+    assert TA.attention_nk1_rope.sm90_launches == before + 1
+    assert (out.float() - mean).abs().max().item() <= _k1_tol(mean)

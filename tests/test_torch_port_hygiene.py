@@ -136,7 +136,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 
 CUDA_ENTRIES = {
     "attention": ("k1_attention_nk1", "k1_attention_nk1_sm90", "k2_flash_attention",
-                  "k3_attention_nk1_rope", "k6_attention_slim", "k6_attention_slim_sm90",
+                  "k2_flash_attention_sm90", "k3_attention_nk1_rope",
+                  "k3_attention_nk1_rope_sm90", "k6_attention_slim", "k6_attention_slim_sm90",
                   "k7_attention_packed", "k7_attention_packed_sm90"),
     "norms": ("k4_rms_norm", "k5_layer_norm"),
 }

@@ -332,15 +332,32 @@ def _launch_k2(entry: str, q, k, v, causal: bool, scale: float):
     return out, err
 
 
+def keyless_rows(tq: int, tk: int, causal: bool) -> int:
+    """Query rows that a causal call's diagonal offset tk - tq leaves with no
+    key: the first tq - tk when tq > tk, else none."""
+    return max(tq - tk, 0) if causal else 0
+
+
+def with_keyless_rows(q, v, out_rest, n: int):
+    """The full output from the kernel's output on q's last rows: the first
+    ``n`` rows get the mean of v, which is what the reference's finite mask
+    value (-1e30) makes of a softmax over no key (attention.py:39-53)."""
+    if not n:
+        return out_rest
+    mean = v.float().mean(dim=2, keepdim=True).to(q.dtype)
+    return torch.cat([mean.expand(-1, -1, n, -1), out_rest], dim=2)
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False, scale: float | None = None):
     """K2: online-softmax attention over key tiles, fp32/bf16/fp16 inputs,
     head dim <= 256, optional causal mask with diagonal offset tk - tq.
     CUDA tensors launch, by :func:`k2_route`, ``k2_flash_attention_sm90``
     (the Hopper design, counted in ``.sm90_launches`` too) or
     ``k2_flash_attention``; CPU tensors take
-    :func:`flash_attention_reference`.  A causal call with tq > tk leaves
-    its first tq - tk rows, which see no key, undefined: the TPU kernel's
-    value there depends on its block layout, and so does this kernel's."""
+    :func:`flash_attention_reference`.  A causal call with tq > tk launches
+    the kernel on the last tk query rows (diagonal offset 0) and gives the
+    first tq - tk rows, which see no key, the mean of v, as the reference
+    does (:func:`with_keyless_rows`)."""
     _check("flash_attention_fwd", q, k, v, tuple(_DTYPE_CODE))
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -348,18 +365,20 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale: float | None = Non
         return flash_attention_reference(q, k, v, causal, scale)
     if d > 256:
         raise ValueError("flash_attention_fwd: head dim > 256")
+    n_free = keyless_rows(q.shape[2], k.shape[2], causal)
+    qk = q[:, :, n_free:].contiguous() if n_free else q
     bh = q.shape[0] * q.shape[1]
-    route = k2_route(bh, q.shape[2], k.shape[2], d, q.dtype, causal, _aligned(q, k, v))
+    route = k2_route(bh, qk.shape[2], k.shape[2], d, q.dtype, causal, _aligned(qk, k, v))
     # the Hopper kernel takes the row max over the raw scores, which is the
     # max of the scaled ones only for a scale that is not negative
     if route == "sm90" and scale >= 0:
-        out, err = _launch_k2("k2_flash_attention_sm90", q, k, v, causal, scale)
+        out, err = _launch_k2("k2_flash_attention_sm90", qk, k, v, causal, scale)
         flash_attention_fwd.sm90_launches += 1
     else:
-        out, err = _launch_k2("k2_flash_attention", q, k, v, causal, scale)
+        out, err = _launch_k2("k2_flash_attention", qk, k, v, causal, scale)
     flash_attention_fwd.launches += 1
     _raise_on(err, "flash_attention_fwd")
-    return out
+    return with_keyless_rows(q, v, out, n_free)
 
 
 flash_attention_fwd.launches = 0
@@ -378,10 +397,12 @@ def flash_attention_fwd_core(q, k, v, causal: bool = False, scale: float | None 
         return flash_attention_reference(q, k, v, causal, scale)
     if d > 256:
         raise ValueError("flash_attention_fwd_core: head dim > 256")
-    out, err = _launch_k2("k2_flash_attention", q, k, v, causal, scale)
+    n_free = keyless_rows(q.shape[2], k.shape[2], causal)
+    qk = q[:, :, n_free:].contiguous() if n_free else q
+    out, err = _launch_k2("k2_flash_attention", qk, k, v, causal, scale)
     flash_attention_fwd_core.launches += 1
     _raise_on(err, "flash_attention_fwd_core")
-    return out
+    return with_keyless_rows(q, v, out, n_free)
 
 
 flash_attention_fwd_core.launches = 0

@@ -7,6 +7,7 @@ output: y[m] = sum_n x[n] h[n*up - m*down + half], n_out = ceil(n*up/down).
 The JAX package dilates the input by ``up`` inside one convolution; here the
 ``up`` output phases are the output channels of one strided conv1d over the
 undilated input, so no zero-stuffed signal is ever built.
+:func:`resample_poly_np` is the host resampler (scipy's resample_poly).
 """
 
 from __future__ import annotations
@@ -65,3 +66,13 @@ def resample(x: torch.Tensor, orig_sr: int, target_sr: int) -> torch.Tensor:
     y = F.conv1d(xr, w, stride=down)[..., :n_per_phase]   # (N, up, n_per_phase)
     y = y.transpose(1, 2).reshape(xr.shape[0], -1)[:, :n_out]
     return y.reshape(*lead, n_out)
+
+
+def resample_poly_np(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
+    """Host resample (numpy in and out, float32 out) by scipy's
+    resample_poly along the last axis."""
+    if orig_sr == target_sr:
+        return np.asarray(x)
+    g = math.gcd(orig_sr, target_sr)
+    return sps.resample_poly(np.asarray(x), target_sr // g, orig_sr // g, axis=-1).astype(
+        np.float32)

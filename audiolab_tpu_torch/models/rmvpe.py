@@ -207,3 +207,10 @@ class RMVPE(E2E):
             mel = F.pad(mel.transpose(1, 2), (0, pad), mode="reflect").transpose(1, 2)
         hidden = self(mel)[:, :t]
         return decode_f0(hidden, threshold)
+
+    def infer_with_pitch(self, audio16k: torch.Tensor, threshold: float = 0.03,
+                         f0_min: float = 50.0, f0_max: float = 1100.0) -> torch.Tensor:
+        """The "rmvpe+" method: :meth:`infer` with estimates outside
+        [f0_min, f0_max] set to 0 (unvoiced)."""
+        f0 = self.infer(audio16k, threshold)
+        return torch.where((f0 < f0_min) | (f0 > f0_max), torch.zeros_like(f0), f0)

@@ -248,3 +248,105 @@ def synthesizer_from_jax(params: dict) -> dict:
                 _conv1d(sd, f"dec.resblocks.{flat}.convs2.{cj}", node[f"conv2_{cj}"]["Conv_0"])
     sd["emb_g.weight"] = _t(params["emb_g"]["embedding"])
     return sd
+
+
+# ---------------------------------------------------------------------- VR
+
+_BN_EPS = 1e-5
+
+
+def _folded_bn(sd: dict, key: str, node: dict) -> None:
+    """A folded batch norm (``x * scale + bias``) as torch BatchNorm state:
+    weight = scale, bias = bias, mean 0 and variance 1 - eps, so that the
+    eval-mode norm multiplies by scale / sqrt(1 - eps + eps) = scale."""
+    _norm(sd, key, node)
+    n = np.asarray(node["scale"]).shape[0]
+    sd[f"{key}.running_mean"] = torch.zeros(n)
+    sd[f"{key}.running_var"] = torch.full((n,), 1.0 - _BN_EPS)
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _vr_cba(sd: dict, key: str, node: dict) -> None:
+    _conv2d(sd, f"{key}.conv.0", node["conv"])
+    _folded_bn(sd, f"{key}.conv.1", node["bn"])
+
+
+def _vr_sep_cba(sd: dict, key: str, node: dict) -> None:
+    _conv2d(sd, f"{key}.conv.0", node["dw"])
+    _conv2d(sd, f"{key}.conv.1", node["pw"])
+    _folded_bn(sd, f"{key}.conv.2", node["bn"])
+
+
+def _vr_base_asppnet(sd: dict, key: str, node: dict) -> None:
+    for i in (1, 2, 3, 4):
+        _vr_cba(sd, f"{key}.enc{i}.conv1", node[f"enc{i}"]["conv1"])
+        _vr_cba(sd, f"{key}.enc{i}.conv2", node[f"enc{i}"]["conv2"])
+        _vr_cba(sd, f"{key}.dec{i}.conv", node[f"dec{i}"]["conv"])
+    aspp = node["aspp"]
+    _vr_cba(sd, f"{key}.aspp.conv1.1", aspp["conv1"])
+    _vr_cba(sd, f"{key}.aspp.conv2", aspp["conv2"])
+    for i in (3, 4, 5):
+        _vr_sep_cba(sd, f"{key}.aspp.conv{i}", aspp[f"conv{i}"])
+    _vr_cba(sd, f"{key}.aspp.bottleneck.0", aspp["bottleneck"])
+
+
+def _lstm(sd: dict, base: str, sfx: str, cell: dict) -> None:
+    """A flax LSTM cell (gates i, f, g, o; the bias on the hidden side) as
+    torch's packed ``weight_ih/hh`` and ``bias_ih/hh`` of one direction."""
+    def w(name):
+        return np.asarray(cell[name]["kernel"]).T
+
+    gates = ("i", "f", "g", "o")
+    sd[f"{base}.weight_ih_{sfx}"] = _t(np.concatenate([w(f"i{g}") for g in gates]))
+    sd[f"{base}.weight_hh_{sfx}"] = _t(np.concatenate([w(f"h{g}") for g in gates]))
+    bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+    sd[f"{base}.bias_ih_{sfx}"] = _t(bias)
+    sd[f"{base}.bias_hh_{sfx}"] = _t(np.zeros_like(bias))
+
+
+def _vr_basenet_new(sd: dict, key: str, node: dict) -> None:
+    _vr_cba(sd, f"{key}.enc1", node["enc1"])
+    for i in (2, 3, 4, 5):
+        _vr_cba(sd, f"{key}.enc{i}.conv1", node[f"enc{i}"]["conv1"])
+        _vr_cba(sd, f"{key}.enc{i}.conv2", node[f"enc{i}"]["conv2"])
+    aspp = node["aspp"]
+    _vr_cba(sd, f"{key}.aspp.conv1.1", aspp["conv1"])
+    for i in (2, 3, 4, 5):
+        _vr_cba(sd, f"{key}.aspp.conv{i}", aspp[f"conv{i}"])
+    _conv2d(sd, f"{key}.aspp.bottleneck", aspp["bottleneck"])
+    for i in (1, 2, 3, 4):
+        _vr_cba(sd, f"{key}.dec{i}.conv1", node[f"dec{i}"]["conv1"])
+    lm = node["lstm_dec2"]
+    _vr_cba(sd, f"{key}.lstm_dec2.conv", lm["conv"])
+    _lstm(sd, f"{key}.lstm_dec2.lstm", "l0", lm["lstm"]["l0_fwd_cell"])
+    _lstm(sd, f"{key}.lstm_dec2.lstm", "l0_reverse", lm["lstm"]["l0_bwd_cell"])
+    _dense(sd, f"{key}.lstm_dec2.dense.0", lm["dense"])
+    _folded_bn(sd, f"{key}.lstm_dec2.dense.1", lm["dense_bn"])
+
+
+def vr_from_jax(params: dict) -> dict:
+    """CascadedASPPNet or CascadedNet flax params (batch norms folded) ->
+    port state_dict (UVR ``.pth`` names).  The auxiliary heads of training,
+    which the flax nets do not carry, are zero."""
+    sd: dict = {}
+    _conv2d(sd, "out", params["out"])
+    if "stg2_bridge" in params:
+        for name in ("stg1_low_band_net", "stg1_high_band_net", "stg2_full_band_net",
+                     "stg3_full_band_net"):
+            _vr_base_asppnet(sd, name, params[name])
+        _vr_cba(sd, "stg2_bridge", params["stg2_bridge"])
+        _vr_cba(sd, "stg3_bridge", params["stg3_bridge"])
+        ch = np.asarray(params["stg2_bridge"]["conv"]["kernel"]).shape[2] - 2
+        for aux in ("aux1_out", "aux2_out"):
+            sd[f"{aux}.weight"] = torch.zeros(2, ch, 1, 1)
+        return sd
+    _vr_basenet_new(sd, "stg1_low_band_net.0", params["stg1_low_band_net_0"])
+    _vr_cba(sd, "stg1_low_band_net.1", params["stg1_low_band_net_1"])
+    _vr_basenet_new(sd, "stg1_high_band_net", params["stg1_high_band_net"])
+    _vr_basenet_new(sd, "stg2_low_band_net.0", params["stg2_low_band_net_0"])
+    _vr_cba(sd, "stg2_low_band_net.1", params["stg2_low_band_net_1"])
+    _vr_basenet_new(sd, "stg2_high_band_net", params["stg2_high_band_net"])
+    _vr_basenet_new(sd, "stg3_full_band_net", params["stg3_full_band_net"])
+    nout = np.asarray(params["out"]["kernel"]).shape[2]
+    sd["aux_out.weight"] = torch.zeros(2, 3 * nout // 4, 1, 1)
+    return sd

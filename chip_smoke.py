@@ -4,6 +4,7 @@ drives the separate -> RVC chain at full width, and checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
+    python3 chip_smoke.py --phases card,f0,vr,long # the paths beside the chain
     python3 chip_smoke.py --profile DIR            # + a profiler table of one chain pass
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
@@ -27,10 +28,24 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              HuBERT, full RMVPE and a 4096 x 768 index; 12 K2 launches
   fidelity   the same RVC input under the fp32 and the bf16 matmul policy:
              mel-L1 < 1e-2 (BASELINE.md's gate, measured as tests/test_fidelity.py),
-             held with retrieval off (see phase_fidelity)
+             held with retrieval off (see phase_fidelity); the policy's
+             convolutions against fp64 (stops above 1e-4 of max|y|), and the
+             RVC seconds and mel-L1 with them run two other ways
+  f0         convert on the separator's vocals with the f0 methods beside rmvpe:
+             YIN fused into the conversion (no RMVPE), rmvpe+, and the hybrid
+             ["harvest", "rmvpe+"] (harvest on the host, timed apart); 12 K2
+             launches a group each
   reference  small inputs at full width, the card against the CPU's plain path
   timing     one warm chain pass: seconds and audio-seconds per second, and two
              more passes for the spread
+  vr         the VR karaoke split (vr_split, KARAOKE) on the stereo vocals stem:
+             CascadedASPPNet on 4band_v3 and CascadedNet on 1band_sr44100_hl512
+             at VRConfig's default widths, window 512; primary + complement
+             against the band round trip of the input, one forward on the card
+             against the CPU, seconds for the 60 s stem
+  long       bench.py's 4-minute track through separate -> mono -> resample ->
+             convert, once after a pass that warms its shapes: 32 chunks in 4
+             groups of 8, 192 K1 launches (all Hopper), 48 K2, stage seconds
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -48,9 +63,12 @@ import time
 
 import numpy as np
 
-PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "reference", "timing")
+PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
+          "long")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
+LONG_S = 240.0     # bench.py's 4-minute track
+HUBERT_LAYERS = 12
 # blend weights of the first two members of the reference's ensemble table
 MEMBER_WEIGHTS = ((8.6, 16.0), (8.4, 16.0))
 SEP_CFG = dict(dim=512, depth=12, heads=8, stems=("vocals",), residual_stem="other")
@@ -692,7 +710,245 @@ def phase_fidelity(dev, vcs, x16, out_bf16) -> float:
         f"random index, not gated): mel-L1 {chain_err:.6f}; "
         f"{time.perf_counter() - t0:.3f} s {'OK' if err < MEL_L1_GATE else 'FAIL'}")
     expect(err < MEL_L1_GATE, f"fidelity: mel-L1 {err} >= {MEL_L1_GATE}")
+    phase_conv_policy(dev, vcs, x16, off["highest"], chain32)
     return err
+
+
+def phase_conv_policy(dev, vcs, x16, ref_off, ref_on) -> None:
+    """The policy's convolutions (TF32 cuDNN on bf16-rounded operands)
+    against the two other ways to run them: the fp32 call with TF32 off
+    (the same function, on the CUDA cores) and the bf16 call, whose result
+    is rounded to bf16 (the policy's earlier form).  One convolution at the NSF
+    decoder's first shape against fp64 on the rounded operands, then the
+    RVC stage's seconds in turns and its mel-L1 against fp32 each way."""
+    import torch
+    import torch.nn.functional as F
+
+    from audiolab_tpu_torch.core import precision as P
+
+    port = P._conv
+    ways = {
+        "tf32 on rounded operands (the port's)": port,
+        "fp32, TF32 off": lambda fn, x, w, *a: fn(P._round(x), P._round(w), None, *a),
+        "bf16 call, result rounded": lambda fn, x, w, *a: fn(
+            x.bfloat16(), w.bfloat16(), None, *a).float(),
+    }
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(8, 512, 12000, device=dev, generator=g)
+    w = 0.05 * torch.randn(256, 512, 7, device=dev, generator=g)
+    ref = F.conv1d(P._round(x).double(), P._round(w).double(), padding=3)
+    vc = vcs["bfloat16"]
+    sr = vc.synth_cfg.sr
+    res = {}
+    try:
+        for name, conv in ways.items():
+            P._conv = conv
+            with P.matmul_precision("bfloat16"):
+                y = P.conv1d(x, w, None, 1, 3)
+                rel = float((y.double() - ref).abs().max() / ref.abs().max())
+                ms = cuda_ms(lambda: P.conv1d(x, w, None, 1, 3), iters=10, warmup=2)
+            off = vc.convert(x16, sid=0, seed=0, index_rate=0.0, as_numpy=False)
+            on = vc.convert(x16, sid=0, seed=0, as_numpy=False)
+            res[name] = dict(rel=rel, ms=ms, mel_off=mel_l1(off, ref_off, sr),
+                             mel_on=mel_l1(on, ref_on, sr), rvc_s=[])
+        for rep in range(3):
+            for name in (list(ways) if rep % 2 == 0 else list(ways)[::-1]):
+                P._conv = ways[name]
+                sync(dev)
+                t0 = time.perf_counter()
+                vc.convert(x16, sid=0, seed=0, as_numpy=False)
+                sync(dev)
+                res[name]["rvc_s"].append(time.perf_counter() - t0)
+    finally:
+        P._conv = port
+    for name, r in res.items():
+        log(f"[fidelity] convolutions as {name}: 8 x 512 x 12000 by 256 x 512 x 7 "
+            f"{r['ms']:.3f} ms, max|err| / max|y| against fp64 on the rounded operands "
+            f"{r['rel']:.3e}; RVC on the 60 s vocals in turns "
+            f"{' / '.join(f'{s:.3f}' for s in r['rvc_s'])} s; mel-L1 against fp32, "
+            f"retrieval off {r['mel_off']:.6f}, on {r['mel_on']:.6f}")
+    # fp32 sums read about 1e-5 of max|y| here, a bf16 result rounding 3e-3
+    expect(res[next(iter(ways))]["rel"] < 1e-4,
+           "fidelity: the policy's convolution is not the fp32 sum of rounded operands")
+
+
+def rvc_plan(vc, n16: int):
+    """The chunk plan ``convert`` makes of an ``n16``-sample 16 kHz input."""
+    from audiolab_tpu_torch.core.chunking import plan_chunks
+
+    chunk = int(vc.cfg.chunk_seconds * RVC_SR)
+    overlap = int(vc.cfg.overlap_seconds * RVC_SR)
+    return plan_chunks(n16, chunk - chunk % 320, overlap - overlap % 320)
+
+
+def rvc_groups(vc, n16: int) -> int:
+    """Device groups ``convert`` runs on an ``n16``-sample 16 kHz input."""
+    count = rvc_plan(vc, n16).count
+    return -(-count // max(1, min(vc.cfg.device_batch, count)))
+
+
+def phase_f0(dev, vc, vocals) -> dict:
+    """The f0 methods beside rmvpe, each a ``convert`` of the separator's
+    vocals with counts reset just before and read just after: 12 K2 (HuBERT)
+    a group and no other kernel."""
+    import torch
+
+    from audiolab_tpu_torch.core.chunking import extract_chunks
+    from audiolab_tpu_torch.dsp.f0 import f0_harvest
+    from audiolab_tpu_torch.pipelines.rvc import RVCPipelineConfig, VoiceConverter
+
+    x16 = to_rvc_input(vocals)
+    groups = rvc_groups(vc, x16.shape[-1])
+    secs = {}
+    for label, method, rmvpe in (("yin, no RMVPE: fused into the conversion", "yin", None),
+                                 ("rmvpe+", "rmvpe+", vc.rmvpe),
+                                 ("hybrid harvest + rmvpe+", ["harvest", "rmvpe+"], vc.rmvpe)):
+        v = VoiceConverter(vc.synth, vc.hubert, rmvpe, index_features=vc.index_features,
+                           cfg=RVCPipelineConfig(sr=vc.cfg.sr, f0_method=method,
+                                                 matmul_precision=vc.cfg.matmul_precision),
+                           device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = v.convert(x16, sid=0, seed=0, as_numpy=False)
+        sync(dev)
+        secs[label] = time.perf_counter() - t0
+        launches = counts()
+        n_out = int(round(x16.shape[-1] * v.synth_cfg.sr / RVC_SR))
+        finite = bool(torch.isfinite(out).all())
+        log(f"[f0] {label}: {x16.shape[-1] / RVC_SR:.1f} s -> {tuple(out.shape)} finite "
+            f"{finite} peak {float(out.abs().max()):.4f} launches {launches} "
+            f"{secs[label]:.3f} s")
+        expect(tuple(out.shape) == (n_out,) and finite, f"f0 {label}: length or finiteness")
+        # CPU tensors take the plain versions and count nothing
+        expect(dev.type != "cuda" or only(launches, "K2", HUBERT_LAYERS * groups),
+               f"f0 {label}: launches {launches}, expected K2 {HUBERT_LAYERS * groups}")
+    plan = rvc_plan(vc, x16.shape[-1])
+    rows = extract_chunks(x16, plan).float().cpu().numpy()
+    t0 = time.perf_counter()
+    for row in rows:
+        f0_harvest(row, sr=RVC_SR, hop=160, fmin=vc.cfg.f0_min, fmax=vc.cfg.f0_max)
+    secs["harvest on the host alone"] = time.perf_counter() - t0
+    log(f"[f0] harvest alone on the host, {len(rows)} chunks of "
+        f"{plan.chunk / RVC_SR:.1f} s: {secs['harvest on the host alone']:.3f} s")
+    return secs
+
+
+VR_CASES = (("cascaded_asppnet", "4band_v3"), ("cascaded_net", "1band_sr44100_hl512"))
+
+
+def phase_vr(dev, vocals, widths: dict | None = None, window: int = 512) -> dict:
+    """The VR karaoke split on the stereo vocals stem, one net of each
+    generation at VRConfig's default widths (``widths`` overrides them for a
+    rehearsal on the CPU), weights by bench.py's rules; counts reset before
+    each split and read after (the VR path launches no hand-written
+    kernel)."""
+    import copy
+
+    import torch
+
+    from audiolab_tpu_torch.models.separation.vr import VRConfig, make_vr_net
+    from audiolab_tpu_torch.models.separation.vr_bands import (
+        BAND_PARAMS,
+        combined_spec_to_wave,
+        wave_to_combined_spec,
+    )
+    from audiolab_tpu_torch.pipelines.separate import KARAOKE, vr_split
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    secs = {}
+    for arch, band in VR_CASES:
+        mp = BAND_PARAMS[band]
+        cfg = VRConfig(arch=arch, n_fft=2 * mp["bins"], **(widths or {}).get(arch, {}))
+        with torch.device(dev):
+            net = fast_init(make_vr_net(cfg), seed=200)
+        split = vr_split(net, band, KARAOKE, window_size=window, device=dev)
+        runs = []
+        for _ in range(2):      # the first pass meets these shapes for the first time
+            reset_counts()
+            t0 = time.perf_counter()
+            out = split(vocals, as_numpy=False)
+            sync(dev)
+            runs.append(time.perf_counter() - t0)
+        launches = counts()
+        secs[f"{arch} {band}"] = runs
+        n = vocals.shape[-1]
+        with torch.inference_mode():
+            whole = combined_spec_to_wave(wave_to_combined_spec(vocals, mp), mp)
+            m = min(n, whole.shape[-1])
+            total = out[KARAOKE[0]] + out[KARAOKE[1]]
+            err = float((total[:, :m] - whole[:, :m]).abs().max())
+            tol = 1e-4 * float(whole.abs().max()) + 1e-6
+            win = wave_to_combined_spec(vocals[:, : 128 * mp["band"][len(mp["band"])]["hl"]], mp)
+            win = (win.abs() / win.abs().max())[None, :, : cfg.max_bin, :128]
+            got = net(win).cpu()
+            ref = copy.deepcopy(net).cpu()(win.cpu())
+        ferr = float((got - ref).abs().max())
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        log(f"[vr] {arch} on {band} (n_fft {cfg.n_fft}, window {window}), KARAOKE split of "
+            f"{n / SEP_SR:.1f} s stereo vocals: {runs[0]:.3f} s, then {runs[1]:.3f} s; "
+            f"stems {[tuple(v.shape) for v in out.values()]} finite {finite} launches "
+            f"{launches}; primary + complement vs the band round trip max|diff| {err:.3e} "
+            f"(tol {tol:.3e}); one forward {tuple(win.shape)}, card vs CPU fp32 max|diff| "
+            f"{ferr:.3e} (tol 1e-4)")
+        expect(finite and all(tuple(v.shape) == (2, n) for v in out.values()),
+               f"vr {arch}: stem shape or finiteness")
+        expect(all(v == 0 for v in launches.values()), f"vr {arch}: launches {launches}")
+        expect(err <= tol, f"vr {arch}: stems do not sum to the band round trip")
+        expect(ferr <= 1e-4, f"vr {arch}: card vs CPU {ferr}")
+        del net, split, out, whole, total
+        torch.cuda.empty_cache()
+    return secs
+
+
+def phase_long(dev, sep, vc, card: str, seconds: float = LONG_S) -> dict:
+    """bench.py's 4-minute track (seed 0, 0.1 * N(0, 1) stereo) through
+    separate -> mono -> 44.1 -> 16 kHz -> convert, once after a pass that
+    warms these shapes; counts reset just before the measured pass and read
+    just after."""
+    import torch
+
+    from audiolab_tpu_torch.core.chunking import plan_chunks
+    from audiolab_tpu_torch.kernels import attention as A
+
+    audio = torch.from_numpy((np.random.default_rng(0).standard_normal(
+        (2, int(seconds * SEP_SR))) * 0.1).astype(np.float32)).to(dev)
+    count = plan_chunks(audio.shape[-1], int(sep.chunk_seconds * SEP_SR),
+                        int(sep.overlap_seconds * SEP_SR)).count
+    sep_groups = -(-count // min(sep.device_batch, count))
+    expect_k1 = len(sep.members) * sep_groups * 2 * sep.members[0].apply_fn.cfg.depth
+
+    def chain():
+        t0 = time.perf_counter()
+        stems = sep.separate(audio, as_numpy=False)
+        sync(dev)
+        t1 = time.perf_counter()
+        x16 = to_rvc_input(stems["vocals"])
+        out = vc.convert(x16, sid=0, seed=0, as_numpy=False)
+        sync(dev)
+        return stems, x16, out, t1 - t0, time.perf_counter() - t1
+
+    *_, w_sep, w_rvc = chain()
+    reset_counts()
+    stems, x16, out, t_sep, t_rvc = chain()
+    launches = counts()
+    k1_hopper = A.attention_nk1.sm90_launches
+    expect_k2 = HUBERT_LAYERS * rvc_groups(vc, x16.shape[-1])
+    finite = (all(bool(torch.isfinite(v).all()) for v in stems.values())
+              and bool(torch.isfinite(out).all()))
+    total = t_sep + t_rvc
+    log(f"[long] {seconds:.0f} s stereo: {count} chunks in {sep_groups} groups a member; "
+        f"first pass at these shapes separate {w_sep:.3f} s rvc {w_rvc:.3f} s; measured pass "
+        f"separate {t_sep:.3f} s, rvc {t_rvc:.3f} s, chain {total:.3f} s = "
+        f"{seconds / total:.3f} audio-s/s; launches {launches} (K1 on the Hopper routes: "
+        f"{k1_hopper}); stems and output finite {finite} | {card}")
+    n_out = int(round(x16.shape[-1] * vc.synth_cfg.sr / RVC_SR))
+    expect(finite and tuple(out.shape) == (n_out,),
+           "long: finiteness or output length")
+    expect(dev.type != "cuda" or (
+        launches["K1"] == expect_k1 == k1_hopper and launches["K2"] == expect_k2
+        and all(launches[k] == 0 for k in KERNELS if k not in ("K1", "K2"))),
+           f"long: launches {launches}, expected K1 {expect_k1} (all Hopper), K2 {expect_k2}")
+    return dict(sep_s=t_sep, rvc_s=t_rvc, chain_s=total, first_sep_s=w_sep, first_rvc_s=w_rvc)
 
 
 def phase_reference(dev, sep, vcs) -> None:
@@ -823,7 +1079,8 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
-    need_chain = {"separator", "rvc", "fidelity", "reference", "timing"} & set(phases)
+    need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
+                  "long"} & set(phases)
     if need_chain:
         t0 = time.perf_counter()
         sep = build_separator(dev)
@@ -840,11 +1097,19 @@ def main() -> int:
             main_launches[k] += launches[k]
         if "fidelity" in phases:
             phase_fidelity(dev, vcs, x16, out)
+        if "f0" in phases:
+            phase_f0(dev, vcs["bfloat16"], stems["vocals"])
+        if "vr" in phases:
+            phase_vr(dev, stems["vocals"])
         del stems, x16, out
         if "reference" in phases:
             phase_reference(dev, sep, vcs)
         if "timing" in phases:
             phase_timing(dev, sep, vcs["bfloat16"], audio, card, args.profile)
+        if "long" in phases:
+            del audio
+            torch.cuda.empty_cache()
+            phase_long(dev, sep, vcs["bfloat16"], card)
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",

@@ -536,17 +536,45 @@ def test_k2_hopper_masks_padded_keys(cuda_device, tq, tk, d, dtype):
 
 
 def test_k2_hopper_causal_more_queries_than_keys(cuda_device):
-    """tq > tk under causal: the first tq - tk rows see no key and are left
-    undefined (finite); every other row agrees with the plain version."""
+    """tq > tk under causal: the first tq - tk rows see no key and get the
+    mean of v, as the plain version gives them; every row agrees with it."""
     tq, tk = 200, 130
     q, k, v = _qkv(cuda_device, torch.bfloat16, 1, 2, tq, tk, 64, seed=5)
+    before = TA.flash_attention_fwd.sm90_launches
     out = TA.flash_attention_fwd(q, k, v, causal=True)
     ref = TA.flash_attention_reference(q, k, v, True, 0.125)
     torch.cuda.synchronize()
+    assert TA.flash_attention_fwd.sm90_launches == before + 1
     assert bool(torch.isfinite(out).all())
-    seen = slice(tq - tk, tq)
-    assert ((out[:, :, seen].float() - ref[:, :, seen].float()).abs().max().item()
-            <= _k1_tol(ref[:, :, seen]))
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+
+
+@pytest.mark.parametrize("route", ["k2f_kernel", "k2h_kernel", "k2_kernel"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("entry", ["flash_attention_fwd", "flash_attention"])
+@pytest.mark.parametrize("tq,tk", [(200, 130), (77, 1), (300, 64)])
+def test_k2_causal_keyless_rows_take_the_mean_of_v(cuda_device, route, d, entry, tq, tk):
+    """Each CUDA route of K2 with tq > tk under causal: the first tq - tk
+    rows are the mean of v (fp32 on ``k2f_kernel``, bf16 on the others:
+    ``k2_kernel`` through the bf16 call with a negative scale, which the
+    wrapper keeps off the Hopper design), the rest the plain version's."""
+    dt = torch.float32 if route == "k2f_kernel" else torch.bfloat16
+    scale = -(d ** -0.5) if route == "k2_kernel" else d ** -0.5
+    q, k, v = _qkv(cuda_device, dt, 2, 3, tq, tk, d, seed=tq + d)
+    before = (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches)
+    fn = TA.flash_attention_fwd if entry == "flash_attention_fwd" else TA.flash_attention
+    out = fn(q, k, v, causal=True, scale=scale)
+    ref = TA.flash_attention_reference(q, k, v, True, scale)
+    mean = v.float().mean(dim=2, keepdim=True).expand(2, 3, tq - tk, d)
+    torch.cuda.synchronize()
+    hopper = 1 if route == "k2h_kernel" else 0
+    assert (TA.flash_attention_fwd.launches, TA.flash_attention_fwd.sm90_launches) == (
+        before[0] + 1, before[1] + hopper)
+    assert out.dtype == dt and out.shape == q.shape and bool(torch.isfinite(out).all())
+    tol = 2e-5 if dt == torch.float32 else _k1_tol(ref)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    head = out[:, :, : tq - tk].float()
+    assert (head - mean).abs().max().item() <= (2e-5 if dt == torch.float32 else _k1_tol(mean))
 
 
 @pytest.mark.parametrize("d", [80, 256, 32])
@@ -681,3 +709,46 @@ def test_k3_hopper_masks_padded_keys(cuda_device, tq):
     torch.cuda.synchronize()
     assert TA.attention_nk1_rope.sm90_launches == before + 1
     assert (out.float() - mean).abs().max().item() <= _k1_tol(mean)
+
+
+@pytest.mark.parametrize("op", ["linear", "einsum_rel", "einsum_scores", "conv1d_grouped",
+                                "conv1d_decoder", "conv_transpose1d"])
+def test_bf16_policy_on_the_card(cuda_device, op):
+    """``matmul_precision("bfloat16")`` on the card: linear layers and einsums
+    through the bf16 GEMM with an fp32 result, convolutions as TF32 ones on
+    the rounded operands (TF32 holds a bf16 value exactly); each equals the
+    fp32 op of the bf16-rounded operands with TF32 off to 1e-5 of max|out|
+    (fp32 sums in another order), is not rounded to bf16, and leaves TF32
+    off."""
+    from audiolab_tpu_torch.core import precision
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device)
+
+    x, w, call = {
+        "linear": (t(3, 40, 768), t(256, 768), lambda a, b: precision.linear(a, b)),
+        "einsum_rel": (t(2, 3, 20, 16), t(1, 39, 16),
+                       lambda a, b: precision.einsum("bhqd,xmd->bhqm", a, b)),
+        "einsum_scores": (t(2, 3, 20, 16), t(2, 3, 25, 16),
+                          lambda a, b: precision.einsum("bhqd,bhkd->bhqk", a, b)),
+        "conv1d_grouped": (t(2, 32, 49), 0.1 * t(32, 2, 128),
+                           lambda a, b: precision.conv1d(a, b, padding=64, groups=16)),
+        "conv1d_decoder": (t(2, 512, 2000), 0.05 * t(256, 512, 7),
+                           lambda a, b: precision.conv1d(a, b, padding=3)),
+        "conv_transpose1d": (t(2, 16, 30), t(16, 8, 8),
+                             lambda a, b: precision.conv_transpose1d(a, b, stride=4,
+                                                                     padding=2)),
+    }[op]
+    with precision.matmul_precision("bfloat16"):
+        low = call(x, w)
+    expect = call(x.bfloat16().float(), w.bfloat16().float())
+    torch.cuda.synchronize()
+    big = expect.abs().max().item()
+    assert low.dtype == torch.float32 and low.shape == expect.shape
+    assert (low - expect).abs().max().item() <= 1e-5 * big
+    assert (low - expect.bfloat16().float()).abs().max().item() > 1e-4 * big
+    assert not torch.backends.cudnn.allow_tf32

@@ -167,3 +167,22 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_new_entry_points_default_to_the_card(no_cuda):
+    from audiolab_tpu_torch.models.separation.vr import VRConfig, make_vr_net
+    from audiolab_tpu_torch.models.separation.vr_bands import VRSeparator
+    from audiolab_tpu_torch.retrieval.index import FeatureIndex
+
+    net = make_vr_net(VRConfig(n_fft=128, nout=8, nout_lstm=8))
+    quiet = np.zeros((2, 4096), np.float32)
+    for call in (lambda: FeatureIndex(np.zeros((4, 8), np.float32)),
+                 lambda: VRSeparator(net),
+                 lambda: TSep.vr_split(net, "1band_sr44100_hl512", TSep.KARAOKE),
+                 lambda: TSep.dereverb(quiet, 44100),
+                 lambda: TSep.spectral_gate_denoise(quiet, 44100),
+                 lambda: TSep.hpss_split(quiet, 44100)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert FeatureIndex(np.zeros((4, 8), np.float32), device="cpu").device.type == "cpu"
+    assert VRSeparator(net, device="cpu").device.type == "cpu"

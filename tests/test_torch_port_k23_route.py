@@ -195,3 +195,31 @@ def test_k2_plain_matches_pallas_flash_bf16(tq, tk, causal, d):
     assert out.dtype == BF
     np.testing.assert_allclose(out.float().numpy(), ref, atol=2.0 ** -6 * np.abs(ref).max(),
                                rtol=0)
+
+
+@pytest.mark.parametrize("tq,tk", [(200, 130), (77, 1), (300, 64)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_causal_keyless_rows_match_jax(tq, tk, d, dtype):
+    """A causal call with tq > tk: the port's ``flash_attention`` against the
+    JAX one on the CPU (both the plain path), the first tq - tk rows the mean
+    of v; and the CUDA routes' composition (the kernel on the last tk rows
+    with diagonal offset 0, :func:`with_keyless_rows` for the rest) gives
+    the plain version's result.  fp32 to 1e-5, bf16 to 2 ulps of max|out|."""
+    rng = np.random.default_rng(tq + d)
+    q, k, v = (rng.standard_normal((2, 3, t, d)).astype(np.float32) for t in (tq, tk, tk))
+    jdt = jnp.float32 if dtype == np.float32 else jnp.bfloat16
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    ref = np.asarray(JA.flash_attention(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                                        jnp.asarray(v, jdt), causal=True), np.float32)
+    tq_, tk_, tv_ = (torch.from_numpy(a).to(tdt) for a in (q, k, v))
+    out = TA.flash_attention(tq_, tk_, tv_, causal=True)
+    tol = 1e-5 if dtype == np.float32 else 2.0 ** -6 * np.abs(ref).max()
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=0)
+    n = TA.keyless_rows(tq, tk, True)
+    assert n == tq - tk and TA.keyless_rows(tq, tk, False) == 0
+    mean = v.mean(axis=2, keepdims=True)
+    np.testing.assert_allclose(ref[:, :, :n], np.broadcast_to(mean, (2, 3, n, d)), atol=tol)
+    rest = TA.flash_attention_reference(tq_[:, :, n:], tk_, tv_, True, d ** -0.5)
+    joined = TA.with_keyless_rows(tq_, tv_, rest, n)
+    np.testing.assert_allclose(joined.float().numpy(), out.float().numpy(), atol=tol, rtol=0)

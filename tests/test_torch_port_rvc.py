@@ -267,35 +267,71 @@ def test_voice_converter_matches_jax(monkeypatch):
     assert np.abs(out - ref).max() < 1e-3
 
 
-@pytest.mark.parametrize("op", ["linear", "einsum", "conv1d_grouped", "conv_transpose1d"])
-def test_bf16_policy_rounds_operands_and_result(op):
-    """``matmul_precision("bfloat16")`` computes the fp32 product of the
-    bf16-rounded operands and rounds the result to bf16 (what cuBLAS/cuDNN
-    return for bf16 operands); outside the block the product stays fp32.
-    The grouped convolution is HuBERT's positional one (k=128, 16 groups),
-    which the CPU's own bf16 convolution gets wrong.  Tolerance: one bf16
-    ulp of the largest output (the fp32 sums may land on either side of a
-    rounding boundary)."""
+def _policy_case(op):
     rng = np.random.default_rng(10)
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
-    x, calls = {
+    x, call = {
         "linear": (t(3, 40, 32), lambda a, w: precision.linear(a, w)),
         "einsum": (t(2, 3, 20, 16), lambda a, w: precision.einsum("bhqd,bhkd->bhqk", a, w)),
         "conv1d_grouped": (t(2, 32, 49), lambda a, w: precision.conv1d(a, w, padding=64,
-                                                                       groups=16)),
+                                                                      groups=16)),
         "conv_transpose1d": (t(2, 16, 30), lambda a, w: precision.conv_transpose1d(
             a, w, stride=4, padding=2)),
     }[op]
     w = {"linear": t(24, 32), "einsum": t(2, 3, 25, 16), "conv1d_grouped": 0.1 * t(32, 2, 128),
          "conv_transpose1d": t(16, 8, 8)}[op]
-    full = calls(x, w)
+    return x, w, call
+
+
+@pytest.mark.parametrize("op", ["linear", "einsum", "conv1d_grouped", "conv_transpose1d"])
+def test_bf16_policy_rounds_operands_not_result(op):
+    """``matmul_precision("bfloat16")`` computes the fp32 product of the
+    bf16-rounded operands and returns it unrounded, as
+    ``jax.default_matmul_precision("bfloat16")`` does; outside the block
+    the product stays fp32.  The grouped convolution is HuBERT's positional
+    one (k=128, 16 groups), which the CPU's own bf16 convolution gets wrong.
+    Tolerance: 1e-6 of the largest output (fp32 sums in another order),
+    while a bf16 rounding of the result would move it by up to 2^-9."""
+    x, w, call = _policy_case(op)
+    full = call(x, w)
     with precision.matmul_precision("bfloat16"):
-        low = calls(x, w)
-    expect = calls(x.bfloat16().float(), w.bfloat16().float()).bfloat16().float()
-    ulp = 2.0 ** -7 * float(expect.abs().max())
-    np.testing.assert_allclose(low.numpy(), expect.numpy(), atol=ulp, rtol=0)
-    assert float((low - full).abs().max()) <= 4 * ulp
-    np.testing.assert_array_equal(calls(x, w).numpy(), full.numpy())
+        low = call(x, w)
+    expect = call(x.bfloat16().float(), w.bfloat16().float())
+    big = float(expect.abs().max())
+    np.testing.assert_allclose(low.numpy(), expect.numpy(), atol=1e-6 * big, rtol=0)
+    rounded = expect.bfloat16().float()
+    assert float((low - rounded).abs().max()) > 1e-4 * big, "the result was rounded to bf16"
+    assert float((low - full).abs().max()) <= 2.0 ** -6 * big
+    np.testing.assert_array_equal(call(x, w).numpy(), full.numpy())
+
+
+@pytest.mark.parametrize("op", ["linear", "einsum", "conv1d_grouped", "conv_transpose1d"])
+def test_bf16_policy_matches_jax_on_rounded_operands(op):
+    """The policy's product against the JAX function on the same operands
+    rounded to bf16 (XLA:CPU computes fp32 products whatever precision is
+    asked, so the rounding is fed to it explicitly), fp32 tolerance."""
+    x, w, call = _policy_case(op)
+    with precision.matmul_precision("bfloat16"):
+        low = call(x, w).numpy()
+    xr = jnp.asarray(x.bfloat16().float().numpy())
+    wr = jnp.asarray(w.bfloat16().float().numpy())
+    dn = ("NCH", "OIH", "NCH")
+    if op == "linear":
+        ref = xr @ wr.T
+    elif op == "einsum":
+        ref = jnp.einsum("bhqd,bhkd->bhqk", xr, wr)
+    elif op == "conv1d_grouped":
+        ref = jax.lax.conv_general_dilated(xr, wr, (1,), [(64, 64)], dimension_numbers=dn,
+                                           feature_group_count=16)
+    else:
+        # torch's transposed conv as a dilated conv with the kernel flipped
+        k = jnp.flip(jnp.transpose(wr, (1, 0, 2)), -1)
+        pad = w.shape[-1] - 1 - 2
+        ref = jax.lax.conv_general_dilated(xr, k, (1,), [(pad, pad)], lhs_dilation=(4,),
+                                           dimension_numbers=dn)
+    ref = np.asarray(ref, np.float32)
+    assert low.shape == ref.shape
+    np.testing.assert_allclose(low, ref, atol=1e-6 * np.abs(ref).max(), rtol=0)

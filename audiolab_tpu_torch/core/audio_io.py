@@ -1,16 +1,21 @@
-"""Host-side WAV codec (counterpart of audiolab_tpu/core/audio_io.py).
+"""Host-side audio I/O (counterpart of audiolab_tpu/core/audio_io.py).
 
 A dependency-free RIFF/WAVE reader and writer (PCM 8/16/24/32-bit and IEEE
 float 32/64 in, PCM 16/24 and float 32 out), copied from the JAX package's
-framework-free host code so that both packages write the same bytes.  The
-JAX package's native decoder and its ffmpeg branches for other containers
-are not part of the port.  Samples are float32 ``(channels, n)`` in [-1, 1].
+framework-free host code so that both packages write the same bytes, and
+:func:`read_audio` / :func:`write_audio`, which take every other container
+through an ffmpeg subprocess when the host has one.  The JAX package's
+native decoder is not part of the port.  Samples are float32
+``(channels, n)`` in [-1, 1].
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import struct
+import subprocess
+import tempfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -158,3 +163,74 @@ def write_wav(
     )
     with open(path, "wb") as f:
         f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def have_ffmpeg() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def read_audio(
+    path: str | os.PathLike,
+    sample_rate: int | None = None,
+    mono: bool = False,
+) -> AudioData:
+    """Read any audio file; non-WAV formats need ffmpeg on the host.  With
+    ``sample_rate`` the samples are resampled on the host
+    (:func:`resample_poly_np`)."""
+    path = os.fspath(path)
+    if path.lower().endswith(".wav"):
+        audio = read_wav(path)
+    elif have_ffmpeg():
+        with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as tmp:
+            tmp_path = tmp.name
+        try:
+            subprocess.run(
+                ["ffmpeg", "-y", "-i", path, "-f", "wav", "-c:a", "pcm_f32le", tmp_path],
+                check=True,
+                capture_output=True,
+            )
+            audio = read_wav(tmp_path)
+        finally:
+            os.unlink(tmp_path)
+    else:
+        raise RuntimeError(f"cannot decode {path}: not a WAV and ffmpeg unavailable")
+
+    if mono:
+        audio = audio.to_mono()
+    if sample_rate is not None and sample_rate != audio.sample_rate:
+        from audiolab_tpu_torch.kernels.resample import resample_poly_np
+
+        audio = AudioData(
+            resample_poly_np(audio.samples, audio.sample_rate, sample_rate),
+            sample_rate,
+        )
+    return audio
+
+
+def write_audio(
+    path: str | os.PathLike,
+    samples: np.ndarray,
+    sample_rate: int,
+    fmt: str | None = None,
+    bitrate: str = "320k",
+) -> None:
+    """Write audio: WAV (PCM 16) here, other containers through ffmpeg
+    (MP3 at 320k by default)."""
+    path = os.fspath(path)
+    ext = (fmt or os.path.splitext(path)[1].lstrip(".")).lower() or "wav"
+    if ext == "wav":
+        write_wav(path, samples, sample_rate)
+        return
+    if not have_ffmpeg():
+        raise RuntimeError(f"writing .{ext} requires ffmpeg")
+    with tempfile.NamedTemporaryFile(suffix=".wav", delete=False) as tmp:
+        tmp_path = tmp.name
+    try:
+        write_wav(tmp_path, samples, sample_rate, subtype="FLOAT")
+        subprocess.run(
+            ["ffmpeg", "-y", "-i", tmp_path, "-b:a", bitrate, path],
+            check=True,
+            capture_output=True,
+        )
+    finally:
+        os.unlink(tmp_path)

@@ -5,6 +5,7 @@ drives the separate -> RVC chain at full width, and checks the output.
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
     python3 chip_smoke.py --phases card,f0,vr,long # the paths beside the chain
+    python3 chip_smoke.py --phases card,serve      # the REST server and main.py
     python3 chip_smoke.py --profile DIR            # + a profiler table of one chain pass
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
@@ -43,6 +44,16 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              at VRConfig's default widths, window 512; primary + complement
              against the band round trip of the input, one forward on the card
              against the CPU, seconds for the 60 s stem
+  serve      the product's entry point: Separate and Clone configured with the
+             chain's models, the 60 s track as a WAV through run_chain in the
+             process (per-processor seconds) and through the REST server
+             (serve_background on the card): request 1 POST /api/v1/process/chain
+             with Separate, Clone, Export, Merge (48 K1, all Hopper, 12 K2, one
+             *_merged.wav at the input's rate and length, every stage's files),
+             request 2 the same file (Separate's cache: 0 K1); then
+             ``python -m audiolab_tpu_torch.main`` as a subprocess: GET
+             /openapi.json, the DSP split through POST /api/v1/process/separate,
+             SIGTERM, exit 0
   long       bench.py's 4-minute track through separate -> mono -> resample ->
              convert, once after a pass that warms its shapes: 32 chunks in 4
              groups of 8, 192 K1 launches (all Hopper), 48 K2, stage seconds
@@ -60,11 +71,12 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-          "long")
+          "serve", "long")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -1027,8 +1039,6 @@ def phase_timing(dev, sep, vc, audio, card: str, profile_dir: str | None) -> dic
         f"{' / '.join(f'{x:.3f}' for x in again)} s), peak memory "
         f"{peak_gb:.2f} GB | {card}")
     if profile_dir:
-        from pathlib import Path
-
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1039,6 +1049,297 @@ def phase_timing(dev, sep, vc, audio, card: str, profile_dir: str | None) -> dic
         path.write_text(f"{card}\n{table}\n")
         log(f"[timing] profiler table of one chain pass -> {path}")
     return rec
+
+
+SERVE_TITLES = ["Separate", "Clone", "Export", "Merge"]
+
+
+def http(method: str, url: str, payload: dict | None = None, timeout: float = 900.0):
+    """(status, parsed JSON body) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def check_merged(files: list[dict], work: Path, n: int, label: str) -> float:
+    """Exactly one ``*_merged.wav``, finite, non-silent, at the input's rate
+    and length; returns its peak."""
+    import base64
+
+    from audiolab_tpu_torch.core.audio_io import read_wav
+
+    names = [f["filename"] for f in files]
+    expect(len(files) == 1 and names[0].endswith("_merged.wav"),
+           f"{label}: returned {names}, expected one *_merged.wav")
+    path = work / names[0]
+    path.write_bytes(base64.b64decode(files[0]["content"]))
+    a = read_wav(path)
+    peak = float(np.abs(a.samples).max())
+    expect(a.sample_rate == SEP_SR and a.samples.shape == (2, n),
+           f"{label}: merged {a.samples.shape} at {a.sample_rate} Hz, expected (2, {n}) at "
+           f"{SEP_SR}")
+    expect(bool(np.isfinite(a.samples).all()) and peak > 1e-3,
+           f"{label}: merged output not finite or silent (peak {peak})")
+    return peak
+
+
+def check_project(project_dir: Path, label: str) -> None:
+    """Every stage's files: the stems, the cloned vocals, the DAW project and
+    its bundle, the merged track."""
+    want = ["stems/track (Vocals).wav", "stems/track (Instrumental).wav",
+            "cloned/track (Vocals) (Cloned).wav", "export/track.als",
+            "export/track_project.zip", "merged/track_merged.wav"]
+    missing = [w for w in want if not (project_dir / w).is_file()]
+    expect(not missing, f"{label}: {project_dir} lacks {missing}")
+
+
+def check_launches(dev, launches: dict, k1_hopper: int, k1: int, k2: int, label: str) -> None:
+    """K1 ``k1`` times, all on the Hopper routes, K2 ``k2`` times and no other
+    kernel (on the card: CPU tensors take the plain versions and count
+    nothing)."""
+    if dev.type != "cuda":
+        return
+    expect(launches["K1"] == k1 == k1_hopper and launches["K2"] == k2
+           and all(launches[k] == 0 for k in KERNELS if k not in ("K1", "K2")),
+           f"{label}: launches {launches} (K1 on the Hopper routes {k1_hopper}), expected "
+           f"K1 {k1} all Hopper, K2 {k2} and no other")
+
+
+def phase_serve(dev, sep, vc, audio, card: str) -> dict:
+    """The product's entry point on the card: the chain's models injected
+    through the processors' ``configure``, the track as a WAV, counts reset
+    just before each pass and read just after.  Prints the library chain
+    (device tensors), ``run_chain`` in the process (WAV files, host
+    resample, restore_silence, Export, Merge) and the served requests (HTTP,
+    base64 JSON) side by side."""
+    import base64
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.core.audio_io import write_wav
+    from audiolab_tpu_torch.core.chunking import plan_chunks
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.pipelines.chain import run_chain
+    from audiolab_tpu_torch.pipelines.processors.clone import Clone
+    from audiolab_tpu_torch.pipelines.processors.separate import Separate
+    from audiolab_tpu_torch.pipelines.rvc import VoiceConverter
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+
+    # Clone rewrites its converter's config (rmvpe+ by default): a converter
+    # of its own over the same modules leaves the other phases' alone
+    vc = VoiceConverter(vc.synth, vc.hubert, vc.rmvpe, index_features=vc.index_features,
+                        cfg=dataclasses.replace(vc.cfg, f0_method="rmvpe+"), device=dev)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    n = audio.shape[-1]
+    count = plan_chunks(n, int(sep.chunk_seconds * SEP_SR), int(sep.overlap_seconds * SEP_SR)).count
+    k1 = len(sep.members) * -(-count // min(sep.device_batch, count)) * 2 * (
+        sep.members[0].apply_fn.cfg.depth)
+    k2 = HUBERT_LAYERS * rvc_groups(vc, -(-n * RVC_SR // SEP_SR))
+    rec: dict = {}
+    Separate.configure(sep)
+    Clone.configure(vc)
+    try:
+        wav = work / "track.wav"
+        write_wav(wav, audio.float().cpu().numpy(), SEP_SR)
+        reset_counts()
+        t0 = time.perf_counter()
+        stems = sep.separate(audio, as_numpy=False)
+        vc.convert(to_rvc_input(stems["vocals"]), sid=0, seed=0, as_numpy=False)
+        sync(dev)
+        rec["library_chain_s"] = time.perf_counter() - t0
+        del stems
+
+        # run_chain in the process, twice: the first pass meets the
+        # processors' shapes (rmvpe+, restore_silence, Merge) for the first time
+        rec["inproc_s"], rec["inproc_stages_s"] = [], []
+        for rep in range(2):
+            marks = []
+
+            def mark(_i, msg, _n):
+                if msg.startswith("Running "):
+                    marks.append((msg[len("Running "):], time.perf_counter()))
+
+            reset_counts()
+            t0 = time.perf_counter()
+            projs = run_chain(SERVE_TITLES, [str(wav)], {}, output_root=str(work / f"inproc{rep}"),
+                              device=dev, callback=mark)
+            sync(dev)
+            end = time.perf_counter()
+            launches = counts()
+            stages = {name: (marks[i + 1][1] if i + 1 < len(marks) else end) - t
+                      for i, (name, t) in enumerate(marks)}
+            rec["inproc_s"].append(end - t0)
+            rec["inproc_stages_s"].append(stages)
+            check_launches(dev, launches, A.attention_nk1.sm90_launches, k1, k2,
+                           f"serve: run_chain pass {rep + 1}")
+            check_project(Path(projs[0].project_dir), f"serve: run_chain pass {rep + 1}")
+            expect([Path(p).name for p in projs[0].last_outputs] == ["track_merged.wav"],
+                   f"serve: run_chain returned {projs[0].last_outputs}")
+            log(f"[serve] run_chain in the process, pass {rep + 1}: {end - t0:.3f} s ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+                + f") launches {launches}")
+
+        rec["host_s"] = phase_host_work(dev, wav, Path(projs[0].project_dir))
+
+        served = work / "served" / "process"
+        server, port = serve_background(create_app(str(served), device=dev))
+        try:
+            body = {"files": [{"filename": "track.wav",
+                               "content": base64.b64encode(wav.read_bytes()).decode()}],
+                    "processors": SERVE_TITLES}
+            rec["request_s"], rec["served_launches"] = [], []
+            for req, want_k1 in ((1, k1), (2, 0)):
+                label = f"serve: request {req}"
+                reset_counts()
+                t0 = time.perf_counter()
+                status, resp = http("POST", f"http://127.0.0.1:{port}/api/v1/process/chain", body)
+                sync(dev)
+                secs = time.perf_counter() - t0
+                launches = counts()
+                expect(status == 200, f"{label}: HTTP {status} {resp.get('error')}")
+                peak = check_merged(resp["files"], work, n, label)
+                projects = sorted(served.iterdir())
+                expect(len(projects) == 1, f"{label}: projects {projects}")
+                check_project(projects[0], label)
+                check_launches(dev, launches, A.attention_nk1.sm90_launches, want_k1, k2, label)
+                rec["request_s"].append(secs)
+                rec["served_launches"].append(launches)
+                log(f"[serve] request {req} POST /api/v1/process/chain {SERVE_TITLES} on "
+                    f"{n / SEP_SR:.1f} s ({wav.stat().st_size / 1e6:.1f} MB WAV): HTTP {status} "
+                    f"{secs:.3f} s; merged peak {peak:.4f}; launches {launches}"
+                    f"{' (Separate from its cache)' if req == 2 else ''} | in the same run: "
+                    f"run_chain in the process {rec['inproc_s'][-1]:.3f} s, library chain "
+                    f"(separate + convert on device tensors) {rec['library_chain_s']:.3f} s | "
+                    f"{card}")
+        finally:
+            server.shutdown()
+            server.server_close()
+        rec.update(phase_main(dev, work, wav, n))
+    finally:
+        Separate.configure(None)
+        Clone.configure(None)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return rec
+
+
+def phase_host_work(dev, wav: Path, project_dir: Path) -> dict:
+    """Seconds of the host work a served request adds to the library chain,
+    each step once, on this run's files: the WAV codec, the polyphase
+    resample and high-pass Clone runs before convert, restore_silence after
+    it, Export's zip, and the request's base64 JSON both ways."""
+    import base64
+
+    from scipy import signal as sps
+
+    from audiolab_tpu_torch.core.audio_io import read_wav, write_wav
+    from audiolab_tpu_torch.dsp.silence import restore_silence
+    from audiolab_tpu_torch.kernels.resample import resample_poly_np
+    from audiolab_tpu_torch.utils.daw import zip_project
+
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    a = timed("read_wav", lambda: read_wav(wav))
+    timed("write_wav", lambda: write_wav(project_dir / "host_probe.wav", a.samples, SEP_SR))
+    mono = 0.5 * (a.samples[0] + a.samples[1])
+    x16 = timed("resample_poly_np 44.1 -> 16 kHz", lambda: resample_poly_np(mono, SEP_SR, RVC_SR))
+    b, c = sps.butter(5, 48, btype="high", fs=RVC_SR)
+    timed("filtfilt 48 Hz", lambda: sps.filtfilt(b, c, x16))
+    out48 = np.resize(x16, int(round(len(x16) * 3)))
+    timed("restore_silence", lambda: restore_silence(mono, out48, SEP_SR, 48000, device=dev))
+    stems = sorted(str(p) for p in project_dir.glob("*/*.wav"))
+    timed(f"zip_project of {len(stems)} WAVs",
+          lambda: zip_project(str(project_dir / "host_probe.zip"), stems))
+    raw = wav.read_bytes()
+    body = timed("base64 + JSON encode", lambda: json.dumps(
+        {"files": [{"filename": "track.wav", "content": base64.b64encode(raw).decode()}]}))
+    timed("JSON + base64 decode", lambda: base64.b64decode(json.loads(body)["files"][0]["content"]))
+    log(f"[serve] host work beside the chain, {len(mono) / SEP_SR:.1f} s track: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items()))
+    return secs
+
+
+def phase_main(dev, work: Path, wav: Path, n: int) -> dict:
+    """``python -m audiolab_tpu_torch.main`` as a user starts it (the card,
+    no models injected): the OpenAPI document, the DSP split of the track
+    through POST /api/v1/process/separate, then SIGTERM and exit 0."""
+    import base64
+    import signal
+    import socket
+    import urllib.error
+
+    from audiolab_tpu_torch.core.audio_io import read_wav
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = open(work / "main.log", "wb")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audiolab_tpu_torch.main", "--port", str(port),
+         "--output-root", str(work / "main" / "process"), "--device", dev.type],
+        cwd=Path(__file__).resolve().parent, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        url = f"http://127.0.0.1:{port}"
+        while True:
+            try:
+                status, doc = http("GET", f"{url}/openapi.json", timeout=30)
+                break
+            except (urllib.error.URLError, ConnectionError):
+                expect(proc.poll() is None and time.perf_counter() - t0 < 180,
+                       f"main: not serving (exit {proc.poll()}): "
+                       f"{(work / 'main.log').read_text()[-2000:]}")
+                time.sleep(0.25)
+        up_s = time.perf_counter() - t0
+        expect(status == 200 and "/api/v1/process/chain" in doc["paths"],
+               f"main: /openapi.json HTTP {status}")
+        t1 = time.perf_counter()
+        status, resp = http("POST", f"{url}/api/v1/process/separate", {
+            "files": [{"filename": "track.wav",
+                       "content": base64.b64encode(wav.read_bytes()).decode()}]})
+        sep_s = time.perf_counter() - t1
+        expect(status == 200, f"main: separate HTTP {status} {resp.get('error')}")
+        names = sorted(f["filename"] for f in resp["files"])
+        expect(names == ["track (Instrumental).wav", "track (Vocals).wav"],
+               f"main: separate returned {names}")
+        for f in resp["files"]:
+            p = work / f"main_{f['filename']}"
+            p.write_bytes(base64.b64decode(f["content"]))
+            a = read_wav(p)
+            expect(a.samples.shape == (2, n) and bool(np.isfinite(a.samples).all()),
+                   f"main: {f['filename']} {a.samples.shape}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        log(f"[serve] python -m audiolab_tpu_torch.main: serving after {up_s:.3f} s, "
+            f"{len(doc['paths'])} paths in /openapi.json; POST /api/v1/process/separate (the "
+            f"DSP split on {dev.type}, no separator injected) {sep_s:.3f} s; SIGTERM -> exit {rc}")
+        expect(rc == 0, f"main: exit {rc} after SIGTERM: "
+                        f"{(work / 'main.log').read_text()[-2000:]}")
+        return dict(main_up_s=up_s, main_separate_s=sep_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
 
 
 # ---------------------------------------------------------------- main
@@ -1079,8 +1380,9 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
+    served = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-                  "long"} & set(phases)
+                  "serve", "long"} & set(phases)
     if need_chain:
         t0 = time.perf_counter()
         sep = build_separator(dev)
@@ -1106,6 +1408,8 @@ def main() -> int:
             phase_reference(dev, sep, vcs)
         if "timing" in phases:
             phase_timing(dev, sep, vcs["bfloat16"], audio, card, args.profile)
+        if "serve" in phases:
+            served = phase_serve(dev, sep, vcs["bfloat16"], audio, card)["served_launches"][0]
         if "long" in phases:
             del audio
             torch.cuda.empty_cache()
@@ -1115,6 +1419,7 @@ def main() -> int:
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
                            "plain_ms", "bound_ms", "bound_by", "library_ms")}
         | {"launches": main_launches[r["kernel"]], "case": r["case"],
+           "served_launches": None if served is None else served[r["kernel"]],
            "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}

@@ -752,3 +752,75 @@ def test_bf16_policy_on_the_card(cuda_device, op):
     assert (low - expect).abs().max().item() <= 1e-5 * big
     assert (low - expect.bfloat16().float()).abs().max().item() > 1e-4 * big
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_processor_chain_on_the_card_matches_the_cpu(cuda_device, tmp_path, monkeypatch):
+    """Separate (a tiny fp32 BS-RoFormer) -> Clone (a tiny v2 converter,
+    rmvpe+, no index) -> Export -> Merge through ``run_chain`` on the card and
+    on the CPU, same seeded weights and WAV, fp32 products, the synthesizer's
+    noise zeroed.  The merged tracks agree to mel-L1 < 1e-2 (BASELINE.md's
+    gate): fp32 sums in another order may flip RMVPE's argmax on a near-tie
+    frame of random weights, so no per-sample bound is held."""
+    import copy
+
+    import numpy as np
+
+    from audiolab_tpu_torch.core.audio_io import read_audio, write_wav
+    from audiolab_tpu_torch.kernels.mel import log_mel, mel_spectrogram
+    from audiolab_tpu_torch.models.hubert import HubertConfig, HubertFeatureExtractor
+    from audiolab_tpu_torch.models.rmvpe import RMVPE
+    from audiolab_tpu_torch.models.rvc import synthesizer as TSy
+    from audiolab_tpu_torch.models.separation.roformer import BSRoformer, RoformerConfig
+    from audiolab_tpu_torch.pipelines.chain import run_chain
+    from audiolab_tpu_torch.pipelines.processors.clone import Clone
+    from audiolab_tpu_torch.pipelines.processors.separate import Separate
+    from audiolab_tpu_torch.pipelines.rvc import RVCPipelineConfig, VoiceConverter
+    from audiolab_tpu_torch.pipelines.separate import EnsembleMember, StemSeparator
+
+    monkeypatch.setattr(TSy, "_randn", lambda shape, gen, device: torch.zeros(shape,
+                                                                              device=device))
+    torch.manual_seed(0)
+    roformer = BSRoformer(RoformerConfig(
+        dim=32, depth=2, heads=2, dim_head=16, freqs_per_bands=(16, 16, 32, 65), n_fft=256,
+        hop=64, dtype="float32", stems=("vocals",), residual_stem="other")).eval()
+    synth = TSy.SynthesizerTrn(TSy.SynthesizerConfig(
+        spec_channels=129, segment_size=3840, inter_channels=16, hidden_channels=16,
+        filter_channels=32, n_heads=2, n_layers=1, upsample_initial_channel=32,
+        spk_embed_dim=4, gin_channels=16, sr=48000, feat_channels=32)).eval()
+    hubert = HubertFeatureExtractor("v2", HubertConfig(dim=32, ffn_dim=64, heads=4, layers=2,
+                                                       final_dim=16)).eval()
+    rmvpe = RMVPE(dtype=None, en_de_layers=2, inter_layers=1, n_blocks=1, en_out_channels=4,
+                  gru_hidden=8).eval()
+    sr = 44100
+    t = np.arange(sr) / sr
+    tone = 0.3 * np.sin(2 * np.pi * 220 * t) * (1 + 0.3 * np.sin(2 * np.pi * 3 * t))
+    x = np.stack([tone, 0.8 * tone]) + 0.05 * np.random.default_rng(0).standard_normal((2, sr))
+    song = str(tmp_path / "song.wav")
+    write_wav(song, x.astype(np.float32), sr)
+
+    merged = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            Separate.configure(StemSeparator(
+                [EnsembleMember("m", copy.deepcopy(roformer))], sr=sr, chunk_seconds=0.3,
+                overlap_seconds=0.05, device_batch=2, matmul_precision="highest", device=dev))
+            Clone.configure(VoiceConverter(
+                copy.deepcopy(synth), copy.deepcopy(hubert), copy.deepcopy(rmvpe), device=dev,
+                cfg=RVCPipelineConfig(sr=48000, chunk_seconds=0.5, overlap_seconds=0.1,
+                                      device_batch=2, matmul_precision="highest")))
+            projs = run_chain(["Separate", "Clone", "Export", "Merge"], [song],
+                              output_root=str(tmp_path / dev), device=dev)
+            assert [p.rsplit("/", 1)[-1] for p in projs[0].last_outputs] == ["song_merged.wav"]
+            merged[dev] = read_audio(projs[0].last_outputs[0]).samples
+    finally:
+        Separate.configure(None)
+        Clone.configure(None)
+
+    a, b = merged["cuda"], merged["cpu"]
+    assert a.shape == b.shape == (2, sr) and np.isfinite(a).all() and np.abs(b).max() > 1e-3
+
+    def logmel(y):
+        return log_mel(mel_spectrogram(torch.from_numpy(np.ascontiguousarray(y))[None],
+                                       sr=sr, n_fft=1024, hop=256, n_mels=80, power=1.0))
+
+    assert max(float((logmel(a[c]) - logmel(b[c])).abs().mean()) for c in range(2)) < 1e-2

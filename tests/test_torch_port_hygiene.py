@@ -169,20 +169,39 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
     assert '"ok": true' not in res.stdout
 
 
-def test_new_entry_points_default_to_the_card(no_cuda):
+def test_new_entry_points_default_to_the_card(no_cuda, tmp_path):
+    from audiolab_tpu_torch import main as port_main
+    from audiolab_tpu_torch.dsp.autotune import auto_tune_track, detect_key
+    from audiolab_tpu_torch.dsp.reverb import apply_reverb, extract_reverb_params
+    from audiolab_tpu_torch.dsp.silence import restore_silence
     from audiolab_tpu_torch.models.separation.vr import VRConfig, make_vr_net
     from audiolab_tpu_torch.models.separation.vr_bands import VRSeparator
+    from audiolab_tpu_torch.pipelines.chain import run_chain
+    from audiolab_tpu_torch.pipelines.processors.separate import dsp_vocal_split
     from audiolab_tpu_torch.retrieval.index import FeatureIndex
+    from audiolab_tpu_torch.serve.api import create_app
 
     net = make_vr_net(VRConfig(n_fft=128, nout=8, nout_lstm=8))
     quiet = np.zeros((2, 4096), np.float32)
+    params = {"sample_rate": 44100, "pre_delay": 0.0, "impulse_response": [1.0]}
+    root = str(tmp_path / "process")
     for call in (lambda: FeatureIndex(np.zeros((4, 8), np.float32)),
                  lambda: VRSeparator(net),
                  lambda: TSep.vr_split(net, "1band_sr44100_hl512", TSep.KARAOKE),
                  lambda: TSep.dereverb(quiet, 44100),
                  lambda: TSep.spectral_gate_denoise(quiet, 44100),
-                 lambda: TSep.hpss_split(quiet, 44100)):
+                 lambda: TSep.hpss_split(quiet, 44100),
+                 lambda: dsp_vocal_split(quiet, 44100),
+                 lambda: restore_silence(quiet[0], quiet[0], 44100, 48000),
+                 lambda: extract_reverb_params(quiet[0], quiet[0], 44100),
+                 lambda: apply_reverb(quiet, params),
+                 lambda: auto_tune_track(quiet[0], 44100),
+                 lambda: detect_key(quiet[0], 44100),
+                 lambda: run_chain(["Separate"], [], output_root=root),
+                 lambda: create_app(root),
+                 lambda: port_main.main(["--port", "0", "--output-root", root])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    assert create_app(root, device="cpu").routes
     assert FeatureIndex(np.zeros((4, 8), np.float32), device="cpu").device.type == "cpu"
     assert VRSeparator(net, device="cpu").device.type == "cpu"

@@ -1,0 +1,288 @@
+"""The port's REST server against the JAX package's, on the CPU: the
+counterparts of tests/test_serve.py and tests/test_serve_extra.py for the
+routes the port serves (a live ``serve_background`` server with
+``device="cpu"``, answers held against the JAX router's on the same
+requests), the route table as a subset of the JAX ``create_app``'s, and
+``main``."""
+
+import base64
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from audiolab_tpu.serve.api import create_app as j_create_app
+from audiolab_tpu_torch import main as port_main
+from audiolab_tpu_torch.core.audio_io import read_wav, write_wav
+from audiolab_tpu_torch.serve import rvc_api
+from audiolab_tpu_torch.serve.api import create_app
+from audiolab_tpu_torch.serve.http import serve_background
+
+ROOT = Path(__file__).resolve().parent.parent
+PCM16 = 1.0 / 32767.0 + 1e-6   # one 16-bit step: see test_torch_port_processors
+
+
+@pytest.fixture(scope="module")
+def roots(tmp_path_factory):
+    base = tmp_path_factory.mktemp("serve")
+    return {"port": str(base / "port" / "process"), "jax": str(base / "jax" / "process")}
+
+
+@pytest.fixture(scope="module")
+def server(roots):
+    srv, port = serve_background(create_app(output_root=roots["port"], device="cpu"))
+    yield f"http://127.0.0.1:{port}"
+    srv.shutdown()
+    srv.server_close()
+
+
+@pytest.fixture(scope="module")
+def jax_router(roots):
+    return j_create_app(output_root=roots["jax"])
+
+
+def _get(url):
+    try:
+        with urllib.request.urlopen(url) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def _post(url, payload):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _b64_wav(tmp_path, name="in.wav", seconds=1.0, sr=16000):
+    t = np.arange(int(sr * seconds)) / sr
+    x = np.stack([0.4 * np.sin(2 * np.pi * 220 * t),
+                  0.4 * np.sin(2 * np.pi * 220 * t) + 0.05 * np.sin(2 * np.pi * 1000 * t)])
+    p = tmp_path / name
+    write_wav(p, x.astype(np.float32), sr)
+    return {"filename": name, "content": base64.b64encode(p.read_bytes()).decode()}
+
+
+def _same_files(body, ref, tmp_path):
+    """Same file names; WAVs at the same rate and shape within a 16-bit step."""
+    assert [f["filename"] for f in body["files"]] == [f["filename"] for f in ref["files"]]
+    for got, want in zip(body["files"], ref["files"]):
+        if not got["filename"].endswith(".wav"):
+            continue
+        paths = []
+        for tag, f in (("got", got), ("want", want)):
+            p = tmp_path / f"{tag}.wav"
+            p.write_bytes(base64.b64decode(f["content"]))
+            paths.append(read_wav(p))
+        a, b = paths
+        assert a.sample_rate == b.sample_rate and a.samples.shape == b.samples.shape
+        assert np.abs(a.samples - b.samples).max() <= PCM16
+
+
+def test_route_table_is_a_subset_of_jax(server, jax_router):
+    port = {(r.method, r.pattern) for r in create_app("unused", device="cpu").routes}
+    ref = {(r.method, r.pattern) for r in jax_router.routes}
+    assert port <= ref, sorted(port - ref)
+    for route in (("POST", "/api/v1/process/chain"), ("POST", "/api/v1/process/separate"),
+                  ("POST", "/api/v1/process/merge"), ("GET", "/"), ("GET", "/openapi.json"),
+                  ("POST", "/api/v1/rvc/analyze"), ("GET", "/api/v1/clone/methods")):
+        assert route in port
+
+
+def test_processors_listing(server, jax_router):
+    status, _h, raw = _get(f"{server}/api/v1/process/processors")
+    body = json.loads(raw)
+    assert status == 200
+    assert [p["title"] for p in body["processors"]] == ["Separate", "Clone", "Export", "Merge"]
+    _code, ref = jax_router.dispatch("GET", "/api/v1/process/processors", {})
+    ref = {p["title"]: p for p in ref["processors"]}
+    for p in body["processors"]:
+        assert p == ref[p["title"]]
+
+
+def test_openapi_document(server):
+    status, _h, raw = _get(f"{server}/openapi.json")
+    body = json.loads(raw)
+    assert status == 200
+    assert "/api/v1/process/chain" in body["paths"]
+    assert "/api/v1/rvc/models" in body["paths"]
+    # routes whose models the port lacks are not served
+    assert "/api/v1/audio/speech" not in body["paths"]
+    assert "/api/v1/rvc/train" not in body["paths"]
+
+
+def test_web_ui(server):
+    status, headers, raw = _get(f"{server}/")
+    assert status == 200 and headers["Content-Type"].startswith("text/html")
+    assert b"/api/v1/process/chain" in raw
+
+
+def test_process_separate_roundtrip(server, jax_router, tmp_path):
+    payload = {"files": [_b64_wav(tmp_path)], "settings": {"noise_removal": "Nothing"}}
+    status, body = _post(f"{server}/api/v1/process/separate", payload)
+    assert status == 200
+    names = [f["filename"] for f in body["files"]]
+    assert any("(Vocals)" in n for n in names)
+    assert base64.b64decode(body["files"][0]["content"])[:4] == b"RIFF"
+    code, ref = jax_router.dispatch("POST", "/api/v1/process/separate", payload)
+    assert code == 200
+    _same_files(body, ref, tmp_path)
+
+
+def test_chain_endpoint(server, jax_router, tmp_path):
+    payload = {
+        "files": [_b64_wav(tmp_path)],
+        "processors": ["Separate", "Export", "Merge"],
+        "settings": {"Separate": {"noise_removal": "Nothing"}, "Merge": {"pitch_shift": 1}},
+    }
+    status, body = _post(f"{server}/api/v1/process/chain", payload)
+    assert status == 200
+    assert len(body["files"]) == 1
+    assert body["files"][0]["filename"].endswith("_merged.wav")
+    code, ref = jax_router.dispatch("POST", "/api/v1/process/chain", payload)
+    assert code == 200
+    # Merge's pitch shift runs through each package's YIN periods
+    # (test_torch_port_dsp.py::test_pitch_shift_matches_jax): 2e-3 of the peak
+    a, b = (np.frombuffer(base64.b64decode(f["files"][0]["content"])[44:], "<i2") / 32767.0
+            for f in (body, ref))
+    assert a.shape == b.shape and np.abs(a - b).max() <= 2e-3 * np.abs(b).max() + PCM16
+
+
+def test_chain_unported_processor_is_400(server, tmp_path):
+    status, body = _post(f"{server}/api/v1/process/chain",
+                         {"files": [_b64_wav(tmp_path)], "processors": ["Remaster"]})
+    assert status == 400 and "Remaster" in body["error"]
+
+
+def test_missing_files_is_400(server):
+    status, body = _post(f"{server}/api/v1/process/separate", {"files": []})
+    assert status == 400
+    assert "error" in body
+
+
+@pytest.mark.parametrize("path", ["/api/v1/does/not/exist", "/api/v1/audio/speech",
+                                  "/api/v1/yue/generate", "/api/v1/rvc/train"])
+def test_unknown_or_unported_route_404(server, path):
+    status, _body = _post(f"{server}{path}", {})
+    assert status == 404
+
+
+def test_rvc_models_and_jobs(server):
+    status, _h, raw = _get(f"{server}/api/v1/rvc/models")
+    assert status == 200 and json.loads(raw)["models"] == []
+    status, _h, _raw = _get(f"{server}/api/v1/rvc/job/nope")
+    assert status == 404
+    job = rvc_api.submit_job(lambda x, job_id: {"twice": 2 * x, "id": job_id}, 21)
+    deadline = time.time() + 10
+    while True:
+        _s, _h, raw = _get(f"{server}/api/v1/rvc/job/{job}")
+        info = json.loads(raw)
+        if info["status"] != "running" or time.time() > deadline:
+            break
+        time.sleep(0.01)
+    assert info["status"] == "done" and info["result"] == {"twice": 42, "id": job}
+
+
+def test_clone_endpoints(server, jax_router):
+    for path in ("/api/v1/clone/methods", "/api/v1/clone/voices"):
+        status, _h, raw = _get(f"{server}{path}")
+        assert status == 200
+        assert json.loads(raw) == jax_router.dispatch("GET", path, {})[1]
+
+
+def test_rvc_analyze(server, jax_router, tmp_path):
+    body = {"files": [_b64_wav(tmp_path, seconds=0.5)]}
+    status, resp = _post(f"{server}/api/v1/rvc/analyze", body)
+    assert status == 200
+    assert resp["analysis"] and 150 < resp["analysis"][0]["median_hz"] < 300
+    _code, ref = jax_router.dispatch("POST", "/api/v1/rvc/analyze", body)
+    # YIN on each side: its f0 agrees to a few fp32 ulps
+    assert resp["analysis"][0] == pytest.approx(ref["analysis"][0], rel=1e-5)
+
+
+def test_rvc_upload_download(server):
+    content = base64.b64encode(b"fake npz").decode()
+    status, resp = _post(f"{server}/api/v1/rvc/upload",
+                         {"files": [{"filename": "v.npz", "content": content}]})
+    assert status == 200 and resp["saved"] == ["v.npz"]
+    status, headers, raw = _get(f"{server}/api/v1/rvc/download/v.npz")
+    # raw-bytes contract (reference FileResponse semantics)
+    assert status == 200 and raw == b"fake npz"
+    assert "v.npz" in headers.get("Content-Disposition", "")
+    _s, _h, raw = _get(f"{server}/api/v1/rvc/models")
+    assert "v.npz" in json.loads(raw)["models"]
+    status, _h, _raw = _get(f"{server}/api/v1/rvc/download/missing.npz")
+    assert status == 404
+
+
+def test_projects_and_load_project(server, roots, tmp_path):
+    status, resp = _post(f"{server}/api/v1/process/load_project", {"project": "nope"})
+    assert status >= 400
+    status, resp = _post(f"{server}/api/v1/process/separate",
+                         {"files": [_b64_wav(tmp_path, name="proj.wav", seconds=0.5)]})
+    assert status == 200
+    _s, _h, raw = _get(f"{server}/api/v1/process/projects")
+    project = [p for p in json.loads(raw)["projects"] if p.startswith("proj_")][0]
+    status, resp = _post(f"{server}/api/v1/process/load_project", {"project": project})
+    assert status == 200 and resp["project"] == project
+    assert os.path.join("source", "proj.wav") in resp["files"]
+    assert any(f.startswith("stems") and "(Vocals)" in f for f in resp["files"])
+
+
+def test_file_registry_roundtrip(tmp_path):
+    from audiolab_tpu_torch.serve.files import file_response, register_file
+
+    p = str(tmp_path / "x.bin")
+    open(p, "wb").write(b"hello")
+    fid = register_file(p)
+    resp = file_response(fid)
+    assert resp.body == b"hello"
+    assert "x.bin" in resp.headers["Content-Disposition"]
+    with pytest.raises(FileNotFoundError):
+        file_response("nope")
+
+
+def test_main_demo_backends_names_the_missing_items(caplog):
+    assert port_main.main(["--demo-backends"]) != 0
+    assert all(f"items 1{i} (" in caplog.text or f", 1{i} (" in caplog.text for i in (7, 8, 9))
+
+
+def test_main_serves_on_the_cpu_and_stops_on_sigterm(tmp_path):
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audiolab_tpu_torch.main", "--port", str(port),
+         "--device", "cpu", "--output-root", str(tmp_path / "process")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 60
+        while True:
+            try:
+                status, _h, raw = _get(f"http://127.0.0.1:{port}/openapi.json")
+                break
+            except urllib.error.URLError:
+                assert proc.poll() is None and time.time() < deadline, proc.stdout.read()
+                time.sleep(0.2)
+        assert status == 200 and "/api/v1/process/chain" in json.loads(raw)["paths"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()

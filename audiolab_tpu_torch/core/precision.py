@@ -162,6 +162,35 @@ def conv_transpose1d(x, weight, bias=None, stride=1, padding=0):
                               None if bias is None else bias.to(x.dtype), stride, padding)
 
 
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1):
+    if low_precision(x):
+        y = _conv(F.conv2d, x, weight, stride, padding, dilation, groups)
+        return y if bias is None else y + bias[:, None, None]
+    return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+                    stride, padding, dilation, groups)
+
+
+def conv_transpose2d(x, weight, bias=None, stride=1, padding=0):
+    if low_precision(x):
+        y = _conv(F.conv_transpose2d, x, weight, stride, padding)
+        return y if bias is None else y + bias[:, None, None]
+    return F.conv_transpose2d(x, weight.to(x.dtype),
+                              None if bias is None else bias.to(x.dtype), stride, padding)
+
+
+def matmul(a, b):
+    """``a @ b`` (numpy broadcasting of the leading axes) under the policy."""
+    if not low_precision(a):
+        return torch.matmul(a, b.to(a.dtype))
+    b = b.float()
+    if b.dim() == 2:
+        return _mm(a.reshape(-1, a.shape[-1]), b).reshape(*a.shape[:-1], b.shape[-1])
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a = a.expand(*lead, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+    b = b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+    return _bmm(a, b).reshape(*lead, a.shape[-2], b.shape[-1])
+
+
 class Linear(torch.nn.Linear):
     """nn.Linear under the precision policy (same parameters and keys)."""
 
@@ -184,3 +213,20 @@ class ConvTranspose1d(torch.nn.ConvTranspose1d):
 
     def forward(self, x):
         return conv_transpose1d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class Conv2d(torch.nn.Conv2d):
+    """nn.Conv2d (NCHW) under the precision policy (same parameters and keys)."""
+
+    def forward(self, x):
+        if self.padding_mode != "zeros":
+            raise ValueError("only zero padding")
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                      self.dilation, self.groups)
+
+
+class ConvTranspose2d(torch.nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (NCHW) under the precision policy."""
+
+    def forward(self, x):
+        return conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding)

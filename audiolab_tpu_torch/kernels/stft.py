@@ -94,6 +94,15 @@ def _wsum(n_fft: int, win_length: int, window: str, t_frames: int, hop: int) -> 
     return np.where(wsum > 1e-10, wsum, 1.0).astype(np.float32)
 
 
+def real_edges(imag: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """``imag`` (..., n_bins) with the DC and Nyquist entries set to 0.  A
+    real inverse FFT ignores those imaginary parts on the CPU (pocketfft, as
+    numpy and XLA do) but not in cuFFT, so spectra that a network wrote
+    (nonzero there) are made to mean the same on both."""
+    edges = [i for i in (0, n_fft // 2) if i < imag.shape[-1] and (i == 0 or n_fft % 2 == 0)]
+    return imag.index_fill(-1, torch.tensor(edges, device=imag.device), 0.0)
+
+
 def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int = 2048, hop: int = 512,
           win_length: int | None = None, window: str = "hann", center: bool = True,
           length: int | None = None) -> torch.Tensor:
@@ -104,7 +113,8 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int = 2048, hop: int = 
     syn = "hann" if window == "hann" else "ones"
     lead = real.shape[:-2]
     t_frames = real.shape[-2]
-    spec = torch.complex(real.float(), imag.float()).reshape(-1, t_frames, real.shape[-1])
+    spec = torch.complex(real.float(), real_edges(imag.float(), n_fft)).reshape(
+        -1, t_frames, real.shape[-1])
     win = torch.from_numpy(_window(n_fft, win_length, syn)).to(real.device)
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * win  # (B, T, n_fft)
     out_len = (t_frames - 1) * hop + n_fft

@@ -19,6 +19,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from audiolab_tpu_torch.core import precision
 from audiolab_tpu_torch.core.chunking import extract_chunks, plan_chunks, stitch_chunks
@@ -102,7 +104,9 @@ class StemSeparator:
         if pad:
             chunks = torch.cat([chunks, chunks.new_zeros((pad,) + chunks.shape[1:])])
         groups = [member.apply_fn(chunks[g:g + db]) for g in range(0, chunks.shape[0], db)]
-        out = {s: torch.cat([gr[s] for gr in groups])[: plan.count] for s in groups[0]}
+        # stems in key order, as the JAX separator's jitted member graph
+        # returns them (the order of a multistem split's files)
+        out = {s: torch.cat([gr[s] for gr in groups])[: plan.count] for s in sorted(groups[0])}
         return {s: stitch_chunks(v, plan) for s, v in out.items()}
 
     @torch.inference_mode()
@@ -159,6 +163,62 @@ class StemSeparator:
         other = stems.get("other", np.zeros_like(audio))
         stems["other"] = (other[:, :n] + (audio - total)).astype(np.float32)
         return {k: np.asarray(v, np.float32) for k, v in stems.items()}
+
+
+class _StemModel(nn.Module):
+    """A separation net whose forward maps a chunk batch (b, ch, n) to
+    {stem: (b, ch, n)}: the net's output (b, S, ch, n) named by ``names``,
+    the input right-padded to a multiple of ``hop`` frames first when
+    ``frame_multiple`` is set (and trimmed back), and the derived complement
+    of a two-stem split (instrumental = mix - vocals, or the reverse)."""
+
+    def __init__(self, model: nn.Module, names: list[str], hop: int = 0,
+                 frame_multiple: int = 0):
+        super().__init__()
+        self.model, self.names = model, names
+        self.hop, self.frame_multiple = hop, frame_multiple
+
+    def forward(self, batch):
+        n = batch.shape[-1]
+        x = batch
+        if self.frame_multiple:
+            frames = -(-(n // self.hop + 1) // self.frame_multiple) * self.frame_multiple
+            if (frames - 1) * self.hop < n:
+                raise ValueError(f"a chunk of {n} samples has no padded length of "
+                                 f"{frames} frames")
+            x = F.pad(batch, (0, (frames - 1) * self.hop - n))
+        out = self.model(x)[..., :n]
+        stems = {s: out[:, i] for i, s in enumerate(self.names)}
+        if "instrumental" not in stems and "vocals" in stems:
+            stems["instrumental"] = batch - stems["vocals"]
+        elif "vocals" not in stems and "instrumental" in stems:
+            stems["vocals"] = batch - stems["instrumental"]
+        return stems
+
+
+def htdemucs_member(model, name: str = "htdemucs_6s", weight_vocals: float = 1.0,
+                    weight_inst: float = 1.0) -> EnsembleMember:
+    """An HTDemucs (models/separation/htdemucs.py) as an ensemble member that
+    returns every source, and "instrumental" (mix - vocals) where no source
+    has that name: for ``separate_multistem`` (the reference's 6-stem path)
+    or a two-stem ensemble."""
+    return EnsembleMember(name, _StemModel(model, list(model.cfg.sources)),
+                          weight_vocals, weight_inst)
+
+
+def mdx23c_member(model, name: str = "mdx23c", weight_vocals: float = 7.2,
+                  weight_inst: float = 14.9) -> EnsembleMember:
+    """An MDX23C (models/separation/mdx23c.py) as an ensemble member; the
+    reference blends MDX23C-8KFFT-InstVoc_HQ at 7.2 / 14.9 and splits drum
+    kits with the DrumSep variant.  Chunks are right-padded to the net's
+    frame divisibility and trimmed back, so any chunk length works; stems
+    are the instruments in lower case."""
+    c = model.cfg
+    names = [s.lower() for s in ([c.target_instrument] if c.target_instrument
+                                 else c.instruments)]
+    return EnsembleMember(name, _StemModel(model, names, c.hop_length,
+                                           c.scale[0] ** c.num_scales),
+                          weight_vocals, weight_inst)
 
 
 # preset stem layouts (the reference's htdemucs 6-stem, drum-sep, karaoke

@@ -43,6 +43,22 @@ def _conv2d(sd: dict, key: str, node: dict) -> None:
         sd[f"{key}.bias"] = _t(node["bias"])
 
 
+def _conv_t1d(sd: dict, key: str, node: dict) -> None:
+    """flax ConvTranspose (k, in, out), spatially flipped -> torch (in, out, k)."""
+    sd[f"{key}.weight"] = _t(np.transpose(np.asarray(node["kernel"])[::-1], (1, 2, 0)))
+    if "bias" in node:
+        sd[f"{key}.bias"] = _t(node["bias"])
+
+
+def _conv_t2d(sd: dict, key: str, node: dict) -> None:
+    """flax ConvTranspose (kh, kw, in, out), spatially flipped -> torch
+    (in, out, kh, kw)."""
+    kern = np.asarray(node["kernel"])[::-1, ::-1]
+    sd[f"{key}.weight"] = _t(np.transpose(kern, (2, 3, 0, 1)))
+    if "bias" in node:
+        sd[f"{key}.bias"] = _t(node["bias"])
+
+
 def _norm(sd: dict, key: str, node: dict, names=("weight", "bias")) -> None:
     sd[f"{key}.{names[0]}"] = _t(node["scale"])
     sd[f"{key}.{names[1]}"] = _t(node["bias"])
@@ -179,8 +195,7 @@ def rmvpe_from_jax(params: dict, batch_stats: dict) -> dict:
         elif name.startswith("dec_"):
             i = int(name.split("_")[1])
             key = f"unet.decoder.layers.{i}"
-            kern = np.asarray(tpl["convt"]["kernel"])[::-1, ::-1]
-            sd[f"{key}.conv1.0.weight"] = _t(np.transpose(kern, (2, 3, 0, 1)))
+            _conv_t2d(sd, f"{key}.conv1.0", tpl["convt"])
             _bn(sd, f"{key}.conv1.1", tpl["bn"], st[name]["bn"])
             for bname, btpl in tpl.items():
                 if bname.startswith("block_"):
@@ -235,9 +250,7 @@ def synthesizer_from_jax(params: dict) -> dict:
     for key, node in dec.items():
         if key.startswith("up_"):
             i = int(key.split("_")[1])
-            kern = np.asarray(node["ConvTranspose_0"]["kernel"])[::-1]
-            sd[f"dec.ups.{i}.weight"] = _t(np.transpose(kern, (1, 2, 0)))
-            sd[f"dec.ups.{i}.bias"] = _t(node["ConvTranspose_0"]["bias"])
+            _conv_t1d(sd, f"dec.ups.{i}", node["ConvTranspose_0"])
         elif key.startswith("noise_conv_"):
             _conv1d(sd, f"dec.noise_convs.{int(key.split('_')[2])}", node)
         elif key.startswith("resblock_"):
@@ -349,4 +362,136 @@ def vr_from_jax(params: dict) -> dict:
     _vr_basenet_new(sd, "stg3_full_band_net", params["stg3_full_band_net"])
     nout = np.asarray(params["out"]["kernel"]).shape[2]
     sd["aux_out.weight"] = torch.zeros(2, 3 * nout // 4, 1, 1)
+    return sd
+
+
+# ---------------------------------------------------------------- HTDemucs
+
+def _weight_bias(sd: dict, key: str, node: dict) -> None:
+    sd[f"{key}.weight"] = _t(node["weight"])
+    sd[f"{key}.bias"] = _t(node["bias"])
+
+
+def _htd_coder(sd: dict, key: str, node: dict, freq: bool) -> None:
+    conv = _conv2d if freq else _conv1d
+    if "conv_tr" in node:
+        (_conv_t2d if freq else _conv_t1d)(sd, f"{key}.conv_tr", node["conv_tr"])
+    else:
+        conv(sd, f"{key}.conv", node["conv"])
+    conv(sd, f"{key}.rewrite", node["rewrite"])
+    for nrm in ("norm1", "norm2"):
+        if nrm in node:
+            _weight_bias(sd, f"{key}.{nrm}", node[nrm])
+    dc = node.get("dconv", {})
+    for d in range(_count(dc, "c1_")):
+        b = f"{key}.dconv.layers.{d}"
+        _conv1d(sd, f"{b}.0", dc[f"c1_{d}"])
+        _weight_bias(sd, f"{b}.1", dc[f"n1_{d}"])
+        _conv1d(sd, f"{b}.3", dc[f"c2_{d}"])
+        _weight_bias(sd, f"{b}.4", dc[f"n2_{d}"])
+        sd[f"{b}.6.scale"] = _t(dc[f"scale_{d}"])
+
+
+def _htd_tlayer(sd: dict, key: str, node: dict) -> None:
+    attn = "cross_attn" if "cross_attn" in node else "self_attn"
+    a = node[attn]
+    sd[f"{key}.{attn}.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(a[q]["kernel"]).T for q in ("q", "k", "v")]))
+    sd[f"{key}.{attn}.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(a[q]["bias"]) for q in ("q", "k", "v")]))
+    _dense(sd, f"{key}.{attn}.out_proj", a["out_proj"])
+    for ln in ("norm1", "norm2", "norm3"):
+        if ln in node:
+            _norm(sd, f"{key}.{ln}", node[ln])
+    _weight_bias(sd, f"{key}.norm_out", node["norm_out"])
+    _dense(sd, f"{key}.linear1", node["linear1"])
+    _dense(sd, f"{key}.linear2", node["linear2"])
+    sd[f"{key}.gamma_1.scale"] = _t(node["gamma_1"])
+    sd[f"{key}.gamma_2.scale"] = _t(node["gamma_2"])
+
+
+def htdemucs_from_jax(params: dict) -> dict:
+    """HTDemucs flax params -> port state_dict (demucs v4 checkpoint names);
+    the inverse of ``convert_htdemucs``."""
+    sd: dict = {"freq_emb.embedding.weight": _t(params["freq_emb"])}
+    for i in range(_count(params, "encoder_")):
+        _htd_coder(sd, f"encoder.{i}", params[f"encoder_{i}"], True)
+        _htd_coder(sd, f"tencoder.{i}", params[f"tencoder_{i}"], False)
+        _htd_coder(sd, f"decoder.{i}", params[f"decoder_{i}"], True)
+        _htd_coder(sd, f"tdecoder.{i}", params[f"tdecoder_{i}"], False)
+    for nm in ("channel_upsampler", "channel_upsampler_t", "channel_downsampler",
+               "channel_downsampler_t"):
+        if nm in params:
+            _dense_as_conv1x1(sd, nm, params[nm])
+    ct = params["crosstransformer"]
+    _norm(sd, "crosstransformer.norm_in", ct["norm_in"])
+    _norm(sd, "crosstransformer.norm_in_t", ct["norm_in_t"])
+    for idx in range(_count(ct, "layer_t_")):
+        _htd_tlayer(sd, f"crosstransformer.layers.{idx}", ct[f"layer_{idx}"])
+        _htd_tlayer(sd, f"crosstransformer.layers_t.{idx}", ct[f"layer_t_{idx}"])
+    return sd
+
+
+# ------------------------------------------------------------------ MDX23C
+
+def _mdx23c_stack(sd: dict, key: str, node: dict) -> None:
+    """One TFCTDFv3 stack -> ``{key}.blocks.{j}.*``."""
+    for j in range(sum(1 for k in node if k.endswith("_shortcut"))):
+        b = f"{key}.blocks.{j}"
+        _conv2d(sd, f"{b}.shortcut", node[f"b{j}_shortcut"])
+        for part in ("tfc1", "tfc2"):
+            if f"b{j}_{part}_norm" in node:
+                _norm(sd, f"{b}.{part}.0", node[f"b{j}_{part}_norm"]["norm"])
+            _conv2d(sd, f"{b}.{part}.2", node[f"b{j}_{part}_conv"])
+        if f"b{j}_tdf_norm" in node:
+            _norm(sd, f"{b}.tdf.0", node[f"b{j}_tdf_norm"]["norm"])
+        _dense(sd, f"{b}.tdf.2", node[f"b{j}_tdf1"])
+        _dense(sd, f"{b}.tdf.4", node[f"b{j}_tdf2"])
+
+
+def mdx23c_from_jax(params: dict) -> dict:
+    """TFCTDFNetV3 flax params -> port state_dict (MDX23C ``.ckpt`` names);
+    the inverse of ``convert_mdx23c``."""
+    sd: dict = {}
+    _conv2d(sd, "first_conv", params["first_conv"])
+    _conv2d(sd, "final_conv.0", params["final_conv1"])
+    _conv2d(sd, "final_conv.2", params["final_conv2"])
+    _mdx23c_stack(sd, "bottleneck_block", params["mid"])
+    n = _count(params, "enc_")
+    for i in range(n):
+        d = n - 1 - i           # decoder_blocks run deepest first
+        _mdx23c_stack(sd, f"encoder_blocks.{i}.tfc_tdf", params[f"enc_{i}"])
+        _mdx23c_stack(sd, f"decoder_blocks.{d}.tfc_tdf", params[f"dec_{i}"])
+        if f"down_{i}_norm" in params:
+            _norm(sd, f"encoder_blocks.{i}.downscale.0", params[f"down_{i}_norm"]["norm"])
+            _norm(sd, f"decoder_blocks.{d}.upscale.0", params[f"up_{i}_norm"]["norm"])
+        _conv2d(sd, f"encoder_blocks.{i}.downscale.2", params[f"down_{i}_conv"])
+        _conv_t2d(sd, f"decoder_blocks.{d}.upscale.2", params[f"up_{i}_conv"])
+    return sd
+
+
+# ------------------------------------------------------------------ MDXNet
+
+def mdxnet_from_jax(params: dict) -> dict:
+    """MDXNet flax params -> port state_dict (the flax module names):
+    ``up_*`` transposed convs get their spatial flip back, 4-d kernels are
+    convs, 2-d kernels dense layers, GroupNorm scales ``weight``."""
+    sd: dict = {}
+
+    def walk(node: dict, key: str) -> None:
+        if "kernel" in node:
+            kern = np.asarray(node["kernel"])
+            if kern.ndim == 2:
+                _dense(sd, key, node)
+            elif key.rsplit(".", 1)[-1].startswith("up_"):
+                _conv_t2d(sd, key, node)
+            else:
+                _conv2d(sd, key, node)
+        elif "scale" in node:
+            _norm(sd, key, node)
+        else:
+            for name, child in node.items():
+                walk(child, f"{key}.{name}" if key else name)
+
+    walk(params, "")
     return sd

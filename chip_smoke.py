@@ -6,7 +6,9 @@ drives the separate -> RVC chain at full width, and checks the output.
     python3 chip_smoke.py --phases card,kernels    # a subset
     python3 chip_smoke.py --phases card,f0,vr,long # the paths beside the chain
     python3 chip_smoke.py --phases card,serve      # the REST server and main.py
-    python3 chip_smoke.py --profile DIR            # + a profiler table of one chain pass
+    python3 chip_smoke.py --phases card,separators # HTDemucs, MDX23C, the ONNX member
+    python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass
+                                                   # and of the separator family
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -54,6 +56,19 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              ``python -m audiolab_tpu_torch.main`` as a subprocess: GET
              /openapi.json, the DSP split through POST /api/v1/process/separate,
              SIGTERM, exit 0
+  separators the rest of the separator family at published widths on the 60 s
+             track, each step cold then warm: (a) StemSeparator with the two
+             BS-RoFormer members, MDX23C (InstVoc_HQ, 7.2 / 14.9) and an MDX-NET
+             ONNX member (dim_f 3072, dim_t 256, n_fft 7680; its graph a
+             TFC-TDF U-Net written here by the port's build_model, not a
+             published net's): 48 K1, all Hopper, finite stems; (b)
+             separate_multistem with HTDemucs (htdemucs_6s): six stems summing
+             to the input within 1e-4 of its peak; (c) an MDX23C over DRUM_KIT
+             on (b)'s drums; (d) POST /api/v1/process/separate with Separate
+             configured with (a)-(c), vocals_only off and the drum split on:
+             HTTP 200, the JAX processor's 13 WAVs; (e) one 8 s chunk through
+             HTDemucs, MDX23C and the ONNX runner on the card against the CPU
+             in fp32 (1e-4 of max|y|); (f) seconds and peak memory
   long       bench.py's 4-minute track through separate -> mono -> resample ->
              convert, once after a pass that warms its shapes: 32 chunks in 4
              groups of 8, 192 K1 launches (all Hopper), 48 K2, stage seconds
@@ -76,7 +91,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-          "serve", "long")
+          "serve", "separators", "long")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -1342,6 +1357,314 @@ def phase_main(dev, work: Path, wav: Path, n: int) -> dict:
         out.close()
 
 
+# ---------------------------------------------------------------- separators
+
+# the reference's blend weights of its MDX23C and first MDX-NET ONNX members
+MDX23C_WEIGHTS, ONNX_WEIGHTS = (7.2, 14.9), (6.9, 14.9)
+# MDXOnnxSeparator's defaults (UVR MDX-NET: dim_f 3072, dim_t 256, n_fft 7680)
+ONNX_IO = dict(dim_f=3072, dim_t=256, n_fft=7680, hop=1024)
+# the ONNX member's graph (a U-Net written here, not a published net's):
+# channel widths per scale and the TDF's bottleneck factor
+ONNX_WIDTHS, ONNX_BN = (32, 64, 128), 8
+
+
+def mdx_onnx_graph(seed: int, dim_f: int, widths=ONNX_WIDTHS, bn: int = ONNX_BN):
+    """An ONNX graph ``input`` (b, 4, dim_f, dim_t) -> ``output`` of the same
+    shape, written with the port's ``build_model`` and read back with
+    ``parse_model``: a transpose to (b, c, t, f), a 1x1 stem, per scale a 3x3
+    conv and a TDF bottleneck (two MatMuls over frequency and a residual
+    Add), 2x2 stride-2 downscales, transposed-conv upscales concatenated with
+    their skips, a 1x1 head and the transpose back.  Weights N(0, 2 / fan_in),
+    biases N(0, 0.01), from ``seed``."""
+    from audiolab_tpu_torch.utils.onnx import OnnxNode, build_model, parse_model
+
+    rng = np.random.default_rng(seed)
+    nodes, inits = [], {}
+
+    def tensor(shape, std):
+        name = f"w{len(inits)}"
+        inits[name] = (std * rng.standard_normal(shape)).astype(np.float32)
+        return name
+
+    def node(op, ins, **attrs):
+        out = f"t{len(nodes)}"
+        nodes.append(OnnxNode(op, ins, [out], attrs))
+        return out
+
+    def conv(x, cin, cout, k, **attrs):
+        w = tensor((cout, cin, k, k), np.sqrt(2.0 / (cin * k * k)))
+        return node("Relu", [node("Conv", [x, w, tensor((cout,), 0.01)], **attrs)])
+
+    def tdf(x, f):
+        h = node("Add", [node("MatMul", [x, tensor((f, f // bn), np.sqrt(2.0 / f))]),
+                         tensor((f // bn,), 0.01)])
+        h = node("MatMul", [node("Relu", [h]), tensor((f // bn, f), np.sqrt(1.0 / f))])
+        return node("Add", [x, node("Add", [h, tensor((f,), 0.01)])])
+
+    x = node("Transpose", ["input"], perm=[0, 1, 3, 2])
+    x = conv(x, 4, widths[0], 1)
+    skips, f = [], dim_f
+    for i, c in enumerate(widths):
+        x = tdf(conv(x, c, c, 3, pads=[1, 1, 1, 1]), f)
+        if i + 1 < len(widths):
+            skips.append((x, c, f))
+            x = conv(x, c, widths[i + 1], 2, strides=[2, 2])
+            f //= 2
+    c_in = widths[-1]
+    for skip, c, f in reversed(skips):
+        w = tensor((c_in, c, 2, 2), np.sqrt(1.0 / c_in))
+        up = node("ConvTranspose", [x, w, tensor((c,), 0.01)], strides=[2, 2])
+        x = tdf(conv(node("Concat", [up, skip], axis=1), 2 * c, c, 3, pads=[1, 1, 1, 1]), f)
+        c_in = c
+    w = tensor((4, widths[0], 1, 1), np.sqrt(1.0 / widths[0]))
+    x = node("Conv", [x, w, tensor((4,), 0.01)])
+    nodes.append(OnnxNode("Transpose", [x], ["output"], {"perm": [0, 1, 3, 2]}))
+    return parse_model(build_model(nodes, inits, ["input"], ["output"]))
+
+
+def build_family(dev, sep, cfgs: dict | None = None, onnx_io: dict = ONNX_IO,
+                 onnx_widths=ONNX_WIDTHS):
+    """The rest of the separator family on ``dev``, weights by bench.py's
+    rules (utils/fast_init.py): the ensemble (the separator phase's two
+    BS-RoFormer members, MDX23C at MDX23CConfig() = InstVoc_HQ and an MDX-NET
+    ONNX member at MDXOnnxSeparator's defaults), HTDemucs at HTDemucsConfig()
+    = htdemucs_6s for the 6-stem split, an MDX23C over DRUM_KIT (InstVoc_HQ's
+    other widths) for the drum split.  ``cfgs`` overrides the configs by
+    "mdx23c" / "htdemucs" (CPU rehearsals)."""
+    import torch
+
+    from audiolab_tpu_torch.models.separation.htdemucs import HTDemucs, HTDemucsConfig
+    from audiolab_tpu_torch.models.separation.mdx import MDXOnnxSeparator
+    from audiolab_tpu_torch.models.separation.mdx23c import MDX23CConfig, TFCTDFNetV3
+    from audiolab_tpu_torch.pipelines.separate import (
+        DRUM_KIT,
+        EnsembleMember,
+        StemSeparator,
+        htdemucs_member,
+        mdx23c_member,
+    )
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cfgs = cfgs or {}
+    mkw = cfgs.get("mdx23c", {})
+    with torch.device(dev):
+        mdx = fast_init(TFCTDFNetV3(MDX23CConfig(**mkw)), seed=200)
+        htd = fast_init(HTDemucs(HTDemucsConfig(**cfgs.get("htdemucs", {}))), seed=201)
+        drum = fast_init(TFCTDFNetV3(MDX23CConfig(**dict(mkw, instruments=DRUM_KIT))), seed=202)
+    onnx = MDXOnnxSeparator(mdx_onnx_graph(203, onnx_io["dim_f"], onnx_widths), **onnx_io)
+    kw = dict(sr=sep.sr, chunk_seconds=sep.chunk_seconds, overlap_seconds=sep.overlap_seconds,
+              device_batch=sep.device_batch, device=dev)
+    members = [*sep.members, mdx23c_member(mdx, "mdx23c_instvoc_hq", *MDX23C_WEIGHTS),
+               EnsembleMember("mdx_net_onnx", onnx, *ONNX_WEIGHTS)]
+    htd_m, drum_m = htdemucs_member(htd), mdx23c_member(drum, "mdx23c_drumsep")
+    return dict(ensemble=StemSeparator(members, **kw), multistem=StemSeparator([htd_m], **kw),
+                htdemucs=htd_m, drumsep=StemSeparator([drum_m], **kw), drum_kit=drum_m,
+                models=dict(htdemucs=htd, mdx23c=mdx, onnx=onnx))
+
+
+def check_stems(stems: dict, names, n: int, label: str, total=None, tol=None) -> None:
+    """``names`` exactly, each (2, n) and finite; with ``total``, the stems
+    sum to it within ``tol`` of its peak."""
+    import torch
+
+    expect(set(stems) == set(names), f"{label}: stems {sorted(stems)}, expected {sorted(names)}")
+    for k, v in stems.items():
+        v = torch.as_tensor(v)
+        expect(tuple(v.shape) == (2, n) and bool(torch.isfinite(v).all()),
+               f"{label}: {k} {tuple(v.shape)} or not finite")
+    if total is not None:
+        err = float(np.abs(sum(np.asarray(v) for v in stems.values()) - total).max())
+        expect(err <= tol * float(np.abs(total).max()),
+               f"{label}: the stems miss their input by {err}")
+
+
+def phase_separators(dev, sep, audio, card: str, cfgs: dict | None = None,
+                     onnx_io: dict = ONNX_IO, onnx_widths=ONNX_WIDTHS,
+                     expect_k1: int | None = 48, profile_dir: str | None = None) -> dict:
+    """The separator family at published widths on the 60 s track, each step
+    cold then warm, counts reset just before each pass and read just after:
+    (a) the 4-member ensemble (48 K1, all on the Hopper routes, nothing else),
+    (b) the 6-stem HTDemucs split (stems sum to the input), (c) the drum split
+    of (b)'s drums, (d) POST /api/v1/process/separate with vocals_only off and
+    the drum split on (the JAX processor's files), (e) one 8 s chunk through
+    HTDemucs, MDX23C and the ONNX runner on the card against the CPU in fp32
+    (1e-4 of max|y|), (f) seconds and peak memory, and each ensemble member
+    alone, warm; with ``profile_dir`` a profiler table of (a)-(c), warm."""
+    import base64
+    import copy
+    import shutil
+    import tempfile
+    from functools import partial
+
+    import torch
+
+    from audiolab_tpu_torch.core import precision
+    from audiolab_tpu_torch.core.audio_io import read_wav, write_wav
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.pipelines.processors.separate import Separate
+    from audiolab_tpu_torch.pipelines.separate import DRUM_KIT, MULTISTEM_6
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+
+    t0 = time.perf_counter()
+    fam = build_family(dev, sep, cfgs, onnx_io, onnx_widths)
+    sync(dev)
+    log(f"[separators] models built on {dev.type} in {time.perf_counter() - t0:.1f} s")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    n = audio.shape[-1]
+    x = audio.float().cpu().numpy()
+    rec: dict = {"card": card}
+
+    def timed(label, fn):
+        """fn() twice (cold, warm): counts reset before each pass and read
+        after; returns the warm result and the first pass's counts."""
+        out, first = None, None
+        for rep in ("cold", "warm"):
+            reset_counts()
+            t1 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            rec.setdefault(f"{label}_s", []).append(time.perf_counter() - t1)
+            launches = counts() | {"K1_sm90": A.attention_nk1.sm90_launches}
+            first = first or launches
+            expect(launches == first, f"{label}: launches {launches} warm, {first} cold")
+        return out, first
+
+    ens = fam["ensemble"]
+    stems, launches = timed("ensemble", lambda: ens.separate(audio, as_numpy=False))
+    check_stems(stems, ("vocals", "instrumental"), n, "separators: ensemble")
+    if expect_k1 is not None:
+        expect(only(launches, "K1", expect_k1) and launches["K1_sm90"] == expect_k1,
+               f"separators: ensemble launches {launches}, expected K1 {expect_k1} all Hopper")
+    rec["ensemble_launches"] = launches
+    del stems
+
+    # each member alone, warm, as separate() runs it
+    rec["member_s"] = {}
+    with torch.inference_mode(), precision.matmul_precision(ens.matmul_precision):
+        for m in ens.members:
+            t1 = time.perf_counter()
+            ens._run_member(m, audio)
+            sync(dev)
+            rec["member_s"][m.name] = time.perf_counter() - t1
+
+    six, launches = timed("multistem", lambda: fam["multistem"].separate_multistem(
+        x, fam["htdemucs"]))
+    check_stems(six, MULTISTEM_6, n, "separators: 6-stem split", total=x, tol=1e-4)
+    expect(all(v == 0 for v in launches.values()), f"separators: 6-stem launches {launches}")
+    kit, launches = timed("drums", lambda: fam["drumsep"].separate_multistem(
+        six["drums"], fam["drum_kit"]))
+    check_stems(kit, DRUM_KIT, n, "separators: drum split", total=six["drums"], tol=1e-4)
+    expect(all(v == 0 for v in launches.values()), f"separators: drum launches {launches}")
+
+    if profile_dir and cuda:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        t1 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ens.separate(audio, as_numpy=False)
+            fam["multistem"].separate_multistem(x, fam["htdemucs"])
+            fam["drumsep"].separate_multistem(six["drums"], fam["drum_kit"])
+            sync(dev)
+        wall = time.perf_counter() - t1
+        events = prof.key_averages()
+        # the kernels and copies themselves (an operator's row repeats its kernels' time)
+        device_s = sum(e.self_device_time_total for e in events
+                       if e.device_type == DeviceType.CUDA) / 1e6
+        path = Path(profile_dir) / "chip_smoke_separators_profile.txt"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(f"{card}\n(a)-(c) warm: {wall:.3f} s on the host clock, {device_s:.3f} s "
+                        f"of device time\n"
+                        + events.table(sort_by="self_cuda_time_total", row_limit=40) + "\n")
+        rec["profile"] = dict(wall_s=wall, device_s=device_s)
+        log(f"[separators] profiler: (a)-(c) warm {wall:.3f} s on the host clock, "
+            f"{device_s:.3f} s of device time -> {path}")
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_separators_"))
+    Separate.configure(ens, multistem=partial(fam["multistem"].separate_multistem,
+                                              member=fam["htdemucs"]),
+                       drum_splitter=partial(fam["drumsep"].separate_multistem,
+                                             member=fam["drum_kit"]))
+    try:
+        wav = work / "track.wav"
+        write_wav(wav, x, SEP_SR)
+        server, port = serve_background(create_app(str(work / "process"), device=dev))
+        body = {"files": [{"filename": "track.wav",
+                           "content": base64.b64encode(wav.read_bytes()).decode()}],
+                "settings": {"vocals_only": False, "separate_drums": True, "use_cache": False}}
+        # the JAX processor's files: the ensemble's two stems, the 6-stem
+        # split's others and the kit, each group in key order
+        names = (["vocals", "instrumental"] + sorted(set(MULTISTEM_6) - {"vocals"})
+                 + [f"drums_{k}" for k in sorted(DRUM_KIT)])
+        want = [f"track ({k.title()}).wav" for k in names]
+        try:
+            resp, launches = timed("request", lambda: http(
+                "POST", f"http://127.0.0.1:{port}/api/v1/process/separate", body))
+        finally:
+            server.shutdown()
+            server.server_close()
+        status, resp = resp
+        expect(status == 200, f"separators: request HTTP {status} {resp.get('error')}")
+        got = [f["filename"] for f in resp["files"]]
+        expect(got == want, f"separators: request returned {got}, expected {want}")
+        for f in resp["files"]:
+            p = work / f"resp_{f['filename']}"
+            p.write_bytes(base64.b64decode(f["content"]))
+            a = read_wav(p)
+            expect(a.samples.shape == (2, n) and bool(np.isfinite(a.samples).all()),
+                   f"separators: {f['filename']} {a.samples.shape}")
+        if expect_k1 is not None:
+            check_launches(dev, launches, launches["K1_sm90"], expect_k1, 0,
+                           "separators: request")
+        rec["request_launches"] = launches
+    finally:
+        Separate.configure(None)
+        shutil.rmtree(work, ignore_errors=True)
+    if cuda:
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # (e) one chunk, fp32 products, the card against the CPU; MDX23C's input
+    # padded to its frame multiple as mdx23c_member pads it
+    chunk = int(sep.chunk_seconds * SEP_SR)
+    xc = audio[None, :, :chunk].float()
+    models = fam["models"]
+    good = models["mdx23c"].good_length(sep.chunk_seconds)
+    runs = {"htdemucs": (models["htdemucs"], xc),
+            "mdx23c": (models["mdx23c"], torch.nn.functional.pad(xc, (0, good - chunk))),
+            "onnx": (lambda a: models["onnx"](a)["vocals"], xc)}
+    rec["card_vs_cpu"] = {}
+    with torch.inference_mode(), precision.matmul_precision("highest"):
+        for name, (fn, inp) in runs.items():
+            y = fn(inp)
+            cpu_fn = fn if name == "onnx" else copy.deepcopy(fn).cpu()
+            ref = cpu_fn(inp.cpu())
+            err = float((y.cpu() - ref).abs().max()) / float(ref.abs().max())
+            rec["card_vs_cpu"][name] = err
+            expect(bool(torch.isfinite(y).all()) and err <= 1e-4,
+                   f"separators: {name} on {dev.type} against the CPU: {err:.3e} of max|y|")
+            del y, ref, cpu_fn
+    log(f"[separators] (a) ensemble of {len(ens.members)} members "
+        f"({', '.join(m.name for m in ens.members)}) on {n / SEP_SR:.1f} s: "
+        f"{' / '.join(f'{t:.3f}' for t in rec['ensemble_s'])} s cold / warm, launches "
+        f"{rec['ensemble_launches']}; alone, warm: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in rec["member_s"].items())
+        + " | (b) 6-stem HTDemucs "
+        f"{' / '.join(f'{t:.3f}' for t in rec['multistem_s'])} s | (c) drum split "
+        f"{' / '.join(f'{t:.3f}' for t in rec['drums_s'])} s | (d) POST "
+        f"/api/v1/process/separate (vocals_only off, drums on; {len(want)} WAVs) "
+        f"{' / '.join(f'{t:.3f}' for t in rec['request_s'])} s, launches "
+        f"{rec['request_launches']} | (e) fp32 card vs CPU on one chunk, of max|y|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rec["card_vs_cpu"].items())
+        + (f" | peak memory {rec['peak_mem_gb']:.2f} GB" if cuda else "") + f" | {card}")
+    del fam, six, kit
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1380,9 +1703,9 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
-    served = None
+    served = family = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-                  "serve", "long"} & set(phases)
+                  "serve", "separators", "long"} & set(phases)
     if need_chain:
         t0 = time.perf_counter()
         sep = build_separator(dev)
@@ -1410,6 +1733,9 @@ def main() -> int:
             phase_timing(dev, sep, vcs["bfloat16"], audio, card, args.profile)
         if "serve" in phases:
             served = phase_serve(dev, sep, vcs["bfloat16"], audio, card)["served_launches"][0]
+        if "separators" in phases:
+            family = phase_separators(dev, sep, audio, card,
+                                      profile_dir=args.profile)["ensemble_launches"]
         if "long" in phases:
             del audio
             torch.cuda.empty_cache()
@@ -1420,6 +1746,7 @@ def main() -> int:
                            "plain_ms", "bound_ms", "bound_by", "library_ms")}
         | {"launches": main_launches[r["kernel"]], "case": r["case"],
            "served_launches": None if served is None else served[r["kernel"]],
+           "separators_launches": None if family is None else family[r["kernel"]],
            "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}

@@ -712,7 +712,8 @@ def test_k3_hopper_masks_padded_keys(cuda_device, tq):
 
 
 @pytest.mark.parametrize("op", ["linear", "einsum_rel", "einsum_scores", "conv1d_grouped",
-                                "conv1d_decoder", "conv_transpose1d"])
+                                "conv1d_decoder", "conv_transpose1d", "conv2d",
+                                "conv_transpose2d"])
 def test_bf16_policy_on_the_card(cuda_device, op):
     """``matmul_precision("bfloat16")`` on the card: linear layers and einsums
     through the bf16 GEMM with an fp32 result, convolutions as TF32 ones on
@@ -742,6 +743,11 @@ def test_bf16_policy_on_the_card(cuda_device, op):
         "conv_transpose1d": (t(2, 16, 30), t(16, 8, 8),
                              lambda a, b: precision.conv_transpose1d(a, b, stride=4,
                                                                      padding=2)),
+        # MDX23C's 3x3 convolution at its top scale and its (2, 2) upscale
+        "conv2d": (t(2, 128, 64, 128), 0.05 * t(128, 128, 3, 3),
+                   lambda a, b: precision.conv2d(a, b, padding=1)),
+        "conv_transpose2d": (t(2, 256, 32, 64), 0.05 * t(256, 128, 2, 2),
+                             lambda a, b: precision.conv_transpose2d(a, b, stride=2)),
     }[op]
     with precision.matmul_precision("bfloat16"):
         low = call(x, w)
@@ -824,3 +830,98 @@ def test_processor_chain_on_the_card_matches_the_cpu(cuda_device, tmp_path, monk
                                        sr=sr, n_fft=1024, hop=256, n_mels=80, power=1.0))
 
     assert max(float((logmel(a[c]) - logmel(b[c])).abs().mean()) for c in range(2)) < 1e-2
+
+
+def _seeded(module, seed: int, scale: float = 0.1):
+    """``module`` with every float parameter moved off its initial value by
+    N(0, scale) from a generator seeded with ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(scale * torch.randn(p.shape, generator=g))
+    return module.eval()
+
+
+def _family_case(name):
+    """(callable (b, 2, n) -> tensor on the input's device, fp32 input): the
+    tiny HTDemucs and MDX23C of the CPU parity tests, and a miniature
+    TFC-TDF U-Net graph through the ONNX runner."""
+    import numpy as np
+
+    from audiolab_tpu_torch.models.separation import htdemucs as THt
+    from audiolab_tpu_torch.models.separation import mdx23c as TMc
+    from audiolab_tpu_torch.utils import onnx as TOnnx
+
+    rng = np.random.default_rng(4)
+
+    def r(*shape, scale=0.3):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    if name == "htdemucs":
+        model = _seeded(THt.HTDemucs(THt.HTDemucsConfig(
+            sources=("vocals", "other"), channels=4, nfft=128, depth=2, norm_starts=0,
+            norm_groups=2, dconv_comp=2, bottom_channels=8, t_layers=3, t_heads=2,
+            t_hidden_scale=2.0, segment_seconds=1.0, samplerate=800)), 1)
+        return model, torch.from_numpy(r(2, 2, 1000))
+    if name == "mdx23c":
+        model = _seeded(TMc.TFCTDFNetV3(TMc.MDX23CConfig(
+            sample_rate=8000, n_fft=256, hop_length=64, dim_f=128, num_subbands=2,
+            num_scales=2, num_blocks_per_scale=1, channels=8, growth=8,
+            bottleneck_factor=2)), 2)
+        return model, torch.from_numpy(r(2, 2, model.good_length(0.25)))
+    nodes = [("Conv", ["x", "w0", "b0"], ["s"], {}), ("Relu", ["s"], ["h"], {}),
+             ("Conv", ["h", "w1", "b1"], ["t0"], {"pads": [1, 1, 1, 1]}),
+             ("MatMul", ["t0", "w2"], ["d0"], {}), ("Relu", ["d0"], ["d1"], {}),
+             ("MatMul", ["d1", "w3"], ["d2"], {}), ("Add", ["h", "d2"], ["hs"], {}),
+             ("Conv", ["hs", "w4", "b4"], ["dn"], {"strides": [2, 2]}),
+             ("ConvTranspose", ["dn", "w5", "b5"], ["u"], {"strides": [2, 2]}),
+             ("Concat", ["hs", "u"], ["cat"], {"axis": 1}),
+             ("Conv", ["cat", "w6", "b6"], ["y"], {})]
+    inits = {"w0": r(8, 4, 1, 1), "b0": r(8), "w1": r(8, 8, 3, 3), "b1": r(8),
+             "w2": r(16, 4), "w3": r(4, 16), "w4": r(16, 8, 2, 2), "b4": r(16),
+             "w5": r(16, 8, 2, 2), "b5": r(8), "w6": r(4, 16, 1, 1), "b6": r(4)}
+    runner = TOnnx.OnnxRunner(TOnnx.parse_model(TOnnx.build_model(
+        [TOnnx.OnnxNode(*n) for n in nodes], inits, ["x"], ["y"])))
+    return (lambda x: runner(x=x)[0]), torch.from_numpy(r(2, 4, 32, 16))
+
+
+@pytest.mark.parametrize("policy", ["highest", "bfloat16"])
+@pytest.mark.parametrize("name", ["htdemucs", "mdx23c", "onnx"])
+def test_separator_family_on_the_card_matches_the_cpu(cuda_device, name, policy):
+    """The tiny HTDemucs, MDX23C and ONNX U-Net on the card against the CPU on
+    the same weights and input: fp32 products to 1e-4 of max|y| (sums in
+    another order); under the bf16 policy to 1e-2 of max|y| (the operands are
+    the same bf16 values, but a sum in another order may move a later
+    layer's input across a bf16 rounding boundary)."""
+    import copy
+
+    from audiolab_tpu_torch.core import precision
+    from audiolab_tpu_torch.core.device import resolve_device
+
+    resolve_device(cuda_device)           # the policy's TF32 flags
+    fn, x = _family_case(name)
+    card_fn = copy.deepcopy(fn).to(cuda_device) if isinstance(fn, torch.nn.Module) else fn
+    with torch.no_grad(), precision.matmul_precision(policy):
+        ref = fn(x)
+        out = card_fn(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert out.device.type == "cuda" and out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    tol = 1e-4 if policy == "highest" else 1e-2
+    assert (out.cpu() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("n_fft,hop", [(8192, 1024), (4096, 1024), (400, 160)])
+def test_istft_of_a_written_spectrum_matches_the_cpu(cuda_device, n_fft, hop):
+    """A spectrum a network wrote has imaginary parts on its DC and Nyquist
+    bins; cuFFT's real inverse would use them where the CPU's ignores them,
+    so ``istft`` drops them first: the card agrees with the CPU to 1e-5 of
+    max|y|."""
+    from audiolab_tpu_torch.kernels.stft import istft
+
+    g = torch.Generator().manual_seed(5)
+    r, i = (torch.randn(2, 30, n_fft // 2 + 1, generator=g) for _ in range(2))
+    ref = istft(r, i, n_fft=n_fft, hop=hop)
+    out = istft(r.to(cuda_device), i.to(cuda_device), n_fft=n_fft, hop=hop)
+    torch.cuda.synchronize()
+    assert (out.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -280,13 +280,25 @@ def _policy_case(op):
                                                                       groups=16)),
         "conv_transpose1d": (t(2, 16, 30), lambda a, w: precision.conv_transpose1d(
             a, w, stride=4, padding=2)),
+        # HTDemucs's frequency-axis convolution and MDX23C's upscale
+        "conv2d": (t(2, 8, 40, 6), lambda a, w: precision.conv2d(a, w, stride=(4, 1),
+                                                                 padding=(2, 0))),
+        "conv_transpose2d": (t(2, 16, 5, 6), lambda a, w: precision.conv_transpose2d(
+            a, w, stride=2)),
+        # an ONNX MatMul of broadcast batches
+        "matmul_batched": (t(2, 3, 20, 16), lambda a, w: precision.matmul(a, w)),
     }[op]
     w = {"linear": t(24, 32), "einsum": t(2, 3, 25, 16), "conv1d_grouped": 0.1 * t(32, 2, 128),
-         "conv_transpose1d": t(16, 8, 8)}[op]
+         "conv_transpose1d": t(16, 8, 8), "conv2d": t(6, 8, 8, 1),
+         "conv_transpose2d": t(16, 8, 2, 2), "matmul_batched": t(3, 16, 24)}[op]
     return x, w, call
 
 
-@pytest.mark.parametrize("op", ["linear", "einsum", "conv1d_grouped", "conv_transpose1d"])
+POLICY_OPS = ["linear", "einsum", "conv1d_grouped", "conv_transpose1d", "conv2d",
+              "conv_transpose2d", "matmul_batched"]
+
+
+@pytest.mark.parametrize("op", POLICY_OPS)
 def test_bf16_policy_rounds_operands_not_result(op):
     """``matmul_precision("bfloat16")`` computes the fp32 product of the
     bf16-rounded operands and returns it unrounded, as
@@ -308,7 +320,7 @@ def test_bf16_policy_rounds_operands_not_result(op):
     np.testing.assert_array_equal(call(x, w).numpy(), full.numpy())
 
 
-@pytest.mark.parametrize("op", ["linear", "einsum", "conv1d_grouped", "conv_transpose1d"])
+@pytest.mark.parametrize("op", POLICY_OPS)
 def test_bf16_policy_matches_jax_on_rounded_operands(op):
     """The policy's product against the JAX function on the same operands
     rounded to bf16 (XLA:CPU computes fp32 products whatever precision is
@@ -326,12 +338,21 @@ def test_bf16_policy_matches_jax_on_rounded_operands(op):
     elif op == "conv1d_grouped":
         ref = jax.lax.conv_general_dilated(xr, wr, (1,), [(64, 64)], dimension_numbers=dn,
                                            feature_group_count=16)
-    else:
+    elif op == "conv_transpose1d":
         # torch's transposed conv as a dilated conv with the kernel flipped
         k = jnp.flip(jnp.transpose(wr, (1, 0, 2)), -1)
         pad = w.shape[-1] - 1 - 2
         ref = jax.lax.conv_general_dilated(xr, k, (1,), [(pad, pad)], lhs_dilation=(4,),
                                            dimension_numbers=dn)
+    elif op == "matmul_batched":
+        ref = jnp.matmul(xr, wr)
+    elif op == "conv2d":
+        ref = jax.lax.conv_general_dilated(xr, wr, (4, 1), [(2, 2), (0, 0)],
+                                           dimension_numbers=("NCHW", "OIHW", "NCHW"))
+    else:
+        k = jnp.flip(jnp.transpose(wr, (1, 0, 2, 3)), (-2, -1))
+        ref = jax.lax.conv_general_dilated(xr, k, (1, 1), [(1, 1), (1, 1)], lhs_dilation=(2, 2),
+                                           dimension_numbers=("NCHW", "OIHW", "NCHW"))
     ref = np.asarray(ref, np.float32)
     assert low.shape == ref.shape
     np.testing.assert_allclose(low, ref, atol=1e-6 * np.abs(ref).max(), rtol=0)

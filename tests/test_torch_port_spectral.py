@@ -54,6 +54,20 @@ def test_istft_matches_jax(n_fft, hop, length):
     np.testing.assert_allclose(yt.numpy(), y, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("n_fft,hop", [(512, 128), (400, 160)])
+def test_istft_of_a_written_spectrum_matches_jax(n_fft, hop):
+    """A spectrum a network wrote (random, with imaginary parts on the DC and
+    Nyquist bins, which a real signal's never has): the JAX inverse ignores
+    them, and so does the port's (kernels/stft.py::real_edges), on every
+    device."""
+    rng = np.random.default_rng(2)
+    r, i = (rng.standard_normal((2, 20, n_fft // 2 + 1)).astype(np.float32) for _ in range(2))
+    y = np.asarray(JS.istft(jnp.asarray(r), jnp.asarray(i), n_fft=n_fft, hop=hop))
+    yt = TS.istft(torch.from_numpy(r), torch.from_numpy(i), n_fft=n_fft, hop=hop)
+    assert yt.shape == y.shape
+    np.testing.assert_allclose(yt.numpy(), y, atol=1e-5 * np.abs(y).max(), rtol=0)
+
+
 @pytest.mark.parametrize("power", [1.0, 2.0])
 def test_spectrogram_matches_jax(power):
     x = _signal((3000,), 2)

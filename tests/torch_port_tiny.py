@@ -19,14 +19,33 @@ import torch
 from audiolab_tpu.models import hubert as JH
 from audiolab_tpu.models import rmvpe as JRm
 from audiolab_tpu.models.rvc import synthesizer as JSy
-from audiolab_tpu.utils.convert import convert_hubert, convert_rmvpe, convert_rvc
+from audiolab_tpu.models.separation import htdemucs as JHt
+from audiolab_tpu.models.separation import mdx23c as JMc
+from audiolab_tpu.utils.convert import (
+    convert_htdemucs,
+    convert_hubert,
+    convert_mdx23c,
+    convert_rmvpe,
+    convert_rvc,
+)
 from audiolab_tpu_torch.models import hubert as TH
 from audiolab_tpu_torch.models import rmvpe as TRm
 from audiolab_tpu_torch.models.rvc import synthesizer as TSy
+from audiolab_tpu_torch.models.separation import htdemucs as THt
+from audiolab_tpu_torch.models.separation import mdx23c as TMc
 from audiolab_tpu_torch.utils import weights as W
 
 HCFG = dict(dim=32, ffn_dim=64, heads=4, layers=2, final_dim=16)
 RM_SIZES = dict(en_de_layers=2, inter_layers=1, n_blocks=1, en_out_channels=4, gru_hidden=8)
+# tests/test_htdemucs_parity.py's and tests/test_mdx23c_parity.py's tiny sizes
+HTD = dict(sources=("vocals", "other"), audio_channels=2, channels=4, growth=2, nfft=128,
+           depth=2, kernel_size=8, stride=4, norm_starts=4, norm_groups=2, dconv_depth=2,
+           dconv_comp=2, bottom_channels=8, t_layers=3, t_heads=2, t_hidden_scale=2.0,
+           segment_seconds=1.0, samplerate=800)
+MDXC = dict(sample_rate=8000, n_fft=256, hop_length=64, dim_f=128, num_channels=2,
+            num_subbands=2, num_scales=2, scale=(2, 2), num_blocks_per_scale=1, channels=8,
+            growth=8, bottleneck_factor=2, norm="InstanceNorm", act="gelu",
+            instruments=("Vocals", "Instrumental"), target_instrument=None)
 SYNTH = dict(spec_channels=129, segment_size=3840, inter_channels=16, hidden_channels=16,
              filter_channels=32, n_heads=2, n_layers=1, upsample_initial_channel=32,
              spk_embed_dim=4, gin_channels=16, sr=48000, feat_channels=32)
@@ -101,3 +120,43 @@ def rmvpe(seed: int = 3):
     tm = TRm.RMVPE(dtype=None, **RM_SIZES)
     tm.load_state_dict(W.rmvpe_from_jax(v["params"], v["batch_stats"]), strict=True)
     return j, tm.eval()
+
+
+def _frozen(kw: dict) -> tuple:
+    return tuple(sorted(kw.items()))
+
+
+@functools.lru_cache(maxsize=None)
+def _htdemucs(frozen: tuple, seed: int):
+    kw = dict(frozen)
+    n = int(kw["segment_seconds"] * kw["samplerate"])
+    jm = JHt.HTDemucs(JHt.HTDemucsConfig(**kw))
+    tpl = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 2, n))))["params"]
+    src = seeded(lambda: THt.HTDemucs(THt.HTDemucsConfig(**kw)), seed)
+    p = _f32(convert_htdemucs(_numpy(src), tpl, strict=True))
+    tm = THt.HTDemucs(THt.HTDemucsConfig(**kw))
+    tm.load_state_dict(W.htdemucs_from_jax(p), strict=True)
+    return p, tm.eval()
+
+
+def htdemucs(seed: int = 4, **kw):
+    """(flax params, port HTDemucs) at HTD updated by ``kw``."""
+    return _htdemucs(_frozen(dict(HTD, **kw)), seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _mdx23c(frozen: tuple, seed: int):
+    kw = dict(frozen)
+    jm = JMc.TFCTDFNetV3(JMc.MDX23CConfig(**kw))
+    n = jm.good_length(0.25)
+    tpl = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 2, n))))["params"]
+    src = seeded(lambda: TMc.TFCTDFNetV3(TMc.MDX23CConfig(**kw)), seed)
+    p = _f32(convert_mdx23c(_numpy(src), tpl, strict=True))
+    tm = TMc.TFCTDFNetV3(TMc.MDX23CConfig(**kw))
+    tm.load_state_dict(W.mdx23c_from_jax(p), strict=True)
+    return p, tm.eval()
+
+
+def mdx23c(seed: int = 5, **kw):
+    """(flax params, port TFCTDFNetV3) at MDXC updated by ``kw``."""
+    return _mdx23c(_frozen(dict(MDXC, **kw)), seed)

@@ -11,6 +11,8 @@ precision policy of core/precision.py.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Sequence
 
 import torch
@@ -20,10 +22,73 @@ from torch import nn
 from audiolab_tpu_torch.core import precision
 
 LRELU_SLOPE = 0.1
+_PINS = contextvars.ContextVar("audiolab_tpu_torch_pins", default=None)
+
+
+class Pins:
+    """Values one run of a graph records where fp32 evaluation is
+    ill-conditioned, replayed in a second run of the same graph so that
+    two runs (devices, dtypes) compare the same function:
+
+    - ``side``: which side of its kink each leaky ReLU input took.  An
+      input within rounding of 0 takes either slope, and one such flip
+      moves a weight gradient summed over a few thousand positions by a
+      percent of its max|g|.  The replay counts its own inputs on the other
+      side (``flips``).
+    - ``phase``: the NSF excitation's phase, one fp32 cumsum over every
+      sample of the batch's frames, rounded in the order the device sums
+      in.  The replay keeps the largest difference from its own
+      (``phase_err``, cycles) and the recorded phases' length and largest
+      value (``phase_n``, ``phase_max``) for the caller's bound.
+    """
+
+    def __init__(self):
+        self.values: dict[str, list[torch.Tensor]] = {"side": [], "phase": []}
+        self.replayed: dict[str, int] | None = None
+        self.flips, self.phase_err = 0, 0.0
+        self.phase_n, self.phase_max = 0, 0.0
+
+    def take(self, kind: str, value: torch.Tensor) -> torch.Tensor:
+        if self.replayed is None:
+            self.values[kind].append(value)
+            if kind == "phase":
+                self.phase_n = max(self.phase_n, value.shape[-1])
+                self.phase_max = max(self.phase_max, float(value.abs().max()))
+            return value
+        ref = self.values[kind][self.replayed[kind]].to(value.device, value.dtype)
+        self.replayed[kind] += 1
+        if kind == "side":
+            self.flips += int((ref != value).sum())
+        else:
+            self.phase_err = max(self.phase_err, float((ref - value).abs().max()))
+        return ref
+
+
+@contextlib.contextmanager
+def pinned(pins: Pins, replay: bool = False):
+    """Record (``replay`` False) or replay ``pins`` at every :func:`pin`
+    inside the block (a context variable, scoped to the block)."""
+    if replay:
+        pins.replayed = dict.fromkeys(pins.values, 0)
+        pins.flips, pins.phase_err = 0, 0.0
+    token = _PINS.set(pins)
+    try:
+        yield pins
+    finally:
+        _PINS.reset(token)
+    if replay and any(pins.replayed[k] != len(v) for k, v in pins.values.items()):
+        raise RuntimeError(f"replayed {pins.replayed} of "
+                           f"{ {k: len(v) for k, v in pins.values.items()} }")
+
+
+def pin(kind: str, value: torch.Tensor) -> torch.Tensor:
+    """``value``, or inside :func:`pinned` the recorded or replayed one."""
+    pins = _PINS.get()
+    return value if pins is None else pins.take(kind, value)
 
 
 def lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * slope)
+    return torch.where(pin("side", x >= 0), x, x * slope)
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:

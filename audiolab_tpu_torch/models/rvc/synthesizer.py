@@ -1,14 +1,18 @@
-"""RVC VITS-style synthesizer with the NSF-HiFiGAN decoder, inference path
-(counterpart of audiolab_tpu/models/rvc/synthesizer.py).
+"""RVC VITS-style synthesizer with the NSF-HiFiGAN decoder (counterpart of
+audiolab_tpu/models/rvc/synthesizer.py).
 
   TextEncoder            feature + pitch embedding -> rel-attn transformer
-  ResidualCouplingBlock  mean-only coupling flows (+ flips), run in reverse
+  ResidualCouplingBlock  mean-only coupling flows (+ flips)
+  PosteriorEncoder       linear spectrogram -> WN -> (z, m_q, logs_q)   [train only]
   GeneratorNSF           harmonic sine source + upsample stack + ResBlocks
 
 Parameter names follow the upstream SynthesizerTrnMs768NSFsid checkpoints.
 Entry points take the JAX package's NTC layout; inside, the convolutions run
-on NCT.  Noise (flow prior and excitation) comes from an explicit
-``torch.Generator``; ``generator=None`` means zero noise, like ``rng=None``.
+on NCT.  ``infer`` is the deployment path, ``forward`` the training path.
+Noise comes from an explicit ``torch.Generator`` (``generator=None`` in
+``infer`` means zero noise, like ``rng=None``); the training forward's three
+draws (posterior noise, segment starts, excitation noise) can also be passed
+in as a :class:`TrainDraws`.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from audiolab_tpu_torch.models.layers import (
     ResBlock1,
     TransformerEncoder,
     lrelu,
+    pin,
     sequence_mask,
 )
 
@@ -81,6 +86,26 @@ def config_for(sr: int, version: str = "v2") -> SynthesizerConfig:
 def _randn(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard-normal noise for the synthesizer (one place to draw it)."""
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+@dataclass
+class TrainDraws:
+    """The random draws of one training forward, in the JAX package's
+    layouts: ``posterior`` (b, t, inter) and ``sine`` (b, segment_size, 1)
+    standard normals, ``starts`` (b,) integers in [0, 2**30), taken modulo
+    the number of segment starts as ``jax.random.randint(...) % n`` is."""
+
+    posterior: torch.Tensor
+    starts: torch.Tensor
+    sine: torch.Tensor
+
+    @classmethod
+    def sample(cls, cfg: SynthesizerConfig, b: int, t: int,
+               generator: torch.Generator) -> "TrainDraws":
+        dev = generator.device
+        return cls(_randn((b, t, cfg.inter_channels), generator, dev),
+                   torch.randint(0, 2 ** 30, (b,), generator=generator, device=dev),
+                   _randn((b, cfg.segment_size, 1), generator, dev))
 
 
 class TextEncoder(nn.Module):
@@ -159,19 +184,23 @@ class ResidualCouplingBlock(nn.Module):
 
 def sine_source(f0: torch.Tensor, upp: int, sr: int, generator: torch.Generator | None = None,
                 sine_amp: float = 0.1, noise_std: float = 0.003,
-                harmonics: int = 1) -> torch.Tensor:
+                harmonics: int = 1, noise: torch.Tensor | None = None) -> torch.Tensor:
     """Harmonic sine excitation: f0 (b, t) Hz -> (b, t*upp, harmonics),
-    phase from one fp32 cumsum, voiced/unvoiced noise mixing."""
+    phase from one fp32 cumsum, voiced/unvoiced noise mixing.  The noise's
+    standard normals are ``noise`` when given, else drawn from
+    ``generator``; with neither there is no noise."""
     f0 = f0.float()
     f0_up = f0.repeat_interleave(upp, dim=-1)
-    phase = torch.cumsum(f0_up / sr, dim=-1)
+    phase = pin("phase", torch.cumsum(f0_up / sr, dim=-1))
     h = torch.arange(1, harmonics + 1, dtype=f0.dtype, device=f0.device)
     sines = torch.sin(2.0 * np.pi * (phase[..., None] * h)) * sine_amp
     uv = (f0_up > 0.0).to(f0.dtype)[..., None]
-    if generator is None:
-        return sines * uv
+    if noise is None:
+        if generator is None:
+            return sines * uv
+        noise = _randn(sines.shape, generator, f0.device)
     noise_amp = uv * noise_std + (1.0 - uv) * sine_amp / 3.0
-    return sines * uv + noise_amp * _randn(sines.shape, generator, f0.device)
+    return sines * uv + noise_amp * noise
 
 
 class SourceModuleHnNSF(nn.Module):
@@ -208,10 +237,11 @@ class GeneratorNSF(nn.Module):
         if c.gin_channels:
             self.cond = Conv1d(c.gin_channels, c.upsample_initial_channel, 1)
 
-    def forward(self, x, f0, g=None, generator=None):
-        """x (b, t, inter), f0 (b, t), g (b, 1, gin) -> (b, t*upp, 1)."""
+    def forward(self, x, f0, g=None, generator=None, noise=None):
+        """x (b, t, inter), f0 (b, t), g (b, 1, gin) -> (b, t*upp, 1);
+        ``noise``: the excitation's standard normals (b, t*upp, 1)."""
         c = self.cfg
-        har = sine_source(f0, c.upp, c.sr, generator)                 # (b, n, 1)
+        har = sine_source(f0, c.upp, c.sr, generator, noise=noise)    # (b, n, 1)
         har = torch.tanh(self.m_source.l_linear(har)).transpose(1, 2)  # (b, 1, n)
         x = self.conv_pre(x.transpose(1, 2))
         if g is not None:
@@ -230,16 +260,75 @@ class GeneratorNSF(nn.Module):
         return torch.tanh(x).transpose(1, 2)
 
 
-class SynthesizerTrn(nn.Module):
-    """Synthesizer, inference path only (``infer``)."""
+class PosteriorEncoder(nn.Module):
+    """Linear spectrogram -> WN (16 layers) -> Gaussian posterior."""
 
     def __init__(self, cfg: SynthesizerConfig):
+        super().__init__()
+        c = cfg
+        self.inter_channels = c.inter_channels
+        self.pre = Conv1d(c.spec_channels, c.hidden_channels, 1)
+        self.enc = WN(c.hidden_channels, 5, 1, 16, c.gin_channels)
+        self.proj = Conv1d(c.hidden_channels, 2 * c.inter_channels, 1)
+
+    def forward(self, y, y_lengths, noise, g=None):
+        """y (b, t, spec), ``noise`` (b, t, inter) standard normals, g (b, 1,
+        gin) -> z, m, logs (b, t, inter), y_mask (b, t, 1)."""
+        y_mask = sequence_mask(y_lengths, y.shape[1])[:, None, :].to(y.dtype)   # (b,1,t)
+        h = self.pre(y.transpose(1, 2)) * y_mask
+        h = self.enc(h, y_mask, g=None if g is None else g.transpose(1, 2))
+        stats = (self.proj(h) * y_mask).transpose(1, 2)
+        m, logs = stats.split(self.inter_channels, dim=-1)
+        y_mask = y_mask.transpose(1, 2)
+        return (m + noise * torch.exp(logs)) * y_mask, m, logs, y_mask
+
+
+def slice_segments(x: torch.Tensor, ids: torch.Tensor, seg: int) -> torch.Tensor:
+    """x (b, t, c), starts ids (b,) -> (b, seg, c); each start clamped to
+    [0, t - seg] as ``jax.lax.dynamic_slice`` clamps it."""
+    start = torch.clamp(ids.long(), 0, x.shape[1] - seg)
+    idx = start[:, None] + torch.arange(seg, device=x.device)[None, :]
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
+class SynthesizerTrn(nn.Module):
+    """Full synthesizer: ``infer`` is the deployment path, ``forward`` the
+    training path.  ``posterior=True`` adds the train-only posterior
+    encoder ``enc_q``, which a deployable export drops (as upstream deletes
+    ``net_g.enc_q`` before inference)."""
+
+    def __init__(self, cfg: SynthesizerConfig, posterior: bool = False):
         super().__init__()
         self.cfg = cfg
         self.enc_p = TextEncoder(cfg)
         self.dec = GeneratorNSF(cfg)
         self.flow = ResidualCouplingBlock(cfg)
+        if posterior:
+            self.enc_q = PosteriorEncoder(cfg)
         self.emb_g = nn.Embedding(cfg.spk_embed_dim, cfg.gin_channels)
+
+    def forward(self, phone, phone_lengths, pitch, pitchf, y, y_lengths, ds,
+                generator: torch.Generator | None = None, draws: TrainDraws | None = None):
+        """Training forward.  phone (b, t, feat), pitch (b, t) int, pitchf
+        (b, t) Hz, y (b, t, spec) linear spectrogram, ds (b,) speakers; the
+        draws are ``draws`` or sampled from ``generator``.  Returns (o (b,
+        segment_size, 1), segment starts (b,), x_mask, y_mask, (z, z_p, m_p,
+        logs_p, m_q, logs_q)), all NTC."""
+        c = self.cfg
+        if draws is None:
+            if generator is None:
+                raise ValueError("the training forward needs a generator or draws")
+            draws = TrainDraws.sample(c, y.shape[0], y.shape[1], generator)
+        g = self.emb_g(ds)[:, None, :]
+        m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
+        z, m_q, logs_q, y_mask = self.enc_q(y, y_lengths, draws.posterior, g=g)
+        z_p = self.flow(z, y_mask, g=g)
+        seg_frames = c.segment_size // c.upp
+        ids = draws.starts.to(y_lengths.device) % torch.clamp(y_lengths - seg_frames, min=1)
+        z_slice = slice_segments(z, ids, seg_frames)
+        pitchf_slice = slice_segments(pitchf[..., None], ids, seg_frames)[..., 0]
+        o = self.dec(z_slice, pitchf_slice, g=g, noise=draws.sine)
+        return o, ids, x_mask, y_mask, (z, z_p, m_p, logs_p, m_q, logs_q)
 
     def infer(self, phone, phone_lengths, pitch, nsff0, sid,
               generator: torch.Generator | None = None, noise_scale: float = 0.66666):
@@ -253,5 +342,3 @@ class SynthesizerTrn(nn.Module):
         z = self.flow(z_p, x_mask, g=g, reverse=True)
         o = self.dec(z * x_mask, nsff0, g=g, generator=generator)
         return o[..., 0]
-
-    forward = infer

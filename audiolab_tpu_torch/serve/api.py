@@ -9,9 +9,9 @@ responses return the produced files the same way.
 One endpoint per registered processor is generated from its TypedInput
 schema (the reference's register_api_endpoint codegen, base_wrapper.py:
 248-339), plus /chain, /processors, /projects, /load_project, the RVC and
-clone endpoints the port has, /openapi.json and the web UI.  Routes whose
-models the port does not have yet (training, TTS, music, transcription,
-WaveTransfer, alignment) are not registered and answer 404.  Processor runs
+clone endpoints the port has (RVC training among them), /openapi.json and
+the web UI.  Routes whose models the port does not have yet (TTS, music,
+transcription, WaveTransfer, alignment) are not registered and answer 404.  Processor runs
 hold the inference lock: one request at a time on the card.
 """
 

@@ -2,10 +2,11 @@
 reference: layouts/rvc_train.py /api/v1/rvc/* including the async in-memory
 job store :1537-1568).
 
-The model list, upload, download, the job store's poll route and the
-pitch-range analysis.  Training (``rvc/train``, ``rvc/resume``,
-``rvc/build_index``) comes with the port's trainer; until then those routes
-are not registered and answer 404.
+The model list, upload, download, the job store's poll route, the
+pitch-range analysis and training: ``rvc/train`` and ``rvc/resume`` run
+``train_from_request`` as a job on the app's device, ``rvc/build_index``
+builds an experiment's retrieval index.  Their device work holds the
+inference lock, as the chain routes do.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from audiolab_tpu_torch.core.audio_io import read_audio
 from audiolab_tpu_torch.dsp.f0 import f0_autocorr
 from audiolab_tpu_torch.kernels.resample import resample_poly_np
 from audiolab_tpu_torch.serve.http import RawResponse
+from audiolab_tpu_torch.serve.inference_lock import INFERENCE_LOCK
 
 _JOBS: dict[str, dict] = {}
 _JOBS_LOCK = threading.Lock()
@@ -46,6 +48,29 @@ def submit_job(fn, *args, **kwargs) -> str:
     return job_id
 
 
+def update_job(job_id: str, progress: float, message: str) -> None:
+    with _JOBS_LOCK:
+        if job_id in _JOBS:
+            _JOBS[job_id].update(progress=progress, message=message)
+
+
+def _safe_settings(body: dict) -> dict:
+    """SECURITY: request settings never control filesystem paths (a
+    client-supplied path reaching ``torch.load`` is code execution);
+    weights resolve server-side through ``AUDIOLAB_WEIGHTS_DIR``."""
+    return {k: v for k, v in dict(body.get("settings", {})).items()
+            if not k.endswith(("_path", "_dir"))}
+
+
+def _voice_name(body: dict) -> str:
+    """The request's voice name as one path component (the JAX routes join
+    it unchecked, so ``..`` in it leaves the server's directories)."""
+    name = os.path.basename(str(body.get("name", "voice")))
+    if name in ("", ".", ".."):
+        raise ValueError(f"bad voice name {body.get('name')!r}")
+    return name
+
+
 def register(router, output_root: str, device: torch.device) -> None:
     models_dir = os.path.join(os.path.dirname(output_root), "models", "rvc")
 
@@ -66,6 +91,54 @@ def register(router, output_root: str, device: torch.device) -> None:
         if info is None:
             raise FileNotFoundError(f"unknown job {params['job_id']}")
         return info
+
+    @router.post("/api/v1/rvc/train", "Start RVC training (async job)")
+    def train(_params, body):
+        from audiolab_tpu_torch.train.rvc_train import train_from_request
+
+        name = _voice_name(body)
+        # the dataset stays for rvc/resume
+        dataset_dir = os.path.join(os.path.dirname(output_root), "datasets", name)
+        os.makedirs(dataset_dir, exist_ok=True)
+        persisted = []
+        for f in body.get("files", []):
+            dst = os.path.join(dataset_dir, os.path.basename(f.get("filename", "in.wav")))
+            with open(dst, "wb") as fh:
+                fh.write(base64.b64decode(f["content"]))
+            persisted.append(dst)
+        job_id = submit_job(train_from_request, persisted, name, models_dir,
+                            _safe_settings(body), device=device)
+        return {"job_id": job_id}
+
+    @router.post("/api/v1/rvc/resume", "Resume training an existing voice")
+    def resume(_params, body):
+        """Reference layouts/rvc_train.py: training restarts from the latest
+        checkpoint in the experiment dir (train/trainer.py
+        restore_train_state), re-run with the persisted dataset and more
+        epochs, no re-upload."""
+        from audiolab_tpu_torch.train.rvc_train import train_from_request
+
+        name = _voice_name(body)
+        dataset_dir = os.path.join(os.path.dirname(output_root), "datasets", name)
+        if not os.path.isdir(dataset_dir) or not os.listdir(dataset_dir):
+            raise FileNotFoundError(f"no persisted dataset for {name!r}; train first")
+        files = [os.path.join(dataset_dir, f) for f in sorted(os.listdir(dataset_dir))]
+        job_id = submit_job(train_from_request, files, name, models_dir,
+                            _safe_settings(body), device=device)
+        return {"job_id": job_id, "resumed": True}
+
+    @router.post("/api/v1/rvc/build_index", "Build a retrieval index from an exp dir")
+    def build_index(_params, body):
+        from audiolab_tpu_torch.train.trainer import build_index as _build
+
+        # the experiment directory train_from_request writes (the JAX route
+        # looks in <root>/exp, where no trainer writes); as in the JAX
+        # package the body may name it instead: a path chosen by the client,
+        # a known fault of both
+        exp = body.get("exp_dir") or os.path.join(
+            os.path.dirname(models_dir), "exp", _voice_name(body))
+        with INFERENCE_LOCK:
+            return {"index": _build(exp, device=device)}
 
     @router.post("/api/v1/rvc/upload", "Upload a trained voice model (.npz)")
     def upload(_params, body):

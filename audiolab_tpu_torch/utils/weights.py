@@ -12,6 +12,8 @@ with the hidden-side bias only on n.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
@@ -210,56 +212,155 @@ def rmvpe_from_jax(params: dict, batch_stats: dict) -> dict:
 
 # ------------------------------------------------------------- synthesizer
 
-def synthesizer_from_jax(params: dict) -> dict:
-    """SynthesizerTrn flax params (inference tree) -> port state_dict
-    (upstream SynthesizerTrnMs768NSFsid names)."""
-    sd: dict = {}
-    ep = params["enc_p"]
-    _dense(sd, "enc_p.emb_phone", ep["emb_phone"])
-    if "emb_pitch" in ep:
-        sd["enc_p.emb_pitch.weight"] = _t(ep["emb_pitch"]["embedding"])
-    _conv1d(sd, "enc_p.proj", ep["proj"]["Conv_0"])
-    enc, b = ep["encoder"], "enc_p.encoder"
-    for i in range(_count(enc, "attn_")):
-        a = enc[f"attn_{i}"]
-        for w in ("conv_q", "conv_k", "conv_v", "conv_o"):
-            _dense_as_conv1x1(sd, f"{b}.attn_layers.{i}.{w}", a[w])
-        sd[f"{b}.attn_layers.{i}.emb_rel_k"] = _t(a["emb_rel_k"])
-        sd[f"{b}.attn_layers.{i}.emb_rel_v"] = _t(a["emb_rel_v"])
-        _norm(sd, f"{b}.norm_layers_1.{i}", enc[f"norm1_{i}"], ("gamma", "beta"))
-        _norm(sd, f"{b}.norm_layers_2.{i}", enc[f"norm2_{i}"], ("gamma", "beta"))
-        _conv1d(sd, f"{b}.ffn_layers.{i}.conv_1", enc[f"ffn_{i}"]["conv_1"]["Conv_0"])
-        _conv1d(sd, f"{b}.ffn_layers.{i}.conv_2", enc[f"ffn_{i}"]["conv_2"]["Conv_0"])
-    flow = params["flow"]
-    for fi in range(_count(flow, "flow_")):
-        f, t = flow[f"flow_{fi}"], f"flow.flows.{2 * fi}"
-        _conv1d(sd, f"{t}.pre", f["pre"]["Conv_0"])
-        _conv1d(sd, f"{t}.post", f["post"]["Conv_0"])
-        for j in range(_count(f["enc"], "in_layer_")):
-            _conv1d(sd, f"{t}.enc.in_layers.{j}", f["enc"][f"in_layer_{j}"]["Conv_0"])
-            _conv1d(sd, f"{t}.enc.res_skip_layers.{j}", f["enc"][f"res_skip_{j}"]["Conv_0"])
-        if "cond_layer" in f["enc"]:
-            _conv1d(sd, f"{t}.enc.cond_layer", f["enc"]["cond_layer"]["Conv_0"])
+def _synth_table(n: dict) -> list[tuple[str, str, str]]:
+    """(flax path, kind, torch key) of every SynthesizerTrn entry, for the
+    counts ``n`` (:func:`_synth_counts_jax` / :func:`_synth_counts_torch`)."""
+    rows = [("enc_p/emb_phone", "dense", "enc_p.emb_phone")]
+    if n["pitch"]:
+        rows.append(("enc_p/emb_pitch/embedding", "leaf", "enc_p.emb_pitch.weight"))
+    rows.append(("enc_p/proj/Conv_0", "conv", "enc_p.proj"))
+    b = "enc_p.encoder"
+    for i in range(n["attn"]):
+        a = f"enc_p/encoder/attn_{i}"
+        rows += [(f"{a}/{w}", "dense1x1", f"{b}.attn_layers.{i}.{w}")
+                 for w in ("conv_q", "conv_k", "conv_v", "conv_o")]
+        rows += [(f"{a}/emb_rel_{w}", "leaf", f"{b}.attn_layers.{i}.emb_rel_{w}") for w in "kv"]
+        rows += [(f"enc_p/encoder/norm{j}_{i}", "norm", f"{b}.norm_layers_{j}.{i}") for j in (1, 2)]
+        rows += [(f"enc_p/encoder/ffn_{i}/conv_{j}/Conv_0", "conv", f"{b}.ffn_layers.{i}.conv_{j}")
+                 for j in (1, 2)]
+
+    def wn(path, key, layers, cond):
+        out = []
+        for j in range(layers):
+            out.append((f"{path}/in_layer_{j}/Conv_0", "conv", f"{key}.in_layers.{j}"))
+            out.append((f"{path}/res_skip_{j}/Conv_0", "conv", f"{key}.res_skip_layers.{j}"))
+        if cond:
+            out.append((f"{path}/cond_layer/Conv_0", "conv", f"{key}.cond_layer"))
+        return out
+
+    for fi in range(n["flows"]):
+        f, t = f"flow/flow_{fi}", f"flow.flows.{2 * fi}"
+        rows += [(f"{f}/pre/Conv_0", "conv", f"{t}.pre"), (f"{f}/post/Conv_0", "conv", f"{t}.post")]
+        rows += wn(f"{f}/enc", f"{t}.enc", n["flow_layers"], n["flow_cond"])
+    if n["enc_q"]:
+        rows += [("enc_q/pre/Conv_0", "conv", "enc_q.pre"), ("enc_q/proj/Conv_0", "conv", "enc_q.proj")]
+        rows += wn("enc_q/enc", "enc_q.enc", n["enc_q"], n["enc_q_cond"])
+    rows += [("dec/conv_pre/Conv_0", "conv", "dec.conv_pre"),
+             ("dec/conv_post/Conv_0", "conv", "dec.conv_post"),
+             ("dec/source_linear", "dense", "dec.m_source.l_linear")]
+    if n["dec_cond"]:
+        rows.append(("dec/cond/Conv_0", "conv", "dec.cond"))
+    for i in range(n["ups"]):
+        rows.append((f"dec/up_{i}/ConvTranspose_0", "conv_t", f"dec.ups.{i}"))
+        rows.append((f"dec/noise_conv_{i}", "conv", f"dec.noise_convs.{i}"))
+        for j in range(n["kernels"]):
+            flat = i * n["kernels"] + j
+            for k in range(n["dilations"]):
+                for ours, theirs in (("conv1", "convs1"), ("conv2", "convs2")):
+                    rows.append((f"dec/resblock_{i}_{j}/{ours}_{k}/Conv_0", "conv",
+                                 f"dec.resblocks.{flat}.{theirs}.{k}"))
+    rows.append(("emb_g/embedding", "leaf", "emb_g.weight"))
+    return rows
+
+
+def _synth_counts_jax(params: dict) -> dict:
+    enc_q = params.get("enc_q", {}).get("enc", {})
     dec = params["dec"]
-    _conv1d(sd, "dec.conv_pre", dec["conv_pre"]["Conv_0"])
-    if "cond" in dec:
-        _conv1d(sd, "dec.cond", dec["cond"]["Conv_0"])
-    _conv1d(sd, "dec.conv_post", dec["conv_post"]["Conv_0"])
-    _dense(sd, "dec.m_source.l_linear", dec["source_linear"])
-    n_kernels = sum(1 for k in dec if k.startswith("resblock_0_"))
-    for key, node in dec.items():
-        if key.startswith("up_"):
-            i = int(key.split("_")[1])
-            _conv_t1d(sd, f"dec.ups.{i}", node["ConvTranspose_0"])
-        elif key.startswith("noise_conv_"):
-            _conv1d(sd, f"dec.noise_convs.{int(key.split('_')[2])}", node)
-        elif key.startswith("resblock_"):
-            _, i, j = key.split("_")
-            flat = int(i) * n_kernels + int(j)
-            for cj in range(_count(node, "conv1_")):
-                _conv1d(sd, f"dec.resblocks.{flat}.convs1.{cj}", node[f"conv1_{cj}"]["Conv_0"])
-                _conv1d(sd, f"dec.resblocks.{flat}.convs2.{cj}", node[f"conv2_{cj}"]["Conv_0"])
-    sd["emb_g.weight"] = _t(params["emb_g"]["embedding"])
+    return dict(
+        pitch="emb_pitch" in params["enc_p"],
+        attn=_count(params["enc_p"]["encoder"], "attn_"),
+        flows=_count(params["flow"], "flow_"),
+        flow_layers=_count(params["flow"]["flow_0"]["enc"], "in_layer_"),
+        flow_cond="cond_layer" in params["flow"]["flow_0"]["enc"],
+        enc_q=_count(enc_q, "in_layer_"), enc_q_cond="cond_layer" in enc_q,
+        dec_cond="cond" in dec, ups=_count(dec, "up_"), kernels=_count(dec, "resblock_0_"),
+        dilations=_count(dec["resblock_0_0"], "conv1_"))
+
+
+def _synth_counts_torch(sd: dict) -> dict:
+    def count(pattern):
+        rx = re.compile(pattern)
+        return len({m.group(1) for k in sd for m in [rx.match(k)] if m})
+
+    ups = count(r"dec\.ups\.(\d+)\.")
+    return dict(
+        pitch="enc_p.emb_pitch.weight" in sd,
+        attn=count(r"enc_p\.encoder\.attn_layers\.(\d+)\."),
+        flows=count(r"flow\.flows\.(\d+)\.pre\."),
+        flow_layers=count(r"flow\.flows\.0\.enc\.in_layers\.(\d+)\."),
+        flow_cond="flow.flows.0.enc.cond_layer.weight" in sd,
+        enc_q=count(r"enc_q\.enc\.in_layers\.(\d+)\."),
+        enc_q_cond="enc_q.enc.cond_layer.weight" in sd,
+        dec_cond="dec.cond.weight" in sd, ups=ups,
+        kernels=count(r"dec\.resblocks\.(\d+)\.") // max(ups, 1),
+        dilations=count(r"dec\.resblocks\.0\.convs1\.(\d+)\."))
+
+
+def _node(tree: dict, path: str):
+    for part in path.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def synthesizer_from_jax(params: dict) -> dict:
+    """SynthesizerTrn flax params -> port state_dict (upstream
+    SynthesizerTrnMs768NSFsid names); an inference tree has no ``enc_q``,
+    a training tree carries it."""
+    sd: dict = {}
+    for path, kind, key in _synth_table(_synth_counts_jax(params)):
+        node = _node(params, path)
+        if kind == "leaf":
+            sd[key] = _t(node)
+        elif kind == "norm":
+            _norm(sd, key, node, ("gamma", "beta"))
+        else:
+            {"dense": _dense, "dense1x1": _dense_as_conv1x1, "conv": _conv1d,
+             "conv_t": _conv_t1d}[kind](sd, key, node)
+    return sd
+
+
+def synthesizer_to_jax(state_dict: dict) -> dict:
+    """Port SynthesizerTrn state_dict -> the flax parameter tree (numpy fp32,
+    flax names), the inverse of :func:`synthesizer_from_jax`; numpy only."""
+    sd = {k: np.asarray(v.detach().cpu().float() if torch.is_tensor(v) else v, np.float32)
+          for k, v in state_dict.items()}
+    tree: dict = {}
+    for path, kind, key in _synth_table(_synth_counts_torch(sd)):
+        *parents, leaf = path.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        if kind == "leaf":
+            node[leaf] = sd[key]
+            continue
+        node = node.setdefault(leaf, {})
+        if kind == "norm":
+            node["scale"], node["bias"] = sd[f"{key}.gamma"], sd[f"{key}.beta"]
+            continue
+        w = sd[f"{key}.weight"]
+        node["kernel"] = np.ascontiguousarray({
+            "dense": lambda: w.T,
+            "dense1x1": lambda: w[:, :, 0].T,
+            "conv": lambda: np.transpose(w, (2, 1, 0)),
+            "conv_t": lambda: np.transpose(w, (2, 0, 1))[::-1],
+        }[kind]())
+        if f"{key}.bias" in sd:
+            node["bias"] = sd[f"{key}.bias"]
+    return tree
+
+
+def discriminator_from_jax(params: dict) -> dict:
+    """MultiPeriodDiscriminatorV2 flax params -> port state_dict (upstream
+    names: ``discriminators.0`` the scale discriminator, then one per period
+    in ascending order)."""
+    sd: dict = {}
+    periods = sorted(int(k[len("disc_p"):]) for k in params if k.startswith("disc_p"))
+    for di, (name, conv) in enumerate([("disc_s", _conv1d)]
+                                      + [(f"disc_p{p}", _conv2d) for p in periods]):
+        node = params[name]
+        for j in range(_count(node, "conv_") - 1):
+            conv(sd, f"discriminators.{di}.convs.{j}", node[f"conv_{j}"])
+        conv(sd, f"discriminators.{di}.conv_post", node["conv_post"])
     return sd
 
 

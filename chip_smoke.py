@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version at the main path's shapes,
-drives the separate -> RVC chain at full width, and checks the output.
+drives the separate -> RVC chain and RVC training at full width, and checks
+the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
     python3 chip_smoke.py --phases card,f0,vr,long # the paths beside the chain
     python3 chip_smoke.py --phases card,serve      # the REST server and main.py
     python3 chip_smoke.py --phases card,separators # HTDemucs, MDX23C, the ONNX member
+    python3 chip_smoke.py --phases card,train      # RVC training and its three routes
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass
                                                    # and of the separator family
 
@@ -72,10 +74,27 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
   long       bench.py's 4-minute track through separate -> mono -> resample ->
              convert, once after a pass that warms its shapes: 32 chunks in 4
              groups of 8, 192 K1 launches (all Hopper), 48 K2, stage seconds
+  train      RVC training: (a) the GAN train step at v2-48k with the full
+             multi-period discriminator, batch 8 of 3.7 s (366 frames, segment
+             17280) on a seeded harmonic batch: cold step, 15 warm steps
+             (median, min, max), the six losses, peak memory, loss_mel falling,
+             no kernel launched; (b) one fp32 step against the same step in
+             fp64: the tiny configuration on the card and on the CPU against
+             the CPU's, v2-48k at batch 1 on the card against the card's, the
+             reference's leaky ReLU sides and excitation phase replayed:
+             metrics to 1e-4 relative, each gradient tensor to
+             1e-4 of its own max|g|, a bias of the larger of its own and its
+             layer weight's (audiolab_tpu_torch/train/check.py); (c) POST /api/v1/rvc/train on 3 x 10 s of
+             seeded tones (full HuBERT, full synthesizer and discriminator,
+             batch 4, 2 epochs; 12 fp32 K2 a feature group), /rvc/resume to 3
+             epochs (one epoch's steps more), /rvc/build_index, and the
+             trained .npz converting 10 s through a VoiceConverter, with each
+             job's stage seconds
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
-(audiolab_tpu_torch/utils/fast_init.py); widths are the published ones.
+(audiolab_tpu_torch/utils/fast_init.py; training starts from torch's default
+initialisers drawn from a seed); widths are the published ones.
 """
 
 from __future__ import annotations
@@ -91,7 +110,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-          "serve", "separators", "long")
+          "serve", "separators", "long", "train")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -325,6 +344,13 @@ def phase_kernels(dev, card: str) -> list[dict]:
          (5520, 8, 62, 64), (5520, 8, 62, 64), bf, False, True),
         ("K2 flash_attention_fwd (HuBERT)", "k2_hubert", "K2",
          (8, 12, 399, 64), (8, 12, 399, 64), torch.float32, False, True),
+        # the training dataset's HuBERT: groups of 8 slices of 3.7 s, and a
+        # last group of one
+        ("K2 flash_attention_fwd (HuBERT, training features)", "k2_train_features", "K2",
+         (8, 12, 184, 64), (8, 12, 184, 64), torch.float32, False, True),
+        ("K2 flash_attention_fwd (HuBERT, training features, last group)",
+         "k2_train_features_1", "K2",
+         (1, 12, 184, 64), (1, 12, 184, 64), torch.float32, False, True),
         ("K2 flash_attention_fwd (causal, tq != tk)", "k2_causal", "K2",
          (2, 8, 100, 64), (2, 8, 333, 64), torch.float32, True, False),
         ("K2 flash_attention_fwd (HuBERT shape, bf16)", "k2_hubert_bf16", "K2",
@@ -1665,6 +1691,272 @@ def phase_separators(dev, sep, audio, card: str, cfgs: dict | None = None,
     return rec
 
 
+# ---------------------------------------------------------------- train
+
+TRAIN_BATCH = 8          # the reference's train batch (tests/test_train_fullscale_shapes.py)
+TRAIN_SAMPLES = 177600   # a 3.7 s slice at 48 kHz: 366 frames at n_fft 2048, hop 480
+TRAIN_WARM = 15
+TRAIN_TINY = dict(spec_channels=1025, segment_size=3840, inter_channels=16, hidden_channels=16,
+                  filter_channels=32, n_heads=2, n_layers=1, upsample_initial_channel=32,
+                  spk_embed_dim=4, gin_channels=16, sr=48000, feat_channels=32)
+TRAIN_FILES = (10.0, 10.0, 10.0)    # the served job's dataset: seconds per file
+
+
+def harmonic_tone(sr: int, n: int, f: float, seed: int) -> np.ndarray:
+    """Five harmonics with a 5 Hz vibrato and a little noise (float32)."""
+    t = np.arange(n) / sr
+    phase = 2 * np.pi * np.cumsum(f * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))) / sr
+    x = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6))
+    return (x + 0.01 * np.random.default_rng(seed).standard_normal(n)).astype(np.float32)
+
+
+def train_batch(dev, cfg, b: int, n: int, seed: int = 0) -> dict:
+    """A batch as RVCDataLoader yields it: tones at 48 kHz, their magnitude
+    spectrogram (center=False), YIN f0 of the same tones at 16 kHz and its
+    coarse bins, seeded features of the config's width."""
+    import torch
+
+    from audiolab_tpu_torch.dsp.f0 import coarse_f0, f0_autocorr
+    from audiolab_tpu_torch.kernels.stft import spectrogram
+    from audiolab_tpu_torch.train.rvc import MEL_CFG
+
+    m = MEL_CFG[cfg.sr]
+    f = [110.0 + 25.0 * i for i in range(b)]
+    wav = torch.from_numpy(np.stack([harmonic_tone(cfg.sr, n, f[i], seed + i)
+                                     for i in range(b)])).to(dev)
+    spec = spectrogram(wav, m["n_fft"], m["hop"], m["win_length"], center=False, power=1.0)
+    t = spec.shape[1]
+    x16 = torch.from_numpy(np.stack([harmonic_tone(16000, n * 16000 // cfg.sr, f[i], seed + i)
+                                     for i in range(b)])).to(dev)
+    f0 = f0_autocorr(x16, sr=16000, hop=160)[0][:, :t]
+    feats = np.random.default_rng(seed).standard_normal((b, t, cfg.feat_channels))
+    lengths = torch.full((b,), t, dtype=torch.long, device=dev)
+    return dict(phone=torch.from_numpy(feats.astype(np.float32)).to(dev), phone_lengths=lengths,
+                pitch=coarse_f0(f0), pitchf=f0, spec=spec, spec_lengths=lengths,
+                wave=wav[:, : t * m["hop"]], sid=torch.zeros(b, dtype=torch.long, device=dev))
+
+
+def train_step_check(dev, cfg, periods, b: int, n: int, label: str, card: str,
+                     devices=("card",), reference: str = "cpu") -> list[dict]:
+    """(b) One fp32 step of ``cfg`` on each of ``devices`` ("card", "cpu")
+    against the same step in fp64 on ``reference``, same weights, batch
+    (:func:`train_batch` of ``b`` x ``n`` samples) and draws, the
+    reference's leaky ReLU sides and excitation phase replayed, through
+    audiolab_tpu_torch/train/check.py (its gate and the three gradient
+    readings: gated per tensor, each tensor's own max|g|, its block's)."""
+    import torch
+
+    from audiolab_tpu_torch.models.rvc.synthesizer import TrainDraws
+    from audiolab_tpu_torch.train.check import GATE, step_against
+
+    where = {"card": dev, "cpu": torch.device("cpu")}
+    batch = train_batch(torch.device("cpu"), cfg, b, n)
+    draws = TrainDraws.sample(cfg, b, batch["spec"].shape[1], torch.Generator().manual_seed(3))
+    t0 = time.perf_counter()
+    recs = step_against(cfg, batch, draws, [where[d] for d in devices], periods=periods,
+                        reference=where[reference])
+    sync(dev)
+    secs = time.perf_counter() - t0
+    out = []
+    for name in devices:
+        rec = recs[str(where[name])] | {"device": name, "reference": reference, "s": secs}
+        log(f"[train] (b) {label}, batch {b} x {n} samples ({batch['spec'].shape[1]} frames), "
+            f"one fp32 step on the {name} against the fp64 step on the {reference} (same "
+            f"weights, batch, draws; replayed: {rec['flips']} leaky ReLU inputs on the other "
+            f"side, phase {rec['phase_err']:.3e} cycles apart, bound {rec['phase_bound']:.3e}; "
+            f"{secs:.1f} s for all): metrics {rec['metric_err']:.3e} relative (at "
+            f"{rec['metric_at']}); gradients per tensor, a bias against its layer's weight "
+            f"{rec['grad_err']:.3e} (at {rec['grad_at']}; gate {GATE:g}), against each "
+            f"tensor's own max|g| {rec['grad_own_err']:.3e} (at {rec['grad_own_at']}), against "
+            f"its block's {rec['grad_block_err']:.3e} (at {rec['grad_block_at']}); largest "
+            f"share of its allowance {rec['grad_allowed_err']:.3f} (at "
+            f"{rec['grad_allowed_at']}) | {card}")
+        expect(rec["ok"], f"train: {label}, {name} against the fp64 step")
+        out.append(rec)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(dev, card: str, synth_kw: dict | None = None, periods=None,
+                batch: int = TRAIN_BATCH, samples: int = TRAIN_SAMPLES, warm: int = TRAIN_WARM,
+                files=TRAIN_FILES, settings: dict | None = None,
+                convert_s: float = 10.0) -> dict:
+    """RVC training on the card.  (a) the train step at full v2-48k width
+    with the full multi-period discriminator, batch 8 of 3.7 s: the cold
+    first step, ``warm`` warm steps, the six losses, peak memory, no kernel
+    launched; (b) one fp32 step against an fp64 one: the tiny
+    configuration on the card and on the CPU, the phase's configuration at
+    batch 1 on the card; (c) the
+    served path: POST /api/v1/rvc/train on a seeded dataset (full HuBERT, 2
+    epochs), /rvc/resume (3 epochs), /rvc/build_index, and the trained
+    model converting 10 s through a VoiceConverter.  Counts are
+    reset just before (a) and (c) and read just after; returns the counts
+    of the training path (the jobs' feature extraction launches fp32 K2)."""
+    import base64
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.core.audio_io import write_wav
+    from audiolab_tpu_torch.models.rvc.synthesizer import (
+        SynthesizerConfig,
+        SynthesizerTrn,
+        config_for,
+    )
+    from audiolab_tpu_torch.pipelines.rvc import RVCPipelineConfig, VoiceConverter
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.train.checkpoint import load_generator
+    from audiolab_tpu_torch.train.rvc import create_train_state, make_train_step
+    from audiolab_tpu_torch.train.rvc_train import _hubert_apply_for
+    from audiolab_tpu_torch.utils.weights import synthesizer_from_jax
+
+    cuda = dev.type == "cuda"
+    rec: dict = {}
+    cfg = SynthesizerConfig(**synth_kw) if synth_kw else config_for(48000, "v2")
+
+    # (a) the step at full width
+    t0 = time.perf_counter()
+    state, _, _ = create_train_state(cfg, seed=0, periods=periods, device=dev)
+    sync(dev)
+    rec["state_s"] = time.perf_counter() - t0
+    data = train_batch(dev, cfg, batch, samples)
+    step = make_train_step(cfg)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for i in range(1 + warm):
+        t0 = time.perf_counter()
+        state, metrics = step(state, data, 0)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    launches = counts()
+    rec["cold_step_s"], warm_s = times[0], times[1:]
+    rec["warm_step_s"] = float(np.median(warm_s))
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    n_params = sum(p.numel() for p in (*state.gen.parameters(), *state.disc.parameters()))
+    mel = [m["loss_mel"] for m in losses]
+    log(f"[train] (a) step at {'v2-48k' if not synth_kw else 'a small config'}, "
+        f"{len(state.disc.discriminators)} discriminators, batch {batch} x {samples} samples "
+        f"({data['spec'].shape[1]} frames, segment {cfg.segment_size}), "
+        f"{n_params / 1e6:.1f} M parameters: state built in {rec['state_s']:.3f} s, cold step "
+        f"{rec['cold_step_s']:.3f} s, warm median {rec['warm_step_s']:.4f} s (min "
+        f"{min(warm_s):.4f}, max {max(warm_s):.4f}, {len(warm_s)} steps)"
+        + (f", peak memory {rec['peak_mem_gb']:.2f} GB" if cuda else "")
+        + f" | first {losses[0]} | last {losses[-1]} | loss_mel "
+        + " ".join(f"{v:.3f}" for v in mel) + f" | launches {launches} | {card}")
+    expect(all(np.isfinite(v) for m in losses for v in m.values()), "train: a loss is not finite")
+    expect(state.step == 1 + warm, f"train: step {state.step}, expected {1 + warm}")
+    expect(float(np.mean(mel[-3:])) < float(np.mean(mel[:3])),
+           f"train: loss_mel did not fall on the fixed batch ({mel[:3]} -> {mel[-3:]})")
+    expect(all(v == 0 for v in launches.values()), f"train: the step launched {launches}")
+    del state, data, step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the fp32 step against an fp64 one: the small configuration on the
+    # card and on the CPU against the CPU's; the full width at batch 1 (49
+    # frames, one segment of 36) on the card against the card's (an fp64
+    # step is exact far below the gate on either device; the card takes a
+    # second for it)
+    if cuda:
+        rec["card_vs_fp64"] = [
+            *train_step_check(dev, SynthesizerConfig(**TRAIN_TINY), (2, 3), 2, 7680 + 2048,
+                              "tiny config, periods (2, 3)", card, devices=("card", "cpu")),
+            *train_step_check(dev, cfg, periods, 1, 48 * 480 + 2048,
+                              "v2-48k" if not synth_kw else "the phase's config", card,
+                              reference="card")]
+
+    # (c) the served path
+    settings = dict(settings or {"small_hubert": False}, epochs=2)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    server = None
+    try:
+        payload = []
+        for i, secs in enumerate(files):
+            wav = work / f"take{i}.wav"
+            write_wav(wav, harmonic_tone(48000, int(secs * 48000), 120.0 + 40 * i, 10 + i), 48000)
+            payload.append({"filename": wav.name,
+                            "content": base64.b64encode(wav.read_bytes()).decode()})
+        server, port = serve_background(create_app(str(work / "process"), device=dev))
+        url = f"http://127.0.0.1:{port}/api/v1/rvc"
+        exp = work / "models" / "exp" / "voice"
+        rec["jobs"] = []
+        train_launches = dict.fromkeys(KERNELS, 0)
+        for route, body in (("train", {"files": payload, "name": "voice", "settings": settings}),
+                            ("resume", {"name": "voice", "settings": settings | {"epochs": 3}})):
+            before = (json.loads((exp / "train_state.json").read_text())["step"]
+                      if route == "resume" else 0)
+            reset_counts()
+            t0 = time.perf_counter()
+            status, resp = http("POST", f"{url}/{route}", body)
+            expect(status == 200, f"train: POST rvc/{route}: HTTP {status} {resp}")
+            while True:
+                time.sleep(0.5)
+                status, job = http("GET", f"{url}/job/{resp['job_id']}")
+                if job.get("status") != "running":
+                    break
+            secs = time.perf_counter() - t0
+            launches = counts()
+            expect(job.get("status") == "done", f"train: rvc/{route} job {job}")
+            slices = len(list((exp / "16k_wavs").glob("*.wav")))
+            groups = -(-slices // 8)
+            after = json.loads((exp / "train_state.json").read_text())["step"]
+            steps_per_epoch = slices // int(settings.get("batch_size", 4))
+            log(f"[train] (c) POST rvc/{route}: {len(files)} files, {sum(files):.1f} s, "
+                f"{slices} slices, {groups} feature groups, steps {before} -> {after}, job "
+                f"{secs:.3f} s: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                              job["result"]["seconds"].items())
+                + f" | metrics {job['result']['metrics']} | launches {launches} | {card}")
+            if cuda:
+                expect(only(launches, "K2", HUBERT_LAYERS * groups),
+                       f"train: rvc/{route} launches {launches}, expected K2 "
+                       f"{HUBERT_LAYERS * groups} and no other")
+            want = steps_per_epoch * (2 if route == "train" else 1)
+            expect(after - before == want, f"train: rvc/{route} took {after - before} steps, "
+                                           f"expected {want}")
+            for k in KERNELS:
+                train_launches[k] += launches[k]
+            rec["jobs"].append({"route": route, "s": secs, "stages_s": job["result"]["seconds"]})
+        status, models = http("GET", f"{url}/models")
+        expect({"voice.npz", "voice.index.npz"} <= set(models["models"]),
+               f"train: rvc/models {models}")
+        t0 = time.perf_counter()
+        status, resp = http("POST", f"{url}/build_index", {"name": "voice"})
+        expect(status == 200, f"train: POST rvc/build_index: HTTP {status} {resp}")
+        index = np.load(resp["index"])["features"]
+        log(f"[train] (c) POST rvc/build_index: {index.shape} in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        tree, mcfg = load_generator(str(work / "models" / "rvc" / "voice.npz"))
+        synth = SynthesizerTrn(mcfg)
+        synth.load_state_dict(synthesizer_from_jax(tree), strict=True)
+        vc = VoiceConverter(synth, _hubert_apply_for(settings, dev), index_features=index,
+                            cfg=RVCPipelineConfig(sr=mcfg.sr, f0_method="yin"), device=dev)
+        x16 = torch.from_numpy(harmonic_tone(16000, int(convert_s * 16000), 180.0, 30)).to(dev)
+        t0 = time.perf_counter()
+        out = vc.convert(x16, sid=0, seed=0, as_numpy=False)
+        sync(dev)
+        want = int(round(x16.shape[-1] * mcfg.sr / RVC_SR))
+        finite = bool(torch.isfinite(out).all())
+        log(f"[train] (c) the trained voice.npz through VoiceConverter (yin, retrieval on): "
+            f"{convert_s:.1f} s -> {tuple(out.shape)} at {mcfg.sr} Hz (expected {want}), finite "
+            f"{finite}, peak {float(out.abs().max()):.4f}, {time.perf_counter() - t0:.3f} s")
+        expect(tuple(out.shape) == (want,) and finite, "train: converted output")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        shutil.rmtree(work, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    rec["train_launches"] = train_launches
+    return rec
+
+
 # ---------------------------------------------------------------- main
 
 def main() -> int:
@@ -1703,7 +1995,7 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
-    served = family = None
+    served = family = trained = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "long"} & set(phases)
     if need_chain:
@@ -1740,6 +2032,10 @@ def main() -> int:
             del audio
             torch.cuda.empty_cache()
             phase_long(dev, sep, vcs["bfloat16"], card)
+        del sep, vcs
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        trained = phase_train(dev, card)["train_launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -1747,6 +2043,7 @@ def main() -> int:
         | {"launches": main_launches[r["kernel"]], "case": r["case"],
            "served_launches": None if served is None else served[r["kernel"]],
            "separators_launches": None if family is None else family[r["kernel"]],
+           "train_launches": None if trained is None else trained[r["kernel"]],
            "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}

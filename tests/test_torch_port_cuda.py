@@ -925,3 +925,85 @@ def test_istft_of_a_written_spectrum_matches_the_cpu(cuda_device, n_fft, hop):
     out = istft(r.to(cuda_device), i.to(cuda_device), n_fft=n_fft, hop=hop)
     torch.cuda.synchronize()
     assert (out.cpu() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+TRAIN_SYNTH = dict(spec_channels=129, segment_size=3840, inter_channels=16, hidden_channels=16,
+                   filter_channels=32, n_heads=2, n_layers=1, upsample_initial_channel=32,
+                   spk_embed_dim=4, gin_channels=16, sr=48000, feat_channels=32)
+
+
+def _train_batch(cfg, b=2, t=16, seed=0):
+    """tests/test_train.py's make_batch in torch (numpy-seeded)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))   # noqa: E731
+    return dict(phone=f(rng.standard_normal((b, t, cfg.feat_channels))),
+                phone_lengths=torch.full((b,), t), pitch=torch.from_numpy(rng.integers(1, 255, (b, t))),
+                pitchf=f(rng.uniform(80, 400, (b, t))),
+                spec=f(rng.standard_normal((b, t, cfg.spec_channels)) ** 2),
+                spec_lengths=torch.full((b,), t),
+                wave=f(rng.standard_normal((b, t * cfg.upp)) * 0.1),
+                sid=torch.zeros(b, dtype=torch.long))
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One train step of the tiny configuration (periods 2, 3) in fp32 on the
+    card and on the CPU against the same step in fp64 on the CPU, same
+    weights, batch and draws, the reference's leaky ReLU sides and
+    excitation phase replayed: on each device the six metrics to 1e-4
+    relative and every gradient tensor to 1e-4 of its own max|g|, a bias to
+    1e-4 of the larger of its own and its layer weight's, on the card or to
+    twice the CPU's distance where that is larger, the phases within twice
+    an fp32 cumsum's bound (the rules and their reasons in
+    audiolab_tpu_torch/train/check.py).  No kernel is launched."""
+    from audiolab_tpu_torch.models.rvc import synthesizer as TSy
+    from audiolab_tpu_torch.train.check import GATE, step_against
+
+    assert GATE == 1e-4
+    cfg = TSy.SynthesizerConfig(**TRAIN_SYNTH)
+    draws = TSy.TrainDraws.sample(cfg, 2, 16, torch.Generator().manual_seed(3))
+    TA.reset_launch_counts()
+    TN.reset_launch_counts()
+    recs = step_against(cfg, _train_batch(cfg), draws, (cuda_device, "cpu"), periods=(2, 3))
+    assert all(f.launches == 0 for f in (TA.attention_nk1, TA.flash_attention_fwd,
+                                         TA.attention_nk1_rope, TA.slim_attention,
+                                         TA.packed_attention, TN.rms_norm, TN.layer_norm))
+    assert recs["cpu"]["grad_err"] <= 1e-4, recs
+    for rec in recs.values():
+        assert rec["metric_err"] <= 1e-4, recs
+        assert rec["grad_allowed_err"] <= 1.0, recs
+        assert rec["phase_err"] <= rec["phase_bound"], recs
+
+
+def test_extract_features_launches_fp32_k2(cuda_device, tmp_path):
+    """The dataset pipeline's HuBERT on the card: one fp32 K2 launch per
+    layer and group of 8 slices, features and f0 as on the CPU (1e-4 of
+    max|feature|, f0 to 1e-2 Hz)."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.audio_io import write_wav
+    from audiolab_tpu_torch.train.data import extract_features
+    from audiolab_tpu_torch.train.rvc_train import _hubert_apply_for
+
+    rng = np.random.default_rng(0)
+    (tmp_path / "16k_wavs").mkdir()
+    t = np.arange(12800) / 16000
+    for i in range(11):       # groups of 8 and 3
+        x = 0.3 * np.sin(2 * np.pi * (120 + 20 * i) * t) + 0.01 * rng.standard_normal(len(t))
+        write_wav(str(tmp_path / "16k_wavs" / f"0_0_{i}.wav"), x.astype(np.float32), 16000)
+    settings = {"feat_channels": 128}          # 2 layers, 2 heads of 64
+    out = {}
+    for dev in ("cpu", cuda_device):
+        exp = tmp_path / str(dev)
+        exp.mkdir()
+        (exp / "16k_wavs").symlink_to(tmp_path / "16k_wavs")
+        TA.reset_launch_counts()
+        assert extract_features(str(exp), _hubert_apply_for(settings, dev), device=dev) == 11
+        out[str(dev)] = (exp, TA.flash_attention_fwd.launches)
+    assert out["cpu"][1] == 0 and out["cuda"][1] == 2 * 2
+    for p in sorted((out["cpu"][0] / "feats").glob("*.npy")):
+        ref, got = np.load(p), np.load(out["cuda"][0] / "feats" / p.name)
+        assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+        ref, got = np.load(out["cpu"][0] / "f0" / p.name), np.load(out["cuda"][0] / "f0" / p.name)
+        assert np.abs(got - ref).max() <= 1e-2

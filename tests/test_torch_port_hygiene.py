@@ -1,7 +1,8 @@
 """Rules the PyTorch/CUDA port keeps, checked on the CPU.
 
 - No module of ``audiolab_tpu_torch`` and not ``chip_smoke.py`` imports
-  ``jax``, ``flax`` or the JAX package (``audiolab_tpu``).
+  ``jax``, ``flax``, ``optax``, ``orbax`` or the JAX package
+  (``audiolab_tpu``).
 - The entry points default to the card and raise when there is none.
 - The kernel wrappers take their plain versions for CPU tensors and leave
   their launch counters untouched.
@@ -30,7 +31,7 @@ from audiolab_tpu_torch.pipelines import rvc as TP
 from audiolab_tpu_torch.pipelines import separate as TSep
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "audiolab_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "audiolab_tpu")
 
 
 def _imports(path: Path) -> list[str]:
@@ -205,3 +206,31 @@ def test_new_entry_points_default_to_the_card(no_cuda, tmp_path):
     assert create_app(root, device="cpu").routes
     assert FeatureIndex(np.zeros((4, 8), np.float32), device="cpu").device.type == "cpu"
     assert VRSeparator(net, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_default_to_the_card(no_cuda, tmp_path):
+    from audiolab_tpu_torch.train.data import RVCDataLoader, extract_features
+    from audiolab_tpu_torch.train.rvc import create_train_state
+    from audiolab_tpu_torch.train.rvc_train import train_from_request
+    from audiolab_tpu_torch.train.trainer import build_index, train_rvc
+
+    cfg = TSy.SynthesizerConfig(
+        spec_channels=129, segment_size=960, inter_channels=8, hidden_channels=8,
+        filter_channels=16, n_layers=1, upsample_initial_channel=16, spk_embed_dim=2,
+        gin_channels=8, feat_channels=16)
+    filelist = tmp_path / "filelist.json"
+    filelist.write_text('[{"gt": "a.wav", "feat": "a.npy", "f0": "b.npy", "f0c": "c.npy"}]')
+    (tmp_path / "feats").mkdir()
+    np.save(tmp_path / "feats" / "a.npy", np.zeros((4, 8), np.float32))
+    for call in (lambda: create_train_state(cfg, periods=(2,)),
+                 lambda: train_rvc(str(tmp_path)),
+                 lambda: train_from_request([str(tmp_path / "a.wav")], "v",
+                                            str(tmp_path / "models"), {}),
+                 lambda: RVCDataLoader(str(filelist)),
+                 lambda: extract_features(str(tmp_path), None),
+                 lambda: build_index(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    state, _, _ = create_train_state(cfg, periods=(2,), device="cpu")
+    assert next(state.gen.parameters()).device.type == "cpu"
+    assert RVCDataLoader(str(filelist), device="cpu").device.type == "cpu"

@@ -160,3 +160,50 @@ def _mdx23c(frozen: tuple, seed: int):
 def mdx23c(seed: int = 5, **kw):
     """(flax params, port TFCTDFNetV3) at MDXC updated by ``kw``."""
     return _mdx23c(_frozen(dict(MDXC, **kw)), seed)
+
+
+def filled(template, seed: int):
+    """A flax parameter tree of ``template``'s shapes (from ``jax.eval_shape``)
+    with seeded numpy values scaled per leaf: kernels N(0, 1/fan_in), norm
+    scales 1 + 0.1 N, biases 0.05 N, embeddings and relative banks 0.3 N."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = str(getattr(path[-1], "key", path[-1]))
+        z = rng.standard_normal(x.shape)
+        if name == "kernel":
+            z = z / np.sqrt(max(1, int(np.prod(x.shape[:-1]))))
+        elif name == "scale":
+            z = 1.0 + 0.1 * z
+        elif name == "bias":
+            z = 0.05 * z
+        else:
+            z = 0.3 * z
+        return z.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, template)
+
+
+@functools.lru_cache(maxsize=None)
+def train_pair(periods: tuple = (2, 3), seed: int = 4):
+    """(flax G params with enc_q, flax D params, port G, port D) at the SYNTH
+    configuration (tests/test_train.py's ``tiny_cfg``): the G template is
+    the port module's tree under flax names (``synthesizer_to_jax``; no
+    flax ``init``, and a wrong name or shape would fail the JAX ``apply``),
+    the D template comes from ``jax.eval_shape``; both are filled by
+    :func:`filled` and carried into the port by ``synthesizer_from_jax`` /
+    ``discriminator_from_jax``."""
+    from audiolab_tpu.models.rvc import discriminator as JD
+    from audiolab_tpu_torch.models.rvc import discriminator as TD
+
+    cfg = TSy.SynthesizerConfig(**SYNTH)
+    g_tpl = W.synthesizer_to_jax(TSy.SynthesizerTrn(cfg, posterior=True).state_dict())
+    seg = cfg.segment_size
+    d_tpl = jax.eval_shape(lambda: JD.MultiPeriodDiscriminatorV2(periods).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, seg, 1)), jnp.zeros((1, seg, 1))))["params"]
+    gp, dp = filled(g_tpl, seed), filled(d_tpl, seed + 1)
+    tg = TSy.SynthesizerTrn(cfg, posterior=True)
+    tg.load_state_dict(W.synthesizer_from_jax(gp), strict=True)
+    td = TD.MultiPeriodDiscriminatorV2(periods)
+    td.load_state_dict(W.discriminator_from_jax(dp), strict=True)
+    return gp, dp, tg, td

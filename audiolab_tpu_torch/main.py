@@ -8,7 +8,9 @@ silencing, graceful shutdown).
 The REST surface and the web UI at / are served by the stdlib server; the
 processors run their DSP on ``--device``, which defaults to the card and
 fails without one.  Models are injected through the processors'
-``configure`` by a caller that has weights.
+``configure`` by a caller that has weights.  ``--demo-backends`` registers
+a random-weight Zonos as the "zonos" TTS engine on ``--device`` and names
+the engines the port does not have yet.
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import sys
 import threading
 from http.server import ThreadingHTTPServer
 
-# the models each --demo-backends backend needs, by ROADMAP queue 1 item
-DEMO_BACKEND_ITEMS = ("17 (TTS: zonos, coqui, chatterbox)",
-                      "18 (music: stable_audio, acestep, yue)",
-                      "19 (transcription: whisper)")
+# the JAX server's demo engines the port has no model for yet, by ROADMAP
+# queue 1 item
+MISSING_DEMO_BACKENDS = {"17 (TTS)": ("coqui", "chatterbox", "dia"),
+                         "18 (music)": ("stable_audio", "acestep", "yue"),
+                         "19 (transcription)": ("whisper",)}
 
 
 def setup_logging() -> None:
@@ -35,6 +38,19 @@ def setup_logging() -> None:
         logging.getLogger(noisy).setLevel(logging.WARNING)
 
 
+def register_demo_backends(device: str, log: logging.Logger) -> None:
+    """Register the random-weight demo engines the port has (Zonos, on
+    ``device``) and log the ones it does not have yet."""
+    from audiolab_tpu_torch.pipelines.tts import random_zonos
+    from audiolab_tpu_torch.serve import tts_api
+
+    log.info("loading demo (random-weight) backends on %s", device)
+    tts_api.register_backend("zonos", random_zonos(device=device))
+    log.warning("--demo-backends: the port has no model yet for %s",
+                "; ".join(f"{', '.join(names)} (ROADMAP queue 1, item {item})"
+                          for item, names in MISSING_DEMO_BACKENDS.items()))
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser("audiolab_tpu_torch")
     parser.add_argument("--listen", action="store_true", help="bind 0.0.0.0")
@@ -43,8 +59,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--output-root", default="outputs/process")
     parser.add_argument(
         "--demo-backends", action="store_true",
-        help="register random-weight generation backends (tts/music/"
-             "transcribe); the port has none of their models yet")
+        help="register random-weight generation backends (the port has "
+             "the zonos TTS engine; the others are logged as missing)")
     parser.add_argument("--device", default="cuda",
                         help="where the processors run (default: the card)")
     args = parser.parse_args(argv)
@@ -52,15 +68,12 @@ def main(argv: list[str] | None = None) -> int:
     setup_logging()
     log = logging.getLogger("audiolab_tpu_torch")
 
-    if args.demo_backends:
-        log.error("--demo-backends: the port has no TTS, music or transcription "
-                  "models yet (ROADMAP queue 1, items %s)", ", ".join(DEMO_BACKEND_ITEMS))
-        return 2
-
     from audiolab_tpu_torch.serve.api import create_app
     from audiolab_tpu_torch.serve.http import make_handler
 
     router = create_app(output_root=args.output_root, device=args.device)
+    if args.demo_backends:
+        register_demo_backends(args.device, log)
     host = "0.0.0.0" if args.listen else "127.0.0.1"
     server = ThreadingHTTPServer((host, args.port), make_handler(router))
 

@@ -9,10 +9,12 @@ responses return the produced files the same way.
 One endpoint per registered processor is generated from its TypedInput
 schema (the reference's register_api_endpoint codegen, base_wrapper.py:
 248-339), plus /chain, /processors, /projects, /load_project, the RVC and
-clone endpoints the port has (RVC training among them), /openapi.json and
-the web UI.  Routes whose models the port does not have yet (TTS, music,
-transcription, WaveTransfer, alignment) are not registered and answer 404.  Processor runs
-hold the inference lock: one request at a time on the card.
+clone endpoints the port has (RVC training among them), the TTS routes
+(serve/tts_api.py: a backend that is not loaded answers 501), /openapi.json
+and the web UI.  Routes whose models the port does not have yet (music,
+transcription, WaveTransfer, alignment) are not registered and answer 404.
+Processor and TTS runs hold the inference lock: one request at a time on
+the card.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.pipelines.base import all_processors
 from audiolab_tpu_torch.pipelines.chain import run_chain
-from audiolab_tpu_torch.serve import clone_api, rvc_api
+from audiolab_tpu_torch.serve import clone_api, rvc_api, tts_api
 from audiolab_tpu_torch.serve.http import RawResponse, Router
 from audiolab_tpu_torch.serve.inference_lock import INFERENCE_LOCK
 
@@ -110,6 +112,8 @@ def create_app(output_root: str = "outputs/process",
     rvc_api.register(router, output_root, dev)
     # clone voices/methods (wrappers/clone.py:615,637)
     clone_api.register(router)
+    # TTS (OpenAI-compatible /api/v1/audio/speech, layouts/tts.py:840)
+    tts_api.register(router)
 
     @router.post("/api/v1/process/load_project", "Re-enumerate an existing project")
     def load_project(_params, body):

@@ -9,6 +9,9 @@ fills its modules by the same rules, on the module's own device:
     variances -> 1
   - biases, ``beta`` and batch-norm means -> 0
   - everything else -> N(0, 0.02)
+
+Buffers a module registers as not persistent (derived constants such as
+rotary frequencies) are left as they are: they are not weights.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ def fast_init(module: nn.Module, seed: int = 0) -> nn.Module:
     """Fill ``module``'s parameters and batch-norm statistics in place from a
     generator seeded with ``seed``; returns the module."""
     gen = {}
-    for name, t in list(module.named_parameters()) + list(module.named_buffers()):
+    buffers = [(f"{mod_name}.{name}", t) for mod_name, mod in module.named_modules()
+               for name, t in mod.named_buffers(recurse=False)
+               if name not in mod._non_persistent_buffers_set]
+    for name, t in list(module.named_parameters()) + buffers:
         leaf = name.rsplit(".", 1)[-1]
         if not t.is_floating_point():
             continue

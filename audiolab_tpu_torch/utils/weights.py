@@ -596,3 +596,100 @@ def mdxnet_from_jax(params: dict) -> dict:
 
     walk(params, "")
     return sd
+
+
+# ------------------------------------------------------------------ Zonos
+
+def _fourier(sd: dict, key: str, node: dict) -> None:
+    sd[f"{key}.w"] = _t(node["w"])
+    _dense(sd, f"{key}.proj", node["proj"])
+
+
+def zonos_from_jax(params: dict) -> dict:
+    """ZonosModel flax params -> port state_dict: Zyphra's names where
+    convert_zonos maps them (fused attention ``mixer.in_proj`` = [wq; wk; wv],
+    ``mlp.fc1`` = [w3 (value); w1 (gate)], per-codebook ``embeddings.q``
+    split from the offset table, ``heads.q``, ``backbone.norm_f``), mamba_ssm
+    names for the Mamba1 mixer, the flax module names for the conditioners."""
+    sd: dict = {}
+    bk = params["backbone"]
+    n_layers = _count(bk, "attn_") + _count(bk, "mamba_")
+    for i in range(n_layers):
+        p = f"backbone.layers.{i}"
+        sd[f"{p}.norm.weight"] = _t(bk[f"norm_{i}"]["weight"])
+        sd[f"{p}.norm2.weight"] = _t(bk[f"mlp_norm_{i}"]["weight"])
+        mlp = bk[f"mlp_{i}"]
+        sd[f"{p}.mlp.fc1.weight"] = _t(np.concatenate(
+            [np.asarray(mlp["w3"]["kernel"]).T, np.asarray(mlp["w1"]["kernel"]).T]))
+        sd[f"{p}.mlp.fc2.weight"] = _t(np.asarray(mlp["w2"]["kernel"]).T)
+        if f"attn_{i}" in bk:
+            a = bk[f"attn_{i}"]
+            sd[f"{p}.mixer.in_proj.weight"] = _t(np.concatenate(
+                [np.asarray(a[w]["kernel"]).T for w in ("wq", "wk", "wv")]))
+            sd[f"{p}.mixer.out_proj.weight"] = _t(np.asarray(a["wo"]["kernel"]).T)
+            continue
+        m, x = bk[f"mamba_{i}"], f"{p}.mixer"
+        sd[f"{x}.in_proj.weight"] = _t(np.asarray(m["in_proj"]["kernel"]).T)
+        sd[f"{x}.conv1d.weight"] = _t(np.asarray(m["conv_w"]).T[:, None, :])
+        sd[f"{x}.conv1d.bias"] = _t(m["conv_b"])
+        sd[f"{x}.A_log"] = _t(m["a_log"])
+        sd[f"{x}.D"] = _t(m["d_skip"])
+        sd[f"{x}.out_proj.weight"] = _t(np.asarray(m["out_proj"]["kernel"]).T)
+        if "norm_w" in m:                                       # Mamba2
+            sd[f"{x}.dt_bias"] = _t(m["dt_bias"])
+            sd[f"{x}.norm.weight"] = _t(m["norm_w"])
+        else:
+            sd[f"{x}.x_proj.weight"] = _t(np.asarray(m["x_proj"]["kernel"]).T)
+            _dense(sd, f"{x}.dt_proj", m["dt_proj"])
+    sd["backbone.norm_f.weight"] = _t(bk["final_norm"]["weight"])
+    n_q = _count(params, "head_")
+    table = np.asarray(params["code_embs"]["embedding"])
+    size = table.shape[0] // n_q
+    for q in range(n_q):
+        sd[f"embeddings.{q}.weight"] = _t(table[q * size:(q + 1) * size])
+        sd[f"heads.{q}.weight"] = _t(np.asarray(params[f"head_{q}"]["kernel"]).T)
+    sd["text_emb.weight"] = _t(params["text_emb"]["embedding"])
+    _dense(sd, "spk_proj", params["spk_proj"])
+    for name in ("emotion", "rate", "pitch"):
+        _fourier(sd, name, params[name])
+    return sd
+
+
+def dac_from_jax(params: dict) -> dict:
+    """DACDecoder flax params -> port state_dict under descript-audio-codec's
+    names (the inverse of convert_dac on folded weights)."""
+    sd: dict = {}
+    for i in range(_count(params, "codebook_")):
+        q = f"quantizer.quantizers.{i}"
+        sd[f"{q}.codebook.weight"] = _t(params[f"codebook_{i}"]["embedding"])
+        _dense_as_conv1x1(sd, f"{q}.out_proj", params[f"out_proj_{i}"])
+
+    def snake(key: str, node: dict) -> None:
+        sd[f"{key}.alpha"] = _t(np.asarray(node["alpha"]).reshape(1, -1, 1))
+
+    _conv1d(sd, "decoder.model.0", params["conv_in"])
+    n_rates = _count(params, "up_")
+    for i in range(n_rates):
+        blk = f"decoder.model.{1 + i}.block"
+        snake(f"{blk}.0", params[f"snake_{i}"])
+        _conv_t1d(sd, f"{blk}.1", params[f"up_{i}"])
+        for j in range(3):
+            res, node = f"{blk}.{2 + j}.block", params[f"res_{i}_{j}"]
+            snake(f"{res}.0", node["s1"])
+            _conv1d(sd, f"{res}.1", node["c1"])
+            snake(f"{res}.2", node["s2"])
+            _conv1d(sd, f"{res}.3", node["c2"])
+    snake(f"decoder.model.{1 + n_rates}", params["snake_out"])
+    _conv1d(sd, f"decoder.model.{2 + n_rates}", params["conv_out"])
+    return sd
+
+
+def speaker_encoder_from_jax(params: dict) -> dict:
+    """SpeakerEncoder flax params -> port state_dict (the flax module names)."""
+    sd: dict = {}
+    for i in range(_count(params, "conv_")):
+        _conv1d(sd, f"conv_{i}", params[f"conv_{i}"])
+        _norm(sd, f"ln_{i}", params[f"ln_{i}"])
+    _dense(sd, "att", params["att"])
+    _dense(sd, "proj", params["proj"])
+    return sd

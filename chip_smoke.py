@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version at the main path's shapes,
-drives the separate -> RVC chain and RVC training at full width, and checks
-the output.
+drives the separate -> RVC chain, RVC training and Zonos TTS at full width,
+and checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -9,14 +9,16 @@ the output.
     python3 chip_smoke.py --phases card,serve      # the REST server and main.py
     python3 chip_smoke.py --phases card,separators # HTDemucs, MDX23C, the ONNX member
     python3 chip_smoke.py --phases card,train      # RVC training and its three routes
-    python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass
-                                                   # and of the separator family
+    python3 chip_smoke.py --phases card,kernels,tts  # Zonos TTS and the speech route
+    python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
+                                                   # of the separator family and of TTS
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
   card       nvidia-smi name and power limit, torch/CUDA versions, build seconds
   kernels    K1 and K2 against their plain versions at the main path's shapes
-             (K2 in fp32 and in bf16), K1's Hopper design against the WMMA core
+             (K2 in fp32 and in bf16, and at Zonos's causal fp32 prefill), K1's
+             Hopper design against the WMMA core
              on each axis (in turns); the 16-bit K2 on its Hopper design at
              the HuBERT shape, a causal tq != tk shape, a causal language-model
              prefill (16 x 2048 x 128) and a d = 128 shape with ragged keys,
@@ -91,6 +93,20 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              trained .npz converting 10 s through a VoiceConverter, with each
              job's stage seconds
 
+  tts        Zonos TTS at the published backbone widths (dim 1024, 12 layers,
+             attention every 6th, 16 x 64 heads, 9 codebooks) with the 44.1 kHz
+             DAC (decoder_dim 1536), both mixers (mamba1, mamba2): (a)
+             ZonosTTS.synthesize on three sentences with an emotion tag (CFG
+             batch 6), cold and 2 warm (each captures its decode step): 2
+             fp32 K2 launches a call and nothing else, seconds of prefill,
+             decode and DAC, steps/s, audio-s/s, peak memory; (b) the captured
+             decode against the eager loop under the same draws (identical
+             codes), the DAC on 50 of those frames against a CPU copy (1e-5
+             of max|y|), the card's fp32 logits against the CPU's over
+             prefill and 8 teacher-forced steps (1e-4 of max|logit|); (c) POST
+             /api/v1/audio/speech through create_app: a 44.1 kHz WAV, the
+             download, 2 K2
+
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
 (audiolab_tpu_torch/utils/fast_init.py; training starts from torch's default
@@ -110,7 +126,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-          "serve", "separators", "long", "train")
+          "serve", "separators", "long", "train", "tts")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -351,6 +367,10 @@ def phase_kernels(dev, card: str) -> list[dict]:
         ("K2 flash_attention_fwd (HuBERT, training features, last group)",
          "k2_train_features_1", "K2",
          (1, 12, 184, 64), (1, 12, 184, 64), torch.float32, False, True),
+        # Zonos's prefill: CFG batch 6 x 16 heads, 256 text + 4 conditioning
+        # + 1 BOS positions, fp32, causal (2 calls a synthesize)
+        ("K2 flash_attention_fwd (Zonos prefill, causal)", "k2_zonos_prefill", "K2",
+         (6, 16, 261, 64), (6, 16, 261, 64), torch.float32, True, True),
         ("K2 flash_attention_fwd (causal, tq != tk)", "k2_causal", "K2",
          (2, 8, 100, 64), (2, 8, 333, 64), torch.float32, True, False),
         ("K2 flash_attention_fwd (HuBERT shape, bf16)", "k2_hubert_bf16", "K2",
@@ -1959,6 +1979,268 @@ def phase_train(dev, card: str, synth_kw: dict | None = None, periods=None,
 
 # ---------------------------------------------------------------- main
 
+TTS_TEXT = ("Welcome back to the studio, everyone. [happiness] Today we are recording the "
+            "vocals for our brand new song! It is going to sound wonderful.")
+TTS_FRAME_HZ = 44100 / 512          # DAC frames a second of audio
+TTS_WARM = 2
+TTS_DAC_FRAMES = 50                 # frames of the card-against-CPU DAC check
+
+
+def build_tts(dev, mixer: str):
+    """ZonosTTS at ZonosConfig()'s published backbone widths (dim 1024, 12
+    layers, attention every 6th, 16 x 64 heads, 9 codebooks x 1026) with the
+    44.1 kHz DAC that load_dac_checkpoint builds (decoder_dim 1536, rates 8,
+    8, 4, 2), weights by bench.py's rules from seed 0."""
+    from audiolab_tpu_torch.models.codecs import DACConfig
+    from audiolab_tpu_torch.models.zonos import ZonosConfig
+    from audiolab_tpu_torch.pipelines.tts import random_zonos
+
+    return random_zonos(ZonosConfig(mixer=mixer), seed=0,
+                        dac_cfg=DACConfig(decoder_dim=1536), device=dev)
+
+
+def phase_tts(dev, card: str, profile_dir: str | None = None) -> dict:
+    """Zonos TTS on the card, for each mixer (mamba1, and the upstream
+    hybrid's mamba2).  (a) ``ZonosTTS.synthesize`` on a three-sentence text
+    with one emotion tag (3 chunks, CFG batch 6): a cold call and
+    TTS_WARM warm ones (every call captures its own decode step), each with
+    counts reset just before and read just after (2 K2 launches, the fp32
+    kernel, nothing else), seconds of prefill, decode and DAC, steps/s,
+    audio-s/s, peak memory and the memory still held after the call, the
+    waveform's length and finiteness; (b) the captured decode against the
+    eager loop under the same draws: identical codes; the first chunk's
+    first TTS_DAC_FRAMES frames of those codes through the DAC on the card
+    and on a CPU copy: within 1e-5 of max|y|; then the card's fp32 logits
+    against the CPU's for the prefill and 8 teacher-forced steps (CFG batch
+    2): within 1e-4 of max|logit|.  (c) with
+    the mamba2 model: POST /api/v1/audio/speech through create_app on the
+    card: HTTP 200, a 44.1 kHz WAV of the synthesized length, the download
+    route, K2 2.  With ``profile_dir``, a profiler table of one warm call of
+    each mixer.  Returns the counts of the first call and of the request."""
+    import base64
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.core.audio_io import read_wav
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.models.codecs import DACDecoder
+    from audiolab_tpu_torch.models.zonos import ZonosModel, generate, gumbel_draws
+    from audiolab_tpu_torch.pipelines.tts import parse_emotion_chunks
+    from audiolab_tpu_torch.serve import tts_api
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+
+    cuda = dev.type == "cuda"
+    rec: dict = {"runs": {}}
+    for mixer in ("mamba1", "mamba2"):
+        t0 = time.perf_counter()
+        tts = build_tts(dev, mixer)
+        sync(dev)
+        c = tts.model.cfg
+        n_params = sum(p.numel() for p in tts.model.parameters())
+        dac_params = sum(p.numel() for p in tts.dac.parameters())
+        log(f"[tts] {mixer}: Zonos dim {c.dim}, {c.n_layers} layers (attention every "
+            f"{c.attn_every}), {n_params / 1e6:.1f} M parameters; DAC decoder_dim "
+            f"{tts.dac.cfg.d0}, {dac_params / 1e6:.1f} M; built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        chunks = parse_emotion_chunks(TTS_TEXT)
+        n = len(chunks)
+        ids, emotions, frames = tts.encode_text(chunks)
+        sil = int(tts.cfg.silence_ms / 1000.0 * tts.cfg.sr)
+        want_len = n * frames * tts.dac.cfg.hop + (n - 1) * sil
+        runs = []
+        for i in range(1 + TTS_WARM):
+            label = f"tts {mixer} call {i + 1} ({'cold' if i == 0 else 'warm'})"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated() if cuda else 0
+            reset_counts()
+            t0 = time.perf_counter()
+            audio, sr = tts.synthesize(TTS_TEXT, seed=i, timed=True)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            launches = counts()
+            k2_hopper = A.flash_attention_fwd.sm90_launches
+            st = dict(tts.last_stats)
+            peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+            held = (torch.cuda.memory_allocated() - before) / 1e6 if cuda else float("nan")
+            steps_s = st["steps"] / st["decode_s"]
+            run = dict(seconds=secs, prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                       dac_s=st["dac_s"], draws_s=st["draws_s"], steps=st["steps"],
+                       steps_per_s=steps_s, decode_audio_s_per_s=n * steps_s / TTS_FRAME_HZ,
+                       audio_s_per_s=len(audio) / sr / secs, peak_gb=peak, held_mb=held,
+                       launches=launches)
+            runs.append(run)
+            log(f"[tts] {label}: {n} chunks, {frames} frames + {c.n_codebooks} delay steps, "
+                f"CFG batch {2 * n}: {secs:.3f} s (draws {st['draws_s']:.3f}, prefill "
+                f"{st['prefill_s']:.3f}, decode {st['decode_s']:.3f}, DAC {st['dac_s']:.3f}); "
+                f"{steps_s:.1f} steps/s = {run['decode_audio_s_per_s']:.2f} audio-s/s of "
+                f"decode, {run['audio_s_per_s']:.2f} audio-s/s end to end "
+                f"({len(audio) / sr:.2f} s of audio at {sr} Hz); peak {peak:.2f} GB, "
+                f"{held:.1f} MB held after the call; "
+                f"peak |y| {float(np.abs(audio).max()):.4f}; launches {launches} (K2 on the "
+                f"Hopper design: {k2_hopper}) | {card}")
+            expect(sr == 44100 and audio.shape == (want_len,) and bool(np.isfinite(audio).all()),
+                   f"{label}: {audio.shape} at {sr} Hz, expected ({want_len},) at 44100, finite")
+            expect(only(launches, "K2", 2) and k2_hopper == 0,
+                   f"{label}: launches {launches}, {k2_hopper} on the Hopper design; "
+                   "expected 2 fp32 K2 (k2f_kernel) and no other")
+        rec["runs"][mixer] = runs
+        if mixer == "mamba1":
+            rec["launches"] = runs[0]["launches"]
+        if profile_dir and cuda:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tts.synthesize(TTS_TEXT, seed=1, timed=True)
+                sync(dev)
+            st = tts.last_stats
+            events = prof.key_averages()
+            kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+            device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+            wall = st["prefill_s"] + st["decode_s"] + st["dac_s"]
+            path = Path(profile_dir) / f"chip_smoke_tts_{mixer}_profile.txt"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(f"{card}\nwarm synthesize ({mixer}): prefill {st['prefill_s']:.3f} "
+                            f"s, decode {st['decode_s']:.3f} s, DAC {st['dac_s']:.3f} s; "
+                            f"{device_s:.3f} s of device time\n"
+                            + events.table(sort_by="self_cuda_time_total", row_limit=40) + "\n")
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+            rec.setdefault("profile", {})[mixer] = dict(device_s=device_s, wall_s=wall)
+            log(f"[tts] {mixer} profiler, one warm call: {device_s:.3f} s of device time in "
+                f"{wall:.3f} s of stages ({device_s / wall:.0%} busy); top kernels: "
+                + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms x {e.count}"
+                            for e in top) + f" -> {path}")
+
+        # (b) the captured step against the eager loop, the same draws
+        total = frames + c.n_codebooks
+        spk = np.zeros((n, c.spk_dim), np.float32)
+        draws = gumbel_draws(total, n * c.n_codebooks, c.vocab, 7, dev)
+        kw = dict(max_frames=frames, emotion=emotions, rate=np.full((n, 1), 15.0, np.float32),
+                  pitch=np.full((n, 1), 20.0, np.float32), draws=draws, device=dev)
+        codes = {}
+        for graph in ((True, False) if cuda else (False,)):
+            t0 = time.perf_counter()
+            codes[graph] = generate(tts.model, ids, spk, graph=graph, **kw)
+            sync(dev)
+            log(f"[tts] {mixer}: generate with graph={graph}: {time.perf_counter() - t0:.3f} s "
+                f"({total} steps)")
+        if cuda:
+            same = torch.equal(codes[True], codes[False])
+            log(f"[tts] {mixer}: captured decode against the eager loop, the same draws: "
+                f"codes {'identical' if same else 'DIFFER'} "
+                f"({int((codes[True] != codes[False]).sum())} of {codes[True].numel()} differ)")
+            expect(same, f"tts {mixer}: graph and eager decode codes differ")
+
+        # the DAC on the card against a CPU copy, on a slice of those codes
+        part = torch.clamp(codes[cuda][:1, :, :TTS_DAC_FRAMES], 0, c.codebook_size - 3)
+        cpu_dac = DACDecoder(tts.dac.cfg)
+        cpu_dac.load_state_dict({k: v.cpu() for k, v in tts.dac.state_dict().items()})
+        ys = {}
+        for name, dac, d in (("cpu", cpu_dac.eval(), torch.device("cpu")), ("card", tts.dac, dev)):
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                ys[name] = dac(part.to(d)).cpu()
+            log(f"[tts] {mixer}: DAC on the {name}, {TTS_DAC_FRAMES} frames -> "
+                f"{ys[name].shape[-1]} samples: {time.perf_counter() - t0:.3f} s")
+        del cpu_dac, codes, draws
+        err = float((ys["card"] - ys["cpu"]).abs().max())
+        scale = float(ys["cpu"].abs().max())
+        rec.setdefault("dac_card_vs_cpu", {})[mixer] = err / scale
+        log(f"[tts] {mixer}: DAC card against CPU, fp32: max err {err:.3e} = "
+            f"{err / scale:.3e} of max|y| {scale:.4f} (tol 1e-5)")
+        expect(bool(torch.isfinite(ys["card"]).all()) and 0 < scale and err <= 1e-5 * scale,
+               f"tts {mixer}: card DAC {err / scale:.3e} of max|y| from the CPU's")
+
+        # card against CPU: prefill (chunk 1 at the full text length, CFG
+        # batch 2) and teacher-forced steps, fp32
+        cpu_model = ZonosModel(c)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in tts.model.state_dict().items()})
+        cpu_model.eval()
+        rng = np.random.default_rng(3)
+        forced = rng.integers(0, c.codebook_size - 2, (8, 2, c.n_codebooks))
+        seq = {}
+        for name, model, d in (("cpu", cpu_model, torch.device("cpu")), ("card", tts.model, dev)):
+            tid = torch.as_tensor(np.concatenate([ids[:1], 0 * ids[:1]]), dtype=torch.long,
+                                  device=d)
+            em = torch.as_tensor(np.concatenate([emotions[:1]] * 2), device=d)
+            bos = torch.full((2, c.n_codebooks, 1), c.masked_id, dtype=torch.long, device=d)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits, states, plen = model.prefill(
+                    tid, torch.zeros((2, c.spk_dim), device=d), em,
+                    torch.full((2, 1), 15.0, device=d), torch.full((2, 1), 20.0, device=d),
+                    bos, ids.shape[1] + 5 + len(forced) + 2)
+                out = [logits]
+                for i, ct in enumerate(forced):
+                    out.append(model.decode_step(torch.as_tensor(ct, device=d),
+                                                 torch.tensor([plen + i], device=d), states))
+            seq[name] = torch.stack(out).cpu()
+            log(f"[tts] {mixer}: teacher-forced prefill ({plen} positions) + {len(forced)} "
+                f"steps on the {name}: {time.perf_counter() - t0:.3f} s")
+        del cpu_model
+        err = float((seq["card"] - seq["cpu"]).abs().max())
+        scale = float(seq["cpu"].abs().max())
+        rec.setdefault("card_vs_cpu", {})[mixer] = err / scale
+        log(f"[tts] {mixer}: card against CPU, fp32 logits: max err {err:.3e} = "
+            f"{err / scale:.3e} of max|logit| {scale:.3f} (tol 1e-4)")
+        expect(err <= 1e-4 * scale, f"tts {mixer}: card logits {err / scale:.3e} of max from "
+               "the CPU's")
+
+        if mixer == "mamba2":
+            # (c) the speech route through create_app on the card
+            work = Path(tempfile.mkdtemp(prefix="chip_smoke_tts_"))
+            saved = dict(tts_api._BACKENDS)
+            server, port = serve_background(create_app(str(work / "process"), device=dev))
+            try:
+                tts_api.register_backend("zonos", tts)
+                reset_counts()
+                t0 = time.perf_counter()
+                status, resp = http("POST", f"http://127.0.0.1:{port}/api/v1/audio/speech",
+                                    {"model": "zonos", "input": TTS_TEXT})
+                sync(dev)
+                secs = time.perf_counter() - t0
+                launches = counts()
+                expect(status == 200, f"tts request: HTTP {status} {resp.get('error')}")
+                wav = work / "speech.wav"
+                wav.write_bytes(base64.b64decode(resp["audio"]))
+                a = read_wav(wav)
+                expect(a.sample_rate == 44100 and a.samples.shape == (1, want_len)
+                       and bool(np.isfinite(a.samples).all()),
+                       f"tts request: {a.samples.shape} at {a.sample_rate} Hz, expected "
+                       f"(1, {want_len}) at 44100")
+                dl = urllib_get(f"http://127.0.0.1:{port}/api/v1/audio/speech/download/"
+                                f"{resp['file_id']}")
+                expect(dl == wav.read_bytes(), "tts request: the download differs")
+                expect(only(launches, "K2", 2),
+                       f"tts request: launches {launches}, expected K2 2")
+                rec["request_s"], rec["served_launches"] = secs, launches
+                log(f"[tts] POST /api/v1/audio/speech (mamba2, {n} sentences): HTTP {status} "
+                    f"{secs:.3f} s; WAV {a.sample_rate} Hz x {a.samples.shape[1]} samples "
+                    f"({a.samples.shape[1] / a.sample_rate:.2f} s, {wav.stat().st_size / 1e6:.2f}"
+                    f" MB); download OK; launches {launches} | {card}")
+            finally:
+                server.shutdown()
+                server.server_close()
+                tts_api._BACKENDS.clear()
+                tts_api._BACKENDS.update(saved)
+                shutil.rmtree(work, ignore_errors=True)
+        del tts
+        if cuda:
+            torch.cuda.empty_cache()
+    return rec
+
+
+def urllib_get(url: str, timeout: float = 60.0) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -1995,7 +2277,7 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
-    served = family = trained = None
+    served = family = trained = spoken = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "long"} & set(phases)
     if need_chain:
@@ -2036,6 +2318,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "train" in phases:
         trained = phase_train(dev, card)["train_launches"]
+    if "tts" in phases:
+        # this slice's path: one synthesize call, counts reset just before it
+        # and read just after (the first mamba1 call)
+        spoken = phase_tts(dev, card, profile_dir=args.profile)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -2044,6 +2330,7 @@ def main() -> int:
            "served_launches": None if served is None else served[r["kernel"]],
            "separators_launches": None if family is None else family[r["kernel"]],
            "train_launches": None if trained is None else trained[r["kernel"]],
+           "tts_launches": None if spoken is None else spoken[r["kernel"]],
            "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}

@@ -1007,3 +1007,106 @@ def test_extract_features_launches_fp32_k2(cuda_device, tmp_path):
         assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
         ref, got = np.load(out["cpu"][0] / "f0" / p.name), np.load(out["cuda"][0] / "f0" / p.name)
         assert np.abs(got - ref).max() <= 1e-2
+
+
+def _zonos_model(mixer, dev, seed=0):
+    """A Zonos model at test width (tests/torch_port_tiny.py's ZONOS) with
+    torch's default weights from ``seed`` moved by 0.3 N(0, 1) noise, fp32."""
+    from audiolab_tpu_torch.models.zonos import ZonosConfig, ZonosModel
+
+    cfg = ZonosConfig(dim=32, n_layers=3, attn_every=3, n_heads=4, d_state=4, n_codebooks=3,
+                      codebook_size=34, spk_dim=16, headdim=16, mixer=mixer)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = ZonosModel(cfg)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.3 * torch.randn(p.shape))
+    return model.to(dev).eval()
+
+
+def _zonos_inputs(cfg, b=2, t_text=6, seed=1):
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    return dict(text_ids=r.integers(1, cfg.vocab_text, (b, t_text)).astype(np.int32),
+                spk_emb=r.standard_normal((b, cfg.spk_dim)).astype(np.float32),
+                emotion=r.random((b, 8)).astype(np.float32))
+
+
+@pytest.mark.parametrize("mixer", ["mamba1", "mamba2"])
+def test_zonos_graph_decode_equals_eager(cuda_device, mixer):
+    """The captured decode step replayed for every frame gives the eager
+    loop's codes under the same draws, on two calls with other draws (each
+    captures its own step); the prefill launches K2 once per attention
+    layer, on the fp32 kernel."""
+    from audiolab_tpu_torch.models.zonos import generate, gumbel_draws
+
+    model = _zonos_model(mixer, cuda_device)
+    x = _zonos_inputs(model.cfg)
+    total, rows, vocab = 20 + 3, 2 * 3, 34
+    for seed in (4, 5):
+        draws = gumbel_draws(total, rows, vocab, seed, cuda_device)
+        TA.reset_launch_counts()
+        g = generate(model, max_frames=20, draws=draws, graph=True, **x)
+        assert TA.flash_attention_fwd.launches == 1
+        assert TA.flash_attention_fwd.sm90_launches == 0
+        e = generate(model, max_frames=20, draws=draws, graph=False, **x)
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("mixer", ["mamba1", "mamba2"])
+def test_zonos_logits_on_the_card_match_the_cpu(cuda_device, mixer):
+    """Prefill and 8 teacher-forced decode steps in fp32 (TF32 off): the
+    card's logits within 1e-4 of max|logit| of the CPU's."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+
+    apply_policy()
+    x = _zonos_inputs(_zonos_model(mixer, "cpu").cfg)
+    codes = np.random.default_rng(2).integers(0, 32, (8, 4, 3))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = _zonos_model(mixer, dev)
+        c = model.cfg
+        ids = torch.as_tensor(np.concatenate([x["text_ids"], 0 * x["text_ids"]]),
+                              dtype=torch.long, device=dev)
+        spk = torch.as_tensor(np.concatenate([x["spk_emb"]] * 2), device=dev)
+        em = torch.as_tensor(np.concatenate([x["emotion"]] * 2), device=dev)
+        rate, pitch = torch.full((4, 1), 15.0, device=dev), torch.full((4, 1), 20.0, device=dev)
+        bos = torch.full((4, c.n_codebooks, 1), c.masked_id, dtype=torch.long, device=dev)
+        with torch.no_grad():
+            logits, states, plen = model.prefill(ids, spk, em, rate, pitch, bos, 6 + 5 + 8 + 2)
+            seq = [logits]
+            for i, ct in enumerate(codes):
+                seq.append(model.decode_step(torch.as_tensor(ct, device=dev),
+                                             torch.tensor([plen + i], device=dev), states))
+        out[str(dev)] = torch.stack(seq).cpu()
+    ref = out["cpu"]
+    assert (out["cuda"] - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("frames", [20, 51])
+def test_zonos_dac_on_the_card_matches_the_cpu(cuda_device, frames):
+    """The DAC decoder at the published rates (8, 8, 4, 2) and test width
+    on cuDNN (the flax-crop transposed convolutions, Snake, the tanh):
+    codes -> audio on the card within 1e-5 of max|y| of the CPU's, fp32
+    with TF32 off."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+    from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
+
+    apply_policy()
+    cfg = DACConfig(dim=16, rates=(8, 8, 4, 2), n_q=3, codebook_size=34, codebook_dim=8,
+                    decoder_dim=32)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        dac = DACDecoder(cfg)      # torch's initialisers: peak |y| about 0.3, no clipping
+    codes = torch.as_tensor(np.random.default_rng(4).integers(0, 34, (2, 3, frames)))
+    with torch.no_grad():
+        ref = dac.eval()(codes)
+        out = dac.to(cuda_device)(codes.to(cuda_device)).cpu()
+    assert out.shape == ref.shape == (2, frames * 512) and torch.isfinite(out).all()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()

@@ -234,3 +234,27 @@ def test_training_entry_points_default_to_the_card(no_cuda, tmp_path):
     state, _, _ = create_train_state(cfg, periods=(2,), device="cpu")
     assert next(state.gen.parameters()).device.type == "cpu"
     assert RVCDataLoader(str(filelist), device="cpu").device.type == "cpu"
+
+
+def test_tts_entry_points_default_to_the_card(no_cuda):
+    from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
+    from audiolab_tpu_torch.models.zonos import ZonosConfig, ZonosModel, generate
+    from audiolab_tpu_torch.pipelines.tts import ZonosTTS, random_zonos
+
+    cfg = ZonosConfig(dim=16, n_layers=2, attn_every=2, n_heads=2, d_state=2, n_codebooks=2,
+                      codebook_size=10, spk_dim=4)
+    model = ZonosModel(cfg)
+    dac = DACDecoder(DACConfig(dim=8, rates=(2, 2), n_q=2, codebook_size=10))
+    for call in (lambda: ZonosTTS(model, dac), lambda: random_zonos(),
+                 lambda: generate(model, np.ones((1, 3), np.int32), np.zeros((1, 4)),
+                                  max_frames=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert ZonosTTS(model, dac, device="cpu").device.type == "cpu"
+    assert random_zonos(cfg, device="cpu").device.type == "cpu"
+    codes = generate(model, np.ones((1, 3), np.int32), np.zeros((1, 4)), max_frames=2,
+                     device="cpu")
+    assert codes.shape == (1, 2, 2) and codes.device.type == "cpu"
+    with pytest.raises(ValueError, match="CUDA graph"):
+        generate(model, np.ones((1, 3), np.int32), np.zeros((1, 4)), max_frames=2,
+                 device="cpu", graph=True)

@@ -7,6 +7,7 @@ requests), the route table as a subset of the JAX ``create_app``'s, and
 
 import base64
 import json
+import logging
 import os
 import signal
 import socket
@@ -120,9 +121,10 @@ def test_openapi_document(server):
     assert status == 200
     assert "/api/v1/process/chain" in body["paths"]
     assert "/api/v1/rvc/models" in body["paths"]
-    # routes whose models the port lacks are not served; training is
-    assert "/api/v1/audio/speech" not in body["paths"]
+    # routes whose models the port lacks are not served; training and TTS are
+    assert "/api/v1/align" not in body["paths"]
     assert "/api/v1/rvc/train" in body["paths"]
+    assert "/api/v1/audio/speech" in body["paths"]
 
 
 def test_web_ui(server):
@@ -174,7 +176,7 @@ def test_missing_files_is_400(server):
     assert "error" in body
 
 
-@pytest.mark.parametrize("path", ["/api/v1/does/not/exist", "/api/v1/audio/speech",
+@pytest.mark.parametrize("path", ["/api/v1/does/not/exist", "/api/v1/align",
                                   "/api/v1/yue/generate", "/api/v1/audio/transcriptions"])
 def test_unknown_or_unported_route_404(server, path):
     status, _body = _post(f"{server}{path}", {})
@@ -257,8 +259,23 @@ def test_file_registry_roundtrip(tmp_path):
 
 
 def test_main_demo_backends_names_the_missing_items(caplog):
-    assert port_main.main(["--demo-backends"]) != 0
-    assert all(f"items 1{i} (" in caplog.text or f", 1{i} (" in caplog.text for i in (7, 8, 9))
+    """--demo-backends registers the random Zonos as "zonos" on the given
+    device and names every engine the port does not have (no server)."""
+    from audiolab_tpu_torch.pipelines.tts import ZonosTTS
+    from audiolab_tpu_torch.serve import tts_api
+
+    saved = dict(tts_api._BACKENDS)
+    try:
+        with caplog.at_level(logging.INFO):
+            port_main.register_demo_backends("cpu", logging.getLogger("test"))
+        zonos = tts_api._BACKENDS["zonos"]
+        assert isinstance(zonos, ZonosTTS) and zonos.device.type == "cpu"
+    finally:
+        tts_api._BACKENDS.clear()
+        tts_api._BACKENDS.update(saved)
+    for name in ("coqui", "chatterbox", "dia", "stable_audio", "acestep", "yue", "whisper"):
+        assert name in caplog.text
+    assert all(f"item 1{i} (" in caplog.text for i in (7, 8, 9))
 
 
 def test_main_serves_on_the_cpu_and_stops_on_sigterm(tmp_path):

@@ -16,7 +16,9 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from audiolab_tpu.models import codecs as JC
 from audiolab_tpu.models import hubert as JH
+from audiolab_tpu.models import zonos as JZ
 from audiolab_tpu.models import rmvpe as JRm
 from audiolab_tpu.models.rvc import synthesizer as JSy
 from audiolab_tpu.models.separation import htdemucs as JHt
@@ -28,7 +30,9 @@ from audiolab_tpu.utils.convert import (
     convert_rmvpe,
     convert_rvc,
 )
+from audiolab_tpu_torch.models import codecs as TC
 from audiolab_tpu_torch.models import hubert as TH
+from audiolab_tpu_torch.models import zonos as TZ
 from audiolab_tpu_torch.models import rmvpe as TRm
 from audiolab_tpu_torch.models.rvc import synthesizer as TSy
 from audiolab_tpu_torch.models.separation import htdemucs as THt
@@ -46,6 +50,11 @@ MDXC = dict(sample_rate=8000, n_fft=256, hop_length=64, dim_f=128, num_channels=
             num_subbands=2, num_scales=2, scale=(2, 2), num_blocks_per_scale=1, channels=8,
             growth=8, bottleneck_factor=2, norm="InstanceNorm", act="gelu",
             instruments=("Vocals", "Instrumental"), target_instrument=None)
+# Zonos at test width: both mixers take it (d_inner 64 = 4 Mamba2 heads of 16)
+ZONOS = dict(dim=32, n_layers=3, attn_every=3, n_heads=4, d_state=4, n_codebooks=3,
+             codebook_size=34, spk_dim=16, headdim=16)
+DAC = dict(dim=16, rates=(8, 8, 4, 2), n_q=3, codebook_size=34, codebook_dim=8,
+           decoder_dim=32)
 SYNTH = dict(spec_channels=129, segment_size=3840, inter_channels=16, hidden_channels=16,
              filter_channels=32, n_heads=2, n_layers=1, upsample_initial_channel=32,
              spk_embed_dim=4, gin_channels=16, sr=48000, feat_channels=32)
@@ -207,3 +216,70 @@ def train_pair(periods: tuple = (2, 3), seed: int = 4):
     td = TD.MultiPeriodDiscriminatorV2(periods)
     td.load_state_dict(W.discriminator_from_jax(dp), strict=True)
     return gp, dp, tg, td
+
+
+@functools.lru_cache(maxsize=None)
+def _zonos(frozen: tuple, seed: int):
+    kw = dict(frozen)
+    cfg = JZ.ZonosConfig(**kw)
+    bos = jnp.full((1, cfg.n_codebooks, 1), cfg.masked_id, jnp.int32)
+    tpl = jax.eval_shape(lambda: JZ.ZonosModel(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32), jnp.zeros((1, cfg.spk_dim)),
+        jnp.zeros((1, 8)), jnp.zeros((1, 1)), jnp.zeros((1, 1)), bos, 16,
+        method=JZ.ZonosModel.prefill))["params"]
+    p = filled(tpl, seed)
+    tm = TZ.ZonosModel(TZ.ZonosConfig(**kw))
+    tm.load_state_dict(W.zonos_from_jax(p), strict=True)
+    return cfg, p, tm.eval()
+
+
+def zonos(mixer: str = "mamba1", seed: int = 6, **kw):
+    """(JAX ZonosConfig, flax params from :func:`filled`, port ZonosModel) at
+    ZONOS updated by ``kw``."""
+    return _zonos(_frozen(dict(ZONOS, mixer=mixer, **kw)), seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _dac(frozen: tuple, seed: int, kernel_scale: float):
+    kw = dict(frozen)
+    cfg = JC.DACConfig(**kw)
+    tpl = jax.eval_shape(lambda: JC.DACDecoder(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, cfg.n_q, 4), jnp.int32)))["params"]
+    p = jax.tree_util.tree_map_with_path(
+        lambda path, a: (kernel_scale * a).astype(np.float32)
+        if str(getattr(path[-1], "key", "")) == "kernel" else a, filled(tpl, seed))
+    tm = TC.DACDecoder(TC.DACConfig(**kw))
+    tm.load_state_dict(W.dac_from_jax(p), strict=True)
+    return cfg, p, tm.eval()
+
+
+def dac(seed: int = 7, kernel_scale: float = 0.5, **kw):
+    """(JAX DACConfig, flax params, port DACDecoder) at DAC updated by
+    ``kw``, the filler's kernels times ``kernel_scale``.  At the default
+    half scale every activation stays below 1 and the output at speech
+    level (peak about 0.13), so fp32 rounding is held against the output's
+    own scale; at full scale the residual stack grows the activations to
+    ~20 and the tanh clips the output at 1."""
+    return _dac(_frozen(dict(DAC, **kw)), seed, kernel_scale)
+
+
+@functools.lru_cache(maxsize=None)
+def speaker_encoder(out_dim: int = 16, seed: int = 8):
+    """(flax params, port SpeakerEncoder) on 80 mel bands."""
+    tpl = jax.eval_shape(lambda: JZ.SpeakerEncoder(out_dim).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 20, 80))))["params"]
+    p = filled(tpl, seed)
+    tm = TZ.SpeakerEncoder(out_dim)
+    tm.load_state_dict(W.speaker_encoder_from_jax(p), strict=True)
+    return p, tm.eval()
+
+
+def jax_draws(seed: int, total: int, rows: int, vocab: int) -> np.ndarray:
+    """The Gumbel draws the JAX Zonos decode takes from ``PRNGKey(seed)``:
+    ``rng, key = split(rng)`` every step, then ``categorical(key, flat)``,
+    which is argmax(flat + gumbel(key, flat.shape))."""
+    rng, out = jax.random.PRNGKey(seed), []
+    for _ in range(total):
+        rng, key = jax.random.split(rng)
+        out.append(np.asarray(jax.random.gumbel(key, (rows, vocab), jnp.float32)))
+    return np.stack(out)

@@ -578,7 +578,11 @@ class _Decode:
             self.step()
         torch.cuda.current_stream(dev).wait_stream(side)
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        # thread-local: only this thread is barred from unsafe CUDA calls while
+        # the capture lasts, so a server thread outside the inference lock (a
+        # training job's loader, an analysis route) neither fails the capture
+        # nor fails itself
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
             self.step()
         for _ in range(1, total):
             g.replay()

@@ -145,7 +145,11 @@ def _load_builtin_processors() -> None:
         "audiolab_tpu_torch.pipelines.processors.separate",
         "audiolab_tpu_torch.pipelines.processors.clone",
         "audiolab_tpu_torch.pipelines.processors.merge",
+        "audiolab_tpu_torch.pipelines.processors.remaster",
+        "audiolab_tpu_torch.pipelines.processors.super_res",
+        "audiolab_tpu_torch.pipelines.processors.convert",
         "audiolab_tpu_torch.pipelines.processors.export",
+        "audiolab_tpu_torch.pipelines.processors.compare",
     ):
         try:
             importlib.import_module(mod)

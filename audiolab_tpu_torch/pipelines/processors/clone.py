@@ -10,11 +10,10 @@ accent_strength -> protect mapping (:324-325), pitch correction
 (auto-tune) of the cloned vocal, silence restore after conversion
 (pipeline.py:469-535).
 
-The RVC VoiceConverter is injected via ``configure``.  The OpenVoice and
-TTS methods and speaker diarization need the JAX package's CloningFacade,
-whose models the port does not have yet: those methods raise, as the JAX
-processor does when no facade is configured, and ``diarize_speakers`` is
-ignored, as it is there without one.
+Backends are injected via ``configure``: the RVC VoiceConverter, an
+optional CloningFacade (pipelines/cloning.py: OpenVoice converter + TTS
+engine + diarizer).  Without a facade the OpenVoice and TTS methods raise
+and ``diarize_speakers`` is ignored, as in the JAX processor.
 """
 
 from __future__ import annotations
@@ -22,9 +21,10 @@ from __future__ import annotations
 import os
 from dataclasses import replace
 
+import numpy as np
 import torch
 
-from audiolab_tpu_torch.core.audio_io import read_audio, write_audio
+from audiolab_tpu_torch.core.audio_io import AudioData, read_audio, write_audio
 from audiolab_tpu_torch.core.project import ProjectFiles
 from audiolab_tpu_torch.dsp.autotune import auto_tune_track
 from audiolab_tpu_torch.dsp.silence import restore_silence
@@ -161,10 +161,12 @@ class Clone(BaseProcessor):
     }
 
     converter = None  # injected RVC VoiceConverter
+    facade = None     # injected CloningFacade (openvoice/tts/diarizer)
 
     @classmethod
-    def configure(cls, converter) -> None:
+    def configure(cls, converter, facade=None) -> None:
         cls.converter = converter
+        cls.facade = facade
 
     def _select_inputs(self, files: list[str], clone_bg: bool) -> list[str]:
         """Vocal-stem filtering conventions (base_wrapper.py:745-821)."""
@@ -214,6 +216,48 @@ class Clone(BaseProcessor):
             return ms_to_stereo(torch.from_numpy(out).to(device), side_r).cpu().numpy()
         return out
 
+    def _ref_audio(self, kw):
+        src = kw.get("source_speaker")
+        if not src or not os.path.exists(src):
+            raise RuntimeError(
+                "OpenVoice/TTS cloning needs source_speaker (a reference"
+                " audio file path).")
+        r = read_audio(src)
+        return r.samples.mean(axis=0), r.sample_rate
+
+    def _clone_openvoice(self, a, kw):
+        if self.facade is None or self.facade.openvoice is None:
+            raise RuntimeError("OpenVoice backend not loaded — pass a "
+                               "CloningFacade to Clone.configure.")
+        ref, ref_sr = self._ref_audio(kw)
+        src = a.samples.mean(axis=0)
+        # OpenVoiceCloner answers (waveform, its model rate): brought to the
+        # input's rate before the blend (the JAX processor takes the tuple
+        # for the waveform and fails)
+        y, out_sr = self.facade.clone_voice_openvoice(src, a.sample_rate, ref, ref_sr)
+        y = np.asarray(y, np.float32)
+        if out_sr != a.sample_rate:
+            y = resample_poly_np(y, out_sr, a.sample_rate)
+        tau = float(kw["voice_strength"])
+        n = min(len(y), len(src))
+        return tau * y[:n] + (1.0 - tau) * np.asarray(src[:n], np.float32)
+
+    def _clone_tts(self, a, kw):
+        if self.facade is None or self.facade.tts is None:
+            raise RuntimeError("TTS backend not loaded — pass a "
+                               "CloningFacade to Clone.configure.")
+        text = kw["custom_text"]
+        if not text:
+            transcriber = getattr(self.facade, "transcriber", None)
+            if transcriber is None:
+                raise RuntimeError(
+                    "custom_text is empty and no transcriber is"
+                    " configured to extract text from the input audio.")
+            text = transcriber(a.samples.mean(axis=0), a.sample_rate)
+        ref, ref_sr = self._ref_audio(kw)
+        y, sr = self.facade.clone_voice_tts(text, ref, ref_sr)
+        return np.asarray(y, np.float32), int(sr)
+
     def process_audio(
         self, inputs: list[ProjectFiles], callback: ProgressFn = null_progress,
         device: str | torch.device = "cuda", **kw
@@ -232,15 +276,23 @@ class Clone(BaseProcessor):
             stage = proj.stage_dir("cloned")
             for i, f in enumerate(targets):
                 callback(i, f"Cloning {os.path.basename(f)}", len(targets))
-                if method != "RVC":
-                    raise RuntimeError(
-                        f"{method} backend not loaded — the port has no "
-                        "CloningFacade yet.")
                 a = read_audio(f)
-                result = self._clone_rvc(a, settings, device)
+                if settings["diarize_speakers"] and self.facade is not None:
+                    picked, _turns = self.facade.choose_speaker(
+                        a.samples.mean(axis=0), a.sample_rate,
+                        index=int(settings["speaker_index"]))
+                    a = AudioData(samples=np.asarray(picked, np.float32)[None],
+                                  sample_rate=a.sample_rate)
+                out_sr = a.sample_rate
+                if method == "OpenVoice":
+                    result = self._clone_openvoice(a, settings)
+                elif method == "TTS":
+                    result, out_sr = self._clone_tts(a, settings)
+                else:
+                    result = self._clone_rvc(a, settings, device)
                 base = os.path.splitext(os.path.basename(f))[0]
                 out_path = os.path.join(stage, f"{base} (Cloned).wav")
-                write_audio(out_path, result, a.sample_rate)
+                write_audio(out_path, result, out_sr)
                 outputs.append(out_path)
             proj.add_output("cloned", outputs + passthrough)
         return inputs

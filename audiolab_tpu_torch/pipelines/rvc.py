@@ -7,13 +7,16 @@
   SynthesizerTrn.infer -> crossfade stitch at the model rate -> optional
   RMS-envelope mix -> peak normalise.
 
-f0 methods, dispatched as the JAX converter dispatches them with no crepe
-model: "rmvpe" / "rmvpe_onnx" and "rmvpe+" (with an RMVPE model), "pm",
-"dio" and "harvest" (host numpy), a list or "hybrid" (several methods,
-median/mean merged), and YIN for everything else.  When the method needs
-no separate call (YIN, or rmvpe without a model), YIN runs inside each
-group's conversion step, and neither the merge nor ``f0_autotune`` applies,
-as in the JAX package.
+f0 methods, dispatched as the JAX converter dispatches them: "rmvpe" /
+"rmvpe_onnx" and "rmvpe+" (with an RMVPE model), "crepe", "crepe-tiny",
+"mangio-crepe" and "mangio-crepe-tiny" (with a CrepePredictor; the net's
+capacity is the predictor's, its hop ``crepe_hop``, its curve brought to the
+100 Hz grid on the host when that hop is not 160), "pm", "dio" and
+"harvest" (host numpy), a list or "hybrid" (several methods, median/mean
+merged), and YIN for everything else.  When the method needs no separate
+call (YIN, or rmvpe or crepe without a model), YIN runs inside each group's
+conversion step, and neither the merge nor ``f0_autotune`` applies, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from audiolab_tpu_torch.core.audio_io import write_wav
 from audiolab_tpu_torch.core.chunking import ChunkPlan, extract_chunks, plan_chunks, stitch_chunks
 from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.dsp.f0 import coarse_f0, f0_autocorr, f0_dio, f0_harvest, f0_pm, merge_f0
+from audiolab_tpu_torch.models.crepe import CrepePredictor
 from audiolab_tpu_torch.models.hubert import HubertFeatureExtractor
 from audiolab_tpu_torch.models.rmvpe import RMVPE
 from audiolab_tpu_torch.models.rvc.synthesizer import SynthesizerTrn
@@ -50,13 +54,14 @@ class RVCPipelineConfig:
     f0_max: float = 1100.0
     merge_type: str = "median"  # hybrid merge (median | mean)
     filter_radius: int = 3      # > 2: a 3-tap median over harvest's f0
-    crepe_hop: int = 160        # crepe's hop, for when a crepe model is ported
+    crepe_hop: int = 160        # crepe-method hop (crepe_hop_length)
     f0_autotune: bool = False   # snap f0 to 12-TET before synthesis
     device_batch: int = 8       # chunks per device step
     matmul_precision: str = "bfloat16"   # HuBERT / synthesizer products
 
 
 _RMVPE = ("rmvpe", "rmvpe+", "rmvpe_onnx")
+_CREPE = ("crepe", "crepe-tiny", "mangio-crepe", "mangio-crepe-tiny")
 _HOST = {"pm": f0_pm, "dio": f0_dio, "harvest": f0_harvest}
 
 
@@ -102,12 +107,14 @@ def _mix_rms(x16: torch.Tensor, y: torch.Tensor, out_sr: int, rate: float) -> to
 
 
 class VoiceConverter:
-    """HuBERT + synthesizer (+ optional RMVPE and retrieval index) on one
-    device; :meth:`convert` is the conversion entry point, the HuBERT
-    module's version the config's ``version``."""
+    """HuBERT + synthesizer (+ optional RMVPE, CREPE and retrieval index)
+    on one device; :meth:`convert` is the conversion entry point, the HuBERT
+    module's version the config's ``version``.  A CrepePredictor runs on
+    its own device."""
 
     def __init__(self, synth: SynthesizerTrn, hubert: HubertFeatureExtractor,
-                 rmvpe: RMVPE | None = None, index_features=None,
+                 rmvpe: RMVPE | None = None, crepe: CrepePredictor | None = None,
+                 index_features=None,
                  cfg: RVCPipelineConfig | None = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
@@ -119,6 +126,7 @@ class VoiceConverter:
         self.synth = synth.to(self.device).eval()
         self.hubert = hubert.to(self.device).eval()
         self.rmvpe = None if rmvpe is None else rmvpe.to(self.device).eval()
+        self.crepe = crepe
         self.index_features = (None if index_features is None else
                                torch.as_tensor(index_features, dtype=torch.float32).to(self.device))
 
@@ -158,16 +166,31 @@ class VoiceConverter:
             return True
         if m in _RMVPE:
             return self.rmvpe is not None
+        if m in _CREPE:
+            return self.crepe is not None
         return m in _HOST
 
     def _f0_one_method(self, method: str, wav16) -> torch.Tensor:
-        """(b, n) -> (b, t) f0 Hz of one method; crepe's methods take YIN
-        until a crepe model is ported, as the JAX converter does without one."""
+        """(b, n) -> (b, t) f0 Hz of one method; a model method without its
+        model takes YIN, as the JAX converter does."""
         if method in ("rmvpe", "rmvpe_onnx") and self.rmvpe is not None:
             return self.rmvpe.infer(wav16)
         if method == "rmvpe+" and self.rmvpe is not None:
             return self.rmvpe.infer_with_pitch(wav16, f0_min=self.cfg.f0_min,
                                                f0_max=self.cfg.f0_max)
+        if method in _CREPE and self.crepe is not None:
+            # every chunk of the group in one call: frames batched through
+            # the net, the rows decoded together
+            kw = dict(hop=self.cfg.crepe_hop, fmin=self.cfg.f0_min, fmax=self.cfg.f0_max)
+            if method.startswith("mangio"):
+                f0 = self.crepe.predict_mangio(wav16, **kw)
+            else:
+                f0 = self.crepe.predict(wav16, **kw)[0]
+            n = wav16.shape[-1]
+            if f0.shape[-1] != 1 + n // 160:
+                f0 = torch.from_numpy(np.stack([self._to_t100(r, n) for r in
+                                                f0.float().cpu().numpy()]))
+            return f0.to(wav16.device)
         if method in _HOST:
             rows = [_HOST[method](w, sr=16000, hop=160, fmin=self.cfg.f0_min,
                                   fmax=self.cfg.f0_max)
@@ -187,7 +210,7 @@ class VoiceConverter:
             elif self.rmvpe is not None:
                 methods = ["harvest", "rmvpe+"]
             else:
-                methods = ["harvest", "yin"]
+                methods = ["crepe", "harvest"] if self.crepe is not None else ["harvest", "yin"]
             rows = [self._f0_one_method(meth, wav16) for meth in methods]
             t = min(r.shape[-1] for r in rows)
             f0 = merge_f0(torch.stack([r[..., :t] for r in rows]), self.cfg.merge_type)

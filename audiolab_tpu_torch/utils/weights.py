@@ -212,6 +212,30 @@ def rmvpe_from_jax(params: dict, batch_stats: dict) -> dict:
 
 # ------------------------------------------------------------- synthesizer
 
+def _wn_rows(path: str, key: str, layers: int, cond: bool) -> list[tuple[str, str, str]]:
+    out = []
+    for j in range(layers):
+        out.append((f"{path}/in_layer_{j}/Conv_0", "conv", f"{key}.in_layers.{j}"))
+        out.append((f"{path}/res_skip_{j}/Conv_0", "conv", f"{key}.res_skip_layers.{j}"))
+    if cond:
+        out.append((f"{path}/cond_layer/Conv_0", "conv", f"{key}.cond_layer"))
+    return out
+
+
+def _flow_rows(n: dict) -> list[tuple[str, str, str]]:
+    rows = []
+    for fi in range(n["flows"]):
+        f, t = f"flow/flow_{fi}", f"flow.flows.{2 * fi}"
+        rows += [(f"{f}/pre/Conv_0", "conv", f"{t}.pre"), (f"{f}/post/Conv_0", "conv", f"{t}.post")]
+        rows += _wn_rows(f"{f}/enc", f"{t}.enc", n["flow_layers"], n["flow_cond"])
+    return rows
+
+
+def _enc_q_rows(n: dict) -> list[tuple[str, str, str]]:
+    return ([("enc_q/pre/Conv_0", "conv", "enc_q.pre"), ("enc_q/proj/Conv_0", "conv", "enc_q.proj")]
+            + _wn_rows("enc_q/enc", "enc_q.enc", n["enc_q"], n["enc_q_cond"]))
+
+
 def _synth_table(n: dict) -> list[tuple[str, str, str]]:
     """(flax path, kind, torch key) of every SynthesizerTrn entry, for the
     counts ``n`` (:func:`_synth_counts_jax` / :func:`_synth_counts_torch`)."""
@@ -229,22 +253,9 @@ def _synth_table(n: dict) -> list[tuple[str, str, str]]:
         rows += [(f"enc_p/encoder/ffn_{i}/conv_{j}/Conv_0", "conv", f"{b}.ffn_layers.{i}.conv_{j}")
                  for j in (1, 2)]
 
-    def wn(path, key, layers, cond):
-        out = []
-        for j in range(layers):
-            out.append((f"{path}/in_layer_{j}/Conv_0", "conv", f"{key}.in_layers.{j}"))
-            out.append((f"{path}/res_skip_{j}/Conv_0", "conv", f"{key}.res_skip_layers.{j}"))
-        if cond:
-            out.append((f"{path}/cond_layer/Conv_0", "conv", f"{key}.cond_layer"))
-        return out
-
-    for fi in range(n["flows"]):
-        f, t = f"flow/flow_{fi}", f"flow.flows.{2 * fi}"
-        rows += [(f"{f}/pre/Conv_0", "conv", f"{t}.pre"), (f"{f}/post/Conv_0", "conv", f"{t}.post")]
-        rows += wn(f"{f}/enc", f"{t}.enc", n["flow_layers"], n["flow_cond"])
+    rows += _flow_rows(n)
     if n["enc_q"]:
-        rows += [("enc_q/pre/Conv_0", "conv", "enc_q.pre"), ("enc_q/proj/Conv_0", "conv", "enc_q.proj")]
-        rows += wn("enc_q/enc", "enc_q.enc", n["enc_q"], n["enc_q_cond"])
+        rows += _enc_q_rows(n)
     rows += [("dec/conv_pre/Conv_0", "conv", "dec.conv_pre"),
              ("dec/conv_post/Conv_0", "conv", "dec.conv_post"),
              ("dec/source_linear", "dense", "dec.m_source.l_linear")]
@@ -302,12 +313,8 @@ def _node(tree: dict, path: str):
     return tree
 
 
-def synthesizer_from_jax(params: dict) -> dict:
-    """SynthesizerTrn flax params -> port state_dict (upstream
-    SynthesizerTrnMs768NSFsid names); an inference tree has no ``enc_q``,
-    a training tree carries it."""
-    sd: dict = {}
-    for path, kind, key in _synth_table(_synth_counts_jax(params)):
+def _fill_rows(sd: dict, params: dict, rows: list[tuple[str, str, str]]) -> dict:
+    for path, kind, key in rows:
         node = _node(params, path)
         if kind == "leaf":
             sd[key] = _t(node)
@@ -317,6 +324,13 @@ def synthesizer_from_jax(params: dict) -> dict:
             {"dense": _dense, "dense1x1": _dense_as_conv1x1, "conv": _conv1d,
              "conv_t": _conv_t1d}[kind](sd, key, node)
     return sd
+
+
+def synthesizer_from_jax(params: dict) -> dict:
+    """SynthesizerTrn flax params -> port state_dict (upstream
+    SynthesizerTrnMs768NSFsid names); an inference tree has no ``enc_q``,
+    a training tree carries it."""
+    return _fill_rows({}, params, _synth_table(_synth_counts_jax(params)))
 
 
 def synthesizer_to_jax(state_dict: dict) -> dict:
@@ -693,3 +707,75 @@ def speaker_encoder_from_jax(params: dict) -> dict:
     _dense(sd, "att", params["att"])
     _dense(sd, "proj", params["proj"])
     return sd
+
+
+# --------------------------------------------------------------- OpenVoice
+
+def openvoice_from_jax(params: dict) -> dict:
+    """ToneColorConverter flax params -> port state_dict under the OpenVoice
+    converter checkpoint's names (the names ``convert_openvoice`` reads):
+    the reference encoder (LayerNorm, six Conv2d, the GRU in torch's gate
+    packing, proj), the posterior encoder and flow by the synthesizer's
+    tables, and the plain HiFiGAN decoder."""
+    sd: dict = {}
+    ref = params["ref_enc"]
+    _norm(sd, "ref_enc.layernorm", ref["layernorm"])
+    for i in range(_count(ref, "conv_")):
+        _conv2d(sd, f"ref_enc.convs.{i}", ref[f"conv_{i}"])
+    _gru(sd, "ref_enc.gru", "l0", ref["GRUCell_0"])
+    _dense(sd, "ref_enc.proj", ref["proj"])
+    enc_q, flow0 = params["enc_q"]["enc"], params["flow"]["flow_0"]["enc"]
+    n = dict(flows=_count(params["flow"], "flow_"), flow_layers=_count(flow0, "in_layer_"),
+             flow_cond="cond_layer" in flow0, enc_q=_count(enc_q, "in_layer_"),
+             enc_q_cond="cond_layer" in enc_q)
+    dec = params["dec"]
+    ups = _count(dec, "up_")
+    kernels = _count(dec, "res_0_")
+    rows = _flow_rows(n) + _enc_q_rows(n) + [
+        ("dec/conv_pre/Conv_0", "conv", "dec.conv_pre"),
+        ("dec/cond", "dense1x1", "dec.cond"),
+        ("dec/conv_post/Conv_0", "conv", "dec.conv_post")]
+    for i in range(ups):
+        rows.append((f"dec/up_{i}/ConvTranspose_0", "conv_t", f"dec.ups.{i}"))
+        for j in range(kernels):
+            node = dec[f"res_{i}_{j}"]
+            for k in range(_count(node, "conv1_")):
+                for ours, theirs in (("conv1", "convs1"), ("conv2", "convs2")):
+                    rows.append((f"dec/res_{i}_{j}/{ours}_{k}/Conv_0", "conv",
+                                 f"dec.resblocks.{i * kernels + j}.{theirs}.{k}"))
+    return _fill_rows(sd, params, rows)
+
+
+# ------------------------------------------------------------------- CREPE
+
+def crepe_from_jax(params: dict, batch_stats: dict) -> dict:
+    """Crepe flax params + batch_stats -> port state_dict (torchcrepe
+    names: conv1..conv6, conv{i}_BN with running statistics, classifier)."""
+    sd: dict = {}
+    for i in range(1, _count(params, "conv") // 2 + 1):
+        _conv2d(sd, f"conv{i}", params[f"conv{i}"])
+        _bn(sd, f"conv{i}_BN", params[f"conv{i}_BN"], batch_stats[f"conv{i}_BN"])
+    _dense(sd, "classifier", params["classifier"])
+    return sd
+
+
+# ------------------------------------------------------------- diarization
+
+def diarize_from_jax(seg_params: dict, emb_params: dict) -> tuple[dict, dict]:
+    """SegmentationNet and SpeakerEmbedder flax params -> the port modules'
+    state_dicts (the flax names; each BiLSTM's ``OptimizedLSTMCell_0`` /
+    ``_1`` as torch's forward / reverse direction)."""
+    seg: dict = {}
+    _conv1d(seg, "conv1", seg_params["conv1"])
+    _conv1d(seg, "conv2", seg_params["conv2"])
+    for name in ("lstm1", "lstm2"):
+        _lstm(seg, name, "l0", seg_params[name]["OptimizedLSTMCell_0"])
+        _lstm(seg, name, "l0_reverse", seg_params[name]["OptimizedLSTMCell_1"])
+    _dense(seg, "fc1", seg_params["fc1"])
+    _dense(seg, "fc2", seg_params["fc2"])
+    emb: dict = {}
+    for i in range(_count(emb_params, "conv")):
+        _conv1d(emb, f"conv{i}", emb_params[f"conv{i}"])
+    _dense(emb, "attn", emb_params["attn"])
+    _dense(emb, "proj", emb_params["proj"])
+    return seg, emb

@@ -10,6 +10,9 @@ and checks the output.
     python3 chip_smoke.py --phases card,separators # HTDemucs, MDX23C, the ONNX member
     python3 chip_smoke.py --phases card,train      # RVC training and its three routes
     python3 chip_smoke.py --phases card,kernels,tts  # Zonos TTS and the speech route
+    python3 chip_smoke.py --phases card,processors # Remaster, Super Resolution, Convert,
+                                                   # Compare, Clone's OpenVoice and TTS
+                                                   # methods, diarization, crepe
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family and of TTS
 
@@ -73,6 +76,22 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              HTTP 200, the JAX processor's 13 WAVs; (e) one 8 s chunk through
              HTDemucs, MDX23C and the ONNX runner on the card against the CPU
              in fp32 (1e-4 of max|y|); (f) seconds and peak memory
+  processors the rest of the processor registry on the 60 s track at published widths,
+             each step cold then warm with its seconds, peak memory and launches:
+             (a) Remaster (against the source) -> Convert -> Compare of the
+             separated instrumental; Super Resolution 44.1 -> 48 kHz, 7 chunks of
+             10.24 s, tgt_ensemble off and on; (b) Clone by OpenVoice
+             (ToneColorConfig(): inter/hidden 192, gin 256, decoder 512, rates 8,
+             8, 2, 2) on the vocals at 22.05 kHz with a 10 s reference; (c) Clone
+             by TTS through the facade's ZonosTTS (ZonosConfig(), Mamba1, three
+             sentences: 2 fp32 K2); (d) Clone by OpenVoice with diarize_speakers
+             (k-means over the Zonos SpeakerEncoder); (e) VoiceConverter.convert
+             with crepe and mangio-crepe (Crepe("full")) and their -tiny methods
+             (Crepe("tiny")): 12 K2 each; (f) POST /api/v1/process/chain with
+             Separate, Clone (OpenVoice), Remaster, Super Resolution, Convert,
+             Compare: 48 K1 (all Hopper), no K2; (g) card against CPU in fp32:
+             OpenVoice's waveform, both Crepes' salience, match_spectrum,
+             sbr_enhance and NeuralDiarizer's activities
   long       bench.py's 4-minute track through separate -> mono -> resample ->
              convert, once after a pass that warms its shapes: 32 chunks in 4
              groups of 8, 192 K1 launches (all Hopper), 48 K2, stage seconds
@@ -126,7 +145,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-          "serve", "separators", "long", "train", "tts")
+          "serve", "separators", "processors", "long", "train", "tts")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -2234,6 +2253,371 @@ def phase_tts(dev, card: str, profile_dir: str | None = None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------- processors
+
+PROC_REF_S = 10.0            # the cloning reference: 10 s of a seeded tone
+CREPE_METHODS = (("crepe", "full"), ("mangio-crepe", "full"), ("crepe-tiny", "tiny"),
+                 ("mangio-crepe-tiny", "tiny"))
+PROC_SERVED = ["Separate", "Clone", "Remaster", "Super Resolution", "Convert", "Compare"]
+
+
+def build_openvoice(dev):
+    """OpenVoiceCloner over a ToneColorConverter at ToneColorConfig()
+    (OpenVoice's published converter widths), made on the device and filled
+    by bench.py's rules from seed 0."""
+    import torch
+
+    from audiolab_tpu_torch.models.openvoice import ToneColorConfig, ToneColorConverter
+    from audiolab_tpu_torch.pipelines.cloning import OpenVoiceCloner
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        model = fast_init(ToneColorConverter(ToneColorConfig()), 0)
+    return OpenVoiceCloner(model, device=dev)
+
+
+def card_vs_cpu(label: str, card_out, cpu_out, tol: float, scale: float | None = None) -> float:
+    """max |card - cpu| over ``scale`` (default max |cpu|), printed with its
+    tolerance; stops above it."""
+    a = np.asarray(card_out, np.float64)
+    b = np.asarray(cpu_out, np.float64)
+    scale = float(np.abs(b).max()) if scale is None else scale
+    err = float(np.abs(a - b).max()) / scale
+    log(f"[processors] (g) {label}, card against CPU in fp32: {err:.3e} "
+        f"(tolerance {tol:g}) | shape {b.shape}")
+    expect(a.shape == b.shape and bool(np.isfinite(a).all()) and err <= tol,
+           f"processors: {label} card {err:.3e} from the CPU's (tolerance {tol:g})")
+    return err
+
+
+def phase_processors(dev, sep, vc, audio, card: str) -> dict:
+    """The rest of the processor registry on the card, on the chain's 60 s
+    track: (a) Remaster (against the source) -> Convert -> Compare of the
+    separated instrumental, Super Resolution 44.1 -> 48 kHz with
+    tgt_ensemble off and on; (b) Clone by OpenVoice on the vocals at
+    22.05 kHz with a 10 s reference; (c) Clone by TTS (the facade's ZonosTTS,
+    three sentences: 2 fp32 K2); (d) Clone by OpenVoice with
+    diarize_speakers over the Zonos SpeakerEncoder; (e) VoiceConverter.convert
+    with each crepe method (full and tiny nets: 12 K2 each); (f) one served
+    chain Separate -> Clone (OpenVoice) -> Remaster -> Super Resolution ->
+    Convert -> Compare (48 K1, no K2); (g) card against CPU in fp32.  Each
+    step of (a)-(e) runs cold then warm, counts reset just before and read
+    just after, with its seconds and peak memory."""
+    import base64
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.core.audio_io import read_wav, write_wav
+    from audiolab_tpu_torch.core.chunking import plan_chunks
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.kernels.resample import resample_poly_np
+    from audiolab_tpu_torch.models.crepe import Crepe, CrepePredictor, viterbi_bins
+    from audiolab_tpu_torch.models.diarize import NeuralDiarizer
+    from audiolab_tpu_torch.pipelines.chain import run_chain
+    from audiolab_tpu_torch.pipelines.cloning import (
+        CloningFacade,
+        OpenVoiceCloneConfig,
+        OpenVoiceCloner,
+    )
+    from audiolab_tpu_torch.pipelines.processors.clone import Clone
+    from audiolab_tpu_torch.pipelines.processors.remaster import match_spectrum
+    from audiolab_tpu_torch.pipelines.processors.separate import Separate
+    from audiolab_tpu_torch.pipelines.rvc import VoiceConverter
+    from audiolab_tpu_torch.pipelines.super_res import sbr_enhance
+    from audiolab_tpu_torch.pipelines.tts import parse_emotion_chunks
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cpu = torch.device("cpu")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_processors_"))
+    rec: dict = {"steps": {}}
+    n = audio.shape[-1]
+
+    def step(name: str, fn, check, runs: int = 2):
+        """``fn`` cold then warm: seconds, peak memory and launches of each
+        run; ``check(result, launches, label)`` after each."""
+        times, out = [], None
+        for i in range(runs):
+            label = f"{name} ({'cold' if i == 0 else 'warm'})"
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            secs = time.perf_counter() - t0
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            check(out, launches, label)
+            times.append(dict(seconds=secs, peak_gb=peak, launches=launches))
+            log(f"[processors] {label}: {secs:.3f} s, peak {peak:.2f} GB, launches "
+                f"{ {k: v for k, v in launches.items() if v} } | {card}")
+        rec["steps"][name] = times
+        return out
+
+    def stage_marks(titles, files, settings, root):
+        marks = []
+
+        def mark(_i, msg, _n):
+            if msg.startswith("Running "):
+                marks.append((msg[len("Running "):], time.perf_counter()))
+
+        projs = run_chain(titles, files, settings, output_root=str(root), device=dev,
+                          callback=mark)
+        sync(dev)
+        end = time.perf_counter()
+        stages = {name: (marks[i + 1][1] if i + 1 < len(marks) else end) - t
+                  for i, (name, t) in enumerate(marks)}
+        return projs[0], stages
+
+    def no_kernels(launches, label):
+        expect(all(v == 0 for v in launches.values()),
+               f"{label}: launches {launches}, expected none")
+
+    try:
+        # inputs: the track, its stems (one separation, as in phase separator)
+        song = work / "track.wav"
+        write_wav(song, audio.float().cpu().numpy(), SEP_SR)
+        stems = sep.separate(audio, as_numpy=False)
+        vocals, inst = stems["vocals"], stems["instrumental"]
+        inst_wav = work / "track (Instrumental).wav"
+        write_wav(inst_wav, inst.float().cpu().numpy(), SEP_SR)
+        v22 = resample_poly_np(vocals.float().cpu().numpy(), SEP_SR, 22050)
+        vocals_wav = work / "track (Vocals).wav"
+        write_wav(vocals_wav, v22, 22050)
+        ref_wav = work / "reference.wav"
+        write_wav(ref_wav, harmonic_tone(22050, int(PROC_REF_S * 22050), 180.0, 7), 22050)
+        n22 = v22.shape[-1]
+
+        # (a) Remaster -> Convert -> Compare, Super Resolution
+        def remaster_chain(rep=[0]):
+            rep[0] += 1
+            proj, stages = stage_marks(
+                ["Remaster", "Convert", "Compare"], [str(inst_wav)],
+                {"Remaster": {"reference_file": str(song)}, "Convert": {"format": "wav"}},
+                work / f"remaster{rep[0]}")
+            return proj, stages
+
+        def check_remaster(out, launches, label):
+            proj, stages = out
+            no_kernels(launches, label)
+            files = [Path(p).name for p in proj.last_outputs]
+            expect(files == ["comparison.json", "comparison.png"], f"{label}: {files}")
+            metrics = json.loads(Path(proj.last_outputs[0]).read_text())
+            mastered = read_wav(Path(proj.project_dir) / "converted"
+                                / "track (Instrumental)_remastered.wav")
+            peak = float(np.abs(mastered.samples).max())
+            expect(mastered.samples.shape == (2, n) and mastered.sample_rate == SEP_SR
+                   and bool(np.isfinite(mastered.samples).all()) and 0 < peak <= 0.986,
+                   f"{label}: mastered {mastered.samples.shape} peak {peak}")
+            expect(all(np.isfinite(metrics[k]) for k in ("rms_diff", "spec_l1", "spec_max")),
+                   f"{label}: metrics {metrics}")
+            log(f"[processors] (a) {label}: stages "
+                + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+                + f"; mastered peak {peak:.4f}; Compare {metrics}")
+
+        step("remaster_convert_compare", remaster_chain, check_remaster)
+        sr_chunks = plan_chunks(-(-n * 48000 // SEP_SR), int(10.24 * 48000),
+                                int(0.04 * 10.24 * 48000)).count
+        expect(sr_chunks == 7, f"super resolution: {sr_chunks} chunks, expected 7")
+        for ensemble in (False, True):
+            def super_res(ensemble=ensemble, rep=[0]):
+                rep[0] += 1
+                return stage_marks(["Super Resolution"], [str(song)],
+                                   {"Super Resolution": {"tgt_ensemble": ensemble}},
+                                   work / f"sr{int(ensemble)}_{rep[0]}")
+
+            def check_sr(out, launches, label, ensemble=ensemble):
+                proj, _stages = out
+                no_kernels(launches, label)
+                y = read_wav(proj.last_outputs[0])
+                want = (2, -(-n * 48000 // SEP_SR))
+                expect(y.sample_rate == 48000 and y.samples.shape == want
+                       and bool(np.isfinite(y.samples).all()),
+                       f"{label}: {y.samples.shape} at {y.sample_rate}, expected {want} at 48000")
+                log(f"[processors] (a) {label}: {sr_chunks} chunks of 10.24 s, stereo, "
+                    f"tgt_ensemble {ensemble}; peak {np.abs(y.samples).max():.4f}")
+
+            step(f"super_resolution_ensemble_{ensemble}", super_res, check_sr)
+
+        # (b) Clone by OpenVoice
+        t0 = time.perf_counter()
+        cloner = build_openvoice(dev)
+        sync(dev)
+        n_ov = sum(p.numel() for p in cloner.model.parameters())
+        log(f"[processors] OpenVoice ToneColorConverter: {n_ov / 1e6:.1f} M parameters, built "
+            f"in {time.perf_counter() - t0:.1f} s; {cloner.cfg}")
+        clone_ov = {"Clone": {"clone_method": "OpenVoice", "source_speaker": str(ref_wav)}}
+
+        def clone(settings, tag, rep=[0]):
+            rep[0] += 1
+            return stage_marks(["Clone"], [str(vocals_wav)], settings, work / f"{tag}{rep[0]}")
+
+        def check_clone(sr_want, n_want, k2=0):
+            def check(out, launches, label):
+                proj, _ = out
+                expect(launches["K2"] == k2 and all(v == 0 for k, v in launches.items()
+                                                    if k != "K2"),
+                       f"{label}: launches {launches}, expected K2 {k2} and no other")
+                expect(list(proj.file_dict) == ["cloned"], f"{label}: stages {proj.file_dict}")
+                y = read_wav(proj.last_outputs[0])
+                expect(y.sample_rate == sr_want and bool(np.isfinite(y.samples).all())
+                       and (n_want is None or y.samples.shape[-1] == n_want),
+                       f"{label}: {y.samples.shape} at {y.sample_rate}")
+                log(f"[processors] {label}: {y.samples.shape[-1] / y.sample_rate:.2f} s at "
+                    f"{y.sample_rate} Hz, peak {np.abs(y.samples).max():.4f}")
+            return check
+
+        Clone.configure(None, CloningFacade(openvoice=cloner))
+        chunks = plan_chunks(n22, int(cloner.ccfg.chunk_seconds * 22050) // 256 * 256,
+                             int(cloner.ccfg.overlap_seconds * 22050) // 256 * 256).count
+        log(f"[processors] (b) Clone by OpenVoice: {n22 / 22050:.1f} s at 22.05 kHz in "
+            f"{chunks} chunks of {cloner.ccfg.chunk_seconds} s, a {PROC_REF_S} s reference")
+        step("clone_openvoice", lambda: clone(clone_ov, "ov"), check_clone(22050, n22))
+
+        # (c) Clone by TTS, (d) diarize_speakers
+        t0 = time.perf_counter()
+        tts = build_tts(dev, "mamba1")
+        sync(dev)
+        log(f"[processors] ZonosTTS built in {time.perf_counter() - t0:.1f} s")
+        chunks_tts = parse_emotion_chunks(TTS_TEXT)
+        _ids, _em, frames = tts.encode_text(chunks_tts)
+        sil = int(tts.cfg.silence_ms / 1000.0 * tts.cfg.sr)
+        want_tts = len(chunks_tts) * frames * tts.dac.cfg.hop + (len(chunks_tts) - 1) * sil
+        facade = CloningFacade(openvoice=cloner, tts=tts, spk_encoder=tts.spk_enc)
+        Clone.configure(None, facade)
+        step("clone_tts", lambda: clone(dict(Clone={"clone_method": "TTS",
+                                                    "source_speaker": str(ref_wav),
+                                                    "custom_text": TTS_TEXT}), "tts"),
+             check_clone(44100, want_tts, k2=2))
+        picked, turns = facade.choose_speaker(read_wav(vocals_wav).samples.mean(axis=0), 22050,
+                                              index=0)
+        log(f"[processors] (d) diarize over the Zonos SpeakerEncoder: {len(turns)} turns, "
+            f"{len({s for *_, s in turns})} speakers, speaker 0 holds "
+            f"{len(picked) / 22050:.2f} s")
+        step("clone_openvoice_diarized",
+             lambda: clone(dict(Clone=dict(clone_ov["Clone"], diarize_speakers=True)), "dia"),
+             check_clone(22050, len(picked)))
+
+        # (e) the crepe methods
+        preds = {}
+        for name in ("full", "tiny"):
+            with torch.device(dev):
+                net = fast_init(Crepe(name), 3)
+            preds[name] = CrepePredictor(net, device=dev)
+        x16 = to_rvc_input(vocals)
+        k2 = HUBERT_LAYERS * rvc_groups(vc, x16.shape[-1])
+        plan = rvc_plan(vc, x16.shape[-1])
+        probs = torch.rand((min(plan.count, vc.cfg.device_batch), 1 + plan.chunk // 160, 360),
+                           generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+        for rep in ("cold", "warm"):
+            t0 = time.perf_counter()
+            viterbi_bins(probs)
+            sync(dev)
+            log(f"[processors] (e) viterbi_bins on {tuple(probs.shape)} ({rep}): "
+                f"{time.perf_counter() - t0:.3f} s (the forward loop on the device, the "
+                f"backtrack on the host) | {card}")
+        for method, size in CREPE_METHODS:
+            cvc = VoiceConverter(vc.synth, vc.hubert, crepe=preds[size],
+                                 index_features=vc.index_features,
+                                 cfg=dataclasses.replace(vc.cfg, f0_method=method), device=dev)
+
+            def check_convert(out, launches, label, cvc=cvc):
+                expect(launches["K2"] == k2 and all(v == 0 for k, v in launches.items()
+                                                    if k != "K2"),
+                       f"{label}: launches {launches}, expected K2 {k2}")
+                expect(out.shape[-1] == x16.shape[-1] * 3 and bool(torch.isfinite(out).all()),
+                       f"{label}: {tuple(out.shape)}")
+                expect(cvc._f0_on_host(), f"{label}: the crepe method fell back to YIN")
+
+            step(f"convert_{method}", lambda cvc=cvc: cvc.convert(x16, sid=0, seed=0,
+                                                                   as_numpy=False),
+                 check_convert)
+
+        # (f) the served chain
+        Separate.configure(sep)
+        Clone.configure(None, CloningFacade(openvoice=cloner))
+        served = work / "served"
+        server, port = serve_background(create_app(str(served), device=dev))
+        try:
+            body = {"files": [{"filename": "track.wav",
+                               "content": base64.b64encode(song.read_bytes()).decode()}],
+                    "processors": PROC_SERVED, "settings": clone_ov}
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            status, resp = http("POST", f"http://127.0.0.1:{port}/api/v1/process/chain", body)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            launches = counts()
+            expect(status == 200, f"processors request: HTTP {status} {resp.get('error')}")
+            names = [f["filename"] for f in resp["files"]]
+            expect(names == ["comparison.json", "comparison.png"], f"processors request: {names}")
+            project = next(p for p in served.iterdir() if p.is_dir())
+            stages = sorted(d.name for d in project.iterdir() if d.is_dir())
+            expect({"stems", "cloned", "remastered", "super_res", "converted", "compare"}
+                   <= set(stages), f"processors request: stages {stages}")
+            check_launches(dev, launches, A.attention_nk1.sm90_launches, 48, 0,
+                           "processors request")
+            metrics = json.loads(base64.b64decode(resp["files"][0]["content"]))
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            rec.update(request_s=secs, served_launches=launches, request_peak_gb=peak)
+            log(f"[processors] (f) POST /api/v1/process/chain {PROC_SERVED} on "
+                f"{n / SEP_SR:.1f} s: HTTP {status} {secs:.3f} s, peak {peak:.2f} GB; stages "
+                f"{stages}; Compare {metrics}; launches {launches} | {card}")
+        finally:
+            server.shutdown()
+            server.server_close()
+
+        # (g) card against CPU, fp32
+        ov_cpu = OpenVoiceCloner(type(cloner.model)(cloner.cfg), OpenVoiceCloneConfig(1.0, 0.2),
+                                 device=cpu)
+        ov_cpu.model.load_state_dict({k: v.cpu() for k, v in cloner.model.state_dict().items()})
+        ov_card = OpenVoiceCloner(cloner.model, OpenVoiceCloneConfig(1.0, 0.2), device=dev)
+        src, ref = v22.mean(axis=0)[: 2 * 22050], harmonic_tone(22050, 3 * 22050, 180.0, 7)
+        rec["openvoice_card_vs_cpu"] = card_vs_cpu(
+            "OpenVoice waveform (2 s, 1 s chunks)", ov_card.convert(src, 22050, ref, 22050)[0],
+            ov_cpu.convert(src, 22050, ref, 22050)[0], 1e-4)
+        del ov_cpu
+        frames = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (16, 1024)).astype(np.float32))
+        for name, pred in preds.items():
+            net = pred.net
+            net_cpu = Crepe(net.model).eval()
+            net_cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+            with torch.no_grad():
+                rec[f"crepe_{name}_card_vs_cpu"] = card_vs_cpu(
+                    f"Crepe({name!r}) salience (16 frames)", net(frames.to(dev)).cpu(),
+                    net_cpu(frames), 1e-5, scale=1.0)
+        del preds
+        t = torch.from_numpy(inst.float().cpu().numpy()[:1, : 10 * SEP_SR])
+        r = torch.from_numpy(audio.float().cpu().numpy()[:1, 10 * SEP_SR: 18 * SEP_SR])
+        rec["match_spectrum_card_vs_cpu"] = card_vs_cpu(
+            "match_spectrum (10 s against 8 s)", match_spectrum(t.to(dev), r.to(dev)).cpu(),
+            match_spectrum(t, r), 1e-4)
+        chunk = torch.from_numpy(audio.float().cpu().numpy()[None, :, : int(10.24 * 48000)])
+        rec["sbr_card_vs_cpu"] = card_vs_cpu(
+            "sbr_enhance (one 10.24 s stereo chunk)", sbr_enhance(chunk.to(dev)).cpu(),
+            sbr_enhance(chunk), 1e-4)
+        dz = NeuralDiarizer(device=dev)
+        dz_cpu = NeuralDiarizer(device=cpu)
+        dz_cpu.seg.load_state_dict({k: v.cpu() for k, v in dz.seg.state_dict().items()})
+        batch = resample_poly_np(v22.mean(axis=0)[: 20 * 22050], 22050, 16000)
+        batch = batch[: 2 * (len(batch) // 2)].reshape(2, -1)
+        rec["diarizer_card_vs_cpu"] = card_vs_cpu(
+            "NeuralDiarizer activities (2 chunks)", dz.activities(batch)[0],
+            dz_cpu.activities(batch)[0], 1e-5, scale=1.0)
+    finally:
+        Separate.configure(None)
+        Clone.configure(None)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return rec
+
+
 def urllib_get(url: str, timeout: float = 60.0) -> bytes:
     import urllib.request
 
@@ -2277,9 +2661,9 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
-    served = family = trained = spoken = None
+    served = family = trained = spoken = processed = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-                  "serve", "separators", "long"} & set(phases)
+                  "serve", "separators", "processors", "long"} & set(phases)
     if need_chain:
         t0 = time.perf_counter()
         sep = build_separator(dev)
@@ -2310,6 +2694,9 @@ def main() -> int:
         if "separators" in phases:
             family = phase_separators(dev, sep, audio, card,
                                       profile_dir=args.profile)["ensemble_launches"]
+        if "processors" in phases:
+            processed = phase_processors(dev, sep, vcs["bfloat16"], audio,
+                                         card)["served_launches"]
         if "long" in phases:
             del audio
             torch.cuda.empty_cache()
@@ -2331,6 +2718,7 @@ def main() -> int:
            "separators_launches": None if family is None else family[r["kernel"]],
            "train_launches": None if trained is None else trained[r["kernel"]],
            "tts_launches": None if spoken is None else spoken[r["kernel"]],
+           "processors_launches": None if processed is None else processed[r["kernel"]],
            "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}

@@ -1110,3 +1110,205 @@ def test_zonos_dac_on_the_card_matches_the_cpu(cuda_device, frames):
         out = dac.to(cuda_device)(codes.to(cuda_device)).cpu()
     assert out.shape == ref.shape == (2, frames * 512) and torch.isfinite(out).all()
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_zonos_capture_survives_card_work_in_another_thread(cuda_device):
+    """While generate captures and replays its decode step (five calls,
+    each its own capture), a second thread does what a training job's
+    loader does outside the inference lock: pageable host-to-device copies
+    of new sizes, a reduction and reads back to the host, in a loop.  Both
+    threads finish without error and every call's codes equal the eager
+    loop's with no second thread.  (With the capture's default
+    ``capture_error_mode="global"`` the loader's host reads are prohibited
+    while a capture lasts, and one of the two threads fails.)"""
+    import threading
+
+    import numpy as np
+
+    from audiolab_tpu_torch.models.zonos import generate, gumbel_draws
+
+    model = _zonos_model("mamba1", cuda_device)
+    x = _zonos_inputs(model.cfg)
+    draws = gumbel_draws(40 + 3, 2 * 3, 34, 6, cuda_device)
+    ref = generate(model, max_frames=40, draws=draws, graph=False, **x)
+    stop, errors, loops = threading.Event(), [], [0]
+
+    def loader():
+        rng = np.random.default_rng(0)
+        try:
+            while not stop.is_set():
+                n = 4096 * (1 + loops[0] % 13)
+                batch = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+                dev = batch.to(cuda_device)
+                float((dev * dev).sum().item())
+                dev[:16].cpu()
+                loops[0] += 1
+        except Exception as e:      # noqa: BLE001 - the test reports it
+            errors.append(e)
+
+    th = threading.Thread(target=loader, daemon=True)
+    th.start()
+    try:
+        while loops[0] < 20:        # the loader is running before the first capture
+            th.join(0.01)
+        outs = [generate(model, max_frames=40, draws=draws, graph=True, **x) for _ in range(5)]
+    finally:
+        stop.set()
+        th.join(60)
+    assert not th.is_alive() and not errors, errors
+    assert loops[0] > 100
+    for g in outs:
+        assert torch.equal(g, ref)
+
+
+def test_openvoice_on_the_card_matches_the_cpu(cuda_device):
+    """The tone-color converter at test width (torch's initialisers moved by
+    seeded noise), fp32 with TF32 off: extract_se within 1e-5 and the
+    chunked conversion within 1e-4 of max|y| of the CPU's."""
+    import copy
+
+    import numpy as np
+
+    from audiolab_tpu_torch.models.openvoice import ToneColorConfig, ToneColorConverter
+    from audiolab_tpu_torch.pipelines.cloning import OpenVoiceCloneConfig, OpenVoiceCloner
+
+    cfg = ToneColorConfig(sr=8000, n_fft=128, hop=32, spec_channels=65, inter_channels=8,
+                          hidden_channels=8, gin_channels=16, upsample_rates=(4, 4, 2),
+                          upsample_kernel_sizes=(8, 8, 4), upsample_initial_channel=32)
+    torch.manual_seed(5)
+    model = _seeded(ToneColorConverter(cfg), 5, 0.05)
+    rng = np.random.default_rng(3)
+    src = (0.3 * np.sin(2 * np.pi * 220 * np.arange(10400) / 8000)
+           + 0.02 * rng.standard_normal(10400)).astype(np.float32)
+    ref = (0.1 * rng.standard_normal(9600)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        cl = OpenVoiceCloner(copy.deepcopy(model), OpenVoiceCloneConfig(0.5, 0.1), device=dev)
+        out[str(dev)] = (cl.extract_se(ref, 16000), cl.convert(src, 8000, ref, 16000)[0])
+    (g0, y0), (g1, y1) = out["cpu"], out["cuda"]
+    assert np.abs(g1 - g0).max() <= 1e-5 * np.abs(g0).max()
+    assert y1.shape == y0.shape == src.shape and np.abs(y0).max() > 1e-3
+    assert np.abs(y1 - y0).max() <= 1e-4 * np.abs(y0).max()
+
+
+def test_crepe_on_the_card_matches_the_cpu(cuda_device):
+    """CREPE 'tiny' (seeded weights, batch-norm statistics in [0.5, 1.5))
+    on 1 s of a glide, fp32 with TF32 off: salience within 1e-5 of the
+    CPU's, and the decoded f0 within 1e-4 Hz wherever the two paths agree
+    bin for bin (all frames, on this input)."""
+    import copy
+
+    import numpy as np
+
+    from audiolab_tpu_torch.models.crepe import Crepe, CrepePredictor
+
+    torch.manual_seed(6)
+    net = _seeded(Crepe("tiny"), 6, 0.3)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(7)
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g))
+    t = np.arange(16000) / 16000
+    x = (0.4 * np.sin(2 * np.pi * (180 * t + 120 * t * t))).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        cp = CrepePredictor(copy.deepcopy(net), device=dev)
+        frames = torch.from_numpy(np.lib.stride_tricks.sliding_window_view(
+            np.pad(x, 512), 1024)[::160][:101].copy()).to(dev)
+        with torch.no_grad():
+            sal = cp.net((frames - frames.mean(-1, keepdim=True))
+                         / frames.std(-1, keepdim=True)).cpu()
+        f0, pd = cp.predict(x)
+        res[str(dev)] = (sal, f0.cpu(), pd.cpu())
+    (s0, f0, p0), (s1, f1, p1) = res["cpu"], res["cuda"]
+    assert (s1 - s0).abs().max() <= 1e-5
+    assert (p1 - p0).abs().max() <= 1e-5
+    assert (f1 - f0).abs().max() <= 1e-4
+
+
+def test_match_spectrum_on_the_card_matches_the_cpu(cuda_device):
+    """Remaster's matching EQ on 3 s at 44.1 kHz (2**18-point cuFFT with the
+    spectrum's DC and Nyquist imaginary parts zeroed): within 1e-4 of the
+    CPU output's peak."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+    from audiolab_tpu_torch.pipelines.processors.remaster import match_spectrum
+
+    apply_policy()
+    rng = np.random.default_rng(8)
+    t = torch.from_numpy((0.2 * rng.standard_normal((1, 132300))).astype(np.float32))
+    r = torch.from_numpy((0.3 * rng.standard_normal((1, 88200))).astype(np.float32))
+    ref = match_spectrum(t, r)
+    out = match_spectrum(t.to(cuda_device), r.to(cuda_device)).cpu()
+    assert out.shape == ref.shape == t.shape
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_served_chain_runs_every_processor_on_the_card(cuda_device, tmp_path):
+    """POST /api/v1/process/chain with all eight processors on a server on
+    the card (Separate's DSP split, Clone by OpenVoice through a facade of a
+    test-width converter on the card, Export, Merge, Remaster, Super
+    Resolution, Convert, Compare): HTTP 200, every stage's folder in the
+    project, Compare's JSON and PNG last, finite metrics."""
+    import base64
+    import json
+    import urllib.request
+
+    import numpy as np
+
+    from audiolab_tpu_torch.core.audio_io import write_wav
+    from audiolab_tpu_torch.models.openvoice import ToneColorConfig, ToneColorConverter
+    from audiolab_tpu_torch.pipelines.cloning import (
+        CloningFacade,
+        OpenVoiceCloneConfig,
+        OpenVoiceCloner,
+    )
+    from audiolab_tpu_torch.pipelines.processors.clone import Clone
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+
+    cfg = ToneColorConfig(sr=22050, n_fft=256, hop=64, spec_channels=129, inter_channels=8,
+                          hidden_channels=8, gin_channels=16, upsample_rates=(4, 4, 4),
+                          upsample_kernel_sizes=(8, 8, 8), upsample_initial_channel=32)
+    torch.manual_seed(9)
+    cloner = OpenVoiceCloner(_seeded(ToneColorConverter(cfg), 9, 0.05),
+                             OpenVoiceCloneConfig(1.0, 0.2), device=cuda_device)
+    sr = 44100
+    t = np.arange(2 * sr) / sr
+    tone = 0.3 * np.sin(2 * np.pi * 220 * t)
+    x = np.stack([tone, 0.8 * tone]) + 0.05 * np.random.default_rng(0).standard_normal((2, 2 * sr))
+    song, ref = tmp_path / "song.wav", tmp_path / "ref.wav"
+    write_wav(song, x.astype(np.float32), sr)
+    write_wav(ref, (0.1 * np.random.default_rng(1).standard_normal(sr)).astype(np.float32), sr)
+    saved = (Clone.converter, Clone.facade)
+    Clone.configure(None, CloningFacade(openvoice=cloner))
+    root = tmp_path / "process"
+    server, port = serve_background(create_app(str(root), device=cuda_device))
+    try:
+        payload = {"files": [{"filename": "song.wav",
+                              "content": base64.b64encode(song.read_bytes()).decode()}],
+                   "processors": ["Separate", "Clone", "Export", "Merge", "Remaster",
+                                  "Super Resolution", "Convert", "Compare"],
+                   "settings": {"Separate": {"noise_removal": "Nothing"},
+                                "Clone": {"clone_method": "OpenVoice",
+                                          "source_speaker": str(ref)},
+                                "Super Resolution": {"chunk_size": 5.0}}}
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/api/v1/process/chain",
+                                     data=json.dumps(payload).encode(), method="POST",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body = r.status, json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        Clone.converter, Clone.facade = saved
+    assert status == 200
+    assert [f["filename"] for f in body["files"]] == ["comparison.json", "comparison.png"]
+    metrics = json.loads(base64.b64decode(body["files"][0]["content"]))
+    assert all(np.isfinite(metrics[k]) for k in ("rms_diff", "spec_l1", "spec_max"))
+    project = next(p for p in root.iterdir() if p.is_dir())
+    stages = {d.name for d in project.iterdir() if d.is_dir()}
+    assert {"stems", "cloned", "merged", "remastered", "super_res", "converted",
+            "compare"} <= stages, stages

@@ -239,3 +239,31 @@ def test_auto_tune_track_matches_jax():
     # the tuned tone sits on A4
     spec = np.abs(np.fft.rfft(out[0]))
     assert abs(np.fft.rfftfreq(len(out[0]), 1 / sr)[spec.argmax()] - 440.0) < 1.0
+
+
+def test_recreate_harmonies_matches_jax():
+    """The background's windowed chord notes (the same note names) and the
+    granular shift of the main vocal toward them, 2 s at 22.05 kHz, through
+    the main vocal's YIN periods: as in test_pitch_shift_matches_jax a
+    grain's read offset is the drift modulo the period, which multiplies
+    the two YINs' period difference by the drift's period count, so the
+    tolerance is 1e-3 of max|y| (measured 2.9e-4).  With the factors of a
+    note ratio of 1 (no drift) the shift is the input's within 1e-5."""
+    from audiolab_tpu.dsp import harmony as JH
+    from audiolab_tpu_torch import dsp as TD
+
+    sr, n = 22050, 44100
+    t = np.arange(n) / sr
+    bg = np.stack([0.3 * np.sin(2 * np.pi * np.where(t < 1.0, 220.0, 330.0) * t)] * 2)
+    main = _tone(n, sr, f=196.0, noise=0.01, seed=3)
+    ref = np.asarray(JH.recreate_harmonies(bg.astype(np.float32), main, sr))
+    out = TD.recreate_harmonies(bg.astype(np.float32), main, sr, device=CPU)
+    assert out.shape == ref.shape == (n,) and np.isfinite(out).all()
+    assert _rel(out, ref) <= 1e-3
+    c4 = np.stack([0.3 * np.sin(2 * np.pi * 261.6256 * t)] * 2).astype(np.float32)
+    ref = np.asarray(JH.recreate_harmonies(c4, main, sr))
+    out = TD.recreate_harmonies(c4, main, sr, device=CPU)
+    assert _rel(out, ref) <= 1e-5
+    f0 = np.where(np.arange(200) % 50 < 40, 261.63, 0.0)
+    assert TD.harmony.detect_chord_notes(f0, 16000, 160, 0.5) == JH.detect_chord_notes(
+        f0, 16000, 160, 0.5)

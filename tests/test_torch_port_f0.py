@@ -128,7 +128,9 @@ def test_f0_on_host_matches_jax(method, rmvpe):
     jvc = JP.VoiceConverter.__new__(JP.VoiceConverter)
     jvc.cfg, jvc.rmvpe, jvc.crepe = JP.RVCPipelineConfig(f0_method=method), jrm, None
     tvc = TP.VoiceConverter.__new__(TP.VoiceConverter)
-    tvc.cfg, tvc.rmvpe = TP.RVCPipelineConfig(f0_method=method), jrm
+    tvc.cfg, tvc.rmvpe, tvc.crepe = TP.RVCPipelineConfig(f0_method=method), jrm, None
+    assert tvc._f0_on_host() == jvc._f0_on_host()
+    jvc.crepe = tvc.crepe = object()          # with a crepe predictor
     assert tvc._f0_on_host() == jvc._f0_on_host()
 
 

@@ -258,3 +258,53 @@ def test_tts_entry_points_default_to_the_card(no_cuda):
     with pytest.raises(ValueError, match="CUDA graph"):
         generate(model, np.ones((1, 3), np.int32), np.zeros((1, 4)), max_frames=2,
                  device="cpu", graph=True)
+
+
+def test_processor_registry_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """This slice's entry points: the OpenVoice cloner, the CREPE predictor,
+    the neural diarizer, the streaming converter (through its
+    VoiceConverter), the processors' functions and each new processor's
+    run_chain raise without a card and run on the CPU when asked."""
+    from audiolab_tpu_torch.dsp.harmony import recreate_harmonies
+    from audiolab_tpu_torch.models.crepe import CrepePredictor
+    from audiolab_tpu_torch.models.diarize import DiarizeConfig, NeuralDiarizer
+    from audiolab_tpu_torch.models.openvoice import ToneColorConfig, ToneColorConverter
+    from audiolab_tpu_torch.pipelines.chain import run_chain
+    from audiolab_tpu_torch.pipelines.cloning import OpenVoiceCloner, neural_diarize
+    from audiolab_tpu_torch.pipelines.processors.compare import compare_tracks
+    from audiolab_tpu_torch.pipelines.processors.remaster import matchering_master
+    from audiolab_tpu_torch.pipelines.rvc_stream import StreamingVC
+    from audiolab_tpu_torch.pipelines.super_res import super_resolve
+
+    ov = ToneColorConverter(ToneColorConfig(spec_channels=33, n_fft=64, hop=16,
+                                            inter_channels=4, hidden_channels=4,
+                                            gin_channels=8, upsample_rates=(4, 4),
+                                            upsample_kernel_sizes=(8, 8),
+                                            upsample_initial_channel=8))
+    synth = TSy.SynthesizerTrn(TSy.SynthesizerConfig(
+        spec_channels=129, inter_channels=8, hidden_channels=8, filter_channels=16,
+        n_layers=1, upsample_initial_channel=16, spk_embed_dim=2, gin_channels=8,
+        feat_channels=16))
+    hub = TH.HubertFeatureExtractor("v2", TH.HubertConfig(dim=16, ffn_dim=32, heads=2,
+                                                         layers=1, final_dim=8))
+    x = np.zeros((2, 8000), np.float32)
+    dcfg = DiarizeConfig(n_mels=16, hidden=8, emb_dim=4)
+    root = str(tmp_path / "process")
+    for call in (lambda: OpenVoiceCloner(ov),
+                 lambda: CrepePredictor(model="tiny"),
+                 lambda: NeuralDiarizer(dcfg),
+                 lambda: neural_diarize(x[0], 16000),
+                 lambda: StreamingVC(TP.VoiceConverter(synth, hub)),
+                 lambda: compare_tracks(x, x, 16000, str(tmp_path / "c.png")),
+                 lambda: matchering_master(x, x, 16000),
+                 lambda: super_resolve(x, 16000),
+                 lambda: recreate_harmonies(x, x, 16000),
+                 *(lambda t=t: run_chain([t], [], output_root=root)
+                   for t in ("Remaster", "Super Resolution", "Convert", "Compare"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert OpenVoiceCloner(ov, device="cpu").device.type == "cpu"
+    assert CrepePredictor(model="tiny", device="cpu").device.type == "cpu"
+    assert NeuralDiarizer(dcfg, device="cpu").device.type == "cpu"
+    vc = TP.VoiceConverter(synth, hub, device="cpu")
+    assert StreamingVC(vc).vc.device.type == "cpu"

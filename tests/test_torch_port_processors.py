@@ -1,9 +1,11 @@
 """The port's processor layer and chain executor against the JAX package's,
-on the CPU: the counterparts of tests/test_chain.py for the ported
-processors (Separate, Clone, Export, Merge), with each numeric output held
-against the JAX run of the same chain on the same WAV, the processors' option
-schemas, and one Separate -> Clone -> Merge chain with configured tiny
-separators and converters through both packages."""
+on the CPU: the counterparts of tests/test_chain.py for the processors
+(all eight of the JAX registry), with each numeric output held against the
+JAX run of the same chain on the same WAV, the processors' option schemas,
+Convert and Compare through both packages, and one Separate -> Clone ->
+Merge chain with configured tiny separators and converters through both
+packages.  Remaster, Super Resolution and Clone's other methods have files
+of their own (tests/test_torch_port_{remaster,super_res,cloning}.py)."""
 
 import gzip
 import json
@@ -33,7 +35,8 @@ from audiolab_tpu_torch.utils.daw import detect_bpm
 from tests import test_torch_port_chain as chain_parity
 from tests.test_torch_port_rvc import _mel_l1, _Noise
 
-PORTED = ("Separate", "Clone", "Export", "Merge")
+PORTED = ("Separate", "Clone", "Export", "Merge", "Remaster", "Super Resolution", "Convert",
+          "Compare")
 # one PCM-16 step: both packages write their stems as 16-bit WAVs, and a
 # sample within fp32 rounding of a step's midpoint may round either way
 PCM16 = 1.0 / 32767.0 + 1e-6
@@ -66,7 +69,7 @@ def processor_state():
         (JClone.Clone, ("converter", "facade")),
         (TSepProc.Separate, ("separator", "multistem", "drum_splitter", "woodwind_splitter",
                              "bg_splitter", "alt_bass", "transforms")),
-        (TClone.Clone, ("converter",)))]
+        (TClone.Clone, ("converter", "facade")))]
     yield
     for cls, attrs in saved:
         for k, v in attrs.items():
@@ -116,7 +119,7 @@ def test_processor_registry_order():
     assert [p.priority for p in procs] == [JB.get_processor(t).priority for t in PORTED]
     assert TB.get_processor("Clone") is procs[1]
     with pytest.raises(KeyError):
-        TB.get_processor("Remaster")      # not ported: the chain answers 400
+        TB.get_processor("Reverse")       # no such processor: the chain answers 400
 
 
 @pytest.mark.parametrize("title", PORTED)
@@ -326,3 +329,107 @@ def test_chain_separate_clone_merge_matches_jax(tmp_path, monkeypatch):
           f"{np.abs(b.samples).max():.3e}), mel-L1 {mel:.3e}")
     assert mel < chain_parity.MEL_L1_GATE
     assert err <= 1e-2 * np.abs(b.samples).max()
+
+
+def test_convert_wav_matches_jax(tmp_path, song, monkeypatch):
+    """Convert to WAV through both packages: an input that is already WAV is
+    copied (its own bytes); any other input is decoded and written by each
+    package's WAV codec, the same bytes.  No ffmpeg here, so the other input
+    is a .flac name over WAV bytes that each Convert module reads with its
+    WAV reader."""
+    from audiolab_tpu.core.audio_io import read_wav as j_read_wav
+    from audiolab_tpu.pipelines.processors import convert as JConvert
+    from audiolab_tpu_torch.core.audio_io import read_wav
+    from audiolab_tpu_torch.pipelines.processors import convert as TConvert
+
+    j, t = _both(tmp_path, ["Convert"], [song], {"Convert": {"format": "wav"}})
+    assert [os.path.basename(p) for p in t[0].last_outputs] == ["song.wav"]
+    for jp, tp in zip(j[0].last_outputs, t[0].last_outputs):
+        assert open(tp, "rb").read() == open(jp, "rb").read() == open(song, "rb").read()
+    monkeypatch.setattr(JConvert, "read_audio", j_read_wav)
+    monkeypatch.setattr(TConvert, "read_audio", read_wav)
+    flac = tmp_path / "take.flac"
+    write_wav(flac, read_audio(song).samples, 22050, subtype="FLOAT")
+    j, t = _both(tmp_path / "flac", ["Convert"], [str(flac)], {"Convert": {}})
+    assert [os.path.basename(p) for p in t[0].last_outputs] == ["take.wav"]
+    got, want = (open(p[0].last_outputs[0], "rb").read() for p in (t, j))
+    assert got == want and len(got) == 44 + 2 * 2 * 3 * 22050
+
+
+def test_convert_other_formats_fail_as_jax(tmp_path, song, monkeypatch):
+    """Without ffmpeg, MP3 output raises in both packages: the chain keeps
+    its input and no converted stage is recorded."""
+    import shutil
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    j, t = _both(tmp_path, ["Convert"], [song], {"Convert": {"format": "mp3"}})
+    assert list(t[0].file_dict) == list(j[0].file_dict) == []
+    assert os.path.basename(t[0].last_outputs[0]) == os.path.basename(j[0].last_outputs[0])
+
+
+def _metrics(proj):
+    files = proj.last_outputs
+    assert [os.path.basename(f) for f in files] == ["comparison.json", "comparison.png"]
+    return json.load(open(files[0])), files[1]
+
+
+def test_compare_matches_jax(tmp_path, song):
+    """Separate -> Compare (the instrumental against the source): the JSON
+    metrics within 1e-5 relative of the JAX run's and a PNG image from
+    matplotlib."""
+    j, t = _both(tmp_path, ["Separate", "Compare"], [song],
+                 {"Separate": {"noise_removal": "Nothing"}})
+    (got, png), (want, _) = _metrics(t[0]), _metrics(j[0])
+    assert sorted(got) == sorted(want) == ["image", "rms_diff", "spec_l1", "spec_max"]
+    for k in ("rms_diff", "spec_l1", "spec_max"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    assert open(png, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+def test_compare_falls_back_to_the_stdlib_png(tmp_path, song, monkeypatch):
+    """With matplotlib failing to import, both packages draw the waveform
+    and the difference spectrogram with utils/viz.py: the same metrics and
+    the same two PNGs, byte for byte."""
+    import builtins
+
+    real_import = builtins.__import__
+
+    def no_matplotlib(name, *args, **kw):
+        if name.startswith("matplotlib"):
+            raise ImportError("matplotlib disabled for this test")
+        return real_import(name, *args, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_matplotlib)
+    j, t = _both(tmp_path, ["Separate", "Compare"], [song],
+                 {"Separate": {"noise_removal": "Nothing"}})
+    (got, png), (want, jpng) = _metrics(t[0]), _metrics(j[0])
+    assert sorted(got) == sorted(want) == ["image", "rms_diff", "spec_image", "spec_l1",
+                                           "spec_max"]
+    assert got["rms_diff"] == pytest.approx(want["rms_diff"], rel=1e-5)
+    assert open(png, "rb").read() == open(jpng, "rb").read()
+    spec = os.path.join(os.path.dirname(png), "comparison_spec.png")
+    assert os.path.exists(spec) and open(spec, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+def test_viz_copy_writes_the_jax_bytes(tmp_path):
+    """utils/viz.py is a copy: PNG encoder, f0 curves, spectrogram and
+    waveform renderers write the JAX module's bytes."""
+    from audiolab_tpu.utils import viz as JV
+    from audiolab_tpu_torch.utils import viz as TV
+
+    rng = np.random.default_rng(0)
+    f0 = np.abs(200 + 20 * rng.standard_normal(300))
+    f0[::17] = 0.0
+    mag = np.abs(rng.standard_normal((40, 65)))
+    a, b = rng.standard_normal((2, 5000)).astype(np.float32)
+    for mod, sub in ((JV, "jax"), (TV, "port")):
+        d = tmp_path / sub
+        d.mkdir()
+        vis = mod.F0Visualizer(width=200, row_height=40)
+        vis.add_curve("a", f0)
+        vis.add_curve("b", f0 * 1.5)
+        vis.render(str(d / "f0.png"))
+        mod.spectrogram_png(str(d / "spec.png"), mag)
+        mod.waveform_diff_png(str(d / "wave.png"), a, b, width=300, height=60)
+    for name in ("f0.png", "spec.png", "wave.png"):
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()

@@ -100,7 +100,10 @@ def test_route_table_is_a_subset_of_jax(server, jax_router):
     assert port <= ref, sorted(port - ref)
     for route in (("POST", "/api/v1/process/chain"), ("POST", "/api/v1/process/separate"),
                   ("POST", "/api/v1/process/merge"), ("GET", "/"), ("GET", "/openapi.json"),
-                  ("POST", "/api/v1/rvc/analyze"), ("GET", "/api/v1/clone/methods")):
+                  ("POST", "/api/v1/rvc/analyze"), ("GET", "/api/v1/clone/methods"),
+                  ("POST", "/api/v1/process/convert"), ("POST", "/api/v1/process/compare"),
+                  ("POST", "/api/v1/process/remaster"),
+                  ("POST", "/api/v1/process/super_resolution")):
         assert route in port
 
 
@@ -108,7 +111,9 @@ def test_processors_listing(server, jax_router):
     status, _h, raw = _get(f"{server}/api/v1/process/processors")
     body = json.loads(raw)
     assert status == 200
-    assert [p["title"] for p in body["processors"]] == ["Separate", "Clone", "Export", "Merge"]
+    assert [p["title"] for p in body["processors"]] == [
+        "Separate", "Clone", "Export", "Merge", "Remaster", "Super Resolution", "Convert",
+        "Compare"]
     _code, ref = jax_router.dispatch("GET", "/api/v1/process/processors", {})
     ref = {p["title"]: p for p in ref["processors"]}
     for p in body["processors"]:
@@ -166,8 +171,32 @@ def test_chain_endpoint(server, jax_router, tmp_path):
 
 def test_chain_unported_processor_is_400(server, tmp_path):
     status, body = _post(f"{server}/api/v1/process/chain",
-                         {"files": [_b64_wav(tmp_path)], "processors": ["Remaster"]})
-    assert status == 400 and "Remaster" in body["error"]
+                         {"files": [_b64_wav(tmp_path)], "processors": ["Reverse"]})
+    assert status == 400 and "Reverse" in body["error"]
+
+
+@pytest.mark.parametrize("slug,settings", [
+    ("convert", {"format": "wav"}),
+    ("compare", {}),
+    ("remaster", {"use_source_track_as_reference": False, "target_lufs": -16.0}),
+    ("super_resolution", {"chunk_size": 5.0, "tgt_ensemble": True}),
+])
+def test_new_processor_routes(server, jax_router, tmp_path, slug, settings):
+    """The four processors of this slice, each through its own route on the
+    CPU server: HTTP 200 and the JAX router's files (WAVs to a 16-bit
+    step; Compare's JSON to 1e-5 relative, its PNG present)."""
+    payload = {"files": [_b64_wav(tmp_path, seconds=0.5)], "settings": settings}
+    status, body = _post(f"{server}/api/v1/process/{slug}", payload)
+    assert status == 200, body
+    code, ref = jax_router.dispatch("POST", f"/api/v1/process/{slug}", payload)
+    assert code == 200
+    if slug != "compare":
+        _same_files(body, ref, tmp_path)
+        return
+    assert [f["filename"] for f in body["files"]] == ["comparison.json", "comparison.png"]
+    got, want = (json.loads(base64.b64decode(b["files"][0]["content"])) for b in (body, ref))
+    for k in ("rms_diff", "spec_l1", "spec_max"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5)
 
 
 def test_missing_files_is_400(server):

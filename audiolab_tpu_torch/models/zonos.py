@@ -1,5 +1,6 @@
-"""Zonos-class TTS: hybrid SSM/attention backbone, 9-codebook AR decode
-(counterpart of audiolab_tpu/models/zonos.py:46-692,775-793).
+"""Zonos-class TTS: hybrid SSM/attention backbone, 9-codebook AR decode,
+and the checkpoint prefix conditioner bank (counterpart of
+audiolab_tpu/models/zonos.py).
 
 - The backbone interleaves Mamba mixers (``mamba1``, or ``mamba2`` as in
   the upstream hybrid) with causal attention every ``attn_every`` layers.
@@ -9,8 +10,10 @@
 - Decode is one step over static buffers (the KV caches, the conv tails,
   the SSM states, the repetition window, the position as a device tensor),
   captured once per call in a ``torch.cuda.CUDAGraph`` and replayed for
-  every frame: the counterpart of the JAX package's one ``lax.scan``.  The
-  loop has no host sync and no early stop; the Gumbel draws of every step
+  every frame (``models.lm.replay``): the counterpart of the JAX package's
+  one ``lax.scan``.  ``generate_embedded`` runs the same decode after a
+  prefix that ``ZonosPrefixConditioner`` embedded.  The loop has no host
+  sync and no early stop; the Gumbel draws of every step
   are made before it (``jax.random.categorical`` is the argmax of logits
   plus Gumbel noise), so nothing random runs inside the graph and tests can
   inject the draws that the JAX keys give.  A capture that fails raises.
@@ -29,7 +32,6 @@ in the JAX package.
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -38,7 +40,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.kernels.attention import attention_reference, flash_attention
 from audiolab_tpu_torch.kernels.ssm import (
     causal_conv1d,
@@ -46,7 +47,17 @@ from audiolab_tpu_torch.kernels.ssm import (
     selective_scan,
     ssm_step,
 )
-from audiolab_tpu_torch.models.lm import LMConfig, RMSNorm, apply_rope, rope_freqs
+from audiolab_tpu_torch.models.lm import (  # noqa: F401  (gumbel_draws: the module's API)
+    LMConfig,
+    RMSNorm,
+    StageTimer,
+    apply_rope,
+    gumbel_draws,
+    model_device,
+    replay,
+    resolve_draws,
+    rope_freqs,
+)
 
 
 @dataclass(frozen=True)
@@ -450,8 +461,13 @@ class ZonosModel(nn.Module):
 
     def prefill(self, text_ids, spk_emb, emotion, rate, pitch, bos_codes, cache_len: int):
         """Prefix + BOS frame; returns (logits9, states, prefix length)."""
-        x = torch.cat([self.prefix(text_ids, spk_emb, emotion, rate, pitch),
-                       self.embed_codes(bos_codes)], dim=1)
+        return self.prefill_embedded(self.prefix(text_ids, spk_emb, emotion, rate, pitch),
+                                     bos_codes, cache_len)
+
+    def prefill_embedded(self, x_prefix, bos_codes, cache_len: int):
+        """Prefill from a pre-embedded prefix (b, t, dim), the path of the
+        checkpoint prefix bank (:class:`ZonosPrefixConditioner`)."""
+        x = torch.cat([x_prefix, self.embed_codes(bos_codes)], dim=1)
         pos = torch.arange(x.shape[1], device=x.device)
         h, states = self.backbone.prefill_states(x, pos, cache_len)
         return self.logits9(h[:, -1]), states, x.shape[1]
@@ -520,16 +536,6 @@ def make_sample9(cfg: ZonosConfig, max_frames: int, cfg_scale: float, temperatur
     return sample9
 
 
-def gumbel_draws(total: int, rows: int, vocab: int, seed: int,
-                 device: torch.device) -> torch.Tensor:
-    """(total, rows, vocab) fp32 Gumbel draws -log(-log(u)), u uniform in
-    [tiny, 1), from a generator seeded with ``seed`` on ``device``."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    u = torch.rand((total, rows, vocab), generator=gen, device=device)
-    u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return u.log_().neg_().log_().neg_()
-
-
 class _Decode:
     """One call's decode buffers: copies of the prefill's layer states and
     logits, position and step as (1,) device tensors, the
@@ -561,31 +567,6 @@ class _Decode:
                                                  self.states))
         self.pos.add_(1)
         self.step_i.add_(1)
-
-    def run(self, graph: bool) -> None:
-        total = self.draws.shape[0]
-        if not graph:
-            for _ in range(total):
-                self.step()
-            return
-        # the first step runs eagerly on a side stream (it warms cuBLAS and
-        # the allocator, as capture needs); the next is captured, which runs
-        # nothing, and replayed for every step after the first
-        dev = self.logits.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        # thread-local: only this thread is barred from unsafe CUDA calls while
-        # the capture lasts, so a server thread outside the inference lock (a
-        # training job's loader, an analysis route) neither fails the capture
-        # nor fails itself
-        with torch.cuda.graph(g, capture_error_mode="thread_local"):
-            self.step()
-        for _ in range(1, total):
-            g.replay()
 
 
 @torch.inference_mode()
@@ -619,14 +600,7 @@ def generate(
     default on the card; CPU runs are eager).
     ``stats``: when given, the stages are synchronised and their seconds
     recorded (prefill_s, decode_s) with the step count."""
-    dev = resolve_device(device)
-    on = next(model.parameters()).device
-    if on.type != dev.type or None not in (on.index, dev.index) and on.index != dev.index:
-        raise ValueError(f"generate: the model is on {on}, not on {dev}")
-    dev = on
-    graph = dev.type == "cuda" if graph is None else graph
-    if graph and dev.type != "cuda":
-        raise ValueError("generate: a CUDA graph needs the card")
+    dev, graph = model_device(model, device, graph, "generate")
     c = model.cfg
     f32 = dict(dtype=torch.float32, device=dev)
     text_ids = torch.as_tensor(text_ids, dtype=torch.long, device=dev)
@@ -635,44 +609,71 @@ def generate(
     emotion = torch.as_tensor([[0.3] + [0.1] * 7] * b if emotion is None else emotion, **f32)
     rate = torch.as_tensor(np.full((b, 1), 15.0) if rate is None else rate, **f32)
     pitch = torch.as_tensor(np.full((b, 1), 20.0) if pitch is None else pitch, **f32)
-    t0 = time.perf_counter()
     total = max_frames + c.n_codebooks                     # delay tail
     cache_len = text_ids.shape[1] + 12 + 1 + total + 2     # prefix + bos + steps
-    if draws is None:
-        draws = gumbel_draws(total, b * c.n_codebooks, c.vocab, seed, dev)
-    elif callable(draws):
-        draws = draws(total, b * c.n_codebooks, c.vocab)
-    draws = torch.as_tensor(draws, **f32)
-    if tuple(draws.shape) != (total, b * c.n_codebooks, c.vocab):
-        raise ValueError(f"generate: draws {tuple(draws.shape)}, expected "
-                         f"{(total, b * c.n_codebooks, c.vocab)}")
-
-    def mark(key, t0):
-        if stats is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            stats[key] = time.perf_counter() - t0
-        return time.perf_counter()
-
-    t0 = mark("draws_s", t0)
+    mark = StageTimer(stats, dev)
+    draws = resolve_draws(draws, (total, b * c.n_codebooks, c.vocab), seed, dev)
+    mark("draws_s")
     # CFG: [cond; uncond] double batch; uncond drops the text (zeros)
     bos = torch.full((2 * b, c.n_codebooks, 1), c.masked_id, dtype=torch.long, device=dev)
     logits, states, plen = model.prefill(
         torch.cat([text_ids, torch.zeros_like(text_ids)]), torch.cat([spk_emb, spk_emb]),
         torch.cat([emotion, emotion]), torch.cat([rate, rate]), torch.cat([pitch, pitch]),
         bos, cache_len)
-    t0 = mark("prefill_s", t0)
+    mark("prefill_s")
+    return _decode_codes(model, logits, states, plen, draws, graph, mark, max_frames,
+                         cfg_scale, temperature, top_k, min_p, repetition_penalty)
 
+
+def _decode_codes(model, logits, states, plen, draws, graph, mark, max_frames, cfg_scale,
+                  temperature, top_k, min_p, repetition_penalty) -> torch.Tensor:
+    """The decode after a prefill: undelayed codes (b, n_q, max_frames)."""
+    c = model.cfg
     sample9 = make_sample9(c, max_frames, cfg_scale, temperature, top_k, min_p,
                            repetition_penalty)
     dec = _Decode(model, sample9, states, logits, plen, draws)
     del states, logits
-    dec.run(graph)
+    replay(dec.step, draws.shape[0], draws.device, graph)
     codes = undelay_pattern(dec.frames, c.n_codebooks)
-    mark("decode_s", t0)
-    if stats is not None:
-        stats["steps"] = total
+    mark("decode_s")
+    mark.put("steps", draws.shape[0])
     return codes
+
+
+@torch.inference_mode()
+def generate_embedded(
+    model: ZonosModel,
+    x_prefix2,                   # (2b, t_prefix, dim) [cond; uncond]
+    max_frames: int = 600,
+    cfg_scale: float = 2.0,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    min_p: float = 0.1,
+    repetition_penalty: float = 3.0,
+    seed: int = 0,
+    draws: torch.Tensor | Callable | None = None,
+    graph: bool | None = None,
+    stats: dict | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """AR generation from a pre-embedded CFG prefix pair (zonos.py
+    ``generate_embedded``): build it with :class:`ZonosPrefixConditioner` over
+    the cond and uncond dicts.  The decode, draws, graph and stats are
+    :func:`generate`'s.  Returns codes (b, n_q, max_frames)."""
+    dev, graph = model_device(model, device, graph, "generate_embedded")
+    c = model.cfg
+    x_prefix2 = torch.as_tensor(x_prefix2, dtype=torch.float32, device=dev)
+    b2 = x_prefix2.shape[0]
+    total = max_frames + c.n_codebooks
+    cache_len = x_prefix2.shape[1] + 1 + total + 2
+    mark = StageTimer(stats, dev)
+    draws = resolve_draws(draws, (total, b2 // 2 * c.n_codebooks, c.vocab), seed, dev)
+    mark("draws_s")
+    bos = torch.full((b2, c.n_codebooks, 1), c.masked_id, dtype=torch.long, device=dev)
+    logits, states, plen = model.prefill_embedded(x_prefix2, bos, cache_len)
+    mark("prefill_s")
+    return _decode_codes(model, logits, states, plen, draws, graph, mark, max_frames,
+                         cfg_scale, temperature, top_k, min_p, repetition_penalty)
 
 
 # ------------------------------------------------- checkpoint phoneme table
@@ -697,3 +698,111 @@ def tokenize_phonemes_np(phonemes: list[str]) -> np.ndarray:
             ZONOS_EOS_ID] for p in phonemes]
     longest = max(map(len, ids))
     return np.asarray([[ZONOS_PAD_ID] * (longest - len(r)) + r for r in ids], np.int32)
+
+
+# ------------------------------------------------- checkpoint prefix bank
+
+@dataclass(frozen=True)
+class CondSpec:
+    """One entry of the model config's prefix_conditioner.conditioners list
+    (conditioning.py:38-285)."""
+    type: str                 # Espeak|Fourier|Integer|Passthrough Conditioner
+    name: str
+    cond_dim: int | None = None
+    projection: str = "none"  # none | linear | mlp
+    uncond_type: str = "none"
+    input_dim: int = 1
+    min_val: float = 0.0
+    max_val: float = 1.0
+
+
+# The published Zonos-v0.1 conditioner bank (a model's config.json overrides
+# it: the list is data end to end).
+DEFAULT_ZONOS_CONDITIONERS = (
+    CondSpec("EspeakPhonemeConditioner", "espeak"),
+    CondSpec("PassthroughConditioner", "speaker", cond_dim=128,
+             projection="linear", uncond_type="learned"),
+    CondSpec("FourierConditioner", "emotion", input_dim=8,
+             uncond_type="learned"),
+    CondSpec("FourierConditioner", "fmax", min_val=0.0, max_val=24000.0,
+             uncond_type="learned"),
+    CondSpec("FourierConditioner", "pitch_std", min_val=0.0, max_val=400.0,
+             uncond_type="learned"),
+    CondSpec("FourierConditioner", "speaking_rate", min_val=0.0,
+             max_val=40.0, uncond_type="learned"),
+    CondSpec("IntegerConditioner", "language_id", min_val=-1.0,
+             max_val=126.0, uncond_type="learned"),
+)
+
+
+def _projection(kind: str, din: int, dim: int) -> nn.Module | None:
+    if kind == "linear":
+        return nn.Linear(din, dim)
+    if kind == "mlp":
+        return nn.Sequential(nn.Linear(din, dim), nn.SiLU(), nn.Linear(dim, dim))
+    return None
+
+
+class _Conditioner(nn.Module):
+    """One conditioner of the bank under the checkpoint's names
+    (``uncond_vector``, ``phoneme_embedder``, ``weight``, ``int_embedder``,
+    ``project``)."""
+
+    def __init__(self, spec: CondSpec, dim: int):
+        super().__init__()
+        s = self.spec = spec
+        if s.uncond_type == "learned":
+            self.uncond_vector = nn.Parameter(torch.zeros(dim))
+        din = dim
+        if s.type == "EspeakPhonemeConditioner":
+            self.phoneme_embedder = nn.Embedding(ZONOS_PHONEME_VOCAB, dim)
+        elif s.type == "FourierConditioner":
+            self.weight = nn.Parameter(torch.randn(dim // 2, s.input_dim))
+        elif s.type == "IntegerConditioner":
+            self.int_embedder = nn.Embedding(int(s.max_val - s.min_val) + 1, dim)
+        elif s.type == "PassthroughConditioner":
+            din = s.cond_dim or dim
+        else:
+            raise ValueError(s.type)
+        self.project = _projection(s.projection, din, dim)
+
+    def forward(self, x):
+        """(b, t, dim) for the slot's value, or the learned uncond vector
+        (1, 1, dim) when ``x`` is None."""
+        s = self.spec
+        if x is None:
+            return self.uncond_vector[None, None]
+        if s.type == "EspeakPhonemeConditioner":
+            h = self.phoneme_embedder(x)
+        elif s.type == "FourierConditioner":
+            f = 2.0 * math.pi * ((x - s.min_val) / (s.max_val - s.min_val)) @ self.weight.t()
+            h = torch.cat([torch.cos(f), torch.sin(f)], dim=-1)
+        elif s.type == "IntegerConditioner":
+            h = self.int_embedder(x[..., 0].long() - int(s.min_val))
+        else:
+            h = x
+        return h if self.project is None else self.project(h)
+
+
+class ZonosPrefixConditioner(nn.Module):
+    """The checkpoint's prefix conditioner bank (conditioning.py:287-303):
+    each conditioner embeds its slot of the cond dict (its learned uncond
+    vector when the slot is absent), the sequences are joined along time,
+    then the bank's projection and LayerNorm (eps 1e-5).  Names are those
+    ``convert_zonos_prefix`` maps: ``conditioners.N.*``, ``project``,
+    ``norm``."""
+
+    def __init__(self, dim: int, specs: tuple = DEFAULT_ZONOS_CONDITIONERS,
+                 projection: str = "none"):
+        super().__init__()
+        self.conditioners = nn.ModuleList(_Conditioner(s, dim) for s in specs)
+        self.project = _projection(projection, dim, dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-5)
+
+    def forward(self, cond: dict) -> torch.Tensor:
+        outs = [m(cond.get(m.spec.name)) for m in self.conditioners]
+        b = max(o.shape[0] for o in outs)
+        h = torch.cat([o.expand(b, *o.shape[1:]) for o in outs], dim=1)
+        if self.project is not None:
+            h = self.project(h)
+        return _flax_layer_norm(h, self.norm)

@@ -1,17 +1,20 @@
-"""TTS pipeline: the Zonos engine (counterpart of
-audiolab_tpu/pipelines/tts.py:1-190,257-297).
+"""TTS pipelines: the Zonos, Dia and XTTS engines (counterpart of
+audiolab_tpu/pipelines/tts.py, Chatterbox aside).
 
 Text is split into sentence chunks; ``[emotion]`` tags set the emotion
 vector of the chunks that follow; the chunks are batched into one
 ``generate`` call (the CFG double batch inside, one captured decode step
 replayed on the card), decoded by DAC together, and joined with short
 silences.  The speaker embedding comes from a reference WAV through the
-port's mel front-end and the speaker encoder.  Dia, XTTS and Chatterbox
-come with their models.
+port's mel front-end and the speaker encoder.  ``DiaTTSEngine`` serves
+Dia's dialogue model over a DAC decoder; ``XTTSEngine`` the capability XTTS
+and ``XttsCheckpointEngine`` the XTTS-v2 stack, with ``XttsTokenizer`` for
+its vocab.json.  Chatterbox comes with its models.
 """
 
 from __future__ import annotations
 
+import json
 import re
 import time
 from dataclasses import dataclass
@@ -20,10 +23,24 @@ import numpy as np
 import torch
 
 from audiolab_tpu_torch.core.device import resolve_device
-from audiolab_tpu_torch.kernels.mel import log_mel, mel_spectrogram
+from audiolab_tpu_torch.kernels.mel import log_mel, mel_filterbank, mel_spectrogram
 from audiolab_tpu_torch.kernels.resample import resample_poly_np
+from audiolab_tpu_torch.kernels.stft import spectrogram
 from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
+from audiolab_tpu_torch.models.dia import DiaModel, tokenize_dialogue
+from audiolab_tpu_torch.models.dia import generate as dia_generate
 from audiolab_tpu_torch.models.phonemize import phonemize_ids, phonemize_ipa
+from audiolab_tpu_torch.models.xtts import (
+    XTTS,
+    XTTSConfig,
+    XttsConditioningEncoder,
+    XttsGPT2,
+    XttsHifiganDecoder,
+    XttsPerceiverResampler,
+    XttsSpeakerEncoder,
+    speaker_mel,
+    xtts_gpt2_generate,
+)
 from audiolab_tpu_torch.models.zonos import (
     ZONOS_PHONEME_VOCAB,
     SpeakerEncoder,
@@ -177,6 +194,59 @@ class ZonosTTS:
         return self.synthesize(text, rate=15.0 * float(speed), **kw)
 
 
+class DiaTTSEngine:
+    """The Dia model and a DAC decoder behind the TTS backend protocol (the
+    reference's fourth engine): dialogue text with [S1]/[S2] tags -> audio at
+    ``sr``, on one device (default the card; raises without one).
+
+    Before the DAC lookup every code outside the DAC's rows (0 ..
+    ``dac.cfg.codebook_size`` - 1) becomes 0, as upstream Dia's
+    ``_generate_output`` does.  The JAX engine clips to Dia's
+    ``codebook_size - 4`` instead (pipelines/tts.py:217), which is past the
+    end of a 1024-row DAC for Dia's 1028-way codebooks: its lookup returns
+    NaN there, and in PyTorch it would index out of range (ROADMAP queue
+    3)."""
+
+    voices = ["default"]
+
+    def __init__(self, model: DiaModel, dac: DACDecoder, sr: int = 44100,
+                 frames_per_word: int = 12, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.dac = dac.to(self.device).eval()
+        self.sr = sr
+        self.frames_per_word = frames_per_word
+        # seconds of the last timed generate's stages (prefill_s, decode_s, dac_s)
+        self.last_stats: dict = {}
+
+    def frames(self, text: str, speed: float = 1.0) -> int:
+        return max(8, int(len(text.split()) * self.frames_per_word / speed))
+
+    @torch.inference_mode()
+    def codes_to_audio(self, codes: torch.Tensor) -> torch.Tensor:
+        """(b, n_q, t) codes -> (b, t * hop) audio, out-of-range codes as 0."""
+        codes = torch.as_tensor(codes, device=self.device)
+        valid = (codes >= 0) & (codes < self.dac.cfg.codebook_size)
+        return self.dac(torch.where(valid, codes, 0))
+
+    @torch.inference_mode()
+    def generate(self, text: str, voice: str = "default", speed: float = 1.0, seed: int = 0,
+                 draws=None, timed: bool = False, **_) -> tuple[np.ndarray, int]:
+        """Text -> (waveform, sr).  ``draws`` goes to ``models.dia.generate``;
+        ``timed`` synchronises the stages and records their seconds in
+        ``last_stats``."""
+        ids = tokenize_dialogue(text)[None]
+        stats = {} if timed else None
+        codes = dia_generate(self.model, ids, max_frames=self.frames(text, speed), seed=seed,
+                             draws=draws, stats=stats, device=self.device)
+        t0 = time.perf_counter()
+        audio = self.codes_to_audio(codes)[0].cpu().numpy()
+        if stats is not None:
+            stats["dac_s"] = time.perf_counter() - t0
+            self.last_stats = stats
+        return audio, self.sr
+
+
 def register_default_backends(tts_api, zonos=None, dia=None, xtts=None,
                               chatterbox=None) -> None:
     """Engine table mirroring layouts/tts.py:570 generate_tts dispatch (zonos,
@@ -211,3 +281,309 @@ def random_zonos(model_cfg: ZonosConfig | None = None, seed: int = 0,
         dac = fast_init(DACDecoder(dac_cfg), seed + 1)
         spk = fast_init(SpeakerEncoder(mc.spk_dim), seed + 2)
     return ZonosTTS(model, dac, spk, device=dev)
+
+
+# ------------------------------------------------------------ XTTS engines
+
+class XTTSEngine:
+    """Coqui-XTTS-class engine ("coqui" in the TTS dispatch): the capability
+    ``models.xtts.XTTS`` with voices cloned from reference audio."""
+
+    def __init__(self, model: XTTS):
+        self.model = model
+        self._voices: dict[str, tuple[np.ndarray, int]] = {}
+
+    @property
+    def voices(self):
+        return ["default"] + sorted(self._voices)
+
+    def add_voice(self, name: str, wav: np.ndarray, sr: int) -> None:
+        """Clone a voice from reference audio."""
+        self._voices[name] = (np.asarray(wav, np.float32), sr)
+
+    def _ref(self, voice: str) -> tuple[np.ndarray, int]:
+        if voice in self._voices:
+            return self._voices[voice]
+        # deterministic built-in reference (shaped noise through a comb)
+        rng = np.random.default_rng(7)
+        x = rng.standard_normal(24000).astype(np.float32) * 0.1
+        for d in (89, 131):
+            x[d:] += 0.6 * x[:-d]
+        return x * 0.2, 24000
+
+    def generate(self, text: str, voice: str = "default", speed: float = 1.0, seed: int = 0,
+                 draws=None, **_):
+        ref, sr = self._ref(voice)
+        n_codes = max(16, int(len(text.split()) * 18 / max(speed, 0.25)))
+        return self.model.tts(text, ref, sr, max_codes=min(n_codes, 512), seed=seed,
+                              draws=draws)
+
+
+def random_xtts(seed: int = 0, device: str | torch.device = "cuda") -> XTTSEngine:
+    """The JAX server's demo XTTS engine (dim 64, 2 layers, 4 heads, 4
+    latents) with random weights by utils/fast_init's rules, on ``device``
+    (default the card)."""
+    cfg = XTTSConfig(dim=64, n_layers=2, n_heads=4, cond_latents=4, max_seq_len=1024)
+    return XTTSEngine(XTTS.random_init(cfg, seed, device=device))
+
+
+def xtts_cloning_mel(wav22k: torch.Tensor, mel_norms=None) -> torch.Tensor:
+    """XTTS-v2's conditioning mel: 22.05 kHz, n_fft 2048, hop 256, win 1024
+    Hann, power spectrogram, HTK mel 0..8 kHz x 80, log(clamp 1e-5), divided
+    by the checkpoint's mel_stats.  (b, t) -> (b, frames, 80)."""
+    spec = spectrogram(wav22k, n_fft=2048, hop=256, win_length=1024, center=True, power=2.0)
+    fb = torch.from_numpy(mel_filterbank(22050, 2048, 80, 0.0, 8000.0, htk=True, norm=None))
+    mel = torch.log(torch.clamp(spec @ fb.to(spec.device), min=1e-5))
+    if mel_norms is not None:
+        mel = mel / torch.as_tensor(mel_norms, dtype=mel.dtype, device=mel.device)[None, None]
+    return mel
+
+
+class XttsCheckpointEngine:
+    """The XTTS-v2 stack behind one TTS-engine facade (Coqui path): reference
+    audio -> per-6 s-chunk perceiver latents (meaned) and the H/ASP
+    d-vector; text -> ids -> the cached AR decode -> final-norm latents ->
+    the HiFi decoder at 24 kHz.  All modules on one device (default the
+    card; raises without one)."""
+
+    sr_out = 24000
+
+    def __init__(self, gpt: XttsGPT2, cond_enc: XttsConditioningEncoder,
+                 perceiver: XttsPerceiverResampler, spk_enc: XttsSpeakerEncoder,
+                 decoder: XttsHifiganDecoder, mel_norms=None, tokenize=None,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.gpt, self.cond_enc, self.perceiver, self.spk_enc, self.decoder = (
+            m.to(self.device).eval() for m in (gpt, cond_enc, perceiver, spk_enc, decoder))
+        self.mel_norms = mel_norms
+        # bytes as ids, cut to leave room for the [START]/[STOP] wrap (the JAX
+        # engine cuts at max_text - 1, one past the text positions once wrapped)
+        self.tokenize = tokenize or (lambda s: np.frombuffer(
+            s.encode()[: self.gpt.max_text - 2], np.uint8).astype(np.int64) % self.gpt.n_text)
+        self.voices: dict = {}
+        # seconds of the last timed synthesize's stages
+        self.last_stats: dict = {}
+
+    def _latents(self, piece: np.ndarray) -> torch.Tensor:
+        x = torch.as_tensor(piece, dtype=torch.float32, device=self.device)[None]
+        return self.perceiver(self.cond_enc(xtts_cloning_mel(x, self.mel_norms)))
+
+    @torch.inference_mode()
+    def conditioning(self, ref_wav, sr: int):
+        """(perceiver latents (1, L, dim), unit d-vector (1, d)) of a reference."""
+        x = np.asarray(ref_wav, np.float32)
+        w22 = resample_poly_np(x, sr, 22050) if sr != 22050 else x
+        chunk = 22050 * 6
+        embs = [self._latents(w22[i:i + chunk]) for i in range(0, len(w22), chunk)
+                if len(w22[i:i + chunk]) >= 22050 * 0.33]
+        if not embs:
+            # shorter than the 0.33 s chunk floor: the clip zero-padded to it
+            min_len = int(22050 * 0.33) + 1
+            embs.append(self._latents(np.pad(w22, (0, max(0, min_len - len(w22))))))
+        lat = torch.stack(embs).mean(dim=0)
+        w16 = resample_poly_np(x, sr, 16000) if sr != 16000 else x
+        mel = speaker_mel(torch.as_tensor(w16, device=self.device)[None])
+        return lat, self.spk_enc(mel, l2_norm=True)
+
+    @torch.inference_mode()
+    def synthesize(self, text, ref_wav=None, ref_sr=None, cond=None, d_vector=None,
+                   max_steps: int = 200, seed: int = 0, draws=None, timed: bool = False,
+                   **kw) -> tuple[np.ndarray, int]:
+        """Text -> (waveform, 24000).  ``draws`` goes to ``xtts_gpt2_generate``;
+        ``timed`` records the stages' seconds in ``last_stats``."""
+        if cond is None:
+            cond, d_vector = self.conditioning(ref_wav, ref_sr)
+        ids = np.asarray(self.tokenize(text))[None]
+        max_steps = min(max_steps, self.gpt.max_mel - 1)
+        stats = {} if timed else None
+        _, latents, lengths = xtts_gpt2_generate(
+            self.gpt, ids, cond, max_steps, seed=seed, draws=draws, stats=stats,
+            device=self.device, **kw)
+        t0 = time.perf_counter()
+        wav = self.decoder(latents, torch.as_tensor(d_vector, device=self.device))
+        # trimmed at the first stop: each latent frame vocodes to a fixed
+        # number of samples
+        n_valid = int(lengths[0])
+        if n_valid < max_steps:
+            per_frame = wav.shape[-1] // max_steps
+            wav = wav[..., : max(per_frame * n_valid, per_frame)]
+        out = wav[0].cpu().numpy()
+        if stats is not None:
+            stats["decoder_s"] = time.perf_counter() - t0
+            self.last_stats = stats
+        return out, self.sr_out
+
+    # ---- serve/tts_api backend protocol (a voice store)
+
+    def register_voice(self, name: str, wav, sr: int) -> None:
+        self.voices[name] = self.conditioning(wav, sr)
+
+    def generate(self, text: str, voice: str = "default", speed: float = 1.0, **_):
+        if voice not in self.voices:
+            if not self.voices:
+                raise ValueError("no voices registered; call register_voice")
+            voice = next(iter(self.voices))
+        cond, d = self.voices[voice]
+        return self.synthesize(text, cond=cond, d_vector=d)
+
+
+def random_xtts_checkpoint(seed: int = 0,
+                           device: str | torch.device = "cuda") -> XttsCheckpointEngine:
+    """The JAX package's tiny XttsCheckpointEngine (GPT-2 2 x 32, speaker
+    encoder filters 8-64 into 24, HiFi decoder rates 4, 4) with random
+    weights by utils/fast_init's rules, on ``device`` (default the card)."""
+    dev = resolve_device(device)
+    dim, sdim = 32, 24
+    with dev:
+        mods = [fast_init(m, seed + i) for i, m in enumerate((
+            XttsGPT2(layers=2, dim=dim, heads=2, n_text=40, n_audio=30, max_text=32,
+                     max_mel=64, start_text=38, stop_text=0),
+            XttsConditioningEncoder(dim=dim, heads=4, blocks=2),
+            XttsPerceiverResampler(dim=dim, depth=1, num_latents=6, heads=2, dim_head=8),
+            XttsSpeakerEncoder(layers=(1, 1, 1, 1), num_filters=(8, 16, 32, 64),
+                               proj_dim=sdim),
+            XttsHifiganDecoder(input_dim=dim, cond_dim=sdim, upsample_rates=(4, 4),
+                               upsample_kernels=(8, 8), resblock_kernels=(3,),
+                               resblock_dilations=((1, 3),), initial_channel=32)))]
+    return XttsCheckpointEngine(*mods, device=dev)
+
+
+# ------------------------------------------------------- XTTS tokenizer
+
+_XTTS_EN_ABBREV = [
+    ("mrs", "misess"), ("mr", "mister"), ("dr", "doctor"), ("st", "saint"),
+    ("co", "company"), ("jr", "junior"), ("maj", "major"), ("gen", "general"),
+    ("drs", "doctors"), ("rev", "reverend"), ("lt", "lieutenant"),
+    ("hon", "honorable"), ("sgt", "sergeant"), ("capt", "captain"),
+    ("esq", "esquire"), ("ltd", "limited"), ("col", "colonel"),
+    ("ft", "fort"),
+]
+_XTTS_EN_SYMBOLS = [("&", " and "), ("@", " at "), ("%", " percent "),
+                    ("#", " hash "), ("$", " dollar "), ("£", " pound "),
+                    ("°", " degree ")]
+_ONES = ("zero one two three four five six seven eight nine ten eleven "
+         "twelve thirteen fourteen fifteen sixteen seventeen eighteen "
+         "nineteen").split()
+_TENS = "twenty thirty forty fifty sixty seventy eighty ninety".split()
+
+
+def _int_words(n: int) -> str:
+    """English number words (num2words is not in the image)."""
+    if n < 0:
+        return "minus " + _int_words(-n)
+    if n < 20:
+        return _ONES[n]
+    if n < 100:
+        t = _TENS[n // 10 - 2]
+        return t if n % 10 == 0 else f"{t} {_ONES[n % 10]}"
+    for div, name in ((10 ** 9, "billion"), (10 ** 6, "million"),
+                      (1000, "thousand"), (100, "hundred")):
+        if n >= div:
+            rest = n % div
+            head = f"{_int_words(n // div)} {name}"
+            return head if rest == 0 else f"{head} {_int_words(rest)}"
+    return str(n)
+
+
+class BpeTokenizer:
+    """The part of a ``tokenizers`` JSON file that XTTS-v2's vocab.json
+    uses, in Python: added tokens split out first (longest first), an
+    optional ``Whitespace`` pre-tokenizer (``\\w+|[^\\w\\s]+``), BPE by merge
+    rank over each word's characters, unknown pieces to ``unk_token``
+    (fused when ``fuse_unk``); decode joins the tokens with spaces, as the
+    library does without a decoder."""
+
+    def __init__(self, path: str):
+        with open(path, encoding="utf-8") as f:
+            spec = json.load(f)
+        model = spec["model"]
+        if model.get("type", "BPE") != "BPE":
+            raise ValueError(f"{path}: a {model.get('type')} model, not BPE")
+        self.vocab = dict(model["vocab"])
+        self.added = {t["content"]: t["id"] for t in spec.get("added_tokens") or []}
+        self.id_to_token = {i: t for t, i in {**self.vocab, **self.added}.items()}
+        self.ranks = {tuple(m.split(" ") if isinstance(m, str) else m): r
+                      for r, m in enumerate(model.get("merges") or [])}
+        self.unk, self.fuse_unk = model.get("unk_token"), bool(model.get("fuse_unk"))
+        pre = spec.get("pre_tokenizer") or {}
+        if pre and pre.get("type") != "Whitespace":
+            raise ValueError(f"{path}: pre-tokenizer {pre.get('type')} is not supported")
+        self.whitespace = bool(pre)
+        self._split = (re.compile("|".join(re.escape(t) for t in
+                                           sorted(self.added, key=len, reverse=True)))
+                       if self.added else None)
+
+    def _bpe(self, word: str) -> list[int]:
+        parts = list(word)
+        while len(parts) > 1:
+            pairs = [(self.ranks.get((a, b)), i) for i, (a, b) in
+                     enumerate(zip(parts, parts[1:])) if (a, b) in self.ranks]
+            if not pairs:
+                break
+            best = min(pairs)[0]
+            merged, i = [], 0
+            while i < len(parts):
+                if (i + 1 < len(parts) and self.ranks.get((parts[i], parts[i + 1])) == best):
+                    merged.append(parts[i] + parts[i + 1])
+                    i += 2
+                else:
+                    merged.append(parts[i])
+                    i += 1
+            parts = merged
+        ids: list[int] = []
+        for p in parts:
+            if p in self.vocab:
+                ids.append(self.vocab[p])
+            elif self.unk is not None and not (self.fuse_unk and ids and ids[-1] == -1):
+                ids.append(-1)
+        unk = self.vocab.get(self.unk, -1)
+        return [unk if i == -1 else i for i in ids]
+
+    def _plain(self, text: str) -> list[int]:
+        words = re.findall(r"\w+|[^\w\s]+", text) if self.whitespace else [text]
+        return [i for w in words if w for i in self._bpe(w)]
+
+    def encode(self, text: str) -> list[int]:
+        if self._split is None:
+            return self._plain(text)
+        ids, pos = [], 0
+        for m in self._split.finditer(text):
+            ids += self._plain(text[pos:m.start()])
+            ids.append(self.added[m.group()])
+            pos = m.end()
+        return ids + self._plain(text[pos:])
+
+    def decode(self, ids) -> str:
+        return " ".join(self.id_to_token[int(i)] for i in ids)
+
+
+class XttsTokenizer:
+    """XTTS-v2's VoiceBpeTokenizer: ``[lang]`` prefix, spaces to ``[SPACE]``,
+    the checkpoint's vocab.json through :class:`BpeTokenizer`.  English text
+    is cleaned first (lowercase, quotes dropped, numbers, abbreviations and
+    symbols spelled out, whitespace collapsed); other languages pass through
+    without number expansion, as in the JAX package."""
+
+    def __init__(self, vocab_file: str):
+        self.tokenizer = BpeTokenizer(vocab_file)
+
+    def _clean_en(self, text: str) -> str:
+        text = text.replace('"', "").lower()
+        text = re.sub(r"\d+", lambda m: _int_words(int(m.group())), text)
+        for abbr, full in _XTTS_EN_ABBREV:
+            text = re.sub(rf"\b{abbr}\.", full, text)
+        for sym, full in _XTTS_EN_SYMBOLS:
+            text = text.replace(sym, full)
+        return re.sub(r"\s+", " ", text).strip()
+
+    def encode(self, text: str, lang: str = "en") -> list[int]:
+        lang = lang.split("-")[0]
+        if lang == "en":
+            text = self._clean_en(text)
+        lang = "zh-cn" if lang == "zh" else lang
+        return self.tokenizer.encode(f"[{lang}]{text}".replace(" ", "[SPACE]"))
+
+    def decode(self, ids) -> str:
+        txt = self.tokenizer.decode(ids)
+        return (txt.replace(" ", "").replace("[SPACE]", " ")
+                .replace("[STOP]", "").replace("[UNK]", ""))

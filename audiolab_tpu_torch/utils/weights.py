@@ -779,3 +779,298 @@ def diarize_from_jax(seg_params: dict, emb_params: dict) -> tuple[dict, dict]:
     _dense(emb, "attn", emb_params["attn"])
     _dense(emb, "proj", emb_params["proj"])
     return seg, emb
+
+
+def _lm_layers(sd: dict, prefix: str, params: dict) -> None:
+    """TransformerLM's blocks and final norm under the LLaMA names."""
+    for i in range(_count(params, "layer_")):
+        p, node = f"{prefix}model.layers.{i}", params[f"layer_{i}"]
+        for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"), ("wv", "v_proj"),
+                             ("wo", "o_proj")):
+            _dense(sd, f"{p}.self_attn.{theirs}", node["attn"][ours])
+        for ours, theirs in (("w1", "gate_proj"), ("w3", "up_proj"), ("w2", "down_proj")):
+            _dense(sd, f"{p}.mlp.{theirs}", node["mlp"][ours])
+        sd[f"{p}.input_layernorm.weight"] = _t(node["attn_norm"]["weight"])
+        sd[f"{p}.post_attention_layernorm.weight"] = _t(node["mlp_norm"]["weight"])
+    sd[f"{prefix}model.norm.weight"] = _t(params["final_norm"]["weight"])
+
+
+def lm_from_jax(params: dict) -> dict:
+    """TransformerLM flax params -> port state_dict under HF LLaMA's names
+    (the inverse of convert_llama); the embedding and the head only where
+    the tree has them."""
+    sd: dict = {}
+    _lm_layers(sd, "", params)
+    if "tok_emb" in params:
+        sd["model.embed_tokens.weight"] = _t(params["tok_emb"]["embedding"])
+    if "lm_head" in params:
+        _dense(sd, "lm_head", params["lm_head"])
+    return sd
+
+
+def dia_from_jax(params: dict, cfg) -> dict:
+    """DiaModel flax params -> port state_dict under nari-labs Dia's names and
+    DenseGeneral layouts (the inverse of convert_dia): q/k/v kernels (in,
+    heads, hd), o (heads, hd, out), ``mlp.wi_fused`` = [w1, w3] on axis 1,
+    per-codebook ``decoder.embeddings.Q`` split from the offset table,
+    ``decoder.logits_dense`` = the heads stacked on axis 1.  ``cfg`` is the
+    model's DiaConfig (for the head counts)."""
+    sd: dict = {}
+
+    def attn(key: str, node: dict, heads: int, kv: int) -> None:
+        for ours, theirs, h in (("wq", "q_proj", heads), ("wk", "k_proj", kv),
+                                ("wv", "v_proj", kv)):
+            w = np.asarray(node[ours]["kernel"])
+            sd[f"{key}.{theirs}.weight"] = _t(w.reshape(w.shape[0], h, -1))
+        w = np.asarray(node["wo"]["kernel"])
+        sd[f"{key}.o_proj.weight"] = _t(w.reshape(heads, -1, w.shape[-1]))
+
+    def mlp(key: str, node: dict) -> None:
+        sd[f"{key}.wi_fused.weight"] = _t(np.stack(
+            [np.asarray(node["w1"]["kernel"]), np.asarray(node["w3"]["kernel"])], axis=1))
+        sd[f"{key}.wo.weight"] = _t(node["w2"]["kernel"])
+
+    enc, dec = params["encoder"], params["decoder"]
+    sd["encoder.embedding.weight"] = _t(enc["emb"]["embedding"])
+    enc_heads = cfg.n_heads_enc or cfg.n_heads // 2
+    for i in range(_count(enc, "attn_")):
+        b = f"encoder.layers.{i}"
+        attn(f"{b}.self_attention", enc[f"attn_{i}"], enc_heads, enc_heads)
+        sd[f"{b}.pre_sa_norm.weight"] = _t(enc[f"norm1_{i}"]["weight"])
+        sd[f"{b}.post_sa_norm.weight"] = _t(enc[f"norm2_{i}"]["weight"])
+        mlp(f"{b}.mlp", enc[f"ffn_{i}"])
+    sd["encoder.norm.weight"] = _t(enc["final_norm"]["weight"])
+    table = np.asarray(dec["code_emb"]["embedding"])
+    size = table.shape[0] // cfg.n_codebooks
+    for q in range(cfg.n_codebooks):
+        sd[f"decoder.embeddings.{q}.weight"] = _t(table[q * size:(q + 1) * size])
+    for i in range(_count(dec, "self_")):
+        b = f"decoder.layers.{i}"
+        attn(f"{b}.self_attention", dec[f"self_{i}"], cfg.n_heads, cfg.kv_heads or cfg.n_heads)
+        attn(f"{b}.cross_attention", dec[f"cross_{i}"], cfg.n_heads, cfg.n_heads)
+        for ours, theirs in (("n1", "pre_sa_norm"), ("n2", "pre_ca_norm"),
+                             ("n3", "pre_mlp_norm")):
+            sd[f"{b}.{theirs}.weight"] = _t(dec[f"{ours}_{i}"]["weight"])
+        mlp(f"{b}.mlp", dec[f"ffn_{i}"])
+    sd["decoder.norm.weight"] = _t(dec["final_norm"]["weight"])
+    sd["decoder.logits_dense.weight"] = _t(np.stack(
+        [np.asarray(dec[f"head_{q}"]["kernel"]) for q in range(cfg.n_codebooks)], axis=1))
+    return sd
+
+
+def _conv_inner(sd: dict, key: str, node: dict) -> None:
+    """The JAX package's Conv1d / ConvTranspose1d wrappers hold their flax
+    layer as ``Conv_0`` / ``ConvTranspose_0``."""
+    if "Conv_0" in node:
+        _conv1d(sd, key, node["Conv_0"])
+    else:
+        _conv_t1d(sd, key, node["ConvTranspose_0"])
+
+
+def bigvgan_from_jax(params: dict, prefix: str = "") -> dict:
+    """BigVGAN flax params -> port state_dict (the JAX module's names; snake
+    alphas as (1, ch, 1))."""
+    sd: dict = {}
+    for name, node in params.items():
+        if "alpha" in node:
+            sd[f"{prefix}{name}.alpha"] = _t(np.asarray(node["alpha"]).reshape(1, -1, 1))
+        elif name.startswith("amp_"):
+            for sub, leaf in node.items():
+                if "alpha" in leaf:
+                    sd[f"{prefix}{name}.{sub}.alpha"] = _t(
+                        np.asarray(leaf["alpha"]).reshape(1, -1, 1))
+                else:
+                    _conv_inner(sd, f"{prefix}{name}.{sub}", leaf)
+        else:
+            _conv_inner(sd, f"{prefix}{name}", node)
+    return sd
+
+
+def xtts_from_jax(params: dict) -> dict:
+    """The capability XTTS's flax params {"cond", "gpt", "vocoder"} -> one
+    state_dict with ``cond_enc.``, ``gpt.`` and ``vocoder.`` prefixes (the
+    JAX module names; the GPT's LM under LLaMA's names, BigVGAN inside the
+    vocoder)."""
+    sd: dict = {}
+    c = params["cond"]
+    _conv1d(sd, "cond_enc.conv1", c["conv1"])
+    _conv1d(sd, "cond_enc.conv2", c["conv2"])
+    _norm(sd, "cond_enc.ln", c["ln"])
+    sd["cond_enc.queries"] = _t(c["queries"])
+    for name in ("query", "key", "value", "out"):
+        sd[f"cond_enc.xattn.{name}.kernel"] = _t(c["xattn"][name]["kernel"])
+        sd[f"cond_enc.xattn.{name}.bias"] = _t(c["xattn"][name]["bias"])
+    _dense(sd, "cond_enc.ff", c["ff"])
+    g = params["gpt"]
+    sd["gpt.text_emb.weight"] = _t(g["text_emb"]["embedding"])
+    sd["gpt.audio_emb.weight"] = _t(g["audio_emb"]["embedding"])
+    _lm_layers(sd, "gpt.lm.", g["lm"])
+    _dense(sd, "gpt.audio_head", g["audio_head"])
+    v = params["vocoder"]
+    sd["vocoder.code_emb.weight"] = _t(v["code_emb"]["embedding"])
+    _dense(sd, "vocoder.spk_proj", v["spk_proj"])
+    sd.update(bigvgan_from_jax(v["bigvgan"], "vocoder.bigvgan."))
+    return sd
+
+
+def _conv1x1_from_dense(sd: dict, key: str, node: dict) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(node["kernel"]).T[:, :, None])
+    if "bias" in node:
+        sd[f"{key}.bias"] = _t(node["bias"])
+
+
+def xtts_hifigan_from_jax(params: dict) -> dict:
+    """XttsHifiganDecoder flax params -> port state_dict under Coqui's
+    ``waveform_decoder`` names (the inverse of convert_xtts_hifigan)."""
+    sd: dict = {}
+    _conv1d(sd, "conv_pre", params["conv_pre"])
+    _conv1x1_from_dense(sd, "cond_layer", params["cond_layer"])
+    n_ups = _count(params, "up_")
+    n_k = _count(params, "res_0_")
+    for i in range(n_ups):
+        _conv_t1d(sd, f"ups.{i}", params[f"up_{i}"])
+        _conv1x1_from_dense(sd, f"conds.{i}", params[f"cond_{i}"])
+        for j in range(n_k):
+            res = params[f"res_{i}_{j}"]
+            for d in range(_count(res, "c1_")):
+                _conv1d(sd, f"resblocks.{i * n_k + j}.convs1.{d}", res[f"c1_{d}"])
+                _conv1d(sd, f"resblocks.{i * n_k + j}.convs2.{d}", res[f"c2_{d}"])
+    _conv1d(sd, "conv_post", params["conv_post"])
+    return sd
+
+
+def xtts_speaker_from_jax(params: dict, batch_stats: dict) -> dict:
+    """XttsSpeakerEncoder flax variables -> port state_dict under Coqui's
+    ``speaker_encoder`` names (the inverse of convert_xtts_speaker)."""
+    sd: dict = {}
+    _conv2d(sd, "conv1", params["conv1"])
+    _bn(sd, "bn1", params["bn1"], batch_stats["bn1"])
+    for name, node in params.items():
+        if not name.startswith("layer"):
+            continue
+        li, j = name[5:].split("_")
+        b, st = f"layer{li}.{j}", batch_stats[name]
+        _conv2d(sd, f"{b}.conv1", node["conv1"])
+        _bn(sd, f"{b}.bn1", node["bn1"], st["bn1"])
+        _conv2d(sd, f"{b}.conv2", node["conv2"])
+        _bn(sd, f"{b}.bn2", node["bn2"], st["bn2"])
+        _dense(sd, f"{b}.se.fc.0", node["se"]["fc0"])
+        _dense(sd, f"{b}.se.fc.2", node["se"]["fc1"])
+        if "down_conv" in node:
+            _conv2d(sd, f"{b}.downsample.0", node["down_conv"])
+            _bn(sd, f"{b}.downsample.1", node["down_bn"], st["down_bn"])
+    _conv1x1_from_dense(sd, "attention.0", params["att0"])
+    _bn(sd, "attention.2", params["att_bn"], batch_stats["att_bn"])
+    _conv1x1_from_dense(sd, "attention.3", params["att1"])
+    _dense(sd, "fc", params["fc"])
+    return sd
+
+
+def xtts_gpt2_from_jax(params: dict) -> dict:
+    """XttsGPT2 flax params -> port state_dict: the checkpoint's ``gpt.``
+    subtree without that prefix (transformers' Conv1D weights (in, out); the
+    inverse of convert_xtts_gpt)."""
+    sd: dict = {}
+
+    def conv1d(key: str, node: dict) -> None:
+        sd[f"{key}.weight"] = _t(node["kernel"])
+        sd[f"{key}.bias"] = _t(node["bias"])
+
+    for i in range(_count(params, "h_")):
+        b, node = f"gpt.h.{i}", params[f"h_{i}"]
+        _norm(sd, f"{b}.ln_1", node["ln_1"])
+        conv1d(f"{b}.attn.c_attn", node["c_attn"])
+        conv1d(f"{b}.attn.c_proj", node["c_proj_attn"])
+        _norm(sd, f"{b}.ln_2", node["ln_2"])
+        conv1d(f"{b}.mlp.c_fc", node["c_fc"])
+        conv1d(f"{b}.mlp.c_proj", node["c_proj_mlp"])
+    _norm(sd, "gpt.ln_f", params["ln_f"])
+    _norm(sd, "final_norm", params["final_norm"])
+    sd["text_embedding.weight"] = _t(params["text_embedding"]["embedding"])
+    sd["mel_embedding.weight"] = _t(params["mel_embedding"]["embedding"])
+    sd["text_pos_embedding.emb.weight"] = _t(params["text_pos"])
+    sd["mel_pos_embedding.emb.weight"] = _t(params["mel_pos"])
+    _dense(sd, "text_head", params["text_head"])
+    _dense(sd, "mel_head", params["mel_head"])
+    return sd
+
+
+def xtts_conditioner_from_jax(params: dict) -> dict:
+    """XttsConditioningEncoder flax params -> port state_dict under the
+    ``conditioning_encoder`` names (the inverse of convert_xtts_conditioner)."""
+    sd: dict = {}
+    _conv1x1_from_dense(sd, "init", params["init"])
+    for i in range(_count(params, "attn_")):
+        node = params[f"attn_{i}"]
+        _norm(sd, f"attn.{i}.norm", node["norm"])
+        _conv1x1_from_dense(sd, f"attn.{i}.qkv", node["qkv"])
+        _conv1x1_from_dense(sd, f"attn.{i}.proj_out", node["proj_out"])
+    return sd
+
+
+def xtts_perceiver_from_jax(params: dict) -> dict:
+    """XttsPerceiverResampler flax params -> port state_dict under the
+    ``conditioning_perceiver`` names (the inverse of convert_xtts_perceiver)."""
+    sd: dict = {"latents": _t(params["latents"]), "norm.gamma": _t(params["norm_gamma"])}
+    for i in range(_count(params, "q_")):
+        b = f"layers.{i}"
+        _dense(sd, f"{b}.0.to_q", params[f"q_{i}"])
+        _dense(sd, f"{b}.0.to_kv", params[f"kv_{i}"])
+        _dense(sd, f"{b}.0.to_out", params[f"out_{i}"])
+        _dense(sd, f"{b}.1.0", params[f"ff0_{i}"])
+        _dense(sd, f"{b}.1.2", params[f"ff1_{i}"])
+    return sd
+
+
+def xtts_dvae_from_jax(params: dict) -> dict:
+    """XttsDVAE flax params -> port state_dict under dvae.pth's Sequential
+    names (the inverse of convert_xtts_dvae)."""
+    sd: dict = {}
+    n_layers, n_res = _count(params, "enc_conv_"), _count(params, "enc_res_")
+
+    def res(key: str, node: dict) -> None:
+        for ours, theirs in (("c0", 0), ("c1", 2), ("c2", 4)):
+            _conv1d(sd, f"{key}.net.{theirs}", node[ours])
+
+    for i in range(n_layers):
+        _conv1d(sd, f"encoder.{i}.0", params[f"enc_conv_{i}"])
+    for j in range(n_res):
+        res(f"encoder.{n_layers + j}", params[f"enc_res_{j}"])
+    _conv1d(sd, f"encoder.{n_layers + n_res}", params["enc_out"])
+    sd["codebook.embed"] = _t(params["embed"])
+    _conv1d(sd, "decoder.0", params["dec_in"])
+    for j in range(n_res):
+        res(f"decoder.{1 + j}", params[f"dec_res_{j}"])
+    for i in range(n_layers):
+        _conv1d(sd, f"decoder.{1 + n_res + i}.0.conv", params[f"dec_up_{i}"])
+    _conv1d(sd, f"decoder.{1 + n_res + n_layers}", params["dec_out"])
+    return sd
+
+
+def zonos_prefix_from_jax(params: dict, specs, projection: str = "none") -> dict:
+    """ZonosPrefixConditioner flax params -> port state_dict under the
+    checkpoint's ``prefix_conditioner`` names (the inverse of
+    convert_zonos_prefix)."""
+    sd: dict = {}
+
+    def proj(key: str, nm: str, kind: str) -> None:
+        if kind == "linear":
+            _dense(sd, f"{key}project", params[f"{nm}_proj"])
+        elif kind == "mlp":
+            _dense(sd, f"{key}project.0", params[f"{nm}_proj0"])
+            _dense(sd, f"{key}project.2", params[f"{nm}_proj1"])
+
+    for i, s in enumerate(specs):
+        b, nm = f"conditioners.{i}.", f"c_{s.name}"
+        if s.uncond_type == "learned":
+            sd[f"{b}uncond_vector"] = _t(params[f"{nm}_uncond"])
+        if s.type == "EspeakPhonemeConditioner":
+            sd[f"{b}phoneme_embedder.weight"] = _t(params[f"{nm}_emb"]["embedding"])
+        elif s.type == "FourierConditioner":
+            sd[f"{b}weight"] = _t(params[f"{nm}_weight"])
+        elif s.type == "IntegerConditioner":
+            sd[f"{b}int_embedder.weight"] = _t(params[f"{nm}_emb"]["embedding"])
+        proj(b, nm, s.projection)
+    proj("", "prefix", projection)
+    _norm(sd, "norm", params["norm"])
+    return sd

@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version at the main path's shapes,
-drives the separate -> RVC chain, RVC training and Zonos TTS at full width,
-and checks the output.
+drives the separate -> RVC chain, RVC training, Zonos TTS and the speech
+engines of the LM core (Dia, XTTS, the LM) at full width, and checks the
+output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -10,17 +11,22 @@ and checks the output.
     python3 chip_smoke.py --phases card,separators # HTDemucs, MDX23C, the ONNX member
     python3 chip_smoke.py --phases card,train      # RVC training and its three routes
     python3 chip_smoke.py --phases card,kernels,tts  # Zonos TTS and the speech route
+    python3 chip_smoke.py --phases card,kernels,engines  # Dia, XTTS, the LM core, Zonos's
+                                                   # embedded prefix, the speech routes
     python3 chip_smoke.py --phases card,processors # Remaster, Super Resolution, Convert,
                                                    # Compare, Clone's OpenVoice and TTS
                                                    # methods, diarization, crepe
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
-                                                   # of the separator family and of TTS
+                                                   # of the separator family, of TTS, of
+                                                   # a Dia call and an XTTS-v2 synthesize
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
   card       nvidia-smi name and power limit, torch/CUDA versions, build seconds
   kernels    K1 and K2 against their plain versions at the main path's shapes
-             (K2 in fp32 and in bf16, and at Zonos's causal fp32 prefill), K1's
+             (K2 in fp32 and in bf16, at Zonos's causal fp32 prefill, and at
+             Dia's causal fp32 prefill with scale 1.0, d = 64 and 128, and its
+             BOS-only t = 1 call; every K2 case timed over 200 launches), K1's
              Hopper design against the WMMA core
              on each axis (in turns); the 16-bit K2 on its Hopper design at
              the HuBERT shape, a causal tq != tk shape, a causal language-model
@@ -125,6 +131,22 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              prefill and 8 teacher-forced steps (1e-4 of max|logit|); (c) POST
              /api/v1/audio/speech through create_app: a 44.1 kHz WAV, the
              download, 2 K2
+  engines    the LM core's speech engines, each call cold then warm with its
+             seconds by stage, steps/s and peak memory: (a) Dia at DiaConfig()
+             through DiaTTSEngine and the 44.1 kHz DAC on a two-speaker line of
+             27 words: 12 fp32 K2 a call, the captured decode against the eager
+             loop, the code-range repair; (b) Dia with a 5 s audio prompt
+             (prefill 441 positions) at DiaConfig() and at Dia-1.6B's decoder
+             geometry (18 fp32 K2, d = 128), and a teacher-forced forward; (c)
+             the capability XTTS at XTTSConfig() and random_xtts(); (d)
+             XTTS-v2 at its published widths: conditioning on 6 s, 200 decode
+             steps, the cached decode against a full re-forward; (e) Zonos
+             generate_embedded from the prefix bank (2 fp32 K2); (f)
+             TransformerLM at LMConfig(), bf16, one uncached forward over 2,048
+             tokens (16 K2 on the Hopper route); (g) POST /api/v1/audio/speech
+             with "dia" and "coqui", and main --demo-backends answering
+             "coqui"; (h) card against CPU in fp32 (1e-5 of the scale): Dia's
+             logits, XTTS-v2's latents and waveform, the prefix conditioner
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -145,7 +167,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-          "serve", "separators", "processors", "long", "train", "tts")
+          "serve", "separators", "processors", "long", "train", "tts", "engines")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -275,9 +297,11 @@ def norm_work(x, params) -> tuple[float, float]:
 
 def check_kernel(name, kernel_fn, plain_fn, library_fn, args, shape, tol_rel, tol_reason,
                  work, peak, replaces, source="audiolab_tpu_torch/csrc/attention.cu",
-                 library_note=None):
+                 library_note=None, iters: int = 10):
     """Holds ``kernel_fn(*args)`` against ``plain_fn(*args)`` and times both and
-    the library yardstick (``library_fn`` None: there is no single call)."""
+    the library yardstick (``library_fn`` None: there is no single call) with
+    CUDA events over ``iters`` launches (many for calls under 0.1 ms, whose
+    single readings are the host's)."""
     import torch
 
     out = kernel_fn(*args)
@@ -290,9 +314,10 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, args, shape, tol_rel, to
     del out, ref
     # three warm-up calls: the first kernel timed after the build ran ~15 %
     # slow after a single one (the card still ramping its clocks)
-    ms = cuda_ms(lambda: kernel_fn(*args), iters=10, warmup=3)
+    ms = cuda_ms(lambda: kernel_fn(*args), iters=iters, warmup=3)
     plain_ms = cuda_ms(lambda: plain_fn(*args), iters=2)
-    library_ms = None if library_fn is None else cuda_ms(lambda: library_fn(*args), iters=10)
+    library_ms = (None if library_fn is None
+                  else cuda_ms(lambda: library_fn(*args), iters=iters))
     torch.cuda.empty_cache()
     flops, nbytes, exps = (*work, 0.0)[:3]
     t_ops, t_bytes, t_exp = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3, exps / PEAK_EXP * 1e3
@@ -302,7 +327,7 @@ def check_kernel(name, kernel_fn, plain_fn, library_fn, args, shape, tol_rel, to
                bound_ms=max(t_ops, t_bytes, t_exp),
                bound_by="operations" if max(t_ops, t_exp) >= t_bytes else "bytes",
                bound_parts_ms=dict(products=t_ops, exponentials=t_exp, bytes=t_bytes),
-               flops=flops, bytes=nbytes, exponentials=exps)
+               flops=flops, bytes=nbytes, exponentials=exps, iters=iters)
     ok = finite and err <= tol
     lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
     log(f"[kernels] {name} {shape} err {err:.3e} (tol {tol:.3e}: "
@@ -344,16 +369,16 @@ def phase_kernels(dev, card: str) -> list[dict]:
     def rnd(shape, dtype):
         return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
 
-    def sdpa(causal):
+    def sdpa(causal, scale=None):
         # yardstick only: the port never calls it
         def call(q, k, v):
             tq, tk = q.shape[2], k.shape[2]
             if causal and tq == tk:     # its fused causal kernel takes no offset
-                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale)
             mask = None
             if causal:
                 mask = torch.ones(tq, tk, dtype=torch.bool, device=dev).tril(tk - tq)
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
         return call
 
     def hopper_launches(fn, wrapper):
@@ -426,7 +451,7 @@ def phase_kernels(dev, card: str) -> list[dict]:
                 sdpa(causal), (q, k, v), attention_shape(q, k, causal),
                 *(k2_tol if dt == torch.float32 else k1_tol),
                 attention_work(q, k, causal), PEAK_FP32 if dt == torch.float32 else PEAK_BF16,
-                k2_rep)
+                k2_rep, iters=200)
             if dt != torch.float32:
                 route = A.k2_route(qs[0] * qs[1], qs[2], ks[2], qs[3], dt, causal, True)
                 expect(route == "sm90", f"{label}: routed to {route}")
@@ -444,6 +469,39 @@ def phase_kernels(dev, card: str) -> list[dict]:
         recs.append(rec)
         del q, k, v
         torch.cuda.empty_cache()
+
+    # Dia's decoder prefill: fp32, causal, scale 1.0, CFG batch 2 x 16 query
+    # heads; d = 64 at DiaConfig(), d = 128 at Dia-1.6B's decoder geometry,
+    # both over a 5 s audio prompt (441 positions), and the BOS-only t = 1
+    # call.  q and k have the spread fast_init's weights give (N(0, 0.02)
+    # kernels over a unit-RMS input: std 0.02 sqrt(dim_dec)), so the unscaled
+    # scores have a std of 3.3 (d = 64) and 9.3 (d = 128).
+    k2_dia_tol = ((4e-5, 0.0), "fp32 scores up to ~50 (scale 1.0) summed in another "
+                  "order: 1e-6 on a score moves the output by up to 4e-5 of its max")
+    for label, key, qs, dim_dec in (
+            ("K2 flash_attention_fwd (Dia prefill, causal, scale 1.0)", "k2_dia_prefill",
+             (2, 16, 441, 64), 1024),
+            ("K2 flash_attention_fwd (Dia-1.6B prefill, causal, scale 1.0, d = 128)",
+             "k2_dia16_prefill", (2, 16, 441, 128), 2048),
+            ("K2 flash_attention_fwd (Dia BOS-only prefill, t = 1, scale 1.0)", "k2_dia_bos",
+             (2, 16, 1, 64), 1024)):
+        sd = 0.02 * dim_dec ** 0.5
+        q, k, v = (sd * rnd(qs, torch.float32) for _ in range(3))
+        rec = check_kernel(
+            label, lambda q, k, v: A.flash_attention_fwd(q, k, v, causal=True, scale=1.0),
+            lambda q, k, v: A.flash_attention_reference(q, k, v, True, 1.0),
+            sdpa(True, 1.0), (q, k, v), attention_shape(q, k, True) | {"scale": 1.0},
+            *k2_dia_tol, attention_work(q, k, True), PEAK_FP32, k2_rep, iters=200)
+        expect(hopper_launches(lambda: A.flash_attention_fwd(q, k, v, causal=True, scale=1.0),
+                               A.flash_attention_fwd) == 0,
+               f"{label}: an fp32 call reached the 16-bit Hopper kernel")
+        rec.update(case=key, kernel="K2", on_main_path=False, on_engines_path=True)
+        recs.append(rec)
+        del q, k, v
+    # the language model's uncached prefill is on the engines path too
+    for rec in recs:
+        if rec["case"] == "k2_lm_prefill_bf16":
+            rec["on_engines_path"] = True
 
     # long sequences, where every CTA pulls a slice's K and V from L2 again for
     # its 128 query rows: the 16-bit K2 beside SDPA, timed only
@@ -2253,6 +2311,602 @@ def phase_tts(dev, card: str, profile_dir: str | None = None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------- engines
+
+DIA_TEXT = ("[S1] Welcome back to the studio, everyone. [S2] Thanks! Today we are recording "
+            "the vocals for our brand new song. [S1] It is going to sound wonderful.")
+DIA_WARM = 2
+DIA_GRAPH_FRAMES = 64            # frames of the captured-against-eager check
+DIA_PROMPT_FRAMES = 431          # a 5 s audio prompt of 44.1 kHz DAC frames (hop 512)
+DIA_PROMPT_DECODE = 86           # frames decoded after the prompt (1 s)
+# Dia-1.6B's published decoder geometry as far as DiaConfig expresses it (the
+# JAX DiaEncoder has no head-dim field: its attention is 8 x 128 where the
+# published encoder's is 16 x 128)
+DIA16 = dict(dim_dec=2048, n_layers_dec=18, n_heads=16, kv_heads=4, head_dim_dec=128,
+             cross_head_dim=128, dim_enc=1024, n_layers_enc=12, n_heads_enc=8,
+             max_audio_len=3072)
+XTTS_TEXT = "Welcome back to the studio. Today we record the vocals for our new song."
+XTTS_REF_S = 6.0
+XTTS_STEPS = 200
+ZONOS_EMB_FRAMES = 200
+LM_TOKENS = 2048
+
+
+def _peak_reset(cuda: bool) -> None:
+    import torch
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(cuda: bool) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+
+
+def _tone(seconds: float, sr: int) -> np.ndarray:
+    """A seeded harmonic tone with vibrato and a little noise: the references."""
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 180.0 * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))
+    ph = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(0.3 / k * np.sin(k * ph) for k in range(1, 6))
+    x += 0.01 * np.random.default_rng(5).standard_normal(len(t))
+    return (0.5 * x).astype(np.float32)
+
+
+def profile_call(label: str, fn, wall_stages: dict, dev, profile_dir: str, card: str) -> dict:
+    """One call of ``fn`` under torch.profiler: a table of its device time by
+    kernel in ``profile_dir``, and a log line with the device time, the
+    share of the stages' wall time it fills and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    launches = sum(e.count for e in kernels)
+    wall = sum(wall_stages.values())
+    name = re.sub(r"[^a-z0-9]+", "_", label.lower()).strip("_")
+    path = Path(profile_dir) / f"chip_smoke_{name}_profile.txt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(f"{card}\n{label}: stages {wall_stages}; {device_s:.3f} s of device time, "
+                    f"{launches} kernel launches\n"
+                    + events.table(sort_by="self_cuda_time_total", row_limit=40) + "\n")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"[engines] profile {label}: {device_s:.3f} s of device time in {wall:.3f} s of "
+        f"stages ({device_s / wall:.0%} busy), {launches} kernel launches; top: "
+        + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ms x {e.count}"
+                    for e in top) + f" -> {path}")
+    return dict(device_s=device_s, wall_s=wall, launches=launches)
+
+
+def phase_engines(dev, card: str, profile_dir: str | None = None) -> dict:
+    """The speech engines of the LM core on the card, weights by bench.py's
+    rules (utils/fast_init.py).  (a) Dia at DiaConfig() (decoder 1024 x 12,
+    16 x 64 heads; encoder 512 x 6) through DiaTTSEngine with the 44.1 kHz
+    DAC (decoder_dim 1536) on a two-speaker line of 27 words: a cold call and
+    DIA_WARM warm ones, 12 fp32 K2 a call (counts reset just before, read
+    just after), seconds by stage, steps/s, peak memory, finite audio; the
+    captured decode against the eager loop under the same draws (identical
+    codes); the code-range repair on ids past the DAC.  (b) Dia with a 5 s
+    audio prompt (431 frames, prefill 441 positions) at DiaConfig() and at
+    Dia-1.6B's decoder geometry (18 fp32 K2 at d = 128), and one
+    teacher-forced DiaModel forward over the prompt.  (c) the capability XTTS
+    at XTTSConfig() and the demo random_xtts(), each ``tts`` on a 6 s
+    reference.  (d) XTTS-v2 at its published widths: ``conditioning`` on a 6 s
+    reference, ``synthesize`` for 200 steps, seconds by stage, steps/s, peak
+    memory; the cached decode's logits against one full re-forward on the
+    card.  (e) Zonos ``generate_embedded`` at ZonosConfig() from a
+    ZonosPrefixConditioner prefix over phoneme ids (2 fp32 K2).  (f)
+    TransformerLM at LMConfig() (bf16): one uncached forward over 2,048
+    tokens, 16 16-bit K2 on the Hopper route.  (g) POST /api/v1/audio/speech
+    with "dia" and "coqui", and ``main --demo-backends`` answering a "coqui"
+    request.  (h) the card against the CPU in fp32: Dia's logits, XTTS-v2's
+    latents and HiFi waveform, the prefix conditioner's output.  With
+    ``profile_dir``, profiler tables of one warm Dia call and one warm XTTS-v2
+    synthesize.  Returns the path's counts: (a)'s first call plus (f)'s first
+    warm forward."""
+    import base64
+    import shutil
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+
+    import torch
+
+    from audiolab_tpu_torch.core.audio_io import read_wav
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
+    from audiolab_tpu_torch.models.dia import DiaConfig, DiaModel, tokenize_dialogue
+    from audiolab_tpu_torch.models.dia import generate as dia_generate
+    from audiolab_tpu_torch.models.lm import LMConfig, TransformerLM, gumbel_draws
+    from audiolab_tpu_torch.models.phonemize import phonemize_ipa
+    from audiolab_tpu_torch.models.xtts import (
+        XTTS,
+        XTTSConfig,
+        XttsConditioningEncoder,
+        XttsGPT2,
+        XttsHifiganDecoder,
+        XttsPerceiverResampler,
+        XttsSpeakerEncoder,
+        xtts_gpt2_generate,
+    )
+    from audiolab_tpu_torch.models.zonos import (
+        DEFAULT_ZONOS_CONDITIONERS,
+        ZonosPrefixConditioner,
+        delay_pattern,
+        generate_embedded,
+        tokenize_phonemes_np,
+    )
+    from audiolab_tpu_torch.pipelines.tts import DiaTTSEngine, XttsCheckpointEngine, random_xtts
+    from audiolab_tpu_torch.serve import tts_api
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    rec: dict = {}
+    path = dict.fromkeys(KERNELS, 0)
+
+    def n_params(m) -> float:
+        return sum(p.numel() for p in m.parameters()) / 1e6
+
+    def cpu_copy(module, make):
+        c = make()
+        c.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+        return c.eval()
+
+    # (a) Dia at DiaConfig() behind DiaTTSEngine
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        dia = fast_init(DiaModel(DiaConfig()), 0)
+        dac = fast_init(DACDecoder(DACConfig(decoder_dim=1536)), 1)
+    eng = DiaTTSEngine(dia, dac, device=dev)
+    sync(dev)
+    c = dia.cfg
+    frames = eng.frames(DIA_TEXT)
+    log(f"[engines] (a) Dia DiaConfig(): decoder {c.dim_dec} x {c.n_layers_dec}, "
+        f"{c.n_heads} x {c.dim_dec // c.n_heads} heads, encoder {c.dim_enc} x "
+        f"{c.n_layers_enc}, {n_params(dia):.1f} M parameters; DAC {n_params(dac):.1f} M; "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    runs = []
+    for i in range(1 + DIA_WARM):
+        label = f"dia call {i + 1} ({'cold' if i == 0 else 'warm'})"
+        _peak_reset(cuda)
+        reset_counts()
+        t0 = time.perf_counter()
+        audio, sr = eng.generate(DIA_TEXT, seed=i, timed=True)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = counts()
+        hop = A.flash_attention_fwd.sm90_launches
+        st = dict(eng.last_stats)
+        run = dict(seconds=secs, prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                   dac_s=st["dac_s"], steps=st["steps"],
+                   steps_per_s=st["steps"] / st["decode_s"], peak_gb=_peak_gb(cuda),
+                   audio_s=len(audio) / sr, launches=launches)
+        runs.append(run)
+        log(f"[engines] (a) {label}: {frames} frames + {c.n_codebooks} delay steps, CFG batch "
+            f"2: {secs:.3f} s (draws {st['draws_s']:.3f}, prefill {st['prefill_s']:.3f}, "
+            f"decode {st['decode_s']:.3f}, DAC {st['dac_s']:.3f}); {run['steps_per_s']:.1f} "
+            f"steps/s; {run['audio_s']:.2f} s of audio at {sr} Hz, "
+            f"{run['audio_s'] / secs:.2f} audio-s/s; peak {run['peak_gb']:.2f} GB; launches "
+            f"{launches} (K2 on the Hopper design: {hop}) | {card}")
+        expect(sr == 44100 and audio.shape == (frames * dac.cfg.hop,)
+               and bool(np.isfinite(audio).all()),
+               f"{label}: {audio.shape} at {sr} Hz, expected ({frames * dac.cfg.hop},), finite")
+        expect(only(launches, "K2", c.n_layers_dec) and hop == 0,
+               f"{label}: launches {launches}, {hop} Hopper; expected {c.n_layers_dec} fp32 K2")
+        if i == 0:
+            for k in path:
+                path[k] += launches[k]
+    rec["dia"] = runs
+    if profile_dir and cuda:
+        rec["dia_profile"] = profile_call(
+            "Dia DiaConfig() warm generate", lambda: eng.generate(DIA_TEXT, seed=1, timed=True),
+            {k: runs[-1][k] for k in ("prefill_s", "decode_s", "dac_s")}, dev, profile_dir, card)
+    ids = tokenize_dialogue(DIA_TEXT)[None]
+    draws = gumbel_draws(DIA_GRAPH_FRAMES + c.n_codebooks, c.n_codebooks, c.codebook_size, 7,
+                         dev)
+    codes = {}
+    for graph in ((True, False) if cuda else (False,)):
+        t0 = time.perf_counter()
+        codes[graph] = dia_generate(dia, ids, max_frames=DIA_GRAPH_FRAMES, draws=draws,
+                                    graph=graph, device=dev)
+        sync(dev)
+        log(f"[engines] (a) Dia generate graph={graph}: {time.perf_counter() - t0:.3f} s "
+            f"({DIA_GRAPH_FRAMES + c.n_codebooks} steps)")
+    if cuda:
+        same = torch.equal(codes[True], codes[False])
+        log(f"[engines] (a) captured decode against the eager loop, the same draws: codes "
+            f"{'identical' if same else 'DIFFER'}")
+        expect(same, "dia: graph and eager decode codes differ")
+    gen = codes[cuda]
+    past = int((gen >= dac.cfg.codebook_size).sum())
+    y = eng.codes_to_audio(torch.cat([gen, torch.full_like(gen, c.eos_id)]))
+    sync(dev)
+    log(f"[engines] (a) code-range repair: {past} generated ids past the DAC's "
+        f"{dac.cfg.codebook_size} rows, and a row of EOS ids: audio finite "
+        f"{bool(torch.isfinite(y).all())}, no device assert")
+    expect(bool(torch.isfinite(y).all()), "dia: the repaired codes gave non-finite audio")
+    del codes, gen, draws, y
+
+    # (b) a 5 s audio prompt, at DiaConfig() and at Dia-1.6B's decoder geometry
+    g = torch.Generator(device=dev).manual_seed(11)
+    prompt = torch.randint(0, 1024, (1, 9, DIA_PROMPT_FRAMES), generator=g, device=dev)
+    rec["prompt"] = {}
+    for name, cfg_kw in (("DiaConfig()", {}), ("Dia-1.6B geometry", DIA16)):
+        if cfg_kw:
+            del eng, dia
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with torch.device(dev):
+                dia = fast_init(DiaModel(DiaConfig(**cfg_kw)), 2)
+            sync(dev)
+            log(f"[engines] (b) {name}: {n_params(dia):.1f} M parameters "
+                f"({4 * n_params(dia) / 1e3:.2f} GB fp32), built in "
+                f"{time.perf_counter() - t0:.1f} s")
+        c = dia.cfg
+        runs = []
+        for i in range(2):
+            st: dict = {}
+            _peak_reset(cuda)
+            reset_counts()
+            t0 = time.perf_counter()
+            out = dia_generate(dia, ids, max_frames=DIA_PROMPT_DECODE, audio_prompt=prompt,
+                               seed=i, stats=st, device=dev)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            launches = counts()
+            run = dict(seconds=secs, prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                       steps=st["steps"], steps_per_s=st["steps"] / st["decode_s"],
+                       peak_gb=_peak_gb(cuda), launches=launches)
+            runs.append(run)
+            log(f"[engines] (b) {name} generate with the prompt, call {i + 1}: prefill "
+                f"{1 + DIA_PROMPT_FRAMES + c.n_codebooks} positions {st['prefill_s']:.3f} s, "
+                f"decode {st['steps']} steps {st['decode_s']:.3f} s = "
+                f"{run['steps_per_s']:.1f} steps/s; {secs:.3f} s; peak {run['peak_gb']:.2f} "
+                f"GB; launches {launches} (Hopper {A.flash_attention_fwd.sm90_launches}) | "
+                f"{card}")
+            expect(tuple(out.shape) == (1, c.n_codebooks, DIA_PROMPT_DECODE),
+                   f"dia prompt {name}: codes {tuple(out.shape)}")
+            expect(only(launches, "K2", c.n_layers_dec)
+                   and A.flash_attention_fwd.sm90_launches == 0,
+                   f"dia prompt {name}: launches {launches}; expected {c.n_layers_dec} fp32 K2")
+        bos = torch.full((1, c.n_codebooks, 1), c.bos_id, dtype=torch.long, device=dev)
+        seq = torch.cat([bos, delay_pattern(prompt, c.masked_id)], dim=2)
+        text = torch.as_tensor(ids, dtype=torch.long, device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits = dia(text, seq, text != 0)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = counts()
+        log(f"[engines] (b) {name} teacher-forced forward over {seq.shape[2]} positions: "
+            f"{secs:.3f} s, logits {tuple(logits.shape)} finite "
+            f"{bool(torch.isfinite(logits).all())}; launches {launches}")
+        expect(bool(torch.isfinite(logits).all()) and only(launches, "K2", c.n_layers_dec),
+               f"dia forward {name}: launches {launches}")
+        rec["prompt"][name] = dict(runs=runs, forward_s=secs, params_m=n_params(dia))
+        del out, logits
+    del dia
+    torch.cuda.empty_cache()
+
+    # (c) the capability XTTS
+    ref24 = _tone(XTTS_REF_S, 24000)
+    demo = random_xtts(device=dev)
+    rec["xtts"] = {}
+    for name, model in (("XTTSConfig()", XTTS.random_init(XTTSConfig(), seed=0, device=dev)),
+                        ("random_xtts()", demo.model)):
+        runs = []
+        for i in range(2):
+            _peak_reset(cuda)
+            reset_counts()
+            t0 = time.perf_counter()
+            wav, sr = model.tts(XTTS_TEXT, ref24, 24000, seed=i)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            launches = counts()
+            runs.append(dict(seconds=secs, peak_gb=_peak_gb(cuda)))
+            log(f"[engines] (c) XTTS {name} (dim {model.cfg.dim} x {model.cfg.n_layers}) tts "
+                f"call {i + 1}, 256 codes: {secs:.3f} s, {len(wav) / sr:.2f} s of audio at {sr} "
+                f"Hz, peak {runs[-1]['peak_gb']:.2f} GB; launches {launches} | {card}")
+            expect(sr == 24000 and len(wav) == 256 * 256 and bool(np.isfinite(wav).all())
+                   and not any(launches.values()),
+                   f"xtts {name}: {wav.shape} at {sr}, launches {launches}")
+        rec["xtts"][name] = runs
+
+    # (d) XTTS-v2 at the published widths
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        mods = [fast_init(m, 10 + i) for i, m in enumerate((
+            XttsGPT2(), XttsConditioningEncoder(), XttsPerceiverResampler(),
+            XttsSpeakerEncoder(), XttsHifiganDecoder()))]
+    ck = XttsCheckpointEngine(*mods, device=dev)
+    sync(dev)
+    log(f"[engines] (d) XTTS-v2: GPT-2 {len(ck.gpt.gpt.h)} x {ck.gpt.dim} x {ck.gpt.heads} "
+        f"{n_params(ck.gpt):.1f} M, conditioning encoder {n_params(ck.cond_enc):.1f} M, "
+        f"perceiver {n_params(ck.perceiver):.1f} M, speaker encoder "
+        f"{n_params(ck.spk_enc):.1f} M, HiFi decoder {n_params(ck.decoder):.1f} M; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = []
+    for i in range(2):
+        _peak_reset(cuda)
+        reset_counts()
+        t0 = time.perf_counter()
+        lat, dvec = ck.conditioning(ref24, 24000)
+        sync(dev)
+        cond_s = time.perf_counter() - t0
+        wav, sr = ck.synthesize(XTTS_TEXT, cond=lat, d_vector=dvec, max_steps=XTTS_STEPS,
+                                seed=i, timed=True)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = counts()
+        st = dict(ck.last_stats)
+        run = dict(conditioning_s=cond_s, seconds=secs, prefill_s=st["prefill_s"],
+                   decode_s=st["decode_s"], latents_s=st["latents_s"],
+                   decoder_s=st["decoder_s"], steps_per_s=XTTS_STEPS / st["decode_s"],
+                   peak_gb=_peak_gb(cuda), audio_s=len(wav) / sr)
+        runs.append(run)
+        log(f"[engines] (d) XTTS-v2 call {i + 1}: conditioning on {XTTS_REF_S:.0f} s "
+            f"{cond_s:.3f} s; synthesize {XTTS_STEPS} steps: prefill {st['prefill_s']:.3f}, "
+            f"decode {st['decode_s']:.3f} s = {run['steps_per_s']:.1f} steps/s, latents "
+            f"{st['latents_s']:.3f}, HiFi decoder {st['decoder_s']:.3f}; {secs:.3f} s in all, "
+            f"{run['audio_s']:.2f} s of audio at {sr} Hz; peak {run['peak_gb']:.2f} GB; "
+            f"launches {launches} | {card}")
+        expect(sr == 24000 and bool(np.isfinite(wav).all()) and not any(launches.values()),
+               f"xtts-v2: {wav.shape} at {sr}, launches {launches}")
+    rec["xtts_v2"] = runs
+    if profile_dir and cuda:
+        rec["xtts_v2_profile"] = profile_call(
+            "XTTS-v2 warm synthesize",
+            lambda: ck.synthesize(XTTS_TEXT, cond=lat, d_vector=dvec, max_steps=XTTS_STEPS,
+                                  seed=1),
+            {k: runs[-1][k] for k in ("prefill_s", "decode_s", "latents_s", "decoder_s")},
+            dev, profile_dir, card)
+    # the cached decode's logits against one full re-forward on the card
+    gpt = ck.gpt
+    tids = torch.as_tensor(np.asarray(ck.tokenize(XTTS_TEXT))[None], device=dev)
+    codes, _lat, _n = xtts_gpt2_generate(gpt, tids, lat, XTTS_STEPS, seed=3, device=dev)
+    tw = torch.cat([torch.full((1, 1), gpt.start_text, device=dev), tids,
+                    torch.full((1, 1), gpt.stop_text, device=dev)], dim=1)
+    mel = torch.cat([torch.full((1, 1), gpt.n_audio - 2, device=dev), codes], dim=1)
+    with torch.inference_mode():
+        full = gpt(tw, mel, lat)[1][0]
+        offset = lat.shape[1] + tw.shape[1]
+        caches = gpt.init_cache(1, offset + mel.shape[1], dev)
+        steps = [gpt.prefill(tw, mel[:, :1], lat, caches)]
+        for j in range(1, mel.shape[1]):
+            pos = torch.tensor([j], device=dev)
+            steps.append(gpt.step(mel[:, j], pos + offset, pos, caches))
+        cached = torch.cat(steps)
+    err = float((cached - full).abs().max() / full.abs().max())
+    rec["xtts_v2_cached_vs_full"] = err
+    log(f"[engines] (d) XTTS-v2 cached decode against one full re-forward over "
+        f"{mel.shape[1]} mel positions, on the card: {err:.3e} of max|logit| (tol 1e-5)")
+    expect(err <= 1e-5, f"xtts-v2: cached logits {err:.3e} from the full re-forward")
+
+    # (h) card against CPU, XTTS-v2: latents and the HiFi waveform
+    short = mel[:, :21]
+    gpt_cpu = cpu_copy(gpt, XttsGPT2)
+    with torch.inference_mode():
+        lat_card = gpt(tw, short, lat, return_latents=True)[2]
+        lat_cpu = gpt_cpu(tw.cpu(), short.cpu(), lat.cpu(), return_latents=True)[2]
+    rec["xtts_v2_latents_card_vs_cpu"] = card_vs_cpu(
+        "XTTS-v2 latents (GPT-2 30 x 1024, 21 mel positions)", lat_card.cpu(), lat_cpu,
+        1e-5, tag="[engines] (h)")
+    del gpt_cpu
+    dec_cpu = cpu_copy(ck.decoder, XttsHifiganDecoder)
+    with torch.inference_mode():
+        wav_card = ck.decoder(lat_card[:, 1:], dvec)
+        wav_cpu = dec_cpu(lat_cpu[:, 1:], dvec.cpu())
+    rec["xtts_v2_hifi_card_vs_cpu"] = card_vs_cpu(
+        "XTTS-v2 HiFi waveform (20 latent frames)", wav_card.cpu(), wav_cpu, 1e-5,
+        tag="[engines] (h)")
+    del dec_cpu, ck, mods, gpt, caches, full, cached
+    torch.cuda.empty_cache()
+
+    # (e) Zonos generate_embedded from the prefix bank
+    tts = build_tts(dev, "mamba1")
+    with torch.device(dev):
+        bank = fast_init(ZonosPrefixConditioner(tts.model.cfg.dim, DEFAULT_ZONOS_CONDITIONERS),
+                         5)
+    phon = torch.as_tensor(tokenize_phonemes_np([phonemize_ipa(TTS_TEXT)]), device=dev)
+    gz = torch.Generator(device=dev).manual_seed(6)
+    cond = dict(espeak=phon, speaker=torch.randn((1, 1, 128), generator=gz, device=dev),
+                emotion=torch.full((1, 1, 8), 0.1, device=dev),
+                fmax=torch.full((1, 1, 1), 22050.0, device=dev),
+                pitch_std=torch.full((1, 1, 1), 20.0, device=dev),
+                speaking_rate=torch.full((1, 1, 1), 15.0, device=dev),
+                language_id=torch.full((1, 1, 1), 24.0, device=dev))
+    with torch.inference_mode():
+        x2 = torch.cat([bank(cond), bank({"espeak": phon})])
+    runs = []
+    for i in range(2):
+        st = {}
+        _peak_reset(cuda)
+        reset_counts()
+        t0 = time.perf_counter()
+        zc = generate_embedded(tts.model, x2, max_frames=ZONOS_EMB_FRAMES, seed=i, stats=st,
+                               device=dev)
+        with torch.inference_mode():
+            za = tts.dac(torch.clamp(zc, 0, tts.model.cfg.codebook_size - 3))
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = counts()
+        runs.append(dict(seconds=secs, prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+                         steps_per_s=st["steps"] / st["decode_s"], peak_gb=_peak_gb(cuda)))
+        log(f"[engines] (e) Zonos generate_embedded call {i + 1}: prefix {x2.shape[1]} "
+            f"positions (phonemes {phon.shape[1]}), {ZONOS_EMB_FRAMES} frames: prefill "
+            f"{st['prefill_s']:.3f} s, decode {st['steps']} steps {st['decode_s']:.3f} s = "
+            f"{runs[-1]['steps_per_s']:.1f} steps/s, with the DAC {secs:.3f} s; peak "
+            f"{runs[-1]['peak_gb']:.2f} GB; launches {launches} | {card}")
+        expect(only(launches, "K2", 2) and A.flash_attention_fwd.sm90_launches == 0
+               and bool(torch.isfinite(za).all()),
+               f"zonos embedded: launches {launches}, finite {bool(torch.isfinite(za).all())}")
+    rec["zonos_embedded"] = runs
+    bank_cpu = cpu_copy(bank, lambda: ZonosPrefixConditioner(tts.model.cfg.dim,
+                                                             DEFAULT_ZONOS_CONDITIONERS))
+    with torch.inference_mode():
+        rec["prefix_card_vs_cpu"] = card_vs_cpu(
+            "Zonos prefix conditioner output", bank(cond).cpu(),
+            bank_cpu({k: v.cpu() for k, v in cond.items()}), 1e-5, tag="[engines] (h)")
+    del tts, bank, bank_cpu, x2, zc, za
+    torch.cuda.empty_cache()
+
+    # (f) the LM core at LMConfig(): one uncached forward, bf16
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        lm = fast_init(TransformerLM(LMConfig()), 0).eval()
+    sync(dev)
+    log(f"[engines] (f) TransformerLM LMConfig(): {n_params(lm):.1f} M parameters (bf16 "
+        f"layers, fp32 head), built in {time.perf_counter() - t0:.1f} s")
+    toks = torch.randint(0, lm.cfg.vocab_size, (1, LM_TOKENS), generator=g, device=dev)
+    times = []
+    for i in range(4):
+        reset_counts()
+        _peak_reset(cuda)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, _ = lm(toks)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        launches, hop = counts(), A.flash_attention_fwd.sm90_launches
+        expect(only(launches, "K2", lm.cfg.n_layers) and hop == lm.cfg.n_layers
+               and bool(torch.isfinite(logits).all()),
+               f"lm forward: launches {launches}, {hop} on the Hopper design")
+        if i == 1:
+            for k in path:
+                path[k] += launches[k]
+    rec["lm"] = dict(cold_s=times[0], warm_s=times[1:], peak_gb=_peak_gb(cuda))
+    log(f"[engines] (f) uncached forward over {LM_TOKENS} tokens: cold {times[0]:.3f} s, warm "
+        + " / ".join(f"{t * 1e3:.2f} ms" for t in times[1:]) + f"; logits "
+        f"{tuple(logits.shape)} finite; peak {rec['lm']['peak_gb']:.2f} GB; launches "
+        f"{launches} ({hop} on the Hopper route) | {card}")
+    del lm, logits
+    torch.cuda.empty_cache()
+
+    # (g) the served routes, then main --demo-backends
+    with torch.device(dev):
+        dia = fast_init(DiaModel(DiaConfig()), 0)
+    eng = DiaTTSEngine(dia, dac, device=dev)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_engines_"))
+    saved = dict(tts_api._BACKENDS)
+    server, port = serve_background(create_app(str(work / "process"), device=dev))
+    rec["served"] = {}
+    try:
+        tts_api.register_backend("dia", eng)
+        tts_api.register_backend("coqui", demo)
+        for model, text, want_sr, want_n, k2 in (
+                ("dia", DIA_TEXT, 44100, frames * dac.cfg.hop, dia.cfg.n_layers_dec),
+                ("coqui", XTTS_TEXT, 24000, None, 0)):
+            reset_counts()
+            t0 = time.perf_counter()
+            status, resp = http("POST", f"http://127.0.0.1:{port}/api/v1/audio/speech",
+                                {"model": model, "input": text})
+            sync(dev)
+            secs = time.perf_counter() - t0
+            launches = counts()
+            expect(status == 200, f"speech {model}: HTTP {status} {resp.get('error')}")
+            p = work / f"{model}.wav"
+            p.write_bytes(base64.b64decode(resp["audio"]))
+            a = read_wav(p)
+            expect(a.sample_rate == want_sr and bool(np.isfinite(a.samples).all())
+                   and (want_n is None or a.samples.shape == (1, want_n))
+                   and only(launches, "K2", k2),
+                   f"speech {model}: {a.samples.shape} at {a.sample_rate}, launches {launches}")
+            rec["served"][model] = secs
+            log(f"[engines] (g) POST /api/v1/audio/speech model {model!r}: HTTP {status} "
+                f"{secs:.3f} s; WAV {a.sample_rate} Hz x {a.samples.shape[1]} samples "
+                f"({a.samples.shape[1] / a.sample_rate:.2f} s); launches {launches} | {card}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        tts_api._BACKENDS.clear()
+        tts_api._BACKENDS.update(saved)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        mport = s.getsockname()[1]
+    out = open(work / "main.log", "wb")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audiolab_tpu_torch.main", "--port", str(mport),
+         "--output-root", str(work / "main" / "process"), "--device", dev.type,
+         "--demo-backends"],
+        cwd=Path(__file__).resolve().parent, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        url = f"http://127.0.0.1:{mport}"
+        while True:
+            try:
+                status, models = http("GET", f"{url}/api/v1/audio/speech/models", timeout=30)
+                break
+            except (urllib.error.URLError, ConnectionError):
+                expect(proc.poll() is None and time.perf_counter() - t0 < 180,
+                       f"main --demo-backends: not serving (exit {proc.poll()}): "
+                       f"{(work / 'main.log').read_text()[-2000:]}")
+                time.sleep(0.25)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        status, resp = http("POST", f"{url}/api/v1/audio/speech",
+                            {"model": "coqui", "input": XTTS_TEXT})
+        req_s = time.perf_counter() - t1
+        expect(status == 200, f"main coqui: HTTP {status} {resp.get('error')}")
+        p = work / "main_coqui.wav"
+        p.write_bytes(base64.b64decode(resp["audio"]))
+        a = read_wav(p)
+        expect(a.sample_rate == 24000 and bool(np.isfinite(a.samples).all()),
+               f"main coqui: {a.samples.shape} at {a.sample_rate}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        log(f"[engines] (g) python -m audiolab_tpu_torch.main --demo-backends: serving after "
+            f"{up_s:.3f} s with models {models}; POST speech 'coqui' {req_s:.3f} s, WAV "
+            f"{a.sample_rate} Hz x {a.samples.shape[1]}; SIGTERM -> exit {rc}")
+        expect(rc == 0, f"main --demo-backends: exit {rc}: "
+                        f"{(work / 'main.log').read_text()[-2000:]}")
+        rec["served"]["main_coqui"] = req_s
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (h) card against CPU, Dia's logits: prefill over BOS + 8 frames and 4 steps
+    dia_cpu = cpu_copy(dia, lambda: DiaModel(DiaConfig()))
+    gc = np.random.default_rng(8)
+    pcodes = gc.integers(0, 1024, (1, 9, 9))
+    steps_c = gc.integers(0, 1024, (4, 1, 9))
+    seqs = {}
+    for name, model, d in (("cpu", dia_cpu, cpu), ("card", dia, dev)):
+        text = torch.as_tensor(ids, dtype=torch.long, device=d)
+        mask = text != 0
+        with torch.inference_mode():
+            enc = model.encode_text(text, mask)
+            logits, caches, cross = model.prefill(torch.as_tensor(pcodes, device=d), enc, mask)
+            outs = [logits]
+            for i, ct in enumerate(steps_c):
+                outs.append(model.step(torch.as_tensor(ct, device=d),
+                                       torch.tensor([9 + i], device=d), caches, cross, mask))
+        seqs[name] = torch.stack(outs).cpu()
+    rec["dia_card_vs_cpu"] = card_vs_cpu(
+        "Dia logits (DiaConfig(), prefill over 9 positions and 4 steps)", seqs["card"],
+        seqs["cpu"], 1e-5, tag="[engines] (h)")
+    del dia, dia_cpu, eng, dac, demo
+    torch.cuda.empty_cache()
+    rec["launches"] = path
+    log(f"[engines] the path's launches ((a)'s first call and (f)'s first warm forward): "
+        f"{path}")
+    expect(path["K2"] > 0, "engines: K2 was not launched on the path")
+    return rec
+
+
 # ---------------------------------------------------------- processors
 
 PROC_REF_S = 10.0            # the cloning reference: 10 s of a seeded tone
@@ -2276,17 +2930,18 @@ def build_openvoice(dev):
     return OpenVoiceCloner(model, device=dev)
 
 
-def card_vs_cpu(label: str, card_out, cpu_out, tol: float, scale: float | None = None) -> float:
+def card_vs_cpu(label: str, card_out, cpu_out, tol: float, scale: float | None = None,
+                tag: str = "[processors] (g)") -> float:
     """max |card - cpu| over ``scale`` (default max |cpu|), printed with its
-    tolerance; stops above it."""
+    tolerance after ``tag``; stops above it."""
     a = np.asarray(card_out, np.float64)
     b = np.asarray(cpu_out, np.float64)
     scale = float(np.abs(b).max()) if scale is None else scale
     err = float(np.abs(a - b).max()) / scale
-    log(f"[processors] (g) {label}, card against CPU in fp32: {err:.3e} "
+    log(f"{tag} {label}, card against CPU in fp32: {err:.3e} of the scale {scale:.4g} "
         f"(tolerance {tol:g}) | shape {b.shape}")
     expect(a.shape == b.shape and bool(np.isfinite(a).all()) and err <= tol,
-           f"processors: {label} card {err:.3e} from the CPU's (tolerance {tol:g})")
+           f"{tag} {label} card {err:.3e} from the CPU's (tolerance {tol:g})")
     return err
 
 
@@ -2661,7 +3316,7 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
-    served = family = trained = spoken = processed = None
+    served = family = trained = spoken = processed = engines = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "long"} & set(phases)
     if need_chain:
@@ -2709,6 +3364,10 @@ def main() -> int:
         # this slice's path: one synthesize call, counts reset just before it
         # and read just after (the first mamba1 call)
         spoken = phase_tts(dev, card, profile_dir=args.profile)["launches"]
+    if "engines" in phases:
+        # this slice's path: Dia's first synthesize and the LM's uncached
+        # forward, counts reset just before each and read just after
+        engines = phase_engines(dev, card, profile_dir=args.profile)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -2719,7 +3378,10 @@ def main() -> int:
            "train_launches": None if trained is None else trained[r["kernel"]],
            "tts_launches": None if spoken is None else spoken[r["kernel"]],
            "processors_launches": None if processed is None else processed[r["kernel"]],
-           "on_main_path": r["on_main_path"], "bound_parts_ms": r["bound_parts_ms"]}
+           "engines_launches": None if engines is None else engines[r["kernel"]],
+           "on_main_path": r["on_main_path"],
+           "on_engines_path": r.get("on_engines_path", False),
+           "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}
         for r in kernel_recs]}))

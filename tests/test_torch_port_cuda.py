@@ -11,7 +11,8 @@ JAX, so it runs where JAX is not installed; on a machine with a card:
 Tolerances: K1, K3, K6, K7 and the 16-bit K2 to 2 bf16 ulps of max|out| (the
 sums run in another order, which may flip an output's or a probability's
 rounding); K2 (fp32) to 2e-5 (fp32 sums over a few hundred
-keys in another order); K4 and K5 to 1 ulp of max|out| in 16-bit types
+keys in another order), and at Dia's scale 1.0 to 4e-5 of max|out| (the
+unscaled scores reach ~50); K4 and K5 to 1 ulp of max|out| in 16-bit types
 and 1e-5 of max|out| in fp32 (fp32 row sums in another order).
 """
 
@@ -1312,3 +1313,187 @@ def test_served_chain_runs_every_processor_on_the_card(cuda_device, tmp_path):
     stages = {d.name for d in project.iterdir() if d.is_dir()}
     assert {"stems", "cloned", "merged", "remastered", "super_res", "converted",
             "compare"} <= stages, stages
+
+
+# ------------------------------------------------- the LM core, Dia and XTTS
+
+@pytest.mark.parametrize("tq", [441, 1])
+@pytest.mark.parametrize("d,sd", [(64, 0.64), (128, 0.905)])
+def test_k2_fp32_causal_scale_one_matches_plain(cuda_device, tq, d, sd):
+    """Dia's prefill call of K2: fp32, causal, scale 1.0, CFG batch 2 x 16
+    heads, over a 5 s prompt (441 positions) and BOS only (t = 1); q, k, v
+    with the spread fast_init's weights give at DiaConfig() (d = 64) and
+    Dia-1.6B's geometry (d = 128).  Unscaled scores reach ~50: held to 4e-5
+    of max|out| (a 1e-6 difference on a score in another summation order
+    moves the output by up to that)."""
+    q, k, v = (sd * x for x in _qkv(cuda_device, torch.float32, 2, 16, tq, tq, d, seed=tq))
+    before = TA.flash_attention_fwd.launches
+    out = TA.flash_attention_fwd(q, k, v, causal=True, scale=1.0)
+    ref = TA.flash_attention_reference(q, k, v, True, 1.0)
+    torch.cuda.synchronize()
+    assert TA.flash_attention_fwd.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 4e-5 * ref.abs().max().item()
+
+
+def _dia_model(dev, seed=0, **kw):
+    """Dia at test width (GQA, head dims not dim / heads) with torch's default
+    weights from ``seed`` moved by 0.3 N(0, 1) noise, fp32."""
+    from audiolab_tpu_torch.models.dia import DiaConfig, DiaModel
+
+    cfg = DiaConfig(**{**dict(dim_enc=32, dim_dec=64, n_layers_enc=1, n_layers_dec=2,
+                              n_heads=4, kv_heads=2, head_dim_dec=24, cross_head_dim=20,
+                              n_heads_enc=2, n_codebooks=3, codebook_size=40,
+                              max_audio_len=64), **kw})
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = DiaModel(cfg)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.3 * torch.randn(p.shape))
+    return model.to(dev).eval()
+
+
+def test_dia_graph_decode_equals_eager(cuda_device):
+    """Dia's captured decode step replayed for every frame gives the eager
+    loop's codes under the same draws, with and without an audio prompt; the
+    prefill launches the fp32 K2 once a decoder layer, off the Hopper route."""
+    import numpy as np
+
+    from audiolab_tpu_torch.models.dia import generate
+    from audiolab_tpu_torch.models.lm import gumbel_draws
+
+    model = _dia_model(cuda_device)
+    c = model.cfg
+    ids = np.frombuffer(b"[S1] hi [S2] yo", np.uint8).astype(np.int32)[None]
+    prompt = np.random.default_rng(1).integers(0, 36, (1, c.n_codebooks, 5))
+    for ap in (None, prompt):
+        draws = gumbel_draws(20 + c.n_codebooks, c.n_codebooks, c.codebook_size, 3,
+                             cuda_device)
+        TA.reset_launch_counts()
+        g = generate(model, ids, max_frames=20, audio_prompt=ap, draws=draws, graph=True)
+        assert TA.flash_attention_fwd.launches == c.n_layers_dec
+        assert TA.flash_attention_fwd.sm90_launches == 0
+        e = generate(model, ids, max_frames=20, audio_prompt=ap, draws=draws, graph=False)
+        assert torch.equal(g, e)
+
+
+def test_lm_graph_decode_equals_eager(cuda_device):
+    """The LM core's ``decode`` (top-k, a stop token) over a prefill through
+    the cache: the captured step gives the eager loop's tokens."""
+    from audiolab_tpu_torch.models.lm import LMConfig, TransformerLM, decode, init_cache
+
+    cfg = LMConfig(vocab_size=64, dim=32, n_layers=2, n_heads=4, n_kv_heads=2, ffn_dim=64,
+                   max_seq_len=48, dtype="float32")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(2)
+        lm = TransformerLM(cfg).to(cuda_device).eval()
+    toks = torch.randint(0, 64, (2, 6), device=cuda_device)
+    out = {}
+    for graph in (True, False):
+        caches = init_cache(cfg, 2, 48, cuda_device)
+        with torch.no_grad():
+            logits, _ = lm(toks, torch.arange(6, device=cuda_device), caches)
+        out[graph] = decode(lambda t, pos, c: lm(t, pos, c), caches, logits[:, -1].argmax(-1),
+                            6, 30, temperature=0.9, top_k=8, stop_token=5, vocab=64, seed=4,
+                            graph=graph)
+    assert torch.equal(out[True], out[False])
+
+
+def test_lm_uncached_forward_takes_the_hopper_k2(cuda_device):
+    """A bf16 TransformerLM at head dim 128: the uncached forward launches the
+    16-bit K2 once a layer, on the Hopper route, and its logits are finite."""
+    from audiolab_tpu_torch.models import lm as TL
+
+    cfg = TL.LMConfig(vocab_size=500, dim=256, n_layers=2, n_heads=2, n_kv_heads=2,
+                      ffn_dim=512)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        lm = TL.TransformerLM(cfg).to(cuda_device).eval()
+    toks = torch.randint(0, 500, (2, 300), device=cuda_device)
+    TA.reset_launch_counts()
+    with torch.no_grad():
+        out, _ = lm(toks)
+    assert TA.flash_attention_fwd.launches == TA.flash_attention_fwd.sm90_launches == 2
+    assert torch.isfinite(out).all()
+
+
+def test_dia_on_the_card_matches_the_cpu(cuda_device):
+    """fp32 with TF32 off: Dia's prefill over 6 frames and 4 steps, the
+    card's logits within 1e-4 of max|logit| of the CPU's (as the Zonos
+    logits are held: the unscaled scores of these noisy test weights, up to
+    ~20, amplify fp32 summation-order differences to about 1e-5 of the
+    scale)."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+
+    apply_policy()
+    r = np.random.default_rng(5)
+    ids = torch.as_tensor(r.integers(1, 256, (2, 9)))
+    codes = torch.as_tensor(r.integers(0, 40, (2, 3, 6)))
+    steps = torch.as_tensor(r.integers(0, 40, (4, 2, 3)))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = _dia_model(dev)
+        with torch.no_grad():
+            mask = ids.to(dev) != 0
+            enc = model.encode_text(ids.to(dev), mask)
+            logits, caches, cross = model.prefill(codes.to(dev), enc, mask)
+            seq = [logits]
+            for i, ct in enumerate(steps):
+                seq.append(model.step(ct.to(dev), torch.tensor([6 + i], device=dev), caches,
+                                      cross, mask))
+        out[str(dev)] = torch.stack(seq).cpu()
+    assert (out["cuda"] - out["cpu"]).abs().max() <= 1e-4 * out["cpu"].abs().max()
+
+
+def test_xtts_v2_on_the_card_matches_the_cpu(cuda_device):
+    """fp32 with TF32 off: XTTS-v2's GPT-2 latents and the HiFi decoder's
+    waveform at the tiny engine's widths, the card within 1e-5 of the scale
+    of the CPU's."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+    from audiolab_tpu_torch.pipelines.tts import random_xtts_checkpoint
+
+    apply_policy()
+    r = np.random.default_rng(6)
+    eng = random_xtts_checkpoint(seed=3, device="cpu")
+    text = torch.as_tensor(r.integers(0, 40, (1, 7)))
+    mel = torch.as_tensor(r.integers(0, 30, (1, 12)))
+    cond = torch.as_tensor(r.standard_normal((1, 6, 32)).astype(np.float32))
+    dvec = torch.as_tensor(r.standard_normal((1, 24)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        gpt, dec = eng.gpt.to(dev), eng.decoder.to(dev)
+        with torch.no_grad():
+            lat = gpt(text.to(dev), mel.to(dev), cond.to(dev), return_latents=True)[2]
+            res[str(dev)] = (lat.cpu(), dec(lat, dvec.to(dev)).cpu())
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_dia_code_range_repair_never_indexes_past_the_dac(cuda_device):
+    """Dia's 1028-way codebooks over a 1024-row DAC on the card: ids past the
+    table (the generated ones and a frame of EOS, BOS and MASK) become 0
+    before the lookup; the audio is finite and the context stays usable (a
+    device-side assert would fail the synchronise)."""
+    from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
+    from audiolab_tpu_torch.pipelines.tts import DiaTTSEngine
+
+    model = _dia_model(cuda_device, codebook_size=1028)
+    with torch.no_grad():
+        model.decoder.logits_dense.weight[:, :, 1024:] *= 8.0
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(4)
+        dac = DACDecoder(DACConfig(dim=16, rates=(4, 2), n_q=3, codebook_size=1024,
+                                   codebook_dim=4))
+    eng = DiaTTSEngine(model, dac, sr=8000, frames_per_word=3, device=cuda_device)
+    y, sr = eng.generate("[S1] hi there [S2] yo", seed=2)
+    special = torch.tensor([[[1025], [1026], [1027]]], device=cuda_device).expand(1, 3, 4)
+    z = eng.codes_to_audio(special)
+    torch.cuda.synchronize()
+    import numpy as np
+
+    assert sr == 8000 and np.isfinite(y).all() and torch.isfinite(z).all()

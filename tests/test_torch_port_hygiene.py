@@ -308,3 +308,40 @@ def test_processor_registry_entry_points_default_to_the_card(no_cuda, tmp_path):
     assert NeuralDiarizer(dcfg, device="cpu").device.type == "cpu"
     vc = TP.VoiceConverter(synth, hub, device="cpu")
     assert StreamingVC(vc).vc.device.type == "cpu"
+
+
+def test_speech_engines_default_to_the_card(no_cuda):
+    """Dia, the capability XTTS and the XTTS-v2 stack default to the card and
+    raise without one; each builds on the CPU when asked."""
+    from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
+    from audiolab_tpu_torch.models.dia import DiaConfig, DiaModel
+    from audiolab_tpu_torch.models.dia import generate as dia_generate
+    from audiolab_tpu_torch.models.xtts import XTTS, XTTSConfig, XttsGPT2, xtts_gpt2_generate
+    from audiolab_tpu_torch.pipelines.tts import (
+        DiaTTSEngine,
+        XttsCheckpointEngine,
+        random_xtts,
+        random_xtts_checkpoint,
+    )
+
+    dia = DiaModel(DiaConfig(dim_enc=8, dim_dec=8, n_layers_enc=1, n_layers_dec=1, n_heads=2,
+                             n_codebooks=2, codebook_size=8, max_audio_len=16))
+    dac = DACDecoder(DACConfig(dim=8, rates=(2, 2), n_q=2, codebook_size=8))
+    xcfg = XTTSConfig(dim=16, n_layers=1, n_heads=2, cond_latents=2, n_codes=8, max_seq_len=32)
+    gpt = XttsGPT2(layers=1, dim=8, heads=2, n_text=10, n_audio=8, max_text=8, max_mel=8)
+    for call in (lambda: DiaTTSEngine(dia, dac), lambda: random_xtts(),
+                 lambda: random_xtts_checkpoint(), lambda: XTTS.random_init(xcfg),
+                 lambda: dia_generate(dia, np.ones((1, 3), np.int32), max_frames=2),
+                 lambda: xtts_gpt2_generate(gpt, np.ones((1, 2), np.int32),
+                                            np.zeros((1, 1, 8), np.float32), 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert DiaTTSEngine(dia, dac, device="cpu").device.type == "cpu"
+    assert random_xtts(device="cpu").model.device.type == "cpu"
+    eng = random_xtts_checkpoint(device="cpu")
+    assert isinstance(eng, XttsCheckpointEngine) and eng.device.type == "cpu"
+    assert XTTS.random_init(xcfg, device="cpu").device.type == "cpu"
+    codes = dia_generate(dia, np.ones((1, 3), np.int32), max_frames=2, device="cpu")
+    assert codes.shape == (1, 2, 2)
+    with pytest.raises(ValueError, match="CUDA graph"):
+        dia_generate(dia, np.ones((1, 3), np.int32), max_frames=2, device="cpu", graph=True)

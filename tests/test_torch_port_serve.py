@@ -287,22 +287,80 @@ def test_file_registry_roundtrip(tmp_path):
         file_response("nope")
 
 
+@pytest.fixture
+def speech_engines():
+    """"dia" and "coqui" registered in both packages' speech tables (the tiny
+    Dia over a narrow DAC, the capability XTTS at test width, each package
+    holding the same weights); the tables are restored afterwards."""
+    from audiolab_tpu.models import codecs as JC
+    from audiolab_tpu.pipelines import tts as JT
+    from audiolab_tpu.serve import tts_api as j_tts
+    from audiolab_tpu_torch.pipelines import tts as TT
+    from audiolab_tpu_torch.serve import tts_api as t_tts
+    from tests import torch_port_tiny as tiny
+
+    _cfg, jm, p, tm = tiny.dia()
+    dcfg, dp, tdac = tiny.dac(codebook_size=17)
+    jx, tx = tiny.xtts()
+    saved = dict(j_tts._BACKENDS), dict(t_tts._BACKENDS)
+    j_tts.register_backend("dia", JT.DiaTTSEngine(jm, p, JC.DACDecoder(dcfg), dp,
+                                                  frames_per_word=2))
+    j_tts.register_backend("coqui", JT.XTTSEngine(jx))
+    t_tts.register_backend("dia", TT.DiaTTSEngine(tm, tdac, frames_per_word=2, device="cpu"))
+    t_tts.register_backend("coqui", TT.XTTSEngine(tx))
+    try:
+        yield
+    finally:
+        for table, old in zip((j_tts._BACKENDS, t_tts._BACKENDS), saved):
+            table.clear()
+            table.update(old)
+
+
+@pytest.mark.parametrize("model", ["dia", "coqui"])
+def test_speech_route_serves_dia_and_coqui(server, jax_router, speech_engines, tmp_path,
+                                           model):
+    """POST /api/v1/audio/speech with "dia" and "coqui" on the live port
+    server and on the JAX router: HTTP 200, a WAV at the engine's rate and
+    length (the frame and code counts follow the text), finite, and the
+    voice listing the same.  The draws of the two packages differ, so the
+    samples are not compared here (tests/test_torch_port_{dia,xtts}.py hold
+    them under the same draws)."""
+    payload = {"model": model, "input": "[S1] hi there [S2] yo"}
+    code, body = _post(f"{server}/api/v1/audio/speech", payload)
+    jcode, jbody = jax_router.dispatch("POST", "/api/v1/audio/speech", payload)
+    assert code == jcode == 200
+    assert body["format"] == jbody["format"] == "wav"
+    assert body["sample_rate"] == jbody["sample_rate"] == (44100 if model == "dia" else 24000)
+    wavs = []
+    for tag, b in (("port", body), ("jax", jbody)):
+        path = tmp_path / f"{tag}.wav"
+        path.write_bytes(base64.b64decode(b["audio"]))
+        wavs.append(read_wav(path))
+    assert wavs[0].samples.shape == wavs[1].samples.shape and wavs[0].samples.shape[1] > 0
+    assert np.isfinite(wavs[0].samples).all()
+    status, _h, raw = _get(f"{server}/api/v1/audio/speech/voices")
+    assert status == 200
+    assert json.loads(raw) == jax_router.dispatch("GET", "/api/v1/audio/speech/voices", {})[1]
+
+
 def test_main_demo_backends_names_the_missing_items(caplog):
-    """--demo-backends registers the random Zonos as "zonos" on the given
-    device and names every engine the port does not have (no server)."""
-    from audiolab_tpu_torch.pipelines.tts import ZonosTTS
+    """--demo-backends registers the random Zonos as "zonos" and the random
+    XTTS as "coqui" on the given device, as the JAX server does, and names
+    every engine the port does not have (no server)."""
+    from audiolab_tpu_torch.pipelines.tts import XTTSEngine, ZonosTTS
     from audiolab_tpu_torch.serve import tts_api
 
     saved = dict(tts_api._BACKENDS)
     try:
         with caplog.at_level(logging.INFO):
             port_main.register_demo_backends("cpu", logging.getLogger("test"))
-        zonos = tts_api._BACKENDS["zonos"]
+        zonos, coqui = tts_api._BACKENDS["zonos"], tts_api._BACKENDS["coqui"]
         assert isinstance(zonos, ZonosTTS) and zonos.device.type == "cpu"
+        assert isinstance(coqui, XTTSEngine) and coqui.model.device.type == "cpu"
     finally:
         tts_api._BACKENDS.clear()
         tts_api._BACKENDS.update(saved)
-    for name in ("coqui", "chatterbox", "dia", "stable_audio", "acestep", "yue", "whisper"):
+    for name in ("chatterbox", "stable_audio", "acestep", "yue", "whisper"):
         assert name in caplog.text
     assert all(f"item 1{i} (" in caplog.text for i in (7, 8, 9))
 

@@ -12,6 +12,8 @@ agree to 1e-5 of the largest value, not bit for bit.  Tokens agree exactly:
 the tests hand the port the draws the JAX keys give."""
 
 import copy
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,9 +24,15 @@ import torch
 from audiolab_tpu.kernels import ssm as JS
 from audiolab_tpu.models import codecs as JC
 from audiolab_tpu.models import zonos as JZ
-from audiolab_tpu.utils.convert import convert_dac, convert_zonos, zonos_mapping
+from audiolab_tpu.utils.convert import (
+    convert_dac,
+    convert_zonos,
+    convert_zonos_prefix,
+    zonos_mapping,
+)
 from audiolab_tpu_torch.kernels import ssm as TS
 from audiolab_tpu_torch.models import zonos as TZ
+from audiolab_tpu_torch.utils import weights as W
 from tests import torch_port_tiny as tiny
 
 MIXERS = ("mamba1", "mamba2")
@@ -317,3 +325,69 @@ def test_dac_weights_map_back_through_convert_dac():
     back = convert_dac(sd, p, strict=True)
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(p)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+# ------------------------------------------------------------------ prefix bank
+
+def _cond(dim_speaker: int, seed: int, absent=()) -> dict:
+    """A cond dict of the published bank's slots for a batch of 2, leaving
+    out ``absent`` (their learned uncond vectors stand in)."""
+    r = np.random.default_rng(seed)
+    cond = dict(espeak=r.integers(0, JZ.ZONOS_PHONEME_VOCAB, (2, 7)),
+                speaker=r.standard_normal((2, 1, dim_speaker)).astype(np.float32),
+                emotion=r.random((2, 1, 8)).astype(np.float32),
+                fmax=np.full((2, 1, 1), 22050.0, np.float32),
+                pitch_std=r.uniform(20, 80, (2, 1, 1)).astype(np.float32),
+                speaking_rate=r.uniform(10, 20, (2, 1, 1)).astype(np.float32),
+                language_id=np.asarray([[[24]], [[3]]], np.float32))
+    return {k: v for k, v in cond.items() if k not in absent}
+
+
+@functools.lru_cache(maxsize=None)
+def _prefix(projection: str, seed: int = 12):
+    dim = 32
+    jm = JZ.ZonosPrefixConditioner(dim, JZ.DEFAULT_ZONOS_CONDITIONERS, projection)
+    tpl = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jax.tree_util.tree_map(
+        jnp.asarray, _cond(128, 0))))["params"]
+    p = tiny.filled(tpl, seed)
+    specs = tuple(TZ.CondSpec(**dataclasses.asdict(s)) for s in JZ.DEFAULT_ZONOS_CONDITIONERS)
+    tm = TZ.ZonosPrefixConditioner(dim, specs, projection)
+    tm.load_state_dict(W.zonos_prefix_from_jax(p, specs, projection), strict=True)
+    return jm, p, tm.eval()
+
+
+@pytest.mark.parametrize("projection", ["none", "mlp"])
+def test_prefix_conditioner_matches_jax(projection):
+    """The published bank with every slot given, and with the speaker and
+    emotion slots left out (learned uncond vectors), with no bank projection
+    and with the MLP one; its state_dict maps back through
+    convert_zonos_prefix."""
+    jm, p, tm = _prefix(projection)
+    for absent in ((), ("speaker", "emotion")):
+        cond = _cond(128, 1, absent)
+        ref = jm.apply({"params": p}, jax.tree_util.tree_map(jnp.asarray, cond))
+        with torch.no_grad():
+            out = tm({k: torch.from_numpy(np.asarray(v)) for k, v in cond.items()})
+        _close(out.numpy(), ref)
+    sd = {f"model.prefix_conditioner.{k}": v.numpy() for k, v in tm.state_dict().items()}
+    back = convert_zonos_prefix(sd, p, JZ.DEFAULT_ZONOS_CONDITIONERS, projection, strict=True)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(p)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_generate_embedded_matches_jax_codes():
+    """``generate_embedded`` from a prefix pair built by the port's bank
+    (cond; uncond with every slot but espeak absent) at the model's width:
+    the codes are JAX's under its keys' draws."""
+    cfg, p, tm = tiny.zonos("mamba1")
+    _jm, _pp, bank = _prefix("none")
+    cond, uncond = _cond(128, 2), {"espeak": _cond(128, 2)["espeak"]}
+    with torch.no_grad():
+        x2 = torch.cat([bank({k: torch.from_numpy(np.asarray(v)) for k, v in c.items()})
+                        for c in (cond, uncond)])
+    ref = JZ.generate_embedded(JZ.ZonosModel(cfg), p, jnp.asarray(x2.numpy()), max_frames=8,
+                               rng=jax.random.PRNGKey(4))
+    out = TZ.generate_embedded(tm, x2, max_frames=8, device="cpu",
+                               draws=lambda *shape: tiny.jax_draws(4, *shape))
+    assert out.shape == ref.shape == (2, cfg.n_codebooks, 8)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))

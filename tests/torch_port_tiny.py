@@ -283,3 +283,108 @@ def jax_draws(seed: int, total: int, rows: int, vocab: int) -> np.ndarray:
         rng, key = jax.random.split(rng)
         out.append(np.asarray(jax.random.gumbel(key, (rows, vocab), jnp.float32)))
     return np.stack(out)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _dia_draws(key, total: int, b: int, n_q: int, vocab: int):
+    def body(rng, _):
+        rng, key = jax.random.split(rng)
+        keys = jax.random.split(key, n_q)
+        g = jax.vmap(lambda k: jax.random.gumbel(k, (b, vocab), jnp.float32))(keys)
+        return rng, jnp.swapaxes(g, 0, 1).reshape(b * n_q, vocab)
+
+    return jax.lax.scan(body, key, None, length=total)[1]
+
+
+def jax_dia_draws(seed: int, total: int, b: int, n_q: int, vocab: int) -> np.ndarray:
+    """The Gumbel draws the JAX Dia decode takes from ``PRNGKey(seed)``: every
+    step ``rng, key = split(rng)``, ``keys = split(key, n_q)``, then
+    ``categorical(keys[q], (b, vocab))`` for each codebook; row bi * n_q + q
+    of each step's (b * n_q, vocab) block."""
+    return np.array(_dia_draws(jax.random.PRNGKey(seed), total, b, n_q, vocab))
+
+
+# Dia at test width: decoder GQA (4 query heads over 2) with head dims that
+# are not dim / heads, and a narrower encoder
+DIA = dict(dim_enc=16, dim_dec=32, n_layers_enc=1, n_layers_dec=2, n_heads=4, kv_heads=2,
+           head_dim_dec=12, cross_head_dim=10, n_heads_enc=2, n_codebooks=3,
+           codebook_size=20, max_text_len=32, max_audio_len=48)
+
+
+@functools.lru_cache(maxsize=None)
+def _dia(frozen: tuple, seed: int):
+    from audiolab_tpu.models import dia as JD
+    from audiolab_tpu_torch.models import dia as TD
+
+    kw = dict(frozen)
+    cfg = JD.DiaConfig(**kw)
+    jm = JD.DiaModel(cfg)
+    tpl = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+                                         jnp.zeros((1, cfg.n_codebooks, 4), jnp.int32)))["params"]
+    p = filled(tpl, seed)
+    tcfg = TD.DiaConfig(**kw)
+    tm = TD.DiaModel(tcfg)
+    tm.load_state_dict(W.dia_from_jax(p, tcfg), strict=True)
+    return cfg, jm, p, tm.eval()
+
+
+def dia(seed: int = 9, **kw):
+    """(JAX DiaConfig, JAX DiaModel, flax params from :func:`filled`, port
+    DiaModel) at DIA updated by ``kw``."""
+    return _dia(_frozen(dict(DIA, **kw)), seed)
+
+
+class Jitted:
+    """A flax module whose ``apply`` runs jitted (one compile per keyword
+    set): the JAX engines call their modules' ``apply`` op by op, which costs
+    seconds on the CPU; the engines' own code is unchanged."""
+
+    def __init__(self, module):
+        self.module, self._fns = module, {}
+
+    def apply(self, variables, *args, **kw):
+        key = tuple(sorted(kw.items(), key=lambda kv: kv[0]))
+        if key not in self._fns:
+            self._fns[key] = jax.jit(functools.partial(self.module.apply, **kw))
+        return self._fns[key](variables, *args)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
+
+    def __hash__(self):
+        return hash(self.module)
+
+
+# the capability XTTS at test width (the JAX engine's modules jitted)
+XTTS = dict(dim=32, n_layers=2, n_heads=4, cond_latents=4, n_codes=60, max_seq_len=128)
+
+
+@functools.lru_cache(maxsize=None)
+def xtts(seed: int = 30):
+    """(JAX XTTS, port XTTS on the CPU) at XTTS holding the same weights: the
+    JAX tree from ``jax.eval_shape`` templates and :func:`filled`, carried into
+    the port by ``xtts_from_jax``."""
+    from audiolab_tpu.models import xtts as JX
+    from audiolab_tpu_torch.models import xtts as TX
+
+    cfg = JX.XTTSConfig(**XTTS)
+    mods = (JX.ConditioningEncoder(cfg), JX.XttsGPT(cfg), JX.XttsVocoder(cfg))
+    caches = JX.init_cache(cfg.lm(), 1, cfg.max_seq_len)
+    tpl = {
+        "cond": jax.eval_shape(lambda: mods[0].init(jax.random.PRNGKey(0),
+                                                    jnp.zeros((1, 16, 80))))["params"],
+        "gpt": jax.eval_shape(lambda: mods[1].init(
+            jax.random.PRNGKey(0), jnp.zeros((1, cfg.cond_latents, cfg.dim)),
+            jnp.zeros((1, 4), jnp.int32), caches, method=JX.XttsGPT.prefill))["params"],
+        "vocoder": jax.eval_shape(lambda: mods[2].init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32),
+            jnp.zeros((1, cfg.dim))))["params"],
+    }
+    params = {k: filled(t, seed + i) for i, (k, t) in enumerate(tpl.items())}
+    tcfg = TX.XTTSConfig(**XTTS)
+    tmods = (TX.ConditioningEncoder(tcfg), TX.XttsGPT(tcfg), TX.XttsVocoder(tcfg))
+    holder = torch.nn.ModuleDict(dict(zip(("cond_enc", "gpt", "vocoder"), tmods)))
+    holder.load_state_dict(W.xtts_from_jax(params), strict=True)
+    jx = JX.XTTS(cfg, params)
+    jx.cond_enc, jx.vocoder = Jitted(jx.cond_enc), Jitted(jx.vocoder)
+    return jx, TX.XTTS(tcfg, *tmods, device="cpu")

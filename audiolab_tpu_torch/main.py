@@ -9,9 +9,9 @@ The REST surface and the web UI at / are served by the stdlib server; the
 processors run their DSP on ``--device``, which defaults to the card and
 fails without one.  Models are injected through the processors'
 ``configure`` by a caller that has weights.  ``--demo-backends`` registers
-a random-weight Zonos as the "zonos" TTS engine and the random XTTS as
-"coqui" on ``--device``, as the JAX server does, and names the engines the
-port does not have yet.
+a random-weight Zonos as the "zonos" TTS engine, the random XTTS as "coqui"
+and the random Chatterbox as "chatterbox" on ``--device``, as the JAX
+server does, and names the engines the port does not have yet.
 """
 
 from __future__ import annotations
@@ -25,8 +25,7 @@ from http.server import ThreadingHTTPServer
 
 # the JAX server's demo engines the port has no model for yet, by ROADMAP
 # queue 1 item
-MISSING_DEMO_BACKENDS = {"17 (TTS)": ("chatterbox",),
-                         "18 (music)": ("stable_audio", "acestep", "yue"),
+MISSING_DEMO_BACKENDS = {"18 (music)": ("stable_audio", "acestep", "yue"),
                          "19 (transcription)": ("whisper",)}
 
 
@@ -41,14 +40,15 @@ def setup_logging() -> None:
 
 def register_demo_backends(device: str, log: logging.Logger) -> None:
     """Register the random-weight demo engines the port has (Zonos as
-    "zonos", the XTTS engine as "coqui", on ``device``) and log the ones it
-    does not have yet."""
-    from audiolab_tpu_torch.pipelines.tts import random_xtts, random_zonos
+    "zonos", the XTTS engine as "coqui", Chatterbox as "chatterbox", on
+    ``device``) and log the ones it does not have yet."""
+    from audiolab_tpu_torch.pipelines.tts import random_chatterbox, random_xtts, random_zonos
     from audiolab_tpu_torch.serve import tts_api
 
-    log.info("loading demo (random-weight) backends on %s: zonos, coqui", device)
+    log.info("loading demo (random-weight) backends on %s: zonos, coqui, chatterbox", device)
     tts_api.register_backend("zonos", random_zonos(device=device))
     tts_api.register_backend("coqui", random_xtts(device=device))
+    tts_api.register_backend("chatterbox", random_chatterbox(device=device))
     log.warning("--demo-backends: the port has no model yet for %s",
                 "; ".join(f"{', '.join(names)} (ROADMAP queue 1, item {item})"
                           for item, names in MISSING_DEMO_BACKENDS.items()))
@@ -63,7 +63,7 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument(
         "--demo-backends", action="store_true",
         help="register random-weight generation backends (the port has "
-             "the zonos and coqui TTS engines; the others are logged as missing)")
+             "the zonos, coqui and chatterbox TTS engines; the others are logged as missing)")
     parser.add_argument("--device", default="cuda",
                         help="where the processors run (default: the card)")
     args = parser.parse_args(argv)

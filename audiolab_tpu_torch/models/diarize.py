@@ -18,9 +18,10 @@ into global identities:
 The nets are the repository's own (no upstream checkpoint), so parameter
 names follow the flax modules; the LSTMs are torch's, each direction one
 flax ``OptimizedLSTMCell`` (utils/weights.py::diarize_from_jax).  The
-checkpoint-compatible back ends (PyanNet for segmentation, the wespeaker
-r-vector for embeddings) are not ported yet.  Random weights run the full
-path; converted or trained weights give real accuracy.
+checkpoint-compatible wespeaker r-vector (models/wespeaker.py) can take
+the embedding stage; the PyanNet segmentation back end is not ported yet.
+Random weights run the full path; converted or trained weights give real
+accuracy.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from torch import nn
 from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.kernels.mel import mel_spectrogram
 from audiolab_tpu_torch.kernels.resample import resample_poly_np
+from audiolab_tpu_torch.models.wespeaker import wespeaker_embed
 from audiolab_tpu_torch.utils.fast_init import fast_init
 
 
@@ -140,7 +142,10 @@ def pit_bce_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 class NeuralDiarizer:
     """The two nets on ``device`` (default the card; raises without one);
     without nets given, each gets weights by bench.py's rules from
-    ``seed`` (``seed + 1`` for the embedder)."""
+    ``seed`` (``seed + 1`` for the embedder).  ``wespeaker``: a
+    :class:`~audiolab_tpu_torch.models.wespeaker.WeSpeakerResNet` (moved to
+    ``device``) whose r-vectors of the raw region audio replace the
+    SpeakerEmbedder's, as pyannote speaker-diarization-3.1 embeds."""
 
     def __init__(self, cfg: DiarizeConfig | None = None,
                  seg: SegmentationNet | None = None, emb: SpeakerEmbedder | None = None,
@@ -149,9 +154,6 @@ class NeuralDiarizer:
         if pyannet_params is not None:
             raise NotImplementedError(
                 "the PyanNet segmentation back end is not ported yet (ROADMAP queue 1, item 19)")
-        if wespeaker is not None:
-            raise NotImplementedError(
-                "the wespeaker embedding back end is not ported yet (ROADMAP queue 1, item 17)")
         self.device = resolve_device(device)
         self.cfg = cfg or DiarizeConfig()
         with self.device:
@@ -159,6 +161,7 @@ class NeuralDiarizer:
             emb = emb if emb is not None else fast_init(SpeakerEmbedder(self.cfg), seed + 1)
         self.seg = seg.to(self.device).eval()
         self.emb = emb.to(self.device).eval()
+        self.wespeaker = None if wespeaker is None else wespeaker.to(self.device).eval()
 
     def _mel(self, wav: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -216,14 +219,31 @@ class NeuralDiarizer:
                     masks.append(mask)
         if not regions:
             return []
-        with torch.inference_mode():
-            embs = self.emb(mel[torch.as_tensor(rows, device=self.device)],
-                            torch.from_numpy(np.stack(masks)).to(self.device))
+        if self.wespeaker is not None:
+            embs = self._wespeaker_embs(wav, regions)
+        else:
+            with torch.inference_mode():
+                embs = self.emb(mel[torch.as_tensor(rows, device=self.device)],
+                                torch.from_numpy(np.stack(masks)).to(self.device))
         labels = _agglomerate(embs.float().cpu().numpy(), self.cfg.cluster_threshold)
         turns = sorted(
             (r0, r1, f"SPEAKER_{labels[i]:02d}")
             for i, (r0, r1) in enumerate(regions))
         return _merge_turns(turns)
+
+
+    def _wespeaker_embs(self, wav: np.ndarray, regions: list[tuple[float, float]],
+                        window_s: float = 3.0) -> torch.Tensor:
+        """r-vectors of the regions: each region's raw audio wrap-padded or
+        cropped to one window of ``window_s`` (one shape for every region,
+        as pyannote crops around each local speaker's support)."""
+        win = int(window_s * self.cfg.sr)
+        segs = []
+        for r0, r1 in regions:
+            s0 = max(0, int(r0 * self.cfg.sr))
+            s1 = min(len(wav), max(s0 + 1, int(r1 * self.cfg.sr)))
+            segs.append(np.resize(wav[s0:s1], win))       # wrap-pads short regions
+        return wespeaker_embed(self.wespeaker, np.stack(segs), sr=self.cfg.sr)
 
 
 def _agglomerate(embs: np.ndarray, threshold: float) -> np.ndarray:

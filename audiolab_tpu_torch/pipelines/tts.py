@@ -9,7 +9,10 @@ silences.  The speaker embedding comes from a reference WAV through the
 port's mel front-end and the speaker encoder.  ``DiaTTSEngine`` serves
 Dia's dialogue model over a DAC decoder; ``XTTSEngine`` the capability XTTS
 and ``XttsCheckpointEngine`` the XTTS-v2 stack, with ``XttsTokenizer`` for
-its vocab.json.  Chatterbox comes with its models.
+its vocab.json.  ``ChatterboxCheckpointEngine`` serves Chatterbox: T3's
+CFG decode over text, S3Gen's flow and HiFT to 24 kHz, voices from the
+checkpoint's builtin conditionals or cloned from reference audio through
+the voice encoder, CAMPPlus and the S3 tokenizer.
 """
 
 from __future__ import annotations
@@ -26,10 +29,26 @@ from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.kernels.mel import log_mel, mel_filterbank, mel_spectrogram
 from audiolab_tpu_torch.kernels.resample import resample_poly_np
 from audiolab_tpu_torch.kernels.stft import spectrogram
+from audiolab_tpu_torch.models.campplus import CAMPPlus, campplus_xvector
+from audiolab_tpu_torch.models.chatterbox_s3gen import (
+    FlowConfig,
+    HiFTConfig,
+    S3Token2Wav,
+    s3gen_ref_mel,
+)
+from audiolab_tpu_torch.models.chatterbox_t3 import (
+    T3,
+    T3CkptConfig,
+    VoiceEncoder,
+    t3_generate,
+    utterance_embedding,
+)
 from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
 from audiolab_tpu_torch.models.dia import DiaModel, tokenize_dialogue
 from audiolab_tpu_torch.models.dia import generate as dia_generate
+from audiolab_tpu_torch.models.lm import StageTimer
 from audiolab_tpu_torch.models.phonemize import phonemize_ids, phonemize_ipa
+from audiolab_tpu_torch.models.s3tokenizer import S3TokenizerV2, tokenize_wav
 from audiolab_tpu_torch.models.xtts import (
     XTTS,
     XTTSConfig,
@@ -587,3 +606,193 @@ class XttsTokenizer:
         txt = self.tokenizer.decode(ids)
         return (txt.replace(" ", "").replace("[SPACE]", " ")
                 .replace("[STOP]", "").replace("[UNK]", ""))
+
+
+# ------------------------------------------- Chatterbox checkpoint engine
+
+def chatterbox_punc_norm(text: str) -> str:
+    """The published package's pre-tokenize normalisation (chatterbox tts.py
+    punc_norm): capitalise the first letter, collapse whitespace, map exotic
+    punctuation to plain ASCII, ensure a terminal period."""
+    if not text:
+        return "You need to add some text for me to talk."
+    text = text[0].upper() + text[1:]
+    text = " ".join(text.split())
+    for old, new in (("...", ", "), ("…", ", "), (":", ","), (" - ", ", "),
+                     (";", ", "), ("—", "-"), ("–", "-"), (" ,", ","),
+                     ("“", '"'), ("”", '"'), ("‘", "'"), ("’", "'")):
+        text = text.replace(old, new)
+    if text[-1] not in {".", "!", "?", "-", ","}:
+        text += "."
+    return text
+
+
+class ChatterboxTokenizer:
+    """chatterbox EnTokenizer: the HF ``tokenizers`` BPE of the checkpoint's
+    tokenizer.json (imported when one is loaded), spaces mapped to [SPACE]."""
+
+    def __init__(self, vocab_file: str):
+        from tokenizers import Tokenizer
+
+        self.tokenizer = Tokenizer.from_file(vocab_file)
+
+    def encode(self, text: str) -> list[int]:
+        return self.tokenizer.encode(text.replace(" ", "[SPACE]")).ids
+
+
+class ChatterboxCheckpointEngine:
+    """The Chatterbox stack behind one TTS-engine facade: text -> punc_norm
+    -> ids -> T3's CFG decode (exaggeration as the emotion input) -> 25 Hz
+    speech tokens -> S3Gen's flow and HiFT -> 24 kHz audio, every module on
+    one device (default the card; raises without one).
+
+    The voice comes from ``builtin`` (the checkpoint's ``conds.pt``:
+    speaker_emb, prompt_tokens, ref_tokens, ref_mel, ref_xvector) or, for
+    cloning, from reference audio: the voice encoder's embedding for T3,
+    and for S3Gen the CAMPPlus x-vector and the S3 tokenizer's ids (which
+    also prompt T3, up to ``speech_cond_prompt_len``) with the 24 kHz
+    prompt mel cut to two frames a token.  Without a tokenizer the text's
+    UTF-8 bytes are the ids, as in the JAX engine; the ids are cut to the
+    text position table's rows (``text_pos_size`` with the start and stop
+    tokens)."""
+
+    sr_out = 24000
+    voices = ["default"]
+
+    def __init__(self, t3: T3, s3gen: S3Token2Wav, ve: VoiceEncoder | None = None,
+                 tokenizer=None, builtin: dict | None = None, campplus: CAMPPlus | None = None,
+                 s3tok: S3TokenizerV2 | None = None, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.t3 = t3.to(self.device).eval()
+        self.s3gen = s3gen.to(self.device).eval()
+        self.ve, self.campplus, self.s3tok = (
+            None if m is None else m.to(self.device).eval() for m in (ve, campplus, s3tok))
+        c = t3.cfg
+        self.tokenize = tokenizer or (lambda s: list(
+            np.frombuffer(s.encode()[:500], np.uint8).astype(np.int32)
+            % (c.text_vocab - 2) + 1))
+        self.builtin = builtin or {}
+        self.voice_store: dict = {}
+        # seconds of the last timed call's stages
+        self.last_stats: dict = {}
+
+    def conditioning(self, ref_wav, sr: int, stats: dict | None = None):
+        """Reference audio -> (T3 speaker embedding, S3Gen ref dict with
+        ref_xvector, ref_tokens and ref_mel as far as the encoders are
+        loaded); ``stats`` gets each encoder's seconds."""
+        if self.ve is None:
+            raise ValueError("no voice encoder loaded; cannot embed reference audio")
+        mark = StageTimer(stats, self.device)
+        wav = np.asarray(ref_wav, np.float32)
+        spk = utterance_embedding(self.ve, wav, sr)
+        mark("ve_s")
+        rd = {}
+        w16 = resample_poly_np(wav, sr, 16000) if sr != 16000 else wav
+        if self.campplus is not None:
+            rd["ref_xvector"] = campplus_xvector(self.campplus, w16)
+            mark("campplus_s")
+        if self.s3tok is not None:
+            tokens = tokenize_wav(self.s3tok, w16)
+            mark("s3tokenizer_s")
+            w24 = resample_poly_np(wav, sr, 24000) if sr != 24000 else wav
+            with torch.inference_mode():
+                mel = s3gen_ref_mel(torch.as_tensor(w24, device=self.device)[None])
+            # 80 mels at checkpoint scale; sliced for narrow flows
+            mel = mel[..., : self.s3gen.flow_cfg.mel_dim].cpu().numpy()
+            # the cosyvoice front end aligns the mel to 2 frames a token
+            n_tok = min(tokens.shape[1], mel.shape[1] // 2)
+            rd["ref_tokens"] = tokens[:, :n_tok]
+            rd["ref_mel"] = mel[:, : 2 * n_tok]
+            mark("ref_mel_s")
+        return spk, rd
+
+    def synthesize(self, text, ref_wav=None, ref_sr=None, speaker_emb=None, ref_dict=None,
+                   exaggeration=0.5, cfg_weight=0.5, temperature=0.8, max_tokens=500, seed=0,
+                   draws=None, source_draws=None, timed: bool = False,
+                   **_) -> tuple[np.ndarray, int]:
+        """Text -> (waveform, 24000).  ``speaker_emb``: a T3 embedding or a
+        (embedding, ref dict) pair from :meth:`conditioning`.  ``draws`` goes
+        to ``t3_generate``, ``source_draws`` to HiFT; ``timed`` records the
+        stages' seconds in ``last_stats``."""
+        c = self.t3.cfg
+        stats = {} if timed else None
+        ref_rd = None
+        if speaker_emb is None:
+            if ref_wav is not None:
+                speaker_emb, ref_rd = self.conditioning(ref_wav, ref_sr, stats)
+            elif "speaker_emb" in self.builtin:
+                speaker_emb = self.builtin["speaker_emb"]
+            else:
+                speaker_emb = np.zeros((c.speaker_embed_size,), np.float32)
+        elif isinstance(speaker_emb, tuple):
+            speaker_emb, ref_rd = speaker_emb
+            if ref_rd is not None and not isinstance(ref_rd, dict):
+                ref_rd = {"ref_xvector": ref_rd}
+        # the text's ids, cut to the rows of the text position table (the JAX
+        # engine reads NaN rows past it; ROADMAP queue 3)
+        ids = list(self.tokenize(chatterbox_punc_norm(text)))[: c.text_pos_size - 2]
+        ids = np.asarray([c.start_text_token] + ids + [c.stop_text_token], np.int64)[None]
+        if ref_rd is not None and "ref_tokens" in ref_rd:
+            # a cloned voice: the reference's speech tokens prompt T3 too
+            prompt = np.asarray(ref_rd["ref_tokens"])[:, : c.speech_cond_prompt_len]
+        else:
+            prompt = self.builtin.get("prompt_tokens")
+        tokens = t3_generate(
+            self.t3, ids, speaker_emb, prompt_tokens=prompt, emotion_adv=float(exaggeration),
+            max_new_tokens=max_tokens, cfg_weight=float(cfg_weight),
+            temperature=float(temperature), seed=seed, draws=draws, stats=stats,
+            device=self.device)
+        fc = self.s3gen.flow_cfg
+        # S3Gen's token vocabulary is the 6561 FSQ codes: the specials go
+        tokens = tokens[:, tokens[0] < fc.token_vocab]
+        if tokens.shape[1] == 0:
+            tokens = np.zeros((1, 1), np.int32)
+        rd = ref_dict if ref_dict is not None else ref_rd if ref_rd is not None else self.builtin
+        xvec = np.asarray(rd.get("ref_xvector", np.zeros((fc.xvector_dim,), np.float32)),
+                          np.float32).reshape(1, -1)
+        ref_tokens, ref_mel = rd.get("ref_tokens"), rd.get("ref_mel")
+        prompt_mel = None
+        if ref_tokens is not None and ref_mel is not None:
+            tokens = np.concatenate([np.asarray(ref_tokens, np.int32).reshape(1, -1), tokens],
+                                    axis=1)
+            prompt_mel = np.asarray(ref_mel, np.float32).reshape(1, -1, fc.mel_dim)
+        wav = self.s3gen.tokens_to_wav(tokens, xvec, prompt_mel=prompt_mel, seed=seed,
+                                       source_draws=source_draws, stats=stats)
+        out = wav[0].cpu().numpy()
+        if stats is not None:
+            stats["tokens"] = int(tokens.shape[1])
+            self.last_stats = stats
+        return out, self.sr_out
+
+    # ---- serve/tts_api backend protocol (a voice store)
+
+    def register_voice(self, name: str, wav, sr: int) -> None:
+        self.voice_store[name] = self.conditioning(wav, sr)
+
+    def generate(self, text: str, voice: str = "default", speed: float = 1.0, seed: int = 0,
+                 exaggeration: float = 0.5, cfg_weight: float = 0.5, **_):
+        return self.synthesize(text, speaker_emb=self.voice_store.get(voice),
+                               exaggeration=exaggeration, cfg_weight=cfg_weight, seed=seed)
+
+
+def random_chatterbox(seed: int = 0, device: str | torch.device = "cuda"
+                      ) -> ChatterboxCheckpointEngine:
+    """The JAX package's tiny Chatterbox engine (T3 2 x 32, flow 32 wide,
+    HiFT base 16) with random weights by utils/fast_init's rules, on
+    ``device`` (default the card): the same T3 + S3Gen stack the published
+    weights fill, at a width the demo backend and the tests run at once."""
+    dev = resolve_device(device)
+    t3_cfg = T3CkptConfig(text_vocab=40, speech_vocab=36, dim=32, n_layers=2, n_heads=4,
+                          ffn_dim=64, max_text_tokens=64, max_speech_tokens=64,
+                          speaker_embed_size=8, perceiver_tokens=4, perceiver_heads=2,
+                          start_text_token=38, stop_text_token=0, start_speech_token=30,
+                          stop_speech_token=31)
+    flow_cfg = FlowConfig(token_vocab=30, dim=32, mel_dim=8, xvector_dim=12, heads=2,
+                          ffn_dim=64, n_layers=2, n_up_layers=1, est_channels=16,
+                          est_mid_blocks=2, est_n_blocks=1, est_heads=2, est_head_dim=4,
+                          n_timesteps=2)
+    hift_cfg = HiFTConfig(in_channels=8, base_channels=16, f0_cond_channels=12)
+    with dev:
+        t3 = fast_init(T3(t3_cfg, max_seq_len=256), seed)
+        s3gen = fast_init(S3Token2Wav(flow_cfg, hift_cfg), seed + 1)
+    return ChatterboxCheckpointEngine(t3, s3gen, device=dev)

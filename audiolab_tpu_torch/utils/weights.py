@@ -1074,3 +1074,262 @@ def zonos_prefix_from_jax(params: dict, specs, projection: str = "none") -> dict
     proj("", "prefix", projection)
     _norm(sd, "norm", params["norm"])
     return sd
+
+
+# ------------------------------------------------------------- Chatterbox
+
+def chatterbox_t3_from_jax(params: dict) -> dict:
+    """T3 flax params -> port state_dict under t3_cfg.safetensors' names (the
+    inverse of convert_chatterbox_t3): the LLaMA backbone as ``tfmr.layers.N``
+    and ``tfmr.norm``, the position tables as ``*_pos_emb.emb``, the
+    perceiver's ``attn.to_out.0``."""
+    sd: dict = {}
+    for name in ("text_emb", "speech_emb"):
+        sd[f"{name}.weight"] = _t(params[name]["embedding"])
+    for name in ("text_pos_emb", "speech_pos_emb"):
+        sd[f"{name}.emb.weight"] = _t(params[name]["embedding"])
+    for name in ("text_head", "speech_head"):
+        _dense(sd, name, params[name])
+    ce = params["cond_enc"]
+    _dense(sd, "cond_enc.spkr_enc", ce["spkr_enc"])
+    _dense(sd, "cond_enc.emotion_adv_fc", ce["emotion_adv_fc"])
+    p = ce["perceiver"]
+    sd["cond_enc.perceiver.pre_attention_query"] = _t(p["pre_attention_query"])
+    for proj in ("to_q", "to_k", "to_v"):
+        _dense(sd, f"cond_enc.perceiver.attn.{proj}", p["attn"][proj])
+    _dense(sd, "cond_enc.perceiver.attn.to_out.0", p["attn"]["to_out"])
+    lm: dict = {}
+    _lm_layers(lm, "", params["tfmr"])
+    sd.update({f"tfmr.{k[len('model.'):]}": v for k, v in lm.items()})
+    return sd
+
+
+def voice_encoder_from_jax(params: dict) -> dict:
+    """VoiceEncoder flax params -> port state_dict under ve.safetensors' names
+    (torch LSTM weights (4h, in) in gate order i, f, g, o; ``proj``)."""
+    sd: dict = {}
+    for i in range(_count(params, "lstm_l")):
+        node = params[f"lstm_l{i}"]
+        sd[f"lstm.weight_ih_l{i}"] = _t(np.asarray(node["w_ih"]).T)
+        sd[f"lstm.weight_hh_l{i}"] = _t(np.asarray(node["w_hh"]).T)
+        sd[f"lstm.bias_ih_l{i}"] = _t(node["b_ih"])
+        sd[f"lstm.bias_hh_l{i}"] = _t(node["b_hh"])
+    _dense(sd, "proj", params["proj"])
+    return sd
+
+
+def _s3gen_causal_block(sd: dict, key: str, node: dict) -> None:
+    _conv1d(sd, f"{key}.block.0", node["conv"]["conv"]["Conv_0"])
+    _norm(sd, f"{key}.block.2", node["norm"])
+
+
+def _s3gen_resnet_block(sd: dict, key: str, node: dict) -> None:
+    _dense(sd, f"{key}.mlp.1", node["mlp"])
+    _s3gen_causal_block(sd, f"{key}.block1", node["block1"])
+    _s3gen_causal_block(sd, f"{key}.block2", node["block2"])
+    _conv1d(sd, f"{key}.res_conv", node["res_conv"]["Conv_0"])
+
+
+def _s3gen_transformer_block(sd: dict, key: str, node: dict) -> None:
+    for proj in ("to_q", "to_k", "to_v"):
+        _dense(sd, f"{key}.attn1.{proj}", node[proj])
+    _dense(sd, f"{key}.attn1.to_out.0", node["to_out"])
+    _norm(sd, f"{key}.norm1", node["norm1"])
+    _norm(sd, f"{key}.norm3", node["norm3"])
+    _dense(sd, f"{key}.ff.net.0.proj", node["ff_in"])
+    _dense(sd, f"{key}.ff.net.2", node["ff_out"])
+
+
+def s3gen_flow_from_jax(params: dict, prefix: str = "") -> dict:
+    """CausalMaskedDiffWithXvec flax params -> port state_dict under
+    s3gen.safetensors' ``flow.*`` names (without the ``flow.`` unless given
+    as ``prefix``; the inverse of convert_s3gen_flow)."""
+    sd: dict = {}
+    p = prefix
+    sd[f"{p}input_embedding.weight"] = _t(params["input_embedding"]["embedding"])
+    for lin in ("spk_embed_affine_layer", "encoder_proj"):
+        _dense(sd, f"{p}{lin}", params[lin])
+    enc = params["encoder"]
+    for emb in ("embed", "up_embed"):
+        _dense(sd, f"{p}encoder.{emb}.out.0", enc[emb]["out0"])
+        _norm(sd, f"{p}encoder.{emb}.out.1", enc[emb]["out1"])
+    for conv in ("conv1", "conv2"):
+        _conv1d(sd, f"{p}encoder.pre_lookahead_layer.{conv}",
+                enc["pre_lookahead_layer"][conv]["Conv_0"])
+    _conv1d(sd, f"{p}encoder.up_layer.conv", enc["up_layer"]["conv"]["Conv_0"])
+    for group in ("encoders", "up_encoders"):
+        for i in range(_count(enc, f"{group}_")):
+            node, key = enc[f"{group}_{i}"], f"{p}encoder.{group}.{i}"
+            a = node["self_attn"]
+            for proj in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+                _dense(sd, f"{key}.self_attn.{proj}", a[proj])
+            sd[f"{key}.self_attn.pos_bias_u"] = _t(a["pos_bias_u"])
+            sd[f"{key}.self_attn.pos_bias_v"] = _t(a["pos_bias_v"])
+            _dense(sd, f"{key}.feed_forward.w_1", node["ffn_w1"])
+            _dense(sd, f"{key}.feed_forward.w_2", node["ffn_w2"])
+            _norm(sd, f"{key}.norm_mha", node["norm_mha"])
+            _norm(sd, f"{key}.norm_ff", node["norm_ff"])
+    _norm(sd, f"{p}encoder.after_norm", enc["after_norm"])
+    est, te = params["decoder"]["estimator"], f"{p}decoder.estimator"
+    _dense(sd, f"{te}.time_mlp.linear_1", est["time_mlp_1"])
+    _dense(sd, f"{te}.time_mlp.linear_2", est["time_mlp_2"])
+    n_tb = _count(est, "down_tb_")
+    _s3gen_resnet_block(sd, f"{te}.down_blocks.0.0", est["down_resnet"])
+    for i in range(n_tb):
+        _s3gen_transformer_block(sd, f"{te}.down_blocks.0.1.{i}", est[f"down_tb_{i}"])
+    _conv1d(sd, f"{te}.down_blocks.0.2", est["downsample"]["conv"]["Conv_0"])
+    for m in range(_count(est, "mid_resnet_")):
+        _s3gen_resnet_block(sd, f"{te}.mid_blocks.{m}.0", est[f"mid_resnet_{m}"])
+        for i in range(n_tb):
+            _s3gen_transformer_block(sd, f"{te}.mid_blocks.{m}.1.{i}", est[f"mid_tb_{m}_{i}"])
+    _s3gen_resnet_block(sd, f"{te}.up_blocks.0.0", est["up_resnet"])
+    for i in range(n_tb):
+        _s3gen_transformer_block(sd, f"{te}.up_blocks.0.1.{i}", est[f"up_tb_{i}"])
+    _conv1d(sd, f"{te}.up_blocks.0.2", est["upsample"]["conv"]["Conv_0"])
+    _s3gen_causal_block(sd, f"{te}.final_block", est["final_block"])
+    _conv1d(sd, f"{te}.final_proj", est["final_proj"]["Conv_0"])
+    return sd
+
+
+def hift_from_jax(params: dict, prefix: str = "") -> dict:
+    """HiFTGenerator flax params -> port state_dict under s3gen.safetensors'
+    ``mel2wav.*`` names (without the ``mel2wav.`` unless given as
+    ``prefix``; weight-normed convolutions as their folded ``.weight``;
+    the inverse of convert_hift)."""
+    sd: dict = {}
+    p = prefix
+    for i in range(_count(params["f0_predictor"], "condnet_")):
+        _conv_inner(sd, f"{p}f0_predictor.condnet.{2 * i}",
+                    params["f0_predictor"][f"condnet_{i}"])
+    _dense(sd, f"{p}f0_predictor.classifier", params["f0_predictor"]["classifier"])
+    _dense(sd, f"{p}m_source.l_linear", params["m_source_linear"])
+    for conv in ("conv_pre", "conv_post"):
+        _conv_inner(sd, f"{p}{conv}", params[conv])
+
+    def resblock(key: str, node: dict) -> None:
+        for j in range(_count(node, "convs1_")):
+            _conv_inner(sd, f"{key}.convs1.{j}", node[f"convs1_{j}"])
+            _conv_inner(sd, f"{key}.convs2.{j}", node[f"convs2_{j}"])
+            sd[f"{key}.activations1.{j}.alpha"] = _t(node[f"act1_{j}"]["alpha"])
+            sd[f"{key}.activations2.{j}.alpha"] = _t(node[f"act2_{j}"]["alpha"])
+
+    n_up = _count(params, "ups_")
+    n_k = _count(params, "resblocks_") // n_up
+    for i in range(n_up):
+        _conv_inner(sd, f"{p}ups.{i}", params[f"ups_{i}"])
+        _conv_inner(sd, f"{p}source_downs.{i}", params[f"source_downs_{i}"])
+        resblock(f"{p}source_resblocks.{i}", params[f"source_resblocks_{i}"])
+        for j in range(n_k):
+            resblock(f"{p}resblocks.{i * n_k + j}", params[f"resblocks_{i}_{j}"])
+    return sd
+
+
+def _bn_params(sd: dict, key: str, node: dict) -> None:
+    """The JAX package's BNInfer (running statistics held as parameters,
+    ``mean`` / ``var``, and the affine where it has one) as torch BatchNorm
+    state."""
+    if "scale" in node:
+        _norm(sd, key, node)
+    sd[f"{key}.running_mean"] = _t(node["mean"])
+    sd[f"{key}.running_var"] = _t(node["var"])
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
+def campplus_from_jax(params: dict) -> dict:
+    """CAMPPlus flax params -> port state_dict under 3D-Speaker's names (the
+    s3gen.safetensors ``speaker_encoder.*`` subtree without its prefix; the
+    inverse of convert_campplus).  The JAX tree has no ``batch_stats``:
+    its BNInfer keeps the running statistics among the parameters."""
+    sd: dict = {}
+    head = params["head"]
+    _conv2d(sd, "head.conv1", head["conv1"])
+    _bn_params(sd, "head.bn1", head["bn1"])
+    for layer in ("layer1", "layer2"):
+        for bi in range(2):
+            node, key = head[f"{layer}_{bi}"], f"head.{layer}.{bi}"
+            _conv2d(sd, f"{key}.conv1", node["conv1"])
+            _bn_params(sd, f"{key}.bn1", node["bn1"])
+            _conv2d(sd, f"{key}.conv2", node["conv2"])
+            _bn_params(sd, f"{key}.bn2", node["bn2"])
+            if "shortcut_conv" in node:
+                _conv2d(sd, f"{key}.shortcut.0", node["shortcut_conv"])
+                _bn_params(sd, f"{key}.shortcut.1", node["shortcut_bn"])
+    _conv2d(sd, "head.conv2", head["conv2"])
+    _bn_params(sd, "head.bn2", head["bn2"])
+    _conv1d(sd, "xvector.tdnn.linear", params["tdnn_linear"]["Conv_0"])
+    _bn_params(sd, "xvector.tdnn.nonlinear.batchnorm", params["tdnn_nonlinear"]["batchnorm"])
+    for name, node in params.items():
+        m = re.fullmatch(r"block(\d+)_tdnnd(\d+)", name)
+        if not m:
+            continue
+        key = f"xvector.block{m.group(1)}.tdnnd{m.group(2)}"
+        _bn_params(sd, f"{key}.nonlinear1.batchnorm", node["nonlinear1"]["batchnorm"])
+        _conv1d(sd, f"{key}.linear1", node["linear1"]["Conv_0"])
+        _bn_params(sd, f"{key}.nonlinear2.batchnorm", node["nonlinear2"]["batchnorm"])
+        for conv in ("linear_local", "linear1", "linear2"):
+            _conv1d(sd, f"{key}.cam_layer.{conv}", node["cam_layer"][conv]["Conv_0"])
+    for b in range(1, _count(params, "transit") // 2 + 1):
+        _bn_params(sd, f"xvector.transit{b}.nonlinear.batchnorm",
+                   params[f"transit{b}_nonlinear"]["batchnorm"])
+        _conv1d(sd, f"xvector.transit{b}.linear", params[f"transit{b}_linear"]["Conv_0"])
+    _bn_params(sd, "xvector.out_nonlinear.batchnorm", params["out_nonlinear"]["batchnorm"])
+    sd["xvector.dense.linear.weight"] = _t(
+        np.asarray(params["dense_linear"]["kernel"]).T[:, :, None])
+    _bn_params(sd, "xvector.dense.nonlinear.batchnorm", params["dense_nonlinear"])
+    return sd
+
+
+def s3tokenizer_from_jax(params: dict) -> dict:
+    """S3TokenizerV2 flax params -> port state_dict under the s3tokenizer
+    package's names (the s3gen.safetensors ``tokenizer.*`` subtree without
+    its prefix; the FSQ at ``quantizer.vq``; the inverse of
+    convert_s3tokenizer)."""
+    sd: dict = {}
+    enc = params["encoder"]
+    _conv1d(sd, "encoder.conv1", enc["conv1"])
+    _conv1d(sd, "encoder.conv2", enc["conv2"])
+    for i in range(_count(enc, "block_")):
+        node, key = enc[f"block_{i}"], f"encoder.blocks.{i}"
+        for proj in ("query", "key", "value", "out"):
+            _dense(sd, f"{key}.attn.{proj}", node["attn"][proj])
+        sd[f"{key}.attn.fsmn_block.weight"] = _t(
+            np.asarray(node["attn"]["fsmn_kernel"]).T[:, None, :])
+        _norm(sd, f"{key}.attn_ln", node["attn_ln"])
+        _norm(sd, f"{key}.mlp_ln", node["mlp_ln"])
+        _dense(sd, f"{key}.mlp.0", node["mlp_0"])
+        _dense(sd, f"{key}.mlp.2", node["mlp_2"])
+    _norm(sd, "encoder.ln_post", enc["ln_post"])
+    _dense(sd, "quantizer.vq.project_down", params["project_down"])
+    return sd
+
+
+def wespeaker_from_jax(params: dict) -> dict:
+    """WeSpeakerResNet flax params -> port state_dict under wespeaker's names
+    (the inverse of convert_wespeaker).  The JAX package holds each
+    BatchNorm folded into a per-channel affine: it comes back as a norm of
+    mean 0 and variance 1 - eps with the affine as its weight and bias;
+    ``seg_bn_1`` (no affine) as the running statistics that fold to it."""
+    sd: dict = {}
+    _conv2d(sd, "conv1", params["conv1"])
+    _folded_bn(sd, "bn1", params["bn1"])
+    for name, node in params.items():
+        m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
+        if not m:
+            continue
+        key = f"layer{m.group(1)}.{m.group(2)}"
+        _conv2d(sd, f"{key}.conv1", node["conv1"])
+        _folded_bn(sd, f"{key}.bn1", node["bn1"])
+        _conv2d(sd, f"{key}.conv2", node["conv2"])
+        _folded_bn(sd, f"{key}.bn2", node["bn2"])
+        if "short_conv" in node:
+            _conv2d(sd, f"{key}.shortcut.0", node["short_conv"])
+            _folded_bn(sd, f"{key}.shortcut.1", node["short_bn"])
+    _dense(sd, "seg_1", params["seg_1"])
+    if "seg_2" in params:
+        scale = np.asarray(params["seg_bn_1"]["scale"], np.float64)
+        bias = np.asarray(params["seg_bn_1"]["bias"], np.float64)
+        sd["seg_bn_1.running_mean"] = _t(-bias / scale)
+        sd["seg_bn_1.running_var"] = _t(1.0 / scale ** 2 - _BN_EPS)
+        sd["seg_bn_1.num_batches_tracked"] = torch.tensor(0)
+        _dense(sd, "seg_2", params["seg_2"])
+    return sd

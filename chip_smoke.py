@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version at the main path's shapes,
-drives the separate -> RVC chain, RVC training, Zonos TTS and the speech
-engines of the LM core (Dia, XTTS, the LM) at full width, and checks the
-output.
+drives the separate -> RVC chain, RVC training, Zonos TTS, the speech
+engines of the LM core (Dia, XTTS, the LM) and Chatterbox at full width, and
+checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -16,9 +16,13 @@ output.
     python3 chip_smoke.py --phases card,processors # Remaster, Super Resolution, Convert,
                                                    # Compare, Clone's OpenVoice and TTS
                                                    # methods, diarization, crepe
+    python3 chip_smoke.py --phases card,kernels,chatterbox  # Chatterbox (T3, S3Gen, the
+                                                   # S3 tokenizer, CAMPPlus), the
+                                                   # wespeaker diarizer, the speech route
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
-                                                   # a Dia call and an XTTS-v2 synthesize
+                                                   # a Dia call, an XTTS-v2 synthesize
+                                                   # and a Chatterbox clone
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -26,7 +30,8 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
   kernels    K1 and K2 against their plain versions at the main path's shapes
              (K2 in fp32 and in bf16, at Zonos's causal fp32 prefill, and at
              Dia's causal fp32 prefill with scale 1.0, d = 64 and 128, and its
-             BOS-only t = 1 call; every K2 case timed over 200 launches), K1's
+             BOS-only t = 1 call, and at T3's causal fp32 teacher-forced
+             forward; every K2 case timed over 200 launches), K1's
              Hopper design against the WMMA core
              on each axis (in turns); the 16-bit K2 on its Hopper design at
              the HuBERT shape, a causal tq != tk shape, a causal language-model
@@ -147,6 +152,19 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              with "dia" and "coqui", and main --demo-backends answering
              "coqui"; (h) card against CPU in fp32 (1e-5 of the scale): Dia's
              logits, XTTS-v2's latents and waveform, the prefix conditioner
+  chatterbox Chatterbox at its published widths (T3 30 x 1024 fp32, S3Gen's flow
+             and HiFT, the S3 tokenizer 12 x 1280, CAMPPlus, the voice encoder):
+             (a) cloning from a 6 s reference, synthesize with max_tokens 200,
+             cold and 2 warm, seconds by stage, steps/s, audio-s/s, peak memory,
+             no kernel launched; the captured decode against the eager loop;
+             (b) T3's teacher-forced forward over (a)'s context and tokens: 30
+             fp32 K2 (the path's launches), the cached decode's logits within
+             1e-5 of it; (c) the builtin voice and random_chatterbox(); (d)
+             NeuralDiarizer with the WeSpeaker ResNet34 back end on 30 s of two
+             speakers; (e) POST /api/v1/audio/speech with "chatterbox" and main
+             --demo-backends answering it; (f) card against CPU in fp32 (1e-5 of
+             the scale): T3's logits, the flow's mel, HiFT's waveform, the
+             x-vector, the WeSpeaker embedding, the kaldi fbank; the S3 ids equal
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -167,7 +185,7 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-          "serve", "separators", "processors", "long", "train", "tts", "engines")
+          "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -498,6 +516,25 @@ def phase_kernels(dev, card: str) -> list[dict]:
         rec.update(case=key, kernel="K2", on_main_path=False, on_engines_path=True)
         recs.append(rec)
         del q, k, v
+    # T3's teacher-forced forward (phase chatterbox (b)): fp32, causal, d = 64,
+    # 16 heads over a cloned call's context and its 200 tokens; q and k with
+    # fast_init's spread at dim 1024 (std 0.02 sqrt(1024))
+    t3_rows = cb_forward_len()
+    q, k, v = (0.64 * rnd((1, 16, t3_rows, 64), torch.float32) for _ in range(3))
+    rec = check_kernel(
+        "K2 flash_attention_fwd (T3 teacher-forced forward, causal)",
+        lambda q, k, v: A.flash_attention_fwd(q, k, v, causal=True),
+        lambda q, k, v: A.flash_attention_reference(q, k, v, True, 0.125),
+        sdpa(True), (q, k, v), attention_shape(q, k, True), *k2_tol,
+        attention_work(q, k, True), PEAK_FP32, k2_rep, iters=200)
+    expect(A.k2_route(16, t3_rows, t3_rows, 64, torch.float32, True, True) == "core"
+           and hopper_launches(lambda: A.flash_attention_fwd(q, k, v, causal=True),
+                               A.flash_attention_fwd) == 0,
+           "T3's fp32 K2 is not on the register-tiled fp32 kernel")
+    rec.update(case="k2_t3_forward", kernel="K2", on_main_path=False,
+               on_chatterbox_path=True)
+    recs.append(rec)
+    del q, k, v
     # the language model's uncached prefill is on the engines path too
     for rec in recs:
         if rec["case"] == "k2_lm_prefill_bf16":
@@ -2355,7 +2392,8 @@ def _tone(seconds: float, sr: int) -> np.ndarray:
     return (0.5 * x).astype(np.float32)
 
 
-def profile_call(label: str, fn, wall_stages: dict, dev, profile_dir: str, card: str) -> dict:
+def profile_call(label: str, fn, wall_stages: dict, dev, profile_dir: str, card: str,
+                 tag: str = "[engines]") -> dict:
     """One call of ``fn`` under torch.profiler: a table of its device time by
     kernel in ``profile_dir``, and a log line with the device time, the
     share of the stages' wall time it fills and the top kernels."""
@@ -2377,7 +2415,7 @@ def profile_call(label: str, fn, wall_stages: dict, dev, profile_dir: str, card:
                     f"{launches} kernel launches\n"
                     + events.table(sort_by="self_cuda_time_total", row_limit=40) + "\n")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[engines] profile {label}: {device_s:.3f} s of device time in {wall:.3f} s of "
+    log(f"{tag} profile {label}: {device_s:.3f} s of device time in {wall:.3f} s of "
         f"stages ({device_s / wall:.0%} busy), {launches} kernel launches; top: "
         + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ms x {e.count}"
                     for e in top) + f" -> {path}")
@@ -2907,6 +2945,412 @@ def phase_engines(dev, card: str, profile_dir: str | None = None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------- chatterbox
+
+CB_TEXT = ("Welcome back to the studio, everyone. Today we are recording the vocals for our "
+           "brand new song, and it is going to sound wonderful.")
+CB_REF_S = 6.0                 # the cloning reference, at 24 kHz
+CB_REF_SR = 24000
+CB_TOKENS = 200                # max_tokens of the synthesize calls
+CB_WARM = 2
+CB_DIARIZE_S = 30.0
+
+
+def cb_forward_len() -> int:
+    """Rows of T3's teacher-forced forward over a cloned call's context (the
+    speaker, the perceiver's 32 rows, the emotion, CB_TEXT's byte ids in
+    their start and stop tokens, BOS) and CB_TOKENS speech tokens."""
+    from audiolab_tpu_torch.pipelines.tts import chatterbox_punc_norm
+
+    return 2 + 32 + len(chatterbox_punc_norm(CB_TEXT).encode()) + 2 + 1 + CB_TOKENS
+
+
+def _two_speakers(seconds: float, sr: int) -> np.ndarray:
+    """Alternating 5 s turns of two seeded voices (130 and 230 Hz harmonic
+    tones with vibrato and different spectral tilts), 0.3 s gaps."""
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    out = np.zeros(n, np.float32)
+    for i, s0 in enumerate(np.arange(0.0, seconds, 5.0)):
+        f0, tilt = (130.0, 1.0) if i % 2 == 0 else (230.0, 2.0)
+        sl = slice(int(s0 * sr), min(n, int((s0 + 4.7) * sr)))
+        ph = 2 * np.pi * np.cumsum(f0 * (1 + 0.02 * np.sin(2 * np.pi * 4 * t[sl]))) / sr
+        out[sl] = sum(0.3 / k ** tilt * np.sin(k * ph) for k in range(1, 8))
+    return out + 0.003 * np.random.default_rng(9).standard_normal(n).astype(np.float32)
+
+
+def phase_chatterbox(dev, card: str, profile_dir: str | None = None) -> dict:
+    """Chatterbox at its published widths on the card, weights by bench.py's
+    rules (utils/fast_init.py): T3 at T3CkptConfig() (30 x 1024, 16 heads,
+    ffn 4096), S3Gen at FlowConfig() / HiFTConfig(), the S3 tokenizer at
+    S3TokenizerConfig() (12 x 1280), CAMPPlus and the voice encoder at their
+    defaults.  (a) cloning: ``conditioning`` on a 6 s reference at 24 kHz
+    and ``synthesize`` of CB_TEXT with max_tokens 200, prompted by the
+    reference's 150 tokens; a cold call and CB_WARM warm ones, seconds by
+    stage (voice encoder, CAMPPlus, S3 tokenizer, ref mel, T3 prefill and
+    decode, flow, HiFT), steps/s, audio-s/s, peak memory, finite samples, no
+    kernel launched; the captured decode against the eager loop (identical
+    codes).  (b) T3's teacher-forced forward over (a)'s context and tokens:
+    30 fp32 K2 (counts reset just before, read just after: the path's
+    launches), the cached decode's logits within 1e-5 of max|logit| of it.
+    (c) the builtin voice (no reference, no prompt) and random_chatterbox(),
+    one synthesize each.  (d) NeuralDiarizer with the WeSpeaker ResNet34 back
+    end on 30 s of two synthetic speakers.  (e) POST /api/v1/audio/speech
+    with "chatterbox" (Dia registered beside it) and ``main --demo-backends``
+    answering "chatterbox".  (f) card against CPU in fp32 (HiFT, CAMPPlus and
+    the WeSpeaker ResNet with seeded default initialisers, see there)."""
+    import base64
+    import shutil
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+
+    import torch
+
+    from audiolab_tpu_torch.core.audio_io import read_wav
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.kernels.kaldi import kaldi_fbank
+    from audiolab_tpu_torch.models.campplus import CAMPPlus, CAMPPlusConfig
+    from audiolab_tpu_torch.models.chatterbox_s3gen import (
+        FlowConfig,
+        HiFTConfig,
+        HiFTGenerator,
+        S3Token2Wav,
+    )
+    from audiolab_tpu_torch.models.chatterbox_t3 import (
+        T3,
+        T3CkptConfig,
+        VoiceEncoder,
+        t3_cached_logits,
+        t3_generate,
+    )
+    from audiolab_tpu_torch.models.diarize import DiarizeConfig, NeuralDiarizer
+    from audiolab_tpu_torch.models.lm import gumbel_draws
+    from audiolab_tpu_torch.models.s3tokenizer import (
+        S3TokenizerConfig,
+        S3TokenizerV2,
+        s3_log_mel,
+    )
+    from audiolab_tpu_torch.models.wespeaker import WeSpeakerConfig, WeSpeakerResNet
+    from audiolab_tpu_torch.pipelines.tts import (
+        ChatterboxCheckpointEngine,
+        chatterbox_punc_norm,
+        random_chatterbox,
+        register_default_backends,
+    )
+    from audiolab_tpu_torch.serve import tts_api
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    rec: dict = {}
+    tag = "[chatterbox]"
+
+    def n_params(m) -> float:
+        return sum(p.numel() for p in m.parameters()) / 1e6
+
+    def cpu_copy(module, make):
+        c = make()
+        c.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+        return c.eval()
+
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        t3 = fast_init(T3(T3CkptConfig()), 0)
+        s3gen = fast_init(S3Token2Wav(FlowConfig(), HiFTConfig()), 1)
+        ve = fast_init(VoiceEncoder(), 2)
+        cp = fast_init(CAMPPlus(CAMPPlusConfig()), 3)
+        st = fast_init(S3TokenizerV2(S3TokenizerConfig()), 4)
+    eng = ChatterboxCheckpointEngine(t3, s3gen, ve=ve, campplus=cp, s3tok=st, device=dev)
+    sync(dev)
+    c = t3.cfg
+    log(f"{tag} built in {time.perf_counter() - t0:.1f} s: T3 {c.n_layers} x {c.dim}, "
+        f"{c.n_heads} heads, ffn {c.ffn_dim}, {n_params(t3):.1f} M fp32 parameters; flow "
+        f"{n_params(s3gen.flow):.1f} M, HiFT {n_params(s3gen.mel2wav):.1f} M, S3 tokenizer "
+        f"{n_params(st):.1f} M, CAMPPlus {n_params(cp):.2f} M, voice encoder "
+        f"{n_params(ve):.2f} M")
+    t_ref = np.arange(int(CB_REF_S * CB_REF_SR)) / CB_REF_SR
+    ref = _tone(CB_REF_S, CB_REF_SR) * (1 + 0.3 * np.sin(2 * np.pi * 3 * t_ref)).astype(
+        np.float32)
+
+    # (a) cloning, cold then warm
+    runs = []
+    for i in range(1 + CB_WARM):
+        label = f"clone call {i + 1} ({'cold' if i == 0 else 'warm'})"
+        _peak_reset(cuda)
+        reset_counts()
+        t0 = time.perf_counter()
+        audio, sr = eng.synthesize(CB_TEXT, ref_wav=ref, ref_sr=CB_REF_SR,
+                                   max_tokens=CB_TOKENS, seed=i, timed=True)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = counts()
+        st_ = dict(eng.last_stats)
+        stages = {k: st_[k] for k in ("ve_s", "campplus_s", "s3tokenizer_s", "ref_mel_s",
+                                      "prefill_s", "decode_s", "flow_s", "hift_s")}
+        run = dict(seconds=secs, **stages, steps=st_["steps"], context=st_["context"],
+                   tokens=st_["tokens"], steps_per_s=st_["steps"] / st_["decode_s"],
+                   peak_gb=_peak_gb(cuda), audio_s=len(audio) / sr, launches=launches)
+        runs.append(run)
+        log(f"{tag} (a) {label}: {secs:.3f} s ("
+            + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in stages.items())
+            + f"); context {run['context']} rows, {run['steps']} decode steps at "
+            f"{run['steps_per_s']:.1f} steps/s ({1e3 / run['steps_per_s']:.2f} ms a step); "
+            f"{run['tokens']} tokens to S3Gen; {run['audio_s']:.2f} s of audio at {sr} Hz, "
+            f"{run['audio_s'] / secs:.2f} audio-s/s; peak {run['peak_gb']:.2f} GB; launches "
+            f"{launches} | {card}")
+        expect(sr == 24000 and len(audio) > 0 and bool(np.isfinite(audio).all()),
+               f"{label}: {audio.shape} at {sr} Hz, expected finite 24 kHz audio")
+        expect(all(v == 0 for v in launches.values()),
+               f"{label}: launches {launches}; Chatterbox's generation runs no kernel")
+    rec["clone"] = runs
+    if profile_dir and cuda:
+        rec["clone_profile"] = profile_call(
+            "Chatterbox warm clone synthesize",
+            lambda: eng.synthesize(CB_TEXT, ref_wav=ref, ref_sr=CB_REF_SR,
+                                   max_tokens=CB_TOKENS, seed=1, timed=True),
+            {k: runs[-1][k] for k in ("prefill_s", "decode_s", "flow_s", "hift_s")}, dev,
+            profile_dir, card, tag=tag)
+    # the captured decode against the eager loop under the same draws
+    spk, rd = eng.conditioning(ref, CB_REF_SR)
+    prompt = rd["ref_tokens"][:, :c.speech_cond_prompt_len]
+    ids = np.asarray([[c.start_text_token] + list(eng.tokenize(chatterbox_punc_norm(CB_TEXT)))
+                      + [c.stop_text_token]])
+    draws = gumbel_draws(CB_TOKENS + 1, 1, c.speech_vocab, 7, dev)
+    codes = {}
+    for graph in ((True, False) if cuda else (False,)):
+        t0 = time.perf_counter()
+        codes[graph] = t3_generate(t3, ids, spk, prompt_tokens=prompt, max_new_tokens=CB_TOKENS,
+                                   draws=draws, graph=graph, device=dev)
+        sync(dev)
+        log(f"{tag} (a) t3_generate graph={graph}: {codes[graph].shape[1]} tokens in "
+            f"{time.perf_counter() - t0:.3f} s")
+    if cuda:
+        expect(np.array_equal(codes[True], codes[False]),
+               "the captured T3 decode's codes differ from the eager loop's")
+        log(f"{tag} (a) captured decode = eager decode: {codes[True].shape[1]} identical codes")
+    gen = codes[False]
+
+    # (b) the teacher-forced forward over (a)'s context and tokens: the path
+    text = torch.as_tensor(ids, device=dev)
+    speech = torch.as_tensor(np.concatenate([[[c.start_speech_token]], gen], axis=1),
+                             device=dev)
+    spk_t = torch.as_tensor(spk, device=dev)[None]
+    prompt_t = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+    emo = torch.full((1,), 0.5, device=dev)
+    with torch.inference_mode():
+        t3(text, speech, spk_t, prompt_t, emo)          # warms the shapes
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        _lt, ls = t3(text, speech, spk_t, prompt_t, emo)
+        sync(dev)
+        fwd_s = time.perf_counter() - t0
+        path = counts()
+        hop = A.flash_attention_fwd.sm90_launches
+        cached = t3_cached_logits(t3, text, speech[:, 1:], spk_t, prompt_t, emo)
+    rows = speech.shape[1] + 2 + c.perceiver_tokens + text.shape[1]
+    err = float((cached - ls).abs().max() / ls.abs().max())
+    rec["forward"] = dict(rows=rows, seconds=fwd_s, launches=path, cached_vs_forward=err)
+    log(f"{tag} (b) teacher-forced forward over {rows} rows ({text.shape[1]} text, "
+        f"{c.perceiver_tokens} perceiver rows from {prompt.shape[1]} prompt tokens, "
+        f"{speech.shape[1]} speech): {fwd_s * 1e3:.2f} ms; launches {path} ({hop} on the "
+        f"16-bit Hopper design); cached decode against it: {err:.3e} of max|logit| "
+        f"{float(ls.abs().max()):.4g} (tolerance 1e-5) | {card}")
+    expect(only(path, "K2", c.n_layers) and hop == 0,
+           f"T3 forward: launches {path}, expected {c.n_layers} fp32 K2")
+    expect(err <= 1e-5, f"T3 cached decode {err:.3e} of max|logit| from the forward")
+    del cached, ls, _lt
+
+    # (c) the builtin voice and the demo engine
+    demo = random_chatterbox(device=dev)
+    for name, e in (("builtin voice (no reference, no prompt)", eng),
+                    ("random_chatterbox()", demo)):
+        reset_counts()
+        t0 = time.perf_counter()
+        audio, sr = e.synthesize(CB_TEXT, max_tokens=CB_TOKENS, seed=3, timed=True)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        st_ = e.last_stats
+        log(f"{tag} (c) {name}: {secs:.3f} s (prefill {st_['prefill_s']:.3f}, decode "
+            f"{st_['decode_s']:.3f}, flow {st_['flow_s']:.3f}, HiFT {st_['hift_s']:.3f}); "
+            f"context {st_['context']}, {st_['steps']} steps; {len(audio) / sr:.2f} s of "
+            f"audio; launches {counts()} | {card}")
+        expect(sr == 24000 and len(audio) > 0 and bool(np.isfinite(audio).all()),
+               f"{name}: {audio.shape} at {sr} Hz")
+        rec[f"builtin_{name.split()[0]}"] = secs
+
+    # (d) the diarizer's wespeaker back end
+    with torch.device(dev):
+        ws = fast_init(WeSpeakerResNet(WeSpeakerConfig()), 5)
+    diar = NeuralDiarizer(DiarizeConfig(), wespeaker=ws, device=dev)
+    with torch.no_grad():
+        # speaker 0 active in every chunk: one region a chunk for the back end
+        diar.seg.fc2.bias.copy_(torch.tensor([4.0, -4.0, -4.0]))
+    two = _two_speakers(CB_DIARIZE_S, 16000)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        turns = diar.diarize(two, 16000)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    regions = [(s, min(s + 10.0, CB_DIARIZE_S)) for s in np.arange(0.0, 25.0, 5.0)]
+    t0 = time.perf_counter()
+    embs = diar._wespeaker_embs(two, regions)
+    sync(dev)
+    emb_s = time.perf_counter() - t0
+    rec["diarize"] = dict(cold_s=times[0], warm_s=times[1], embed_s=emb_s, turns=len(turns))
+    log(f"{tag} (d) NeuralDiarizer, WeSpeaker ResNet34 ({n_params(ws):.2f} M) on "
+        f"{CB_DIARIZE_S:.0f} s of two speakers: cold {times[0]:.3f} s, warm {times[1]:.3f} s, "
+        f"{len(turns)} turns {turns}; {len(regions)} region embeddings "
+        f"{tuple(embs.shape)} in {emb_s * 1e3:.1f} ms | {card}")
+    expect(len(turns) >= 1 and embs.shape == (len(regions), 256)
+           and bool(torch.isfinite(embs).all()), "diarizer: no turns or bad embeddings")
+
+    # (e) the served routes, then main --demo-backends
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_chatterbox_"))
+    saved = dict(tts_api._BACKENDS)
+    server, port = serve_background(create_app(str(work / "process"), device=dev))
+    try:
+        register_default_backends(tts_api, dia=object(), chatterbox=eng)
+        expect(tts_api._BACKENDS["chatterbox"] is eng, "chatterbox is not the Chatterbox engine")
+        t0 = time.perf_counter()
+        status, resp = http("POST", f"http://127.0.0.1:{port}/api/v1/audio/speech",
+                            {"model": "chatterbox", "input": CB_TEXT})
+        secs = time.perf_counter() - t0
+        expect(status == 200, f"speech chatterbox: HTTP {status} {resp.get('error')}")
+        p = work / "chatterbox.wav"
+        p.write_bytes(base64.b64decode(resp["audio"]))
+        a = read_wav(p)
+        expect(a.sample_rate == 24000 and a.samples.shape[1] > 0
+               and bool(np.isfinite(a.samples).all()),
+               f"speech chatterbox: {a.samples.shape} at {a.sample_rate}")
+        rec["served"] = secs
+        log(f"{tag} (e) POST /api/v1/audio/speech model 'chatterbox': HTTP {status} "
+            f"{secs:.3f} s from the Chatterbox engine (500 decode steps, the engine's "
+            f"default); WAV {a.sample_rate} Hz x {a.samples.shape[1]} samples "
+            f"({a.samples.shape[1] // 960} tokens) | {card}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        tts_api._BACKENDS.clear()
+        tts_api._BACKENDS.update(saved)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        mport = s.getsockname()[1]
+    out = open(work / "main.log", "wb")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audiolab_tpu_torch.main", "--port", str(mport),
+         "--output-root", str(work / "main" / "process"), "--device", dev.type,
+         "--demo-backends"],
+        cwd=Path(__file__).resolve().parent, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        url = f"http://127.0.0.1:{mport}"
+        while True:
+            try:
+                status, models = http("GET", f"{url}/api/v1/audio/speech/models", timeout=30)
+                break
+            except (urllib.error.URLError, ConnectionError):
+                expect(proc.poll() is None and time.perf_counter() - t0 < 180,
+                       f"main --demo-backends: not serving (exit {proc.poll()}): "
+                       f"{(work / 'main.log').read_text()[-2000:]}")
+                time.sleep(0.25)
+        expect("chatterbox" in models.get("loaded", []), f"main: models {models}")
+        t1 = time.perf_counter()
+        status, resp = http("POST", f"{url}/api/v1/audio/speech",
+                            {"model": "chatterbox", "input": CB_TEXT})
+        req_s = time.perf_counter() - t1
+        expect(status == 200, f"main chatterbox: HTTP {status} {resp.get('error')}")
+        p = work / "main_chatterbox.wav"
+        p.write_bytes(base64.b64decode(resp["audio"]))
+        a = read_wav(p)
+        expect(a.sample_rate == 24000 and bool(np.isfinite(a.samples).all()),
+               f"main chatterbox: {a.samples.shape} at {a.sample_rate}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        log(f"{tag} (e) python -m audiolab_tpu_torch.main --demo-backends: models "
+            f"{models['loaded']}; POST speech 'chatterbox' {req_s:.3f} s, WAV "
+            f"{a.sample_rate} Hz x {a.samples.shape[1]}; SIGTERM -> exit {rc}")
+        expect(rc == 0, f"main --demo-backends: exit {rc}: "
+                        f"{(work / 'main.log').read_text()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (f) card against CPU in fp32
+    g = np.random.default_rng(11)
+    w16 = ref[: 3 * 16000]                     # 3 s, as 16 kHz samples
+    flow_tok = g.integers(0, 6561, (1, 60))
+    xvec = g.standard_normal((1, 192)).astype(np.float32)
+    pmel = g.standard_normal((1, 40, 80)).astype(np.float32)
+    hdraws = [g.random((1, 1, 9)).astype(np.float32),
+              g.standard_normal((1, 80 * 480, 9)).astype(np.float32)]
+    fb = g.standard_normal((1, 300, 80)).astype(np.float32)
+    t_text, t_speech = ids[:, :60], speech[:, :80].cpu().numpy()
+    # HiFT, CAMPPlus and the WeSpeaker ResNet with torch's default
+    # initialisers from a seed: under fast_init's N(0, 0.02) their outputs
+    # are cancellations far below their inputs' level (HiFT's flat spectrum
+    # iSTFTs to about 1 % of its magnitude, the x-vector to 6e-8), so the
+    # comparison would read fp32 rounding of the inputs against a vanishing
+    # scale (HiFT's read 1.2e-5 of its waveform's peak on an H100)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(12)
+        hift = HiFTGenerator(s3gen.hift_cfg).eval()
+        cp_f = CAMPPlus(cp.cfg).eval()
+        ws_f = WeSpeakerResNet(ws.cfg).eval()
+    res = {}
+    for name, mods, d in (("card", (t3, s3gen, st), dev),
+                          ("cpu", (cpu_copy(t3, lambda: T3(t3.cfg)),
+                                   cpu_copy(s3gen, lambda: S3Token2Wav(s3gen.flow_cfg,
+                                                                       s3gen.hift_cfg)),
+                                   cpu_copy(st, lambda: S3TokenizerV2(st.cfg))), cpu)):
+        m_t3, m_s3, m_st = mods
+        m_s3.to(d)
+        m_cp, m_ws = cp_f.to(d), ws_f.to(d)
+        T = lambda a, dt=None: torch.as_tensor(np.asarray(a), dtype=dt, device=d)  # noqa: E731
+        with torch.inference_mode():
+            lg = m_t3(T(t_text), T(t_speech), T(spk[None]), T(prompt, torch.long),
+                      torch.full((1,), 0.5, device=d))[1]
+            mel = m_s3.flow(T(flow_tok), T(xvec), T(pmel), m_s3.rand_noise[:, :120])
+            wav = hift.to(d)(mel[:, 40:], source_draws=[T(x) for x in hdraws])
+            x16 = T(w16)[None]
+            ids16 = m_st(s3_log_mel(x16))
+            pre = m_st.project(s3_log_mel(x16))
+            res[name] = dict(t3=lg, mel=mel, wav=wav, xvec=m_cp(T(fb)), ws=m_ws(T(fb)),
+                             fbank=kaldi_fbank(x16), ids=ids16, pre=pre)
+            res[name] = {k: v.cpu().numpy() for k, v in res[name].items()}
+    errs = {}
+    for key, label in (("t3", "T3 speech logits (60 text, 80 speech, 150 prompt)"),
+                       ("mel", "flow mel under the fixed noise (60 tokens, 40 prompt frames)"),
+                       ("wav", "HiFT (seeded default initialisers) waveform under the "
+                               "same source draws (80 frames)"),
+                       ("xvec", "CAMPPlus (seeded default initialisers) x-vector"),
+                       ("ws", "WeSpeaker ResNet34 (seeded default initialisers) embedding"),
+                       ("fbank", "kaldi fbank (3 s)")):
+        errs[key] = card_vs_cpu(label, res["card"][key], res["cpu"][key], 1e-5,
+                                tag=f"{tag} (f)")
+    flips = res["card"]["ids"] != res["cpu"]["ids"]
+    margin = np.abs(np.abs(res["cpu"]["pre"]) - 0.5)
+    log(f"{tag} (f) S3 tokenizer ids (3 s, {flips.size} tokens): {int(flips.sum())} differ; "
+        f"least distance of a pre-rounding value from a rounding boundary "
+        f"{float(margin.min()):.3e}")
+    expect(not flips.any(), f"S3 ids: {int(flips.sum())} differ between card and CPU")
+    rec["card_vs_cpu"] = errs
+    del t3, s3gen, ve, cp, st, ws, eng, demo, diar, hift, cp_f, ws_f
+    torch.cuda.empty_cache()
+    rec["launches"] = path
+    log(f"{tag} the path's launches ((b)'s forward): {path}")
+    expect(path["K2"] > 0, "chatterbox: K2 was not launched on the path")
+    return rec
+
+
 # ---------------------------------------------------------- processors
 
 PROC_REF_S = 10.0            # the cloning reference: 10 s of a seeded tone
@@ -3316,7 +3760,7 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
-    served = family = trained = spoken = processed = engines = None
+    served = family = trained = spoken = processed = engines = chatter = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "long"} & set(phases)
     if need_chain:
@@ -3368,6 +3812,10 @@ def main() -> int:
         # this slice's path: Dia's first synthesize and the LM's uncached
         # forward, counts reset just before each and read just after
         engines = phase_engines(dev, card, profile_dir=args.profile)["launches"]
+    if "chatterbox" in phases:
+        # this slice's path: T3's teacher-forced forward, counts reset just
+        # before and read just after (Chatterbox's generation launches none)
+        chatter = phase_chatterbox(dev, card, profile_dir=args.profile)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -3379,8 +3827,10 @@ def main() -> int:
            "tts_launches": None if spoken is None else spoken[r["kernel"]],
            "processors_launches": None if processed is None else processed[r["kernel"]],
            "engines_launches": None if engines is None else engines[r["kernel"]],
+           "chatterbox_launches": None if chatter is None else chatter[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
+           "on_chatterbox_path": r.get("on_chatterbox_path", False),
            "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}

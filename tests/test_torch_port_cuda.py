@@ -1497,3 +1497,183 @@ def test_dia_code_range_repair_never_indexes_past_the_dac(cuda_device):
     import numpy as np
 
     assert sr == 8000 and np.isfinite(y).all() and torch.isfinite(z).all()
+
+
+# ------------------------------------------------------------- Chatterbox
+
+def _seeded_built(make, seed: int, scale: float = 0.05):
+    """``make()`` built under a forked seeded generator, every float parameter
+    and buffer moved off its initial value (batch-norm variances in [0.5,
+    1.5))."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        module = make()
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in list(module.named_parameters()) + list(module.named_buffers()):
+            if not t.is_floating_point():
+                continue
+            if name.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+            elif not name.endswith("rand_noise"):
+                t.add_(scale * torch.randn(t.shape, generator=g))
+    return module.eval()
+
+
+# T3 at T3CkptConfig()'s head geometry (16 x 64) and perceiver, 2 layers
+T3_CARD = dict(text_vocab=80, speech_vocab=100, dim=1024, n_layers=2, n_heads=16, ffn_dim=512,
+               max_text_tokens=64, max_speech_tokens=256, speaker_embed_size=16,
+               perceiver_tokens=32, perceiver_heads=4, start_text_token=78,
+               stop_text_token=0, start_speech_token=90, stop_speech_token=91)
+
+
+def _t3(dev, seed=0, **kw):
+    from audiolab_tpu_torch.models.chatterbox_t3 import T3, T3CkptConfig
+
+    return _seeded_built(lambda: T3(T3CkptConfig(**dict(T3_CARD, **kw))), seed, 0.02).to(dev)
+
+
+@pytest.mark.parametrize("b,tq", [(1, 412), (2, 612), (1, 37)])
+def test_k2_fp32_at_t3_shapes_matches_plain(cuda_device, b, tq):
+    """fp32, causal, d = 64 at T3's teacher-forced shapes (16 heads): the
+    register-tiled fp32 kernel (``k2_route`` "core", no Hopper launch), to
+    2e-5 of max|out| of the plain version, one launch a call."""
+    q, k, v = _qkv(cuda_device, torch.float32, b, 16, tq, tq, d=64, seed=tq)
+    assert TA.k2_route(b * 16, tq, tq, 64, torch.float32, True, True) == "core"
+    TA.reset_launch_counts()
+    out = TA.flash_attention(q, k, v, causal=True)
+    ref = TA.flash_attention_reference(q, k, v, True, 0.125)
+    assert TA.flash_attention_fwd.launches == 1 and TA.flash_attention_fwd.sm90_launches == 0
+    assert (out - ref).abs().max() <= 2e-5 * ref.abs().max()
+
+
+def test_t3_forward_launches_one_fp32_k2_a_layer(cuda_device):
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+
+    apply_policy()
+    t3 = _t3(cuda_device)
+    r = np.random.default_rng(1)
+    text = torch.as_tensor(r.integers(1, 78, (1, 12)), device=cuda_device)
+    speech = torch.as_tensor(r.integers(0, 90, (1, 20)), device=cuda_device)
+    spk = torch.as_tensor(r.standard_normal((1, 16)).astype(np.float32), device=cuda_device)
+    prompt = torch.as_tensor(r.integers(0, 90, (1, 40)), device=cuda_device)
+    TA.reset_launch_counts()
+    with torch.no_grad():
+        _lt, ls = t3(text, speech, spk, prompt)
+    torch.cuda.synchronize()
+    assert TA.flash_attention_fwd.launches == 2 and torch.isfinite(ls).all()
+
+
+def test_t3_graph_decode_equals_eager(cuda_device):
+    """t3_generate with its step captured and replayed against the same
+    decode run eagerly, under the same draws: identical codes."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+    from audiolab_tpu_torch.models.chatterbox_t3 import t3_generate
+    from audiolab_tpu_torch.models.lm import gumbel_draws
+
+    apply_policy()
+    t3 = _t3(cuda_device, seed=2, stop_speech_token=99)
+    r = np.random.default_rng(2)
+    ids = r.integers(1, 78, (1, 14))
+    spk = r.standard_normal(16).astype(np.float32)
+    prompt = r.integers(0, 90, (1, 57))
+    draws = gumbel_draws(49, 1, 100, 3, cuda_device)
+    codes = [t3_generate(t3, ids, spk, prompt_tokens=prompt, max_new_tokens=48, draws=draws,
+                         graph=g, device=cuda_device) for g in (True, False)]
+    assert codes[0].shape[1] > 10
+    np.testing.assert_array_equal(codes[0], codes[1])
+
+
+def test_t3_cached_decode_matches_forward_with_a_150_token_prompt(cuda_device):
+    """The decode's positions on the card: with a 150-token prompt (the
+    perceiver's 32 rows), the cached steps' logits within 1e-5 of
+    max|logit| of the teacher-forced forward over the same stream."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+    from audiolab_tpu_torch.models.chatterbox_t3 import t3_cached_logits
+
+    apply_policy()
+    t3 = _t3(cuda_device, seed=3)
+    r = np.random.default_rng(3)
+    dev = cuda_device
+    text = torch.as_tensor(r.integers(1, 78, (1, 20)), device=dev)
+    speech = torch.as_tensor(r.integers(0, 90, (1, 24)), device=dev)
+    speech[:, 0] = 90
+    spk = torch.as_tensor(r.standard_normal((1, 16)).astype(np.float32), device=dev)
+    prompt = torch.as_tensor(r.integers(0, 90, (1, 150)), device=dev)
+    emo = torch.full((1,), 0.5, device=dev)
+    with torch.no_grad():
+        _lt, ls = t3(text, speech, spk, prompt, emo)
+        cached = t3_cached_logits(t3, text, speech[:, 1:], spk, prompt, emo)
+    assert (cached - ls).abs().max() <= 1e-5 * ls.abs().max()
+
+
+def test_chatterbox_and_wespeaker_on_the_card_match_the_cpu(cuda_device):
+    """fp32 with TF32 off, the card against the CPU on the same weights and
+    inputs: T3's logits (1e-5 of max|logit|), the flow's mel under the fixed
+    noise and HiFT's waveform under the same source draws (1e-5 of the
+    peak), the CAMPPlus x-vector, the WeSpeaker embedding and the kaldi
+    fbank (1e-5 of the scale), and the S3 tokenizer's ids (equal)."""
+    import numpy as np
+
+    from audiolab_tpu_torch.core.precision import apply_policy
+    from audiolab_tpu_torch.kernels.kaldi import kaldi_fbank
+    from audiolab_tpu_torch.models.campplus import CAMPPlus, CAMPPlusConfig
+    from audiolab_tpu_torch.models.chatterbox_s3gen import (
+        FlowConfig,
+        HiFTConfig,
+        S3Token2Wav,
+    )
+    from audiolab_tpu_torch.models.s3tokenizer import (
+        S3TokenizerConfig,
+        S3TokenizerV2,
+        s3_log_mel,
+    )
+    from audiolab_tpu_torch.models.wespeaker import WeSpeakerConfig, WeSpeakerResNet
+
+    apply_policy()
+    r = np.random.default_rng(4)
+    t3 = _t3("cpu", seed=4)
+    s3gen = _seeded_built(lambda: S3Token2Wav(
+        FlowConfig(dim=64, ffn_dim=128, n_layers=2, n_up_layers=1, est_channels=64,
+                   est_mid_blocks=2, est_n_blocks=1, est_heads=2, est_head_dim=32),
+        HiFTConfig(base_channels=64, f0_cond_channels=32)), 5)
+    cp = _seeded_built(lambda: CAMPPlus(CAMPPlusConfig(block_layers=(2, 2, 2))), 6)
+    ws = _seeded_built(lambda: WeSpeakerResNet(WeSpeakerConfig(num_blocks=(1, 1, 1, 1))), 7)
+    st = _seeded_built(lambda: S3TokenizerV2(S3TokenizerConfig(n_state=128, n_head=4, n_layer=2)),
+                 8, 0.02)
+    text = torch.as_tensor(r.integers(1, 78, (1, 12)))
+    speech = torch.as_tensor(r.integers(0, 90, (1, 30)))
+    spk = torch.as_tensor(r.standard_normal((1, 16)).astype(np.float32))
+    prompt = torch.as_tensor(r.integers(0, 90, (1, 50)))
+    tokens = torch.as_tensor(r.integers(0, 6561, (1, 40)))
+    xvec = torch.as_tensor(r.standard_normal((1, 192)).astype(np.float32))
+    pmel = torch.as_tensor(r.standard_normal((1, 20, 80)).astype(np.float32))
+    wav = torch.as_tensor((0.1 * r.standard_normal((1, 48000))).astype(np.float32))
+    fb = torch.as_tensor(r.standard_normal((1, 150, 80)).astype(np.float32))
+    draws = [torch.as_tensor(r.random((1, 1, 9)).astype(np.float32)),
+             torch.as_tensor(r.standard_normal((1, 60 * 480, 9)).astype(np.float32))]
+    out = {}
+    for dev in ("cpu", cuda_device):
+        with torch.no_grad():
+            t3, s3gen, cp, ws, st = (m.to(dev) for m in (t3, s3gen, cp, ws, st))
+            noise = s3gen.rand_noise[:, :80]
+            mel = s3gen.flow(tokens.to(dev), xvec.to(dev), pmel.to(dev), noise)
+            out[str(dev)] = dict(
+                t3=t3(text.to(dev), speech.to(dev), spk.to(dev), prompt.to(dev))[1],
+                mel=mel,
+                wav=s3gen.mel2wav(mel[:, 20:], source_draws=[d.to(dev) for d in draws]),
+                xvec=cp(fb.to(dev)), ws=ws(fb.to(dev)), fbank=kaldi_fbank(wav.to(dev)),
+                ids=st(s3_log_mel(wav.to(dev))))
+            out[str(dev)] = {k: v.cpu() for k, v in out[str(dev)].items()}
+    for key, ref in out["cpu"].items():
+        got = out["cuda"][key]
+        if key == "ids":
+            assert torch.equal(got, ref), f"{(got != ref).sum()} ids differ"
+        else:
+            assert (got - ref).abs().max() <= 1e-5 * ref.abs().max(), key

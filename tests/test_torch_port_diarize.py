@@ -106,10 +106,15 @@ def test_diarize_matches_jax():
 
 
 def test_checkpoint_back_ends_name_their_items():
+    """PyanNet still names its ROADMAP item; the wespeaker back end (ported)
+    is taken and held on the diarizer's device."""
+    from audiolab_tpu_torch.models.wespeaker import WeSpeakerConfig, WeSpeakerResNet
+
     with pytest.raises(NotImplementedError, match="item 19"):
         TD.NeuralDiarizer(pyannet_params={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TD.NeuralDiarizer(wespeaker=(None, None), device="cpu")
+    ws = WeSpeakerResNet(WeSpeakerConfig(feat_dim=16, embed_dim=8, m_channels=4,
+                                         num_blocks=(1, 1, 1, 1)))
+    assert TD.NeuralDiarizer(wespeaker=ws, device="cpu").wespeaker is ws
     d = TD.NeuralDiarizer(TD.DiarizeConfig(**CFG), device="cpu")
     assert d.seg.conv1.weight.std() > 0 and d.emb.proj.bias.abs().max() == 0
     assert all(t1 > t0 for t0, t1, _ in d.diarize(np.zeros(4000, np.float32), 16000))

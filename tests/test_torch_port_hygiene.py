@@ -345,3 +345,41 @@ def test_speech_engines_default_to_the_card(no_cuda):
     assert codes.shape == (1, 2, 2)
     with pytest.raises(ValueError, match="CUDA graph"):
         dia_generate(dia, np.ones((1, 3), np.int32), max_frames=2, device="cpu", graph=True)
+
+
+def test_chatterbox_and_wespeaker_entry_points_default_to_the_card(no_cuda):
+    """random_chatterbox, ChatterboxCheckpointEngine, t3_generate and
+    NeuralDiarizer with the wespeaker back end default to the card and raise
+    without one; each builds (and t3_generate decodes) on the CPU when
+    asked."""
+    from audiolab_tpu_torch.models.chatterbox_s3gen import FlowConfig, HiFTConfig, S3Token2Wav
+    from audiolab_tpu_torch.models.chatterbox_t3 import T3, T3CkptConfig, t3_generate
+    from audiolab_tpu_torch.models.diarize import DiarizeConfig, NeuralDiarizer
+    from audiolab_tpu_torch.models.wespeaker import WeSpeakerConfig, WeSpeakerResNet
+    from audiolab_tpu_torch.pipelines.tts import ChatterboxCheckpointEngine, random_chatterbox
+
+    t3 = T3(T3CkptConfig(text_vocab=12, speech_vocab=10, dim=16, n_layers=1, n_heads=2,
+                         ffn_dim=16, max_text_tokens=8, max_speech_tokens=8,
+                         speaker_embed_size=4, perceiver_tokens=2, perceiver_heads=2,
+                         start_text_token=10, start_speech_token=8, stop_speech_token=9))
+    s3gen = S3Token2Wav(FlowConfig(token_vocab=8, dim=16, mel_dim=4, xvector_dim=4, heads=2,
+                                   ffn_dim=16, n_layers=1, n_up_layers=1, est_channels=8,
+                                   est_mid_blocks=1, est_n_blocks=1, est_heads=2,
+                                   est_head_dim=4, n_timesteps=1),
+                        HiFTConfig(in_channels=4, base_channels=8, f0_cond_channels=4))
+    ws = WeSpeakerResNet(WeSpeakerConfig(feat_dim=16, embed_dim=4, m_channels=2,
+                                         num_blocks=(1, 1, 1, 1)))
+    dcfg = DiarizeConfig(n_mels=16, hidden=8, emb_dim=4)
+    for call in (lambda: random_chatterbox(), lambda: ChatterboxCheckpointEngine(t3, s3gen),
+                 lambda: t3_generate(t3, np.ones((1, 3), np.int64), np.zeros(4, np.float32),
+                                     max_new_tokens=2),
+                 lambda: NeuralDiarizer(dcfg, wespeaker=ws)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    eng = random_chatterbox(device="cpu")
+    assert isinstance(eng, ChatterboxCheckpointEngine) and eng.device.type == "cpu"
+    assert ChatterboxCheckpointEngine(t3, s3gen, device="cpu").device.type == "cpu"
+    assert NeuralDiarizer(dcfg, wespeaker=ws, device="cpu").wespeaker is ws
+    codes = t3_generate(t3, np.ones((1, 3), np.int64), np.zeros(4, np.float32),
+                        max_new_tokens=2, device="cpu")
+    assert codes.dtype == np.int32 and codes.shape[1] <= 3

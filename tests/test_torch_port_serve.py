@@ -316,6 +316,47 @@ def speech_engines():
             table.update(old)
 
 
+def test_speech_route_serves_chatterbox(server, jax_router, tmp_path):
+    """POST /api/v1/audio/speech with "chatterbox" on the live port server and
+    on the JAX router, each package's engine holding the tiny Chatterbox's
+    weights (tests/torch_port_tiny.py): HTTP 200, a 24 kHz WAV of whole
+    tokens (960 samples each), finite, from the Chatterbox engine and not
+    from Dia; the voice listings the same.  The request takes the engine's
+    500 tokens; the port's decode stops at the 64 + 4 rows of the tiny T3's
+    speech positions (the JAX decode reads NaN rows past them, ROADMAP
+    queue 3) and the two packages' draws differ, so the lengths are not
+    compared."""
+    from audiolab_tpu.serve import tts_api as j_tts
+    from audiolab_tpu_torch.serve import tts_api as t_tts
+    from tests import torch_port_tiny as tiny
+
+    saved = dict(j_tts._BACKENDS), dict(t_tts._BACKENDS)
+    jeng, eng = tiny.chatterbox_engines()
+    t_tts.register_backend("chatterbox", eng)
+    j_tts.register_backend("chatterbox", jeng)
+    try:
+        payload = {"model": "chatterbox", "input": "hi there"}
+        code, body = _post(f"{server}/api/v1/audio/speech", payload)
+        jcode, jbody = jax_router.dispatch("POST", "/api/v1/audio/speech", payload)
+        assert code == jcode == 200
+        assert body["sample_rate"] == jbody["sample_rate"] == eng.sr_out == 24000
+        for tag, b in (("port", body), ("jax", jbody)):
+            path = tmp_path / f"{tag}.wav"
+            path.write_bytes(base64.b64decode(b["audio"]))
+            w = read_wav(path)
+            assert w.samples.shape[1] > 0 and w.samples.shape[1] % 960 == 0
+            assert np.isfinite(w.samples).all()
+            if tag == "port":
+                assert w.samples.shape[1] <= 68 * 960
+        status, _h, raw = _get(f"{server}/api/v1/audio/speech/voices")
+        assert json.loads(raw) == jax_router.dispatch("GET", "/api/v1/audio/speech/voices",
+                                                      {})[1]
+    finally:
+        for table, old in zip((j_tts._BACKENDS, t_tts._BACKENDS), saved):
+            table.clear()
+            table.update(old)
+
+
 @pytest.mark.parametrize("model", ["dia", "coqui"])
 def test_speech_route_serves_dia_and_coqui(server, jax_router, speech_engines, tmp_path,
                                            model):
@@ -344,10 +385,11 @@ def test_speech_route_serves_dia_and_coqui(server, jax_router, speech_engines, t
 
 
 def test_main_demo_backends_names_the_missing_items(caplog):
-    """--demo-backends registers the random Zonos as "zonos" and the random
-    XTTS as "coqui" on the given device, as the JAX server does, and names
-    every engine the port does not have (no server)."""
-    from audiolab_tpu_torch.pipelines.tts import XTTSEngine, ZonosTTS
+    """--demo-backends registers the random Zonos as "zonos", the random
+    XTTS as "coqui" and the random Chatterbox as "chatterbox" on the given
+    device, as the JAX server does, and names every engine the port does
+    not have (no server)."""
+    from audiolab_tpu_torch.pipelines.tts import ChatterboxCheckpointEngine, XTTSEngine, ZonosTTS
     from audiolab_tpu_torch.serve import tts_api
 
     saved = dict(tts_api._BACKENDS)
@@ -355,14 +397,19 @@ def test_main_demo_backends_names_the_missing_items(caplog):
         with caplog.at_level(logging.INFO):
             port_main.register_demo_backends("cpu", logging.getLogger("test"))
         zonos, coqui = tts_api._BACKENDS["zonos"], tts_api._BACKENDS["coqui"]
+        chatterbox = tts_api._BACKENDS["chatterbox"]
         assert isinstance(zonos, ZonosTTS) and zonos.device.type == "cpu"
         assert isinstance(coqui, XTTSEngine) and coqui.model.device.type == "cpu"
+        assert isinstance(chatterbox, ChatterboxCheckpointEngine)
+        assert chatterbox.device.type == "cpu"
     finally:
         tts_api._BACKENDS.clear()
         tts_api._BACKENDS.update(saved)
-    for name in ("chatterbox", "stable_audio", "acestep", "yue", "whisper"):
-        assert name in caplog.text
-    assert all(f"item 1{i} (" in caplog.text for i in (7, 8, 9))
+    missing = caplog.text.split("no model yet for", 1)[1]
+    for name in ("stable_audio", "acestep", "yue", "whisper"):
+        assert name in missing
+    assert "chatterbox" not in missing
+    assert all(f"item 1{i} (" in caplog.text for i in (8, 9)) and "item 17 (" not in caplog.text
 
 
 def test_main_serves_on_the_cpu_and_stops_on_sigterm(tmp_path):

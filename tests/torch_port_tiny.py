@@ -388,3 +388,203 @@ def xtts(seed: int = 30):
     jx = JX.XTTS(cfg, params)
     jx.cond_enc, jx.vocoder = Jitted(jx.cond_enc), Jitted(jx.vocoder)
     return jx, TX.XTTS(tcfg, *tmods, device="cpu")
+
+
+# ------------------------------------------------------------- Chatterbox
+# the JAX package's tiny Chatterbox (pipelines/tts.py::random_chatterbox and
+# tests/test_chatterbox_engine.py), the S3 tokenizer narrow but on 128 mels
+# (tokenize_wav's front end), CAMPPlus and WeSpeaker as the JAX parity tests'
+T3_TINY = dict(text_vocab=40, speech_vocab=36, dim=32, n_layers=2, n_heads=4, ffn_dim=64,
+               max_text_tokens=64, max_speech_tokens=64, speaker_embed_size=8,
+               perceiver_tokens=4, perceiver_heads=2, start_text_token=38, stop_text_token=0,
+               start_speech_token=30, stop_speech_token=31)
+FLOW_TINY = dict(token_vocab=30, dim=32, mel_dim=8, xvector_dim=12, heads=2, ffn_dim=64,
+                 n_layers=2, n_up_layers=1, est_channels=16, est_mid_blocks=2, est_n_blocks=1,
+                 est_heads=2, est_head_dim=4, n_timesteps=2)
+# HiFT with two resblock kernels of two dilations (the JAX tests' three of
+# three cost seconds of XLA compile per shape; the layout is the same)
+HIFT_TINY = dict(in_channels=8, base_channels=16, f0_cond_channels=12,
+                 resblock_kernel_sizes=(3, 7), resblock_dilations=((1, 3), (1, 3)),
+                 source_resblock_dilations=((1, 3), (1, 3), (1, 3)))
+CAMPPLUS_TINY = dict(feat_dim=16, embedding_size=12, growth_rate=4, bn_size=2, init_channels=8,
+                     m_channels=4, block_layers=(2, 3), block_kernels=(3, 3),
+                     block_dilations=(1, 2), seg_len=5)
+S3TOK_TINY = dict(n_mels=128, n_state=32, n_head=4, n_layer=2, n_ctx=256, fsmn_kernel=7,
+                  fsq_dim=3)
+WESPEAKER_TINY = dict(feat_dim=16, embed_dim=24, m_channels=8, num_blocks=(1, 2, 1, 1))
+
+
+def _positive(tree, seed: int):
+    """``tree`` with BatchNorm variances in [0.5, 1.5) and Snake alphas near 1
+    (the filler's 0.3 N would make them negative or near 0)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name == "var":
+            return (0.5 + rng.random(x.shape)).astype(np.float32)
+        if name == "alpha":
+            return (1.0 + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def _load(module, sd):
+    module.load_state_dict(sd, strict=True)
+    return module.eval()
+
+
+@functools.lru_cache(maxsize=None)
+def chatterbox_t3(seed: int = 40, **kw):
+    """(JAX T3CkptConfig, flax template, flax params, port T3) at T3_TINY updated
+    by ``kw``; the template holds the perceiver (a prompt at init)."""
+    from audiolab_tpu.models import chatterbox_t3 as JT3
+    from audiolab_tpu_torch.models import chatterbox_t3 as TT3
+
+    c = dict(T3_TINY, **kw)
+    cfg = JT3.T3CkptConfig(**c)
+    tpl = jax.eval_shape(lambda: JT3.T3(cfg, max_seq_len=256).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32), jnp.zeros((1, 5), jnp.int32),
+        jnp.zeros((1, cfg.speaker_embed_size)), jnp.zeros((1, 3), jnp.int32),
+        jnp.zeros((1,))))["params"]
+    p = filled(tpl, seed)
+    return cfg, tpl, p, _load(TT3.T3(TT3.T3CkptConfig(**c), max_seq_len=256),
+                              W.chatterbox_t3_from_jax(p))
+
+
+@functools.lru_cache(maxsize=None)
+def voice_encoder(seed: int = 41):
+    """(flax template, flax params, port VoiceEncoder) at VoiceEncoderConfig()."""
+    from audiolab_tpu.models import chatterbox_t3 as JT3
+    from audiolab_tpu_torch.models import chatterbox_t3 as TT3
+
+    tpl = jax.eval_shape(lambda: JT3.VoiceEncoder().init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16, 40))))["params"]
+    p = jax.tree_util.tree_map(lambda a: (a / 3).astype(np.float32), filled(tpl, seed))
+    return tpl, p, _load(TT3.VoiceEncoder(), W.voice_encoder_from_jax(p))
+
+
+@functools.lru_cache(maxsize=None)
+def s3gen(seed: int = 42):
+    """(JAX FlowConfig, HiFTConfig, flow template, flow params, HiFT template,
+    HiFT params, port S3Token2Wav) at FLOW_TINY / HIFT_TINY."""
+    from audiolab_tpu.models import chatterbox_s3gen as JS
+    from audiolab_tpu_torch.models import chatterbox_s3gen as TS
+
+    fcfg, hcfg = JS.FlowConfig(**FLOW_TINY), JS.HiFTConfig(**HIFT_TINY)
+    ftpl = jax.eval_shape(lambda: JS.CausalMaskedDiffWithXvec(fcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 3), jnp.int32), jnp.zeros((1, fcfg.xvector_dim)),
+        jnp.zeros((1, 2, fcfg.mel_dim)), jnp.zeros((1, 6, fcfg.mel_dim))))["params"]
+    htpl = jax.eval_shape(lambda: JS.HiFTGenerator(hcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 4, hcfg.in_channels)),
+        jax.random.PRNGKey(1)))["params"]
+    fp, hp = filled(ftpl, seed), _positive(filled(htpl, seed + 1), seed + 2)
+    m = TS.S3Token2Wav(TS.FlowConfig(**FLOW_TINY), TS.HiFTConfig(**HIFT_TINY))
+    sd = {**W.s3gen_flow_from_jax(fp, "flow."), **W.hift_from_jax(hp, "mel2wav.")}
+    return fcfg, hcfg, ftpl, fp, htpl, hp, _load(m, sd)
+
+
+@functools.lru_cache(maxsize=None)
+def campplus(seed: int = 43):
+    """(JAX CAMPPlusConfig, flax template, flax params, port CAMPPlus)."""
+    from audiolab_tpu.models import campplus as JCp
+    from audiolab_tpu_torch.models import campplus as TCp
+
+    cfg = JCp.CAMPPlusConfig(**CAMPPLUS_TINY)
+    tpl = jax.eval_shape(lambda: JCp.CAMPPlus(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, cfg.feat_dim))))["params"]
+    p = _positive(filled(tpl, seed), seed + 1)
+    return cfg, tpl, p, _load(TCp.CAMPPlus(TCp.CAMPPlusConfig(**CAMPPLUS_TINY)),
+                              W.campplus_from_jax(p))
+
+
+@functools.lru_cache(maxsize=None)
+def s3tokenizer(seed: int = 44):
+    """(JAX S3TokenizerConfig, flax template, flax params, port S3TokenizerV2)."""
+    from audiolab_tpu.models import s3tokenizer as JS3
+    from audiolab_tpu_torch.models import s3tokenizer as TS3
+
+    cfg = JS3.S3TokenizerConfig(**S3TOK_TINY)
+    tpl = jax.eval_shape(lambda: JS3.S3TokenizerV2(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 16, cfg.n_mels))))["params"]
+    p = filled(tpl, seed)
+    return cfg, tpl, p, _load(TS3.S3TokenizerV2(TS3.S3TokenizerConfig(**S3TOK_TINY)),
+                              W.s3tokenizer_from_jax(p))
+
+
+@functools.lru_cache(maxsize=None)
+def wespeaker(seed: int = 45, **kw):
+    """(JAX WeSpeakerConfig, flax template, flax params, port WeSpeakerResNet)
+    at WESPEAKER_TINY updated by ``kw``."""
+    from audiolab_tpu.models import wespeaker as JWs
+    from audiolab_tpu_torch.models import wespeaker as TWs
+
+    c = dict(WESPEAKER_TINY, **kw)
+    cfg = JWs.WeSpeakerConfig(**c)
+    tpl = jax.eval_shape(lambda: JWs.WeSpeakerResNet(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 50, cfg.feat_dim))))["params"]
+    p = filled(tpl, seed)
+    return cfg, tpl, p, _load(TWs.WeSpeakerResNet(TWs.WeSpeakerConfig(**c)),
+                              W.wespeaker_from_jax(p))
+
+
+def jax_t3_draws(seed: int, max_new_tokens: int, vocab: int) -> np.ndarray:
+    """The Gumbel draws the JAX t3_generate takes from ``PRNGKey(seed)``:
+    ``rng, key0 = split(PRNGKey(seed))`` for the first token, then ``rng, key
+    = split(rng)`` every step, each ``categorical(key, (1, vocab))``;
+    (max_new_tokens + 1, 1, vocab)."""
+    return jax_draws(seed, max_new_tokens + 1, 1, vocab)
+
+
+def jax_hift_draws(seed: int, b: int, n: int, harmonics: int) -> tuple[np.ndarray, np.ndarray]:
+    """The NSF source draws HiFT takes from ``PRNGKey(seed)``: the initial
+    phases ``uniform(rng, (b, 1, H))`` and the noise ``normal(fold_in(rng, 1),
+    (b, n, H))``."""
+    rng = jax.random.PRNGKey(seed)
+    return (np.asarray(jax.random.uniform(rng, (b, 1, harmonics))),
+            np.asarray(jax.random.normal(jax.random.fold_in(rng, 1), (b, n, harmonics))))
+
+
+def numpy_state(module: torch.nn.Module) -> dict:
+    """A port module's state_dict as numpy arrays (a converter's input)."""
+    return {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
+
+
+def assert_tree_equal(a, b) -> None:
+    """Two flax trees with the same leaves, each to fp32 rounding (the
+    converters' BatchNorm folds run in float64)."""
+    la, lb = jax.tree_util.tree_leaves_with_path(a), jax.tree_util.tree_leaves_with_path(b)
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        np.testing.assert_allclose(np.asarray(x), np.asarray(y), rtol=1e-6, atol=1e-7,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def chatterbox_engines(encoders: bool = False):
+    """(JAX ChatterboxCheckpointEngine, port ChatterboxCheckpointEngine on the
+    CPU) on the same weights: the tiny T3, flow and HiFT, and with
+    ``encoders`` the published-width voice encoder, the tiny CAMPPlus and S3
+    tokenizer (its 27 codes inside the flow's 30).  The JAX engine's flow,
+    HiFT and voice encoder calls are jitted (its engine code unchanged)."""
+    from types import SimpleNamespace
+
+    from audiolab_tpu.models import chatterbox_s3gen as JS
+    from audiolab_tpu.pipelines import tts as JT
+    from audiolab_tpu_torch.pipelines import tts as TT
+
+    t3_cfg, _t, t3_p, t3_m = chatterbox_t3()
+    fcfg, hcfg, _ft, fp, _ht, hp, s3 = s3gen()
+    kw, tkw = {}, {}
+    if encoders:
+        _vt, ve_p, ve_m = voice_encoder()
+        cp_cfg, _ct, cp_p, cp_m = campplus()
+        st_cfg, _st, st_p, st_m = s3tokenizer()
+        kw = dict(ve_params=ve_p, campplus_params=cp_p, campplus_cfg=cp_cfg,
+                  s3tok_params=st_p, s3tok_cfg=st_cfg)
+        tkw = dict(ve=ve_m, campplus=cp_m, s3tok=st_m)
+    j = JT.ChatterboxCheckpointEngine(t3_cfg, t3_p, fcfg, fp, hcfg, hp, **kw)
+    j.ve = Jitted(j.ve)
+    j.s3gen.flow = SimpleNamespace(apply=jax.jit(JS.CausalMaskedDiffWithXvec(fcfg).apply))
+    j.s3gen.hift = SimpleNamespace(apply=jax.jit(JS.HiFTGenerator(hcfg).apply))
+    return j, TT.ChatterboxCheckpointEngine(t3_m, s3, device="cpu", **tkw)

@@ -9,9 +9,10 @@ The REST surface and the web UI at / are served by the stdlib server; the
 processors run their DSP on ``--device``, which defaults to the card and
 fails without one.  Models are injected through the processors'
 ``configure`` by a caller that has weights.  ``--demo-backends`` registers
-a random-weight Zonos as the "zonos" TTS engine, the random XTTS as "coqui"
-and the random Chatterbox as "chatterbox" on ``--device``, as the JAX
-server does, and names the engines the port does not have yet.
+a random-weight Zonos as the "zonos" TTS engine, the random XTTS as "coqui",
+the random Chatterbox as "chatterbox" and the random Whisper transcriber as
+"whisper" on ``--device``, as the JAX server does, and names the engines the
+port does not have yet.
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ from http.server import ThreadingHTTPServer
 
 # the JAX server's demo engines the port has no model for yet, by ROADMAP
 # queue 1 item
-MISSING_DEMO_BACKENDS = {"18 (music)": ("stable_audio", "acestep", "yue"),
-                         "19 (transcription)": ("whisper",)}
+MISSING_DEMO_BACKENDS = {"18 (music)": ("stable_audio", "acestep", "yue")}
 
 
 def setup_logging() -> None:
@@ -40,15 +40,19 @@ def setup_logging() -> None:
 
 def register_demo_backends(device: str, log: logging.Logger) -> None:
     """Register the random-weight demo engines the port has (Zonos as
-    "zonos", the XTTS engine as "coqui", Chatterbox as "chatterbox", on
-    ``device``) and log the ones it does not have yet."""
+    "zonos", the XTTS engine as "coqui", Chatterbox as "chatterbox", the
+    Whisper transcriber as "whisper", on ``device``) and log the ones it does
+    not have yet."""
+    from audiolab_tpu_torch.pipelines.transcribe import random_transcriber
     from audiolab_tpu_torch.pipelines.tts import random_chatterbox, random_xtts, random_zonos
-    from audiolab_tpu_torch.serve import tts_api
+    from audiolab_tpu_torch.serve import transcribe_api, tts_api
 
-    log.info("loading demo (random-weight) backends on %s: zonos, coqui, chatterbox", device)
+    log.info("loading demo (random-weight) backends on %s: zonos, coqui, chatterbox, whisper",
+             device)
     tts_api.register_backend("zonos", random_zonos(device=device))
     tts_api.register_backend("coqui", random_xtts(device=device))
     tts_api.register_backend("chatterbox", random_chatterbox(device=device))
+    transcribe_api.register_backend("whisper", random_transcriber(device=device))
     log.warning("--demo-backends: the port has no model yet for %s",
                 "; ".join(f"{', '.join(names)} (ROADMAP queue 1, item {item})"
                           for item, names in MISSING_DEMO_BACKENDS.items()))
@@ -62,8 +66,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--output-root", default="outputs/process")
     parser.add_argument(
         "--demo-backends", action="store_true",
-        help="register random-weight generation backends (the port has "
-             "the zonos, coqui and chatterbox TTS engines; the others are logged as missing)")
+        help="register random-weight generation backends (the port has the zonos, coqui "
+             "and chatterbox TTS engines and the whisper transcriber; the others are "
+             "logged as missing)")
     parser.add_argument("--device", default="cuda",
                         help="where the processors run (default: the card)")
     args = parser.parse_args(argv)

@@ -19,8 +19,8 @@ The nets are the repository's own (no upstream checkpoint), so parameter
 names follow the flax modules; the LSTMs are torch's, each direction one
 flax ``OptimizedLSTMCell`` (utils/weights.py::diarize_from_jax).  The
 checkpoint-compatible wespeaker r-vector (models/wespeaker.py) can take
-the embedding stage; the PyanNet segmentation back end is not ported yet.
-Random weights run the full path; converted or trained weights give real
+the embedding stage and pyannote's PyanNet (models/pyannet.py) the
+segmentation stage.  Random weights run the full path; converted or trained weights give real
 accuracy.
 """
 
@@ -37,6 +37,7 @@ from torch import nn
 from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.kernels.mel import mel_spectrogram
 from audiolab_tpu_torch.kernels.resample import resample_poly_np
+from audiolab_tpu_torch.models.pyannet import PyanNet, PyanNetConfig, powerset_to_multilabel
 from audiolab_tpu_torch.models.wespeaker import wespeaker_embed
 from audiolab_tpu_torch.utils.fast_init import fast_init
 
@@ -145,15 +146,16 @@ class NeuralDiarizer:
     ``seed`` (``seed + 1`` for the embedder).  ``wespeaker``: a
     :class:`~audiolab_tpu_torch.models.wespeaker.WeSpeakerResNet` (moved to
     ``device``) whose r-vectors of the raw region audio replace the
-    SpeakerEmbedder's, as pyannote speaker-diarization-3.1 embeds."""
+    SpeakerEmbedder's, as pyannote speaker-diarization-3.1 embeds.
+    ``pyannet_params``: a PyanNet state_dict under pyannote
+    segmentation-3.0's names (with ``pyannet_cfg``, default
+    ``PyanNetConfig()``): its powerset activities, mapped nearest-frame from
+    its 270-sample frames onto the mel grid, replace the SegmentationNet's."""
 
     def __init__(self, cfg: DiarizeConfig | None = None,
                  seg: SegmentationNet | None = None, emb: SpeakerEmbedder | None = None,
-                 seed: int = 0, pyannet_params=None, wespeaker=None,
-                 device: str | torch.device = "cuda"):
-        if pyannet_params is not None:
-            raise NotImplementedError(
-                "the PyanNet segmentation back end is not ported yet (ROADMAP queue 1, item 19)")
+                 seed: int = 0, pyannet_params=None, pyannet_cfg: PyanNetConfig | None = None,
+                 wespeaker=None, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg or DiarizeConfig()
         with self.device:
@@ -162,6 +164,12 @@ class NeuralDiarizer:
         self.seg = seg.to(self.device).eval()
         self.emb = emb.to(self.device).eval()
         self.wespeaker = None if wespeaker is None else wespeaker.to(self.device).eval()
+        self.pyannet = None
+        if pyannet_params is not None:
+            with self.device:
+                self.pyannet = PyanNet(pyannet_cfg or PyanNetConfig())
+            self.pyannet.load_state_dict(pyannet_params, strict=True)
+            self.pyannet.eval()
 
     def _mel(self, wav: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -172,9 +180,15 @@ class NeuralDiarizer:
     def activities(self, batch: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
         """(B, chunk) audio -> (activities (B, t, K) on the host, log-mel
         (B, t, n_mels) on the device)."""
-        mel = self._mel(torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(
-            self.device))
-        return self.seg(mel).float().cpu().numpy(), mel
+        wav = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(self.device)
+        mel = self._mel(wav)
+        if self.pyannet is None:
+            return self.seg(mel).float().cpu().numpy(), mel
+        ml = powerset_to_multilabel(self.pyannet(wav)).cpu().numpy()     # (B, tp, 3)
+        # PyanNet's 270-sample frames onto the mel (hop) grid, nearest frame
+        tp, tm = ml.shape[1], mel.shape[1]
+        idx = np.minimum(np.arange(tm) * tp // max(tm, 1), tp - 1)
+        return ml[:, idx, : self.cfg.max_speakers], mel
 
     def diarize(self, wav: np.ndarray, sr: int) -> list[tuple[float, float, str]]:
         """-> [(start_s, end_s, 'SPEAKER_00'), ...] like pyannote turns."""

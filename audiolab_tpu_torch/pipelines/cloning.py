@@ -153,15 +153,18 @@ def split_speakers(wav: np.ndarray, sr: int, turns) -> dict[str, np.ndarray]:
 class CloningFacade:
     """modules/cloning/main.py equivalent: method dispatch + voice store.
     ``tts`` is a ZonosTTS-compatible engine (``make_speaker_embedding``,
-    ``synthesize``)."""
+    ``synthesize``); ``transcriber`` a callable ``(samples, sr) -> text``
+    (a ``pipelines.transcribe.Transcriber``) that Clone by TTS asks for the
+    text when none is given."""
 
     methods = ["openvoice", "tts"]
 
     def __init__(self, openvoice: OpenVoiceCloner | None = None, tts=None,
-                 spk_encoder: SpeakerEncoder | None = None):
+                 spk_encoder: SpeakerEncoder | None = None, transcriber=None):
         self.openvoice = openvoice
         self.tts = tts
         self.spk_encoder = spk_encoder
+        self.transcriber = transcriber
         self.voices: dict[str, np.ndarray] = {}
 
     def register_voice(self, name: str, wav: np.ndarray, sr: int) -> None:

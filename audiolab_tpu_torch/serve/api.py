@@ -9,12 +9,13 @@ responses return the produced files the same way.
 One endpoint per registered processor is generated from its TypedInput
 schema (the reference's register_api_endpoint codegen, base_wrapper.py:
 248-339), plus /chain, /processors, /projects, /load_project, the RVC and
-clone endpoints the port has (RVC training among them), the TTS routes
-(serve/tts_api.py: a backend that is not loaded answers 501), /openapi.json
-and the web UI.  Routes whose models the port does not have yet (music,
-transcription, WaveTransfer, alignment) are not registered and answer 404.
-Processor and TTS runs hold the inference lock: one request at a time on
-the card.
+clone endpoints the port has (RVC training among them), the TTS and
+transcription routes (serve/tts_api.py, serve/transcribe_api.py: a backend
+that is not loaded answers 501), multi-take alignment (serve/align_api.py),
+/openapi.json and the web UI.  Routes whose models the port does not have
+yet (music, WaveTransfer) are not registered and answer 404.  Processor,
+TTS, transcription and alignment runs hold the inference lock: one request
+at a time on the card.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.pipelines.base import all_processors
 from audiolab_tpu_torch.pipelines.chain import run_chain
-from audiolab_tpu_torch.serve import clone_api, rvc_api, tts_api
+from audiolab_tpu_torch.serve import align_api, clone_api, rvc_api, transcribe_api, tts_api
 from audiolab_tpu_torch.serve.http import RawResponse, Router
 from audiolab_tpu_torch.serve.inference_lock import INFERENCE_LOCK
 
@@ -114,6 +115,10 @@ def create_app(output_root: str = "outputs/process",
     clone_api.register(router)
     # TTS (OpenAI-compatible /api/v1/audio/speech, layouts/tts.py:840)
     tts_api.register(router)
+    # transcription (OpenAI-compatible /api/v1/audio/transcriptions)
+    transcribe_api.register(router)
+    # multi-take alignment (layouts/align.py)
+    align_api.register(router, dev)
 
     @router.post("/api/v1/process/load_project", "Re-enumerate an existing project")
     def load_project(_params, body):

@@ -1333,3 +1333,133 @@ def wespeaker_from_jax(params: dict) -> dict:
         sd["seg_bn_1.num_batches_tracked"] = torch.tensor(0)
         _dense(sd, "seg_2", params["seg_2"])
     return sd
+
+
+# ------------------------------------------------------------------ listening
+
+def _whisper_block(sd: dict, key: str, node: dict) -> None:
+    for ours, theirs in (("wq", "query"), ("wk", "key"), ("wv", "value"), ("wo", "out")):
+        _dense(sd, f"{key}.attn.{theirs}", node[ours])
+    _norm(sd, f"{key}.attn_ln", node["attn_ln"])
+    if "cq" in node:
+        for ours, theirs in (("cq", "query"), ("ck", "key"), ("cv", "value"), ("co", "out")):
+            _dense(sd, f"{key}.cross_attn.{theirs}", node[ours])
+        _norm(sd, f"{key}.cross_attn_ln", node["cross_ln"])
+    _dense(sd, f"{key}.mlp.0", node["fc1"])
+    _dense(sd, f"{key}.mlp.2", node["fc2"])
+    _norm(sd, f"{key}.mlp_ln", node["mlp_ln"])
+
+
+def whisper_from_jax(params: dict) -> dict:
+    """WhisperModel flax params -> port state_dict (openai-whisper names)."""
+    sd: dict = {}
+    enc, dec = params["encoder"], params["decoder"]
+    _conv1d(sd, "encoder.conv1", enc["conv1"])
+    _conv1d(sd, "encoder.conv2", enc["conv2"])
+    for i in range(_count(enc, "block_")):
+        _whisper_block(sd, f"encoder.blocks.{i}", enc[f"block_{i}"])
+    _norm(sd, "encoder.ln_post", enc["ln_post"])
+    sd["decoder.token_embedding.weight"] = _t(dec["emb"]["embedding"])
+    sd["decoder.positional_embedding"] = _t(dec["pos"])
+    for i in range(_count(dec, "block_")):
+        _whisper_block(sd, f"decoder.blocks.{i}", dec[f"block_{i}"])
+    _norm(sd, "decoder.ln", dec["ln"])
+    return sd
+
+
+def wav2vec2_from_jax(params: dict) -> dict:
+    """Wav2Vec2CTC flax params -> port state_dict: the HuBERT encoder under
+    ``encoder.`` (fairseq names) and ``lm_head``."""
+    sd = {f"encoder.{k}": v for k, v in hubert_from_jax(params["encoder"]).items()}
+    _dense(sd, "lm_head", params["lm_head"])
+    return sd
+
+
+_W2V_HF = (
+    (r"^encoder\.feature_extractor\.conv_layers\.(\d+)\.0\.",
+     r"wav2vec2.feature_extractor.conv_layers.\1.conv."),
+    (r"^encoder\.feature_extractor\.conv_layers\.0\.2\.",
+     "wav2vec2.feature_extractor.conv_layers.0.layer_norm."),
+    (r"^encoder\.layer_norm\.", "wav2vec2.feature_projection.layer_norm."),
+    (r"^encoder\.post_extract_proj\.", "wav2vec2.feature_projection.projection."),
+    (r"^encoder\.encoder\.pos_conv\.0\.", "wav2vec2.encoder.pos_conv_embed.conv."),
+    (r"^encoder\.encoder\.layer_norm\.", "wav2vec2.encoder.layer_norm."),
+    (r"^encoder\.encoder\.layers\.(\d+)\.self_attn\.(\w+)\.",
+     r"wav2vec2.encoder.layers.\1.attention.\2."),
+    (r"^encoder\.encoder\.layers\.(\d+)\.self_attn_layer_norm\.",
+     r"wav2vec2.encoder.layers.\1.layer_norm."),
+    (r"^encoder\.encoder\.layers\.(\d+)\.fc1\.",
+     r"wav2vec2.encoder.layers.\1.feed_forward.intermediate_dense."),
+    (r"^encoder\.encoder\.layers\.(\d+)\.fc2\.",
+     r"wav2vec2.encoder.layers.\1.feed_forward.output_dense."),
+    (r"^encoder\.encoder\.layers\.(\d+)\.final_layer_norm\.",
+     r"wav2vec2.encoder.layers.\1.final_layer_norm."),
+)
+
+
+def wav2vec2_to_hf(state_dict: dict) -> dict:
+    """The port's Wav2Vec2CTC state_dict under HF ``Wav2Vec2ForCTC``'s names
+    (the names ``convert_wav2vec2`` reads; ``lm_head`` keeps its own)."""
+    out = {}
+    for k, v in state_dict.items():
+        for pat, rep in _W2V_HF:
+            k2 = re.sub(pat, rep, k)
+            if k2 != k:
+                k = k2
+                break
+        out[k] = v
+    return out
+
+
+def pyannet_from_jax(params: dict) -> dict:
+    """PyanNet flax params -> port state_dict (pyannote segmentation-3.0
+    names; each LSTM direction one flax ``OptimizedLSTMCell``)."""
+    sd: dict = {}
+    sn = params["sincnet"]
+    sd["sincnet.wav_norm1d.weight"] = _t(sn["wav_norm"]["weight"])
+    sd["sincnet.wav_norm1d.bias"] = _t(sn["wav_norm"]["bias"])
+    sd["sincnet.conv1d.0.filterbank.low_hz_"] = _t(sn["sinc"]["low_hz"])
+    sd["sincnet.conv1d.0.filterbank.band_hz_"] = _t(sn["sinc"]["band_hz"])
+    for i in (1, 2):
+        _conv1d(sd, f"sincnet.conv1d.{i}", sn[f"conv_{i}"])
+    for i in (0, 1, 2):
+        sd[f"sincnet.norm1d.{i}.weight"] = _t(sn[f"norm_{i}"]["weight"])
+        sd[f"sincnet.norm1d.{i}.bias"] = _t(sn[f"norm_{i}"]["bias"])
+    lstm = params["lstm"]
+    for k in range(_count(lstm, "l") // 2):
+        _lstm(sd, "lstm", f"l{k}", lstm[f"l{k}_fwd_cell"])
+        _lstm(sd, "lstm", f"l{k}_reverse", lstm[f"l{k}_bwd_cell"])
+    for i in (0, 1):
+        _dense(sd, f"linear.{i}", params[f"linear_{i}"])
+    _dense(sd, "classifier", params["classifier"])
+    return sd
+
+
+def crnn_from_jax(params: dict) -> dict:
+    """RTLA CRNN flax params -> port state_dict (the flax names)."""
+    sd: dict = {}
+    for i in range(_count(params, "conv_")):
+        _conv2d(sd, f"conv_{i}", params[f"conv_{i}"])
+        _norm(sd, f"ln_{i}", params[f"ln_{i}"])
+    for g in ("wz", "wr", "wn"):
+        _dense(sd, f"gru.{g}", params["gru"][g])
+    _dense(sd, "head", params["head"])
+    return sd
+
+
+def rtla_crnn_from_jax(params: dict) -> dict:
+    """RtlaCRNN flax params -> port state_dict (the RTLA checkpoint's
+    names).  Each folded affine becomes a BatchNorm with mean 0 and variance
+    1 - eps, whose eval normalisation divides by sqrt(1) (fp32 rounding)."""
+    sd: dict = {}
+    for i, (conv, bn) in enumerate(((0, 1), (3, 4), (8, 9))):
+        _conv2d(sd, f"model.0.cnn.{conv}", params[f"conv_{i}"])
+        node, key = params[f"bn_{i}"], f"model.0.cnn.{bn}"
+        _norm(sd, key, node)
+        sd[f"{key}.running_mean"] = torch.zeros(np.asarray(node["scale"]).shape)
+        sd[f"{key}.running_var"] = torch.full(np.asarray(node["scale"]).shape, 1.0 - 1e-5)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+    _dense(sd, "model.0.fc.0", params["fc"])
+    _lstm(sd, "model.1.rnn", "l0", params["lstm_cell"])
+    _dense(sd, "model.2", params["head"])
+    return sd

@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version at the main path's shapes,
 drives the separate -> RVC chain, RVC training, Zonos TTS, the speech
-engines of the LM core (Dia, XTTS, the LM) and Chatterbox at full width, and
-checks the output.
+engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription and
+multi-take alignment at full width, and checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -19,6 +19,10 @@ checks the output.
     python3 chip_smoke.py --phases card,kernels,chatterbox  # Chatterbox (T3, S3Gen, the
                                                    # S3 tokenizer, CAMPPlus), the
                                                    # wespeaker diarizer, the speech route
+    python3 chip_smoke.py --phases card,kernels,transcribe  # Whisper (large-v3 widths),
+                                                   # the wav2vec2 aligner, PyanNet, RTLA
+                                                   # alignment, the transcription and
+                                                   # align routes
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
                                                    # a Dia call, an XTTS-v2 synthesize
@@ -30,8 +34,10 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
   kernels    K1 and K2 against their plain versions at the main path's shapes
              (K2 in fp32 and in bf16, at Zonos's causal fp32 prefill, and at
              Dia's causal fp32 prefill with scale 1.0, d = 64 and 128, and its
-             BOS-only t = 1 call, and at T3's causal fp32 teacher-forced
-             forward; every K2 case timed over 200 launches), K1's
+             BOS-only t = 1 call, at T3's causal fp32 teacher-forced
+             forward, at the wav2vec2 aligner's spans of 5-30 s and at
+             Whisper's causal uncached decoder forward; every K2 case timed
+             over 200 launches), K1's
              Hopper design against the WMMA core
              on each axis (in turns); the 16-bit K2 on its Hopper design at
              the HuBERT shape, a causal tq != tk shape, a causal language-model
@@ -165,6 +171,17 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              --demo-backends answering it; (f) card against CPU in fp32 (1e-5 of
              the scale): T3's logits, the flow's mel, HiFT's waveform, the
              x-vector, the WeSpeaker embedding, the kaldi fbank; the S3 ids equal
+  transcribe Whisper at large-v3's dimensions (128 mels, 32 + 32 layers of 1280,
+             20 heads, 51,866 tokens) on 60 s: the encoder, the captured decode
+             of 64 tokens against the eager loop (identical tokens), steps/s,
+             the uncached forward (32 fp32 K2) against the cached decode,
+             card against CPU at 2 + 2 layers; the CTC aligner at
+             wav2vec2-base-960h's widths on spans of 5, 10, 20 and 30 s (12 fp32
+             K2 each, cold and warm, spans identical on the card and the CPU);
+             PyanNet's VAD on 60 s and the diarizer's PyanNet back end on 30 s;
+             align_take of 30 s onto 30 s with chroma and with RtlaCRNN; POST
+             /api/v1/audio/transcriptions and /api/v1/align, and main
+             --demo-backends answering "whisper"
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -185,7 +202,8 @@ from pathlib import Path
 import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-          "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox")
+          "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
+          "transcribe")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -535,6 +553,26 @@ def phase_kernels(dev, card: str) -> list[dict]:
                on_chatterbox_path=True)
     recs.append(rec)
     del q, k, v
+    # the transcribe path: the wav2vec2 aligner's 12 layers (fp32, not causal,
+    # 12 heads of 64) over spans of 5, 10, 20 and 30 s, and Whisper's uncached
+    # decoder forward at large-v3 (fp32, causal, 2 windows x 20 heads, 64
+    # tokens); q and k with fast_init's spread (std 0.02 sqrt(dim))
+    k2_span_tol = ((0.0, 2e-5), "fp32 sums over up to 1,499 keys in another order")
+    for label, key, qs, causal, sd in (
+            *((f"K2 flash_attention_fwd (wav2vec2 aligner, {s:g} s span)",
+               f"k2_w2v_{s:g}s", (1, 12, hubert_frames(s), 64), False, 0.55)
+              for s in TR_SPANS),
+            ("K2 flash_attention_fwd (Whisper uncached decoder forward, causal)",
+             "k2_whisper_forward", (2, 20, TR_TOKENS, 64), True, 0.72)):
+        q, k, v = (sd * rnd(qs, torch.float32) for _ in range(3))
+        rec = check_kernel(
+            label, lambda q, k, v, c=causal: A.flash_attention_fwd(q, k, v, causal=c),
+            lambda q, k, v, c=causal: A.flash_attention_reference(q, k, v, c, 0.125),
+            sdpa(causal), (q, k, v), attention_shape(q, k, causal), *k2_span_tol,
+            attention_work(q, k, causal), PEAK_FP32, k2_rep, iters=200)
+        rec.update(case=key, kernel="K2", on_main_path=False, on_transcribe_path=True)
+        recs.append(rec)
+        del q, k, v
     # the language model's uncached prefill is on the engines path too
     for rec in recs:
         if rec["case"] == "k2_lm_prefill_bf16":
@@ -3717,6 +3755,419 @@ def phase_processors(dev, sep, vc, audio, card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------- transcribe
+
+# openai-whisper's ModelDimensions for large-v3 (1.55 B parameters)
+WHISPER_LARGE_V3 = dict(n_mels=128, n_audio_ctx=1500, dim=1280, n_heads=20, n_audio_layers=32,
+                        n_text_layers=32, vocab_size=51866, n_text_ctx=448, sot=50258,
+                        eot=50257, no_timestamps=50364, timestamp_base=50365)
+TR_AUDIO_S = 60.0             # two 30 s windows
+TR_TOKENS = 64                # max_tokens of the decode
+TR_WARM = 2
+TR_SPANS = (5.0, 10.0, 20.0, 30.0)   # the aligner's segments, 12 words each
+TR_WORDS = "welcome back to the studio everyone today we record our new song".split()
+ALIGN_S = 30.0
+
+
+def hubert_frames(seconds: float, sr: int = 16000) -> int:
+    """20 ms frames the HuBERT / wav2vec2 conv stack gives ``seconds`` of audio."""
+    n = int(seconds * sr)
+    for k, s in [(10, 5)] + [(3, 2)] * 4 + [(2, 2)] * 2:
+        n = (n - k) // s + 1
+    return n
+
+
+def gliding_notes(durations, seed: int, sr: int = 16000) -> np.ndarray:
+    """Harmonic notes, each gliding up 4 semitones over its duration, a
+    seeded pitch each (the alignment phase's master and take)."""
+    rng = np.random.default_rng(seed)
+    pitches = np.random.default_rng(100).integers(55, 80, len(durations))
+    out = []
+    for m, d in zip(pitches, durations):
+        t = np.arange(int(d * sr)) / sr
+        f = 440.0 * 2 ** ((m - 69 + 4 * t / d) / 12)
+        ph = 2 * np.pi * np.cumsum(f) / sr
+        out.append(sum(0.3 / k * np.sin(k * ph) for k in (1, 2, 3)))
+    x = np.concatenate(out)
+    return (x + 0.003 * rng.standard_normal(len(x))).astype(np.float32)
+
+
+def note_words(durations, per_sentence: int = 6) -> list[dict]:
+    words, t = [], 0.0
+    for i, d in enumerate(durations):
+        end = "." if (i + 1) % per_sentence == 0 else ""
+        words.append({"word": f"note{i}{end}", "start": round(t, 3), "end": round(t + d, 3)})
+        t += d
+    return words
+
+
+def phase_transcribe(dev, card: str) -> dict:
+    """Transcription and multi-take alignment at published widths on the
+    card, weights by bench.py's rules (utils/fast_init.py).  (a) Whisper at
+    large-v3's dimensions (128 mels, 32 + 32 layers of 1280, 20 heads, 51,866
+    tokens) on 60 s at 16 kHz (two windows): the log-mel, the encoder's
+    seconds cold and warm, transcribe_window with max_tokens 64 (one step
+    captured and replayed) cold and TR_WARM warm, steps/s, the eager loop's
+    tokens identical; the uncached forward over the decoded tokens (32 fp32
+    K2, one per decoder layer: counts reset just before, read just after)
+    against the cached decode's logits (1e-5 of max|logit|); card against
+    CPU at a cut depth (2 + 2 layers at full width): the mel (as power) and
+    the logits within 1e-5 of the scale.  (b) CTCWordAligner at wav2vec2-base-960h's
+    widths (HubertConfig(), vocab 32) on spans of 5, 10, 20 and 30 s with 12
+    words each, cold (a new length) and warm: 12 fp32 K2 per span, log-probs
+    card against CPU (1e-5 of the scale), the CTC spans identical.  (c)
+    PyanNet at PyanNetConfig() through pyannet_vad on the 60 s: seconds and
+    regions; log-probs card against CPU (1e-5 of the scale) and the speech
+    decisions the same wherever the two are further from a tie than ten
+    times their difference; NeuralDiarizer with the PyanNet back end on 30 s
+    of two speakers.  (d) align_take of a 30 s take onto a 30 s master
+    (gliding notes, one word each), with chroma alone and with RtlaCRNN at
+    RtlaCRNNConfig(); the phoneme stream card against CPU.  (e) POST
+    /api/v1/audio/transcriptions (Whisper with the aligner and the VAD) on
+    the 60 s, POST /api/v1/align with the two takes, and ``main
+    --demo-backends`` answering "whisper".  Returns the path's launches:
+    (a)'s uncached forward and (b)'s first call of each span."""
+    import base64
+    import shutil
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+
+    import torch
+
+    from audiolab_tpu_torch.core.audio_io import read_wav, write_wav
+    from audiolab_tpu_torch.models.diarize import NeuralDiarizer
+    from audiolab_tpu_torch.models.pyannet import PyanNet, PyanNetConfig, powerset_to_multilabel
+    from audiolab_tpu_torch.models.rtla import RtlaCRNN, RtlaCRNNConfig, phoneme_features
+    from audiolab_tpu_torch.models.wav2vec2 import CTCWordAligner, Wav2Vec2Config, Wav2Vec2CTC
+    from audiolab_tpu_torch.models.whisper import (
+        WhisperConfig,
+        WhisperModel,
+        cached_logits,
+        log_mel_30s,
+        transcribe_window,
+    )
+    from audiolab_tpu_torch.pipelines.align import align_take
+    from audiolab_tpu_torch.pipelines.forced_align import ctc_forced_align
+    from audiolab_tpu_torch.pipelines.transcribe import Transcriber, pyannet_vad
+    from audiolab_tpu_torch.serve import align_api, transcribe_api
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    rec: dict = {}
+    path = dict.fromkeys(KERNELS, 0)
+    tag = "[transcribe]"
+
+    def n_params(m) -> float:
+        return sum(p.numel() for p in m.parameters()) / 1e6
+
+    def cpu_copy(module, make):
+        c = make()
+        c.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+        return c.eval()
+
+    def k2_only(launches, n):
+        # the CPU's plain versions count no launch
+        return only(launches, "K2", n) if cuda else not any(launches.values())
+
+    def timed(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    x60 = _two_speakers(TR_AUDIO_S, 16000)
+
+    # (a) Whisper at large-v3's dimensions
+    cfg = WhisperConfig(**WHISPER_LARGE_V3)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        whisper = fast_init(WhisperModel(cfg), 0).eval()
+    sync(dev)
+    log(f"{tag} (a) Whisper large-v3 dimensions: {n_params(whisper):.1f} M parameters fp32, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    mel, mel_s = timed(lambda: log_mel_30s(x60, cfg, dev))
+    expect(tuple(mel.shape) == (2, 3000, cfg.n_mels) and bool(torch.isfinite(mel).all()),
+           f"log-mel {tuple(mel.shape)}")
+    enc_s = []
+    for _ in range(1 + TR_WARM):
+        with torch.inference_mode():
+            xa, secs = timed(lambda: whisper.encode(mel))
+        enc_s.append(secs)
+    expect(tuple(xa.shape) == (2, cfg.n_audio_ctx, cfg.dim) and bool(torch.isfinite(xa).all()),
+           f"encoder output {tuple(xa.shape)}")
+    del xa
+    log(f"{tag} (a) log-mel of 60 s {mel_s:.3f} s; encoder (2 windows) cold {enc_s[0]:.3f} s, "
+        f"warm {', '.join(f'{s:.4f}' for s in enc_s[1:])} s | {card}")
+    runs = []
+    for _ in range(1 + TR_WARM):
+        stats: dict = {}
+        toks, secs = timed(lambda: transcribe_window(whisper, mel, TR_TOKENS, device=dev,
+                                                     stats=stats))
+        runs.append(dict(stats, total=secs))
+    stats_e: dict = {}
+    toks_e, eager_s = timed(lambda: transcribe_window(whisper, mel, TR_TOKENS, device=dev,
+                                                      graph=False, stats=stats_e))
+    expect(torch.equal(toks, toks_e), "Whisper: the captured decode's tokens differ from "
+                                      "the eager loop's")
+    rec["whisper"] = dict(mel_s=mel_s, encoder_s=enc_s, runs=runs, eager=stats_e)
+    for i, r in enumerate(runs):
+        log(f"{tag} (a) transcribe_window {'cold' if i == 0 else 'warm'}: {r['total']:.3f} s "
+            f"(encode {r['encode']:.3f}, decode {r['decode']:.3f}: {TR_TOKENS / r['decode']:.1f} "
+            f"steps/s, {1e3 * r['decode'] / TR_TOKENS:.2f} ms a step) | {card}")
+    log(f"{tag} (a) the eager loop: decode {stats_e['decode']:.3f} s "
+        f"({TR_TOKENS / stats_e['decode']:.1f} steps/s); tokens identical to the graph's "
+        f"({len(torch.unique(toks))} distinct, {int((toks == cfg.eot).sum())} EOT)")
+    tokens_in = torch.cat([torch.full((2, 1), cfg.sot, device=dev), toks[:, :-1]], dim=1)
+    reset_counts()
+    with torch.inference_mode():
+        logits, fwd_s = timed(lambda: whisper(mel, tokens_in))
+    launches = counts()
+    expect(k2_only(launches, cfg.n_text_layers),
+           f"Whisper's uncached forward: launches {launches}, expected "
+           f"{cfg.n_text_layers} K2")
+    for k in path:
+        path[k] += launches[k]
+    cached = cached_logits(whisper, mel, tokens_in)
+    err = float((cached - logits).abs().max() / logits.abs().max())
+    expect(err <= 1e-5, f"Whisper cached decode {err:.3e} of max|logit| from the uncached")
+    agree = float((logits.argmax(-1) == toks).float().mean())
+    log(f"{tag} (a) uncached forward over SOT + 63 decoded tokens: {fwd_s:.3f} s, launches "
+        f"{launches}; the cached decode's logits {err:.3e} of max|logit| from it; its argmax "
+        f"equals the next decoded token at {100 * agree:.1f} % of positions")
+    rec["whisper_cached_vs_uncached"] = err
+    del logits, cached
+    cut_kw = dict(WHISPER_LARGE_V3, n_audio_layers=2, n_text_layers=2)
+    with torch.device(dev):
+        cut = fast_init(WhisperModel(WhisperConfig(**cut_kw)), 1).eval()
+    cut_cpu = cpu_copy(cut, lambda: WhisperModel(WhisperConfig(**cut_kw)))
+    mel_cpu = log_mel_30s(x60, cfg, cpu)
+    # as power: the log magnifies cuFFT's rounding in bins 60-80 dB under the
+    # peak (the front end keeps 80 dB), 4.4e-05 of the log-mel's scale
+    card_vs_cpu("Whisper mel power (60 s, 2 windows; the log-mel read back as power)",
+                10 ** (4 * mel.cpu().double() - 4), 10 ** (4 * mel_cpu.double() - 4), 1e-5,
+                tag=f"{tag} (a)")
+    with torch.inference_mode():
+        lc = cut(mel, tokens_in).cpu()
+        lh = cut_cpu(mel.cpu(), tokens_in.cpu())
+    rec["whisper_card_vs_cpu"] = card_vs_cpu(
+        "Whisper logits (large-v3 widths, 2 + 2 layers, 64 tokens)", lc, lh, 1e-5,
+        tag=f"{tag} (a)")
+    del cut, cut_cpu, lc, lh, mel_cpu
+    torch.cuda.empty_cache()
+
+    # (b) the CTC aligner at wav2vec2-base-960h's widths
+    with torch.device(dev):
+        w2v = fast_init(Wav2Vec2CTC(Wav2Vec2Config()), 2).eval()
+    aligner = CTCWordAligner(w2v, device=dev)
+    aligner_cpu = CTCWordAligner(cpu_copy(w2v, lambda: Wav2Vec2CTC(Wav2Vec2Config())),
+                                 device="cpu")
+    log(f"{tag} (b) CTCWordAligner, Wav2Vec2Config(): {n_params(w2v):.1f} M parameters fp32")
+    x31 = _two_speakers(max(TR_SPANS) + 1.0, 16000)
+    ids, _owner = aligner._encode_words(TR_WORDS)
+    rec["aligner"] = {}
+    for span in TR_SPANS:
+        start, end = 0.5, 0.5 + span
+        secs = []
+        for i in range(1 + TR_WARM):
+            reset_counts()
+            words, s = timed(lambda: aligner.align_words(x31, 16000, start, end, TR_WORDS))
+            launches = counts()
+            expect(k2_only(launches, 12) and len(words) == len(TR_WORDS),
+                   f"aligner {span} s: launches {launches}, {len(words)} words")
+            if i == 0:
+                for k in path:
+                    path[k] += launches[k]
+            secs.append(s)
+        seg = x31[int(start * 16000):int(end * 16000)]
+        lp, lp_cpu = aligner.log_probs(seg), aligner_cpu.log_probs(seg)
+        expect(lp.shape[0] == hubert_frames(span), f"aligner {span} s: {lp.shape[0]} frames")
+        err = card_vs_cpu(f"aligner log-probs ({span:g} s, {lp.shape[0]} frames)", lp, lp_cpu,
+                          1e-5, tag=f"{tag} (b)")
+        same = ctc_forced_align(lp, ids) == ctc_forced_align(lp_cpu, ids)
+        expect(same, f"aligner {span} s: the CTC spans differ between the card and the CPU")
+        rec["aligner"][span] = dict(seconds=secs, card_vs_cpu=err)
+        log(f"{tag} (b) align_words over {span:g} s ({lp.shape[0]} frames, 12 words): cold "
+            f"(a new length) {secs[0]:.4f} s, warm {', '.join(f'{s:.4f}' for s in secs[1:])} s; "
+            f"12 K2; spans identical on the card and the CPU | {card}")
+    del aligner_cpu
+
+    # (c) PyanNet and its VAD; the diarizer's PyanNet back end
+    with torch.device(dev):
+        pn = fast_init(PyanNet(PyanNetConfig()), 3).eval()
+    vad = pyannet_vad(pn, device=dev)
+    secs = []
+    for _ in range(1 + TR_WARM):
+        regions, s = timed(lambda: vad(x60, 16000))
+        secs.append(s)
+    pn_cpu = cpu_copy(pn, lambda: PyanNet(PyanNetConfig()))
+    wins = torch.from_numpy(np.pad(x60, (0, (-len(x60)) % 160000)).reshape(-1, 160000))
+    with torch.inference_mode():
+        lp, lp_cpu = pn(wins.to(dev)).cpu(), pn_cpu(wins)
+    err = card_vs_cpu("PyanNet log-probs (6 windows of 10 s)", lp, lp_cpu, 1e-5,
+                      tag=f"{tag} (c)")
+    speech = powerset_to_multilabel(lp).amax(-1)
+    speech_cpu = powerset_to_multilabel(lp_cpu).amax(-1)
+    margin = (lp_cpu[..., 0] - lp_cpu[..., 1:].amax(-1)).abs()
+    clear = margin > 10 * float((lp - lp_cpu).abs().max())
+    expect(bool((speech == speech_cpu)[clear].all()),
+           "PyanNet: a speech decision clear of a tie differs between the card and the CPU")
+    rec["pyannet"] = dict(seconds=secs, regions=len(regions), card_vs_cpu=err)
+    log(f"{tag} (c) pyannet_vad over 60 s, PyanNetConfig() ({n_params(pn):.2f} M): cold "
+        f"{secs[0]:.4f} s, warm {', '.join(f'{s:.4f}' for s in secs[1:])} s; {len(regions)} "
+        f"regions; {int(clear.sum())} of {clear.numel()} frames clear of a tie, their "
+        f"decisions the same as the CPU's | {card}")
+    diar = NeuralDiarizer(pyannet_params=pn.state_dict(), device=dev)
+    x30 = _two_speakers(30.0, 16000)
+    secs = []
+    for _ in range(1 + TR_WARM):
+        turns, s = timed(lambda: diar.diarize(x30, 16000))
+        secs.append(s)
+    rec["diarize_pyannet"] = secs
+    log(f"{tag} (c) NeuralDiarizer(pyannet_params=...) on 30 s: cold {secs[0]:.4f} s, warm "
+        f"{', '.join(f'{s:.4f}' for s in secs[1:])} s; {len(turns)} turns | {card}")
+    del pn_cpu, diar
+
+    # (d) multi-take alignment
+    rng = np.random.default_rng(5)
+    master_d = np.full(int(ALIGN_S / 0.5), 0.5)
+    take_d = rng.uniform(0.4, 0.6, len(master_d))
+    take_d *= ALIGN_S / take_d.sum()
+    master, take = gliding_notes(master_d, 0), gliding_notes(take_d, 1)
+    mw, tw = note_words(master_d), note_words(take_d)
+    with torch.device(dev):
+        rtla = fast_init(RtlaCRNN(RtlaCRNNConfig()), 4).eval()
+    rec["align"] = {}
+    for label, model in (("chroma", None), ("chroma + RtlaCRNN phonemes", rtla)):
+        secs = []
+        for _ in range(1 + TR_WARM):
+            (out, report), s = timed(lambda: align_take(master, take, 16000, mw, tw,
+                                                        phoneme_model=model, device=dev))
+            secs.append(s)
+        expect(out.shape == master.shape and bool(np.isfinite(out).all())
+               and report["matched"] == report["master_sentences"],
+               f"align_take ({label}): {out.shape}, report {report}")
+        rec["align"][label] = secs
+        log(f"{tag} (d) align_take 30 s onto 30 s, {label}: cold {secs[0]:.3f} s, warm "
+            f"{', '.join(f'{s:.3f}' for s in secs[1:])} s; {report['matched']} of "
+            f"{report['master_sentences']} sentences matched | {card}")
+    rtla_cpu = cpu_copy(rtla, lambda: RtlaCRNN(RtlaCRNNConfig()))
+    rec["phonemes_card_vs_cpu"] = card_vs_cpu(
+        "RtlaCRNN phoneme stream (30 s)", phoneme_features(master, 16000, rtla, device=dev),
+        phoneme_features(master, 16000, rtla_cpu, device="cpu"), 1e-5, tag=f"{tag} (d)")
+    del rtla, rtla_cpu
+
+    # (e) the served routes, then main --demo-backends
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_transcribe_"))
+    wavs = {}
+    for name, x in (("talk.wav", x60), ("master.wav", master), ("take.wav", take)):
+        write_wav(work / name, x, 16000)
+        wavs[name] = {"filename": name,
+                      "content": base64.b64encode((work / name).read_bytes()).decode()}
+    saved = dict(transcribe_api._BACKENDS), list(align_api._TRANSCRIBER)
+    served = Transcriber(whisper, aligner=aligner, vad=vad, device=dev)
+    server, port = serve_background(create_app(str(work / "process"), device=dev))
+    url = f"http://127.0.0.1:{port}"
+    rec["served"] = {}
+    try:
+        transcribe_api.register_backend("whisper", served)
+        align_api.register_transcriber(served)
+        reset_counts()
+        t0 = time.perf_counter()
+        status, resp = http("POST", f"{url}/api/v1/audio/transcriptions",
+                            {"model": "whisper", "files": [wavs["talk.wav"]],
+                             "settings": {"response_format": "srt"}})
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = counts()
+        expect(status == 200, f"transcriptions: HTTP {status} {resp.get('error')}")
+        segs = resp["results"][0]["segments"]
+        # the segments the aligner runs on: 40 ms or more of the audio
+        aligned = sum(1 for s in segs if min(len(x60), int(s["end"] * 16000))
+                      - max(0, int(s["start"] * 16000)) >= 16000 // 25)
+        expect(k2_only(launches, 12 * aligned),
+               f"transcriptions: launches {launches} for {aligned} aligned segments")
+        rec["served"]["transcriptions"] = dict(seconds=secs, segments=len(segs))
+        log(f"{tag} (e) POST /api/v1/audio/transcriptions (60 s, Whisper large-v3 widths, "
+            f"the aligner, the VAD): HTTP {status} {secs:.3f} s; {len(segs)} segments "
+            f"({aligned} through the aligner), {len(resp['results'][0]['text'])} characters; "
+            f"launches {launches} | {card}")
+        t0 = time.perf_counter()
+        status, resp = http("POST", f"{url}/api/v1/align",
+                            {"files": [wavs["master.wav"], wavs["take.wav"]]})
+        secs = time.perf_counter() - t0
+        expect(status == 200, f"align: HTTP {status} {resp.get('error')}")
+        (work / "aligned.wav").write_bytes(base64.b64decode(resp["results"][0]["content"]))
+        a = read_wav(work / "aligned.wav")
+        expect(a.samples.shape[-1] == len(master) and bool(np.isfinite(a.samples).all()),
+               f"align: {a.samples.shape} against {len(master)} samples")
+        rec["served"]["align"] = secs
+        log(f"{tag} (e) POST /api/v1/align (30 s master, 30 s take; words from the served "
+            f"transcriber, else energy pseudo-words): HTTP {status} {secs:.3f} s; report "
+            f"{ {k: v for k, v in resp['results'][0]['report'].items() if k != 'pairs'} } | "
+            f"{card}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        transcribe_api._BACKENDS.clear()
+        transcribe_api._BACKENDS.update(saved[0])
+        align_api._TRANSCRIBER[:] = saved[1]
+    del whisper, served, aligner, vad, w2v
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        mport = s.getsockname()[1]
+    out = open(work / "main.log", "wb")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audiolab_tpu_torch.main", "--port", str(mport),
+         "--output-root", str(work / "main" / "process"), "--device", dev.type,
+         "--demo-backends"],
+        cwd=Path(__file__).resolve().parent, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        murl = f"http://127.0.0.1:{mport}"
+        while True:
+            try:
+                status, _doc = http("GET", f"{murl}/openapi.json", timeout=30)
+                break
+            except (urllib.error.URLError, ConnectionError):
+                expect(proc.poll() is None and time.perf_counter() - t0 < 180,
+                       f"main --demo-backends: not serving (exit {proc.poll()}): "
+                       f"{(work / 'main.log').read_text()[-2000:]}")
+                time.sleep(0.25)
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        status, resp = http("POST", f"{murl}/api/v1/audio/transcriptions",
+                            {"model": "whisper", "files": [wavs["master.wav"]]})
+        req_s = time.perf_counter() - t1
+        expect(status == 200 and "segments" in resp["results"][0],
+               f"main whisper: HTTP {status} {resp.get('error')}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        log(f"{tag} (e) python -m audiolab_tpu_torch.main --demo-backends: serving after "
+            f"{up_s:.3f} s; POST transcriptions 'whisper' (30 s) {req_s:.3f} s, "
+            f"{len(resp['results'][0]['segments'])} segments; SIGTERM -> exit {rc}")
+        expect(rc == 0, f"main --demo-backends: exit {rc}: "
+                        f"{(work / 'main.log').read_text()[-2000:]}")
+        rec["served"]["main_whisper"] = req_s
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        shutil.rmtree(work, ignore_errors=True)
+    rec["launches"] = path
+    log(f"{tag} the path's launches ((a)'s uncached forward and (b)'s first call of each "
+        f"span): {path}")
+    expect(path["K2"] > 0 or not cuda, "transcribe: K2 was not launched on the path")
+    return rec
+
+
 def urllib_get(url: str, timeout: float = 60.0) -> bytes:
     import urllib.request
 
@@ -3760,7 +4211,7 @@ def main() -> int:
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
-    served = family = trained = spoken = processed = engines = chatter = None
+    served = family = trained = spoken = processed = engines = chatter = heard = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "long"} & set(phases)
     if need_chain:
@@ -3816,6 +4267,11 @@ def main() -> int:
         # this slice's path: T3's teacher-forced forward, counts reset just
         # before and read just after (Chatterbox's generation launches none)
         chatter = phase_chatterbox(dev, card, profile_dir=args.profile)["launches"]
+    if "transcribe" in phases:
+        # this slice's path: Whisper's uncached forward and the aligner's
+        # first call of each span, counts reset just before each and read
+        # just after (the decode and the VAD launch none)
+        heard = phase_transcribe(dev, card)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -3828,9 +4284,11 @@ def main() -> int:
            "processors_launches": None if processed is None else processed[r["kernel"]],
            "engines_launches": None if engines is None else engines[r["kernel"]],
            "chatterbox_launches": None if chatter is None else chatter[r["kernel"]],
+           "transcribe_launches": None if heard is None else heard[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),
+           "on_transcribe_path": r.get("on_transcribe_path", False),
            "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}

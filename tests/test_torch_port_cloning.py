@@ -371,6 +371,45 @@ def test_clone_tts_through_run_chain(tmp_path, engines):
     assert "cloned" not in t.file_dict and "cloned" not in j.file_dict
 
 
+def test_clone_tts_transcribes_when_no_text_is_given(tmp_path, engines):
+    """Clone by TTS with an empty custom_text: the facade's transcriber gives
+    the text (clone.py:247-253).  The port's facade takes the port's
+    Transcriber itself, a callable; the JAX Transcriber is not callable, so
+    the JAX facade holding it fails the processor (ROADMAP queue 3) and is
+    given its ``transcribe(...)["text"]`` instead.  Both transcribers hold the
+    demo Whisper's weights (tests/torch_port_tiny.py): the same text, and
+    WAVs as in test_clone_tts_through_run_chain."""
+    jt, tt = engines
+    jtr, ttr = tiny.transcriber_pair()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # the port's small ops, beside the suite's other workers
+    try:
+        _clone_by_transcript(tmp_path, jt, tt, jtr, ttr)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _clone_by_transcript(tmp_path, jt, tt, jtr, ttr):
+    stem = tmp_path / "take_(Vocals).wav"
+    write_wav(stem, _voice(16000, 16000, 200.0, 7), 16000)
+    ref = tmp_path / "ref.wav"
+    write_wav(ref, _voice(8000, 16000, 180.0, 1), 16000)
+    settings = {"Clone": {"clone_method": "TTS", "source_speaker": str(ref), "custom_text": ""}}
+    facade = JCl.CloningFacade(tts=jt)
+    facade.transcriber = jtr
+    JClone.Clone.configure(None, facade)
+    TClone.Clone.configure(None, TCl.CloningFacade(tts=_JaxDraws(tt), transcriber=ttr))
+    j, t = _chain(tmp_path / "jax_transcriber", [str(stem)], settings)
+    assert "cloned" not in j.file_dict
+    with pytest.raises(TypeError, match="not callable"):
+        jtr(np.zeros(1600, np.float32), 16000)
+    facade.transcriber = lambda x, sr: jtr.transcribe(x, sr)["text"]
+    x = read_audio(str(stem)).samples.mean(axis=0)
+    assert ttr(x, 16000) == facade.transcriber(x, 16000) != ""
+    j, t = _chain(tmp_path, [str(stem)], settings)
+    assert _same_wav(j, t).sample_rate == 44100
+
+
 def test_clone_without_a_facade_fails_as_jax(tmp_path):
     """OpenVoice and TTS without a facade: both processors raise, the chain
     keeps its input; diarize_speakers without a facade is ignored."""

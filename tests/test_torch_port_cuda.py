@@ -1677,3 +1677,90 @@ def test_chatterbox_and_wespeaker_on_the_card_match_the_cpu(cuda_device):
             assert torch.equal(got, ref), f"{(got != ref).sum()} ids differ"
         else:
             assert (got - ref).abs().max() <= 1e-5 * ref.abs().max(), key
+
+
+# ------------------------------------------------------------ transcription
+
+def _whisper(dev, seed=0, **kw):
+    from audiolab_tpu_torch.models.whisper import WhisperConfig, WhisperModel
+
+    cfg = dict(n_mels=80, dim=256, n_heads=4, n_audio_layers=2, n_text_layers=3,
+               vocab_size=1000, n_text_ctx=64, sot=900, eot=899, no_timestamps=910,
+               timestamp_base=911)
+    cfg.update(kw)
+    model = _seeded_built(lambda: WhisperModel(WhisperConfig(**cfg)), seed, 0.02)
+    with torch.no_grad():    # else a random decoder repeats the token it is fed
+        model.decoder.ln.weight.neg_()
+    return model.to(dev).eval()
+
+
+def test_whisper_graph_decode_equals_eager(cuda_device):
+    """transcribe_window with one captured step replayed gives the eager
+    loop's tokens, greedy and under the same draws at temperature 0.8; the
+    uncached forward over them launches one fp32 K2 a decoder layer and the
+    cached decode's logits agree with it to 1e-5 of max|logit|."""
+    import numpy as np
+
+    from audiolab_tpu_torch.models.whisper import cached_logits, log_mel_30s, transcribe_window
+
+    model = _whisper(cuda_device)
+    x = (0.1 * np.random.default_rng(0).standard_normal(16000 * 40)).astype(np.float32)
+    mel = log_mel_30s(x, model.cfg, cuda_device)
+    for temperature in (0.0, 0.8):
+        g = transcribe_window(model, mel, 40, temperature=temperature, device=cuda_device)
+        e = transcribe_window(model, mel, 40, temperature=temperature, device=cuda_device,
+                              graph=False)
+        assert torch.equal(g, e) and len(torch.unique(g)) > 1
+    toks = torch.cat([torch.full((2, 1), model.cfg.sot, device=cuda_device), g[:, :-1]], dim=1)
+    TA.reset_launch_counts()
+    with torch.inference_mode():
+        logits = model(mel, toks)
+    assert TA.flash_attention_fwd.launches == model.cfg.n_text_layers
+    assert TA.flash_attention_fwd.sm90_launches == 0
+    cached = cached_logits(model, mel, toks)
+    assert (cached - logits).abs().max() <= 1e-5 * logits.abs().max()
+
+
+def test_wav2vec2_aligner_on_the_card_matches_the_cpu(cuda_device):
+    """The CTC aligner's 2 layers launch 2 fp32 K2 a segment; its log-probs
+    agree with the CPU's to 1e-5 and the aligned words are the same."""
+    import numpy as np
+
+    from audiolab_tpu_torch.models.hubert import HubertConfig
+    from audiolab_tpu_torch.models.wav2vec2 import CTCWordAligner, Wav2Vec2Config, Wav2Vec2CTC
+
+    cfg = Wav2Vec2Config(encoder=HubertConfig(dim=128, ffn_dim=256, heads=2, layers=2))
+    model = _seeded_built(lambda: Wav2Vec2CTC(cfg), 3, 0.02)
+    x = (0.1 * np.random.default_rng(1).standard_normal(16000 * 4)).astype(np.float32)
+    words = "the quick brown fox jumps".split()
+    out = {}
+    for dev in ("cpu", cuda_device):
+        aligner = CTCWordAligner(model, device=dev)
+        TA.reset_launch_counts()
+        out[str(dev)] = (aligner.log_probs(x[8000:56000]),
+                         aligner.align_words(x, 16000, 0.5, 3.5, words))
+        assert TA.flash_attention_fwd.launches == (4 if str(dev) == "cuda" else 0)
+    (lp_c, w_c), (lp_h, w_h) = out["cuda"], out["cpu"]
+    assert np.abs(lp_c - lp_h).max() <= 1e-5 * np.abs(lp_h).max()
+    assert w_c == w_h and len(w_c) == 5
+
+
+def test_pyannet_on_the_card_matches_the_cpu(cuda_device):
+    """PyanNet at PyanNetConfig()'s widths: log-probs on the card within
+    1e-5 of the CPU's, the VAD's regions the same."""
+    import numpy as np
+
+    from audiolab_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
+    from audiolab_tpu_torch.pipelines.transcribe import pyannet_vad
+
+    model = _seeded_built(lambda: PyanNet(PyanNetConfig()), 4, 0.05)
+    x = (0.2 * np.random.default_rng(2).standard_normal(16000 * 15)).astype(np.float32)
+    wav = torch.from_numpy(np.pad(x, (0, 5 * 16000)).reshape(2, 160000))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = model.to(dev)
+        with torch.inference_mode():
+            out[str(dev)] = (model(wav.to(dev)).cpu(), pyannet_vad(model, device=dev)(x, 16000))
+    (lp_c, r_c), (lp_h, r_h) = out["cuda"], out["cpu"]
+    assert (lp_c - lp_h).abs().max() <= 1e-5 * lp_h.abs().max()
+    assert r_c == r_h

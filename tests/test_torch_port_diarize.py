@@ -106,12 +106,19 @@ def test_diarize_matches_jax():
 
 
 def test_checkpoint_back_ends_name_their_items():
-    """PyanNet still names its ROADMAP item; the wespeaker back end (ported)
-    is taken and held on the diarizer's device."""
+    """Both checkpoint back ends are taken and held on the diarizer's device:
+    PyanNet (its state_dict loaded strictly into a PyanNet of the given
+    configuration; tests/test_torch_port_transcribe.py holds it against the
+    JAX back end) and the wespeaker ResNet."""
+    from audiolab_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
     from audiolab_tpu_torch.models.wespeaker import WeSpeakerConfig, WeSpeakerResNet
 
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TD.NeuralDiarizer(pyannet_params={}, device="cpu")
+    pcfg = PyanNetConfig(lstm_hidden=8, lstm_layers=1, linear_dim=8)
+    sd = PyanNet(pcfg).state_dict()
+    d = TD.NeuralDiarizer(pyannet_params=sd, pyannet_cfg=pcfg, device="cpu")
+    assert isinstance(d.pyannet, PyanNet) and d.pyannet.classifier.weight.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        TD.NeuralDiarizer(pyannet_params=sd, device="cpu")
     ws = WeSpeakerResNet(WeSpeakerConfig(feat_dim=16, embed_dim=8, m_channels=4,
                                          num_blocks=(1, 1, 1, 1)))
     assert TD.NeuralDiarizer(wespeaker=ws, device="cpu").wespeaker is ws

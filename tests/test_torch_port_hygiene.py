@@ -383,3 +383,68 @@ def test_chatterbox_and_wespeaker_entry_points_default_to_the_card(no_cuda):
     codes = t3_generate(t3, np.ones((1, 3), np.int64), np.zeros(4, np.float32),
                         max_new_tokens=2, device="cpu")
     assert codes.dtype == np.int32 and codes.shape[1] <= 3
+
+
+def test_listening_entry_points_default_to_the_card(no_cuda):
+    """Transcriber, transcribe_window, random_transcriber, CTCWordAligner,
+    random_ctc_aligner, pyannet_vad, NeuralDiarizer with the PyanNet back
+    end, phoneme_features, chroma_features and align_take default to the
+    card and raise without one; each runs on the CPU when asked."""
+    from audiolab_tpu_torch.models.diarize import DiarizeConfig, NeuralDiarizer
+    from audiolab_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
+    from audiolab_tpu_torch.models.rtla import (
+        RtlaCRNN,
+        RtlaCRNNConfig,
+        chroma_features,
+        phoneme_features,
+    )
+    from audiolab_tpu_torch.models.wav2vec2 import (
+        CTCWordAligner,
+        Wav2Vec2Config,
+        Wav2Vec2CTC,
+        random_ctc_aligner,
+    )
+    from audiolab_tpu_torch.models.whisper import WhisperConfig, WhisperModel, transcribe_window
+    from audiolab_tpu_torch.pipelines.align import align_take
+    from audiolab_tpu_torch.pipelines.transcribe import (
+        Transcriber,
+        pyannet_vad,
+        random_transcriber,
+    )
+
+    whisper = WhisperModel(WhisperConfig(n_mels=8, dim=8, n_heads=2, n_audio_layers=1,
+                                         n_text_layers=1, vocab_size=16, n_text_ctx=8, sot=10,
+                                         eot=9, no_timestamps=11, timestamp_base=12))
+    w2v = Wav2Vec2CTC(Wav2Vec2Config(encoder=TH.HubertConfig(dim=16, ffn_dim=32, heads=2,
+                                                             layers=1)))
+    pcfg = PyanNetConfig(lstm_hidden=4, lstm_layers=1, linear_dim=4)
+    pyan = PyanNet(pcfg)
+    rtla = RtlaCRNN(RtlaCRNNConfig(num_lbl=4, model_complexity=1))
+    dcfg = DiarizeConfig(n_mels=16, hidden=8, emb_dim=4)
+    x = np.zeros(16000, np.float32)
+    words = [{"word": "a", "start": 0.1, "end": 0.5}]
+    for call in (lambda: Transcriber(whisper), lambda: random_transcriber(),
+                 lambda: transcribe_window(whisper, np.zeros((1, 3000, 8), np.float32), 2),
+                 lambda: CTCWordAligner(w2v), lambda: random_ctc_aligner(),
+                 lambda: pyannet_vad(pyan),
+                 lambda: NeuralDiarizer(dcfg, pyannet_params=pyan.state_dict(),
+                                        pyannet_cfg=pcfg),
+                 lambda: phoneme_features(x, 16000, rtla), lambda: chroma_features(x, 16000),
+                 lambda: align_take(x, x, 16000, words, words)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert Transcriber(whisper, device="cpu").device.type == "cpu"
+    assert random_transcriber(device="cpu").model.encoder.conv1.weight.std() > 0
+    toks = transcribe_window(whisper, np.zeros((1, 3000, 8), np.float32), 2, device="cpu")
+    assert toks.shape == (1, 2)
+    with pytest.raises(ValueError, match="CUDA graph"):
+        transcribe_window(whisper, np.zeros((1, 3000, 8), np.float32), 2, device="cpu",
+                          graph=True)
+    assert CTCWordAligner(w2v, device="cpu").device.type == "cpu"
+    assert random_ctc_aligner(device="cpu").model.lm_head.weight.device.type == "cpu"
+    assert isinstance(pyannet_vad(pyan, device="cpu")(x, 16000), list)
+    d = NeuralDiarizer(dcfg, pyannet_params=pyan.state_dict(), pyannet_cfg=pcfg, device="cpu")
+    assert d.pyannet is not None and d.device.type == "cpu"
+    assert phoneme_features(x, 16000, rtla, device="cpu").shape[0] == 4
+    assert chroma_features(x, 16000, device="cpu").shape[1] == 12
+    assert align_take(x, x, 16000, words, words, device="cpu")[0].shape == x.shape

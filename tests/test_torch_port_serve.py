@@ -103,7 +103,9 @@ def test_route_table_is_a_subset_of_jax(server, jax_router):
                   ("POST", "/api/v1/rvc/analyze"), ("GET", "/api/v1/clone/methods"),
                   ("POST", "/api/v1/process/convert"), ("POST", "/api/v1/process/compare"),
                   ("POST", "/api/v1/process/remaster"),
-                  ("POST", "/api/v1/process/super_resolution")):
+                  ("POST", "/api/v1/process/super_resolution"),
+                  ("POST", "/api/v1/audio/transcriptions"),
+                  ("POST", "/api/v1/audio/translations"), ("POST", "/api/v1/align")):
         assert route in port
 
 
@@ -126,10 +128,13 @@ def test_openapi_document(server):
     assert status == 200
     assert "/api/v1/process/chain" in body["paths"]
     assert "/api/v1/rvc/models" in body["paths"]
-    # routes whose models the port lacks are not served; training and TTS are
-    assert "/api/v1/align" not in body["paths"]
+    # routes whose models the port lacks are not served; training, TTS,
+    # transcription and alignment are
+    assert "/api/v1/yue/generate" not in body["paths"]
     assert "/api/v1/rvc/train" in body["paths"]
     assert "/api/v1/audio/speech" in body["paths"]
+    assert "/api/v1/audio/transcriptions" in body["paths"]
+    assert "/api/v1/align" in body["paths"]
 
 
 def test_web_ui(server):
@@ -205,8 +210,7 @@ def test_missing_files_is_400(server):
     assert "error" in body
 
 
-@pytest.mark.parametrize("path", ["/api/v1/does/not/exist", "/api/v1/align",
-                                  "/api/v1/yue/generate", "/api/v1/audio/transcriptions"])
+@pytest.mark.parametrize("path", ["/api/v1/does/not/exist", "/api/v1/yue/generate"])
 def test_unknown_or_unported_route_404(server, path):
     status, _body = _post(f"{server}{path}", {})
     assert status == 404
@@ -386,13 +390,15 @@ def test_speech_route_serves_dia_and_coqui(server, jax_router, speech_engines, t
 
 def test_main_demo_backends_names_the_missing_items(caplog):
     """--demo-backends registers the random Zonos as "zonos", the random
-    XTTS as "coqui" and the random Chatterbox as "chatterbox" on the given
-    device, as the JAX server does, and names every engine the port does
-    not have (no server)."""
+    XTTS as "coqui", the random Chatterbox as "chatterbox" and the random
+    Whisper transcriber as "whisper" on the given device, as the JAX server
+    does, and names every engine the port does not have (no server)."""
+    from audiolab_tpu_torch.pipelines.transcribe import Transcriber
     from audiolab_tpu_torch.pipelines.tts import ChatterboxCheckpointEngine, XTTSEngine, ZonosTTS
-    from audiolab_tpu_torch.serve import tts_api
+    from audiolab_tpu_torch.serve import transcribe_api, tts_api
 
     saved = dict(tts_api._BACKENDS)
+    saved_tr = dict(transcribe_api._BACKENDS)
     try:
         with caplog.at_level(logging.INFO):
             port_main.register_demo_backends("cpu", logging.getLogger("test"))
@@ -402,14 +408,94 @@ def test_main_demo_backends_names_the_missing_items(caplog):
         assert isinstance(coqui, XTTSEngine) and coqui.model.device.type == "cpu"
         assert isinstance(chatterbox, ChatterboxCheckpointEngine)
         assert chatterbox.device.type == "cpu"
+        whisper = transcribe_api._BACKENDS["whisper"]
+        assert isinstance(whisper, Transcriber) and whisper.device.type == "cpu"
     finally:
         tts_api._BACKENDS.clear()
         tts_api._BACKENDS.update(saved)
+        transcribe_api._BACKENDS.clear()
+        transcribe_api._BACKENDS.update(saved_tr)
     missing = caplog.text.split("no model yet for", 1)[1]
-    for name in ("stable_audio", "acestep", "yue", "whisper"):
+    for name in ("stable_audio", "acestep", "yue"):
         assert name in missing
-    assert "chatterbox" not in missing
-    assert all(f"item 1{i} (" in caplog.text for i in (8, 9)) and "item 17 (" not in caplog.text
+    assert "chatterbox" not in missing and "whisper" not in missing
+    assert "item 18 (" in caplog.text
+    assert "item 17 (" not in caplog.text and "item 19 (" not in caplog.text
+
+
+@pytest.fixture
+def whisper_engines():
+    """"whisper" registered in both packages' transcription tables (the demo
+    widths on the same weights, tests/torch_port_tiny.py); the tables are
+    restored afterwards."""
+    from audiolab_tpu.serve import transcribe_api as j_tr
+    from audiolab_tpu_torch.serve import transcribe_api as t_tr
+    from tests import torch_port_tiny as tiny
+
+    saved = dict(j_tr._BACKENDS), dict(t_tr._BACKENDS)
+    j, t = tiny.transcriber_pair()
+    j_tr.register_backend("whisper", j)
+    t_tr.register_backend("whisper", t)
+    try:
+        yield
+    finally:
+        for table, old in zip((j_tr._BACKENDS, t_tr._BACKENDS), saved):
+            table.clear()
+            table.update(old)
+
+
+def _gated_noise_wav(tmp_path, name, seconds, seed, sr=16000):
+    rng = np.random.default_rng(seed)
+    gate = np.repeat(rng.random(int(seconds * 4)) > 0.5, sr // 4)
+    p = tmp_path / name
+    write_wav(p, (0.2 * rng.standard_normal(len(gate)) * gate).astype(np.float32), sr)
+    return {"filename": name, "content": base64.b64encode(p.read_bytes()).decode()}
+
+
+@pytest.mark.parametrize("route,settings", [
+    ("transcriptions", {}),
+    ("transcriptions", {"response_format": "srt", "max_tokens": 48}),
+    ("translations", {"response_format": "vtt"}),
+])
+def test_transcription_routes_answer_as_jax(server, jax_router, whisper_engines, tmp_path,
+                                            route, settings):
+    """POST /api/v1/audio/{transcriptions,translations} with "whisper" on
+    the live port server and on the JAX router (the same demo weights): the
+    same JSON (text, timed segments, energy-aligned words, the formatted
+    export); a backend that is not loaded answers 501 on both."""
+    payload = {"model": "whisper", "files": [_gated_noise_wav(tmp_path, "t.wav", 6.0, 7)],
+               "settings": settings}
+    code, body = _post(f"{server}/api/v1/audio/{route}", payload)
+    jcode, ref = jax_router.dispatch("POST", f"/api/v1/audio/{route}",
+                                     json.loads(json.dumps(payload)))
+    assert code == jcode == 200
+    assert body == ref and ref["results"][0]["segments"]
+    code, _body = _post(f"{server}/api/v1/audio/{route}", dict(payload, model="nope"))
+    assert code == jax_router.dispatch("POST", f"/api/v1/audio/{route}",
+                                       dict(payload, model="nope"))[0] == 501
+
+
+def test_align_route_answers_as_jax(server, jax_router, tmp_path):
+    """POST /api/v1/align with a master and one take of the same gliding
+    notes at other durations (tests/test_torch_port_align.py's, whose OLTW
+    decisions are not near a tie), no transcriber registered (energy
+    pseudo-words): the same aligned WAV and report as the JAX router's;
+    a single file is refused on both."""
+    from tests.test_torch_port_align import MASTER_D, PITCHES, TAKE_D, _notes
+
+    files = []
+    for name, durations, seed in (("master.wav", MASTER_D, 0), ("take.wav", TAKE_D, 1)):
+        p = tmp_path / name
+        write_wav(p, _notes(PITCHES, durations, seed), 16000)
+        files.append({"filename": name, "content": base64.b64encode(p.read_bytes()).decode()})
+    code, body = _post(f"{server}/api/v1/align", {"files": files})
+    jcode, ref = jax_router.dispatch("POST", "/api/v1/align", {"files": files})
+    assert code == jcode == 200
+    assert [r["report"] for r in body["results"]] == [r["report"] for r in ref["results"]]
+    assert ref["results"][0]["report"]["matched"] >= 1
+    assert body == ref
+    code, _body = _post(f"{server}/api/v1/align", {"files": files[:1]})
+    assert code == jax_router.dispatch("POST", "/api/v1/align", {"files": files[:1]})[0] == 400
 
 
 def test_main_serves_on_the_cpu_and_stops_on_sigterm(tmp_path):

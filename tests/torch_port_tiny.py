@@ -588,3 +588,37 @@ def chatterbox_engines(encoders: bool = False):
     j.s3gen.flow = SimpleNamespace(apply=jax.jit(JS.CausalMaskedDiffWithXvec(fcfg).apply))
     j.s3gen.hift = SimpleNamespace(apply=jax.jit(JS.HiFTGenerator(hcfg).apply))
     return j, TT.ChatterboxCheckpointEngine(t3_m, s3, device="cpu", **tkw)
+
+
+@functools.lru_cache(maxsize=None)
+def whisper_demo(seed: int = 52):
+    """(JAX WhisperConfig, flax params, port WhisperModel) at the demo widths
+    of ``random_transcriber`` on the same weights.  The decoder's final
+    LayerNorm scale is negated: a random model's residual otherwise favours
+    the token it was fed, and no timestamp pair comes out."""
+    from audiolab_tpu.models import whisper as JW
+    from audiolab_tpu_torch.models import whisper as TW
+    from audiolab_tpu_torch.pipelines.transcribe import DEMO_CONFIG
+
+    cfg = JW.WhisperConfig(**{k: getattr(DEMO_CONFIG, k) for k in (
+        "n_mels", "dim", "n_heads", "n_audio_layers", "n_text_layers", "vocab_size",
+        "n_text_ctx", "sot", "eot", "no_timestamps", "timestamp_base")})
+    tpl = jax.eval_shape(lambda: JW.WhisperModel(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 3000, cfg.n_mels)),
+        jnp.zeros((1, 4), jnp.int32)))["params"]
+    p = filled(tpl, seed)
+    p["decoder"]["ln"]["scale"] = -p["decoder"]["ln"]["scale"]
+    return cfg, p, _load(TW.WhisperModel(DEMO_CONFIG), W.whisper_from_jax(p))
+
+
+def transcriber_pair(jax_kw: dict | None = None, port_kw: dict | None = None):
+    """(JAX Transcriber, port Transcriber on the CPU) on ``whisper_demo``'s
+    weights, with the engines' other arguments (aligner, vad, ...); the JAX
+    engine's Whisper runs jitted (its engine code unchanged)."""
+    from audiolab_tpu.pipelines import transcribe as JT
+    from audiolab_tpu_torch.pipelines import transcribe as TT
+
+    cfg, p, tm = whisper_demo()
+    j = JT.Transcriber(cfg, p, **(jax_kw or {}))
+    j.model = Jitted(j.model)
+    return j, TT.Transcriber(tm, device="cpu", **(port_kw or {}))

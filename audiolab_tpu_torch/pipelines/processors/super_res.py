@@ -4,10 +4,11 @@ wrappers/super_res.py).
 
 Without ``configure`` the processor runs the DSP enhancer of
 pipelines/super_res.py.  ``configure(enhancer_fn=...)`` plugs in a neural
-enhancer, called on the ``(count, ch, n)`` chunk tensor on the processor's
-device; ``ckpt_pipeline`` is the slot of an AudioSR checkpoint pipeline
-(an object with ``guidance_scale`` and ``enhance_chunks(chunks, steps=,
-seed=)``).
+enhancer (any callable: ``train/super_res.py::load_enhancer``'s WaveGrad),
+called on the ``(count, ch, n)`` chunk tensor on the processor's device;
+``ckpt_pipeline`` is the slot of an AudioSR checkpoint pipeline (an object
+with ``guidance_scale`` and ``enhance_chunks(chunks, steps=, seed=)``:
+pipelines/super_res.py's ``AudioSRCheckpointPipeline``).
 """
 
 from __future__ import annotations
@@ -82,7 +83,9 @@ class SuperResolution(BaseProcessor):
 
     @classmethod
     def configure(cls, enhancer_fn=None, ckpt_pipeline=None) -> None:
-        cls.enhancer_fn = enhancer_fn
+        # a plain function stored on the class would bind as a method (the
+        # JAX processor's fault: ROADMAP queue 3); kept as a static slot
+        cls.enhancer_fn = None if enhancer_fn is None else staticmethod(enhancer_fn)
         cls.ckpt_pipeline = ckpt_pipeline
 
     def process_audio(

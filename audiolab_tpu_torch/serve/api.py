@@ -12,10 +12,11 @@ schema (the reference's register_api_endpoint codegen, base_wrapper.py:
 clone endpoints the port has (RVC training among them), the TTS and
 transcription routes (serve/tts_api.py, serve/transcribe_api.py: a backend
 that is not loaded answers 501), multi-take alignment (serve/align_api.py),
+WaveTransfer projects, training and generation (serve/wavetransfer_api.py),
 /openapi.json and the web UI.  Routes whose models the port does not have
-yet (music, WaveTransfer) are not registered and answer 404.  Processor,
-TTS, transcription and alignment runs hold the inference lock: one request
-at a time on the card.
+yet (music) are not registered and answer 404.  Processor, TTS,
+transcription, alignment and WaveTransfer runs hold the inference lock: one
+request at a time on the card.
 """
 
 from __future__ import annotations
@@ -29,7 +30,14 @@ import torch
 from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.pipelines.base import all_processors
 from audiolab_tpu_torch.pipelines.chain import run_chain
-from audiolab_tpu_torch.serve import align_api, clone_api, rvc_api, transcribe_api, tts_api
+from audiolab_tpu_torch.serve import (
+    align_api,
+    clone_api,
+    rvc_api,
+    transcribe_api,
+    tts_api,
+    wavetransfer_api,
+)
 from audiolab_tpu_torch.serve.http import RawResponse, Router
 from audiolab_tpu_torch.serve.inference_lock import INFERENCE_LOCK
 
@@ -119,6 +127,9 @@ def create_app(output_root: str = "outputs/process",
     transcribe_api.register(router)
     # multi-take alignment (layouts/align.py)
     align_api.register(router, dev)
+    # WaveTransfer project training and inference (layouts/wavetransfer.py)
+    wavetransfer_api.register(
+        router, os.path.join(os.path.dirname(output_root), "wavetransfer"), dev)
 
     @router.post("/api/v1/process/load_project", "Re-enumerate an existing project")
     def load_project(_params, body):

@@ -1463,3 +1463,140 @@ def rtla_crnn_from_jax(params: dict) -> dict:
     _lstm(sd, "model.1.rnn", "l0", params["lstm_cell"])
     _dense(sd, "model.2", params["head"])
     return sd
+
+
+# ------------------------------------------------- WaveGrad, BDDM, AudioSR
+
+def _by_rank(sd: dict, key: str, node: dict) -> None:
+    """A flax tree of Conv (3-D kernel) and Dense (2-D kernel) leaves, under
+    the flax names joined by ``.``."""
+    if "kernel" in node:
+        (_conv1d if np.ndim(node["kernel"]) == 3 else _dense)(sd, key, node)
+        return
+    for name, child in node.items():
+        _by_rank(sd, f"{key}.{name}" if key else name, child)
+
+
+def wavegrad_from_jax(params: dict) -> dict:
+    """WaveGrad flax params -> port state_dict (the flax names: WaveGrad has
+    no upstream checkpoint layout)."""
+    sd: dict = {}
+    _by_rank(sd, "", params)
+    return sd
+
+
+def bddm_from_jax(params: dict) -> dict:
+    """BDDMScheduleNet flax params -> port state_dict (``Conv_0..2``,
+    ``ratio``)."""
+    sd: dict = {}
+    _by_rank(sd, "", params)
+    return sd
+
+
+def _vae_res(sd: dict, key: str, node: dict) -> None:
+    for n in ("norm1", "norm2"):
+        _norm(sd, f"{key}.{n}", node[n])
+    for c in ("conv1", "conv2", "nin_shortcut"):
+        if c in node:
+            _conv2d(sd, f"{key}.{c}", node[c])
+
+
+def audiosr_vae_from_jax(params: dict) -> dict:
+    """AudioSRVAE flax params -> port state_dict (the audiosr
+    ``first_stage_model`` names, the inverse of ``audiosr_vae_mapping``)."""
+    sd: dict = {}
+    for side in ("encoder", "decoder"):
+        s = params[side]
+        for c in ("conv_in", "conv_out"):
+            _conv2d(sd, f"{side}.{c}", s[c])
+        _norm(sd, f"{side}.norm_out", s["norm_out"])
+        _vae_res(sd, f"{side}.mid.block_1", s["mid_1"])
+        _vae_res(sd, f"{side}.mid.block_2", s["mid_2"])
+        _norm(sd, f"{side}.mid.attn_1.norm", s["mid_attn"]["norm"])
+        for p in ("q", "k", "v", "proj_out"):
+            _conv2d(sd, f"{side}.mid.attn_1.{p}", s["mid_attn"][p])
+        for name, node in s.items():
+            parts = name.split("_")
+            if parts[0] not in ("down", "up") or len(parts) != 3:
+                continue
+            li, bi = parts[1], parts[2]
+            if bi == "ds":
+                _conv2d(sd, f"{side}.down.{li}.downsample.conv", node)
+            elif bi == "us":
+                _conv2d(sd, f"{side}.up.{li}.upsample.conv", node)
+            else:
+                _vae_res(sd, f"{side}.{parts[0]}.{li}.block.{bi}", node)
+    _conv2d(sd, "quant_conv", params["quant_conv"])
+    _conv2d(sd, "post_quant_conv", params["post_quant_conv"])
+    return sd
+
+
+def _unet_res(sd: dict, key: str, node: dict) -> None:
+    _norm(sd, f"{key}.in_layers.0", node["norm_in"])
+    _conv2d(sd, f"{key}.in_layers.2", node["conv_in"])
+    _dense(sd, f"{key}.emb_layers.1", node["emb"])
+    _norm(sd, f"{key}.out_layers.0", node["norm_out"])
+    _conv2d(sd, f"{key}.out_layers.3", node["conv_out"])
+    if "skip" in node:
+        _conv2d(sd, f"{key}.skip_connection", node["skip"])
+
+
+def _unet_attn(sd: dict, key: str, node: dict) -> None:
+    _norm(sd, f"{key}.norm", node["norm"])
+    _conv2d(sd, f"{key}.proj_in", node["proj_in"])
+    _conv2d(sd, f"{key}.proj_out", node["proj_out"])
+    tb = f"{key}.transformer_blocks.0"
+    for a in ("attn1", "attn2"):
+        for p in ("q", "k", "v"):
+            _dense(sd, f"{tb}.{a}.to_{p}", node[f"{a}_{p}"])
+        _dense(sd, f"{tb}.{a}.to_out.0", node[f"{a}_out"])
+    for i in (1, 2, 3):
+        _norm(sd, f"{tb}.norm{i}", node[f"norm{i}"])
+    _dense(sd, f"{tb}.ff.net.0.proj", node["ff0"])
+    _dense(sd, f"{tb}.ff.net.2", node["ff1"])
+
+
+def audiosr_unet_from_jax(params: dict, cfg=None) -> dict:
+    """AudioSRUNet flax params -> port state_dict (the audiosr
+    ``model.diffusion_model`` names), walking the same
+    ``unet_layer_schedule`` as the modules and ``audiosr_unet_mapping``."""
+    from audiolab_tpu_torch.models.audiosr_unet import AudioSRUNetConfig, unet_layer_schedule
+
+    sd: dict = {}
+    _dense(sd, "time_embed.0", params["time_0"])
+    _dense(sd, "time_embed.2", params["time_2"])
+    inputs, middle, outputs = unet_layer_schedule(cfg or AudioSRUNetConfig())
+    blocks = ([(f"in_{i}", f"input_blocks.{i}", b) for i, b in enumerate(inputs)]
+              + [("mid", "middle_block", middle)]
+              + [(f"out_{i}", f"output_blocks.{i}", b) for i, b in enumerate(outputs)])
+    for prefix, tkey, layers in blocks:
+        for j, (kind, _p) in enumerate(layers):
+            node, key = params[f"{prefix}_{j}"], f"{tkey}.{j}"
+            if kind == "res":
+                _unet_res(sd, key, node)
+            elif kind == "attn":
+                _unet_attn(sd, key, node)
+            else:
+                _conv2d(sd, {"conv_in": key, "down": f"{key}.op", "up": f"{key}.conv"}[kind],
+                        node)
+    _norm(sd, "out.0", params["norm_out"])
+    _conv2d(sd, "out.2", params["conv_out"])
+    return sd
+
+
+def audiosr_vocoder_from_jax(params: dict) -> dict:
+    """AudioSRVocoder flax params -> port state_dict (the audiosr 48k
+    vocoder names, weight norms folded)."""
+    sd: dict = {}
+    _conv1d(sd, "conv_pre", params["conv_pre"])
+    _conv1d(sd, "conv_post", params["conv_post"])
+    n_kernels = _count(params, "res_0_")
+    for i in range(_count(params, "up_")):
+        _conv_t1d(sd, f"ups.{i}", params[f"up_{i}"])
+        for j in range(n_kernels):
+            res = params[f"res_{i}_{j}"]
+            for d in range(_count(res, "c1_")):
+                key = f"resblocks.{i * n_kernels + j}"
+                _conv1d(sd, f"{key}.convs1.{d}", res[f"c1_{d}"])
+                _conv1d(sd, f"{key}.convs2.{d}", res[f"c2_{d}"])
+    return sd

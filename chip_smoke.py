@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version at the main path's shapes,
 drives the separate -> RVC chain, RVC training, Zonos TTS, the speech
-engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription and
-multi-take alignment at full width, and checks the output.
+engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription,
+multi-take alignment, WaveTransfer and Super Resolution's learned enhancers
+at full width, and checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -23,10 +24,15 @@ multi-take alignment at full width, and checks the output.
                                                    # the wav2vec2 aligner, PyanNet, RTLA
                                                    # alignment, the transcription and
                                                    # align routes
+    python3 chip_smoke.py --phases card,diffusion  # WaveTransfer (training, resume,
+                                                   # generate, BDDM) through its routes,
+                                                   # Super Resolution by WaveGrad and by
+                                                   # AudioSR at published widths
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
-                                                   # a Dia call, an XTTS-v2 synthesize
-                                                   # and a Chatterbox clone
+                                                   # a Dia call, an XTTS-v2 synthesize,
+                                                   # a Chatterbox clone, a WaveGrad train
+                                                   # step and FAST_6, an AudioSR chunk
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -182,6 +188,21 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              align_take of 30 s onto 30 s with chroma and with RtlaCRNN; POST
              /api/v1/audio/transcriptions and /api/v1/align, and main
              --demo-backends answering "whisper"
+  diffusion  WaveTransfer and Super Resolution's learned enhancers, fp32 with
+             TF32 off: (a) WaveGrad at WTConfig() (24 kHz, 128 mels, hop
+             300, batch 8 of 7,200 samples) through POST
+             /api/v1/wavetransfer/train (20 steps on 2 x 10 s, polled to
+             done, first and warm step seconds), a resume to 30 steps,
+             /wavetransfer/generate on 30 s with fast6 and fast12, 10 BDDM
+             schedule-net steps and the schedule search, one chunk's FAST_6
+             sample card against CPU; (b) train_superres for 5 steps at 48
+             kHz, load_enhancer, POST /api/v1/process/super_resolution on 20 s
+             of stereo, cold and warm; (c) AudioSR (VAE, UNet and vocoder at
+             the published widths) enhance_chunks on one 10.24 s stereo
+             chunk, 50 DDIM steps at guidance 3.5, cold and warm with peak
+             memory, the UNet and one guided DDIM step card against CPU, the
+             Super Resolution route with ckpt_pipeline on 20 s of stereo; no
+             kernel launched
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -203,7 +224,7 @@ import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
-          "transcribe")
+          "transcribe", "diffusion")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -4168,6 +4189,303 @@ def phase_transcribe(dev, card: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- diffusion
+
+DIFF_WT_STEPS = 20          # the served WaveTransfer job's steps
+DIFF_RESUME_STEPS = 10      # the resumed job's further steps
+DIFF_GEN_S = 30.0           # seconds of source audio to generate from
+DIFF_BDDM_STEPS = 10        # schedule-net steps
+DIFF_SR_STEPS = 5           # super-resolution training steps
+DIFF_SR_S = 20.0            # seconds of stereo through the Super Resolution route
+DIFF_DDIM_STEPS = 50
+
+
+def _wav_payload(work: Path, name: str, x: np.ndarray, sr: int) -> dict:
+    import base64
+
+    from audiolab_tpu_torch.core.audio_io import write_wav
+
+    write_wav(work / name, x, sr)
+    return {"filename": name, "content": base64.b64encode((work / name).read_bytes()).decode()}
+
+
+def _served_wav(work: Path, content: str, name: str):
+    import base64
+
+    from audiolab_tpu_torch.core.audio_io import read_wav
+
+    (work / name).write_bytes(base64.b64decode(content))
+    return read_wav(work / name)
+
+
+def phase_diffusion(dev, card: str, profile_dir: str | None = None) -> dict:
+    """WaveTransfer and both learned enhancers of Super Resolution at their
+    published widths, fp32 with TF32 off, weights by bench.py's rules
+    (utils/fast_init.py) or flax's initialisers (WaveGrad training).  (a)
+    WaveTransfer at WTConfig() (24 kHz, 128 mels, hop 300, batch 8 of 7,200
+    samples): a served POST /api/v1/wavetransfer/train of DIFF_WT_STEPS
+    steps on 2 x 10 s of tones, polled to done (first and warm step
+    seconds), a resume to DIFF_WT_STEPS + DIFF_RESUME_STEPS, POST
+    /api/v1/wavetransfer/generate on 30 s with fast6 and fast12 (40 chunks
+    of 64 frames), DIFF_BDDM_STEPS schedule-net steps and the schedule
+    search; one chunk's FAST_6 sample on the card against the CPU with the
+    same draws.  (b) Super Resolution by WaveGrad: train_superres for
+    DIFF_SR_STEPS steps at 48 kHz, load_enhancer, POST
+    /api/v1/process/super_resolution on 20 s of stereo, cold and warm.  (c)
+    AudioSR at the published widths (VAE ch 128 x (1, 2, 4, 8), z 16; UNet
+    model 128 x (1, 2, 3, 5), attention at 2/4/8; vocoder 1536 channels,
+    rates 6, 5, 4, 2, 2): enhance_chunks on one 10.24 s stereo chunk, 50
+    DDIM steps at guidance 3.5, cold and warm with peak memory; one guided
+    DDIM step on the card against the CPU; the Super Resolution route with
+    ckpt_pipeline set on 20 s of stereo.  Counts are reset before each
+    step and read after it; the path launches none of K1-K7.  With
+    ``profile_dir``, profiler tables of a warm WaveGrad training step, of
+    FAST_6 over the 40 chunks and of one enhance_chunks call.  Returns the
+    path's launches."""
+    import copy
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.core.audio_io import write_wav
+    from audiolab_tpu_torch.models import wavegrad as WG
+    from audiolab_tpu_torch.models.audiosr_unet import AudioSRUNet
+    from audiolab_tpu_torch.models.audiosr_vae import AudioSRVAE
+    from audiolab_tpu_torch.models.audiosr_vocoder import AudioSRVocoder
+    from audiolab_tpu_torch.pipelines.processors.super_res import SuperResolution
+    from audiolab_tpu_torch.pipelines.super_res import AudioSRCheckpointPipeline, ddim_timesteps
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.train import super_res as SRT
+    from audiolab_tpu_torch.train import wavetransfer as WT
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    tag = "[diffusion]"
+    rec: dict = {"served": {}}
+    path = dict.fromkeys(KERNELS, 0)
+
+    def add(launches: dict, label: str) -> None:
+        for k in KERNELS:
+            path[k] += launches[k]
+        expect(not any(launches.values()), f"{label}: launches {launches}, expected none")
+
+    def timed(fn):
+        reset_counts()
+        _peak_reset(cuda)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, time.perf_counter() - t0, counts(), _peak_gb(cuda)
+
+    def job(url: str, body: dict, label: str) -> tuple[dict, float]:
+        reset_counts()
+        t0 = time.perf_counter()
+        status, resp = http("POST", f"{url}/wavetransfer/train", body)
+        expect(status == 200, f"{label}: HTTP {status} {resp}")
+        while True:
+            time.sleep(0.25)
+            status, info = http("GET", f"{url}/rvc/job/{resp['job_id']}")
+            if info.get("status") != "running":
+                break
+        secs = time.perf_counter() - t0
+        add(counts(), label)
+        expect(info.get("status") == "done", f"{label}: job {info}")
+        return info["result"], secs
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_diffusion_"))
+    slots = (SuperResolution.enhancer_fn, SuperResolution.ckpt_pipeline)
+    server = None
+    try:
+        server, port = serve_background(create_app(str(work / "process"), device=dev))
+        url = f"http://127.0.0.1:{port}/api/v1"
+        cfg = WT.WTConfig()
+        proj = work / "wavetransfer" / "voice"
+
+        # (a) WaveTransfer: train, resume, generate, BDDM
+        files = [_wav_payload(work, f"take{i}.wav", harmonic_tone(24000, 240000, 110.0 + 50 * i,
+                                                                  40 + i), 24000)
+                 for i in range(2)]
+        settings = {"sr": 24000, "batch_size": 8, "ckpt_every": 10}
+        for label, body in (
+                ("train", {"project": "voice", "files": files,
+                           "settings": settings | {"steps": DIFF_WT_STEPS}}),
+                ("resume", {"project": "voice",
+                            "settings": settings | {"steps": DIFF_WT_STEPS + DIFF_RESUME_STEPS}})):
+            res, secs = job(url, body, f"wavetransfer/{label}")
+            steps = sorted(int(p.stem.split("_")[1]) for p in (proj / "ckpt").glob("ckpt_*.pt"))
+            log(f"{tag} (a) POST wavetransfer/{label} at WTConfig() (batch 8 x 7200 at 24 kHz, "
+                f"{sum(p.numel() for p in WG.WaveGrad(cfg.model).parameters()) / 1e6:.1f} M "
+                f"parameters) to step {res['steps']}: job {secs:.3f} s, first step "
+                f"{res['first_step_s']:.3f} s, warm step {res['warm_step_s'] * 1e3:.2f} ms, loss "
+                f"{res['loss']:.4f}, checkpoints {steps} | {card}")
+            expect(res["steps"] == body["settings"]["steps"] and np.isfinite(res["loss"])
+                   and steps[-1] == res["steps"], f"wavetransfer/{label}: {res}, {steps}")
+            rec["served"][label] = dict(job_s=secs, first_step_s=res["first_step_s"],
+                                        warm_step_s=res["warm_step_s"])
+        src = harmonic_tone(24000, int(DIFF_GEN_S * 24000), 150.0, 42)
+        gen = [_wav_payload(work, "src.wav", src, 24000)]
+        for sched in ("fast6", "fast12", "fast6"):
+            reset_counts()
+            t0 = time.perf_counter()
+            status, resp = http("POST", f"{url}/wavetransfer/generate",
+                                {"project": "voice", "files": gen,
+                                 "settings": {"sr": 24000, "schedule": sched}})
+            secs = time.perf_counter() - t0
+            expect(status == 200, f"wavetransfer/generate {sched}: HTTP {status} {resp}")
+            add(counts(), f"wavetransfer/generate {sched}")
+            a = _served_wav(work, resp["audio"], "gen.wav")
+            expect(a.samples.shape == (1, len(src)) and bool(np.isfinite(a.samples).all()),
+                   f"generate {sched}: {a.samples.shape}")
+            log(f"{tag} (a) POST wavetransfer/generate {sched} on {DIFF_GEN_S:.0f} s "
+                f"({-(-(len(src) - 1200) // 18000)} chunks of 19200): {secs:.3f} s, "
+                f"{DIFF_GEN_S / secs:.1f} audio-s/s, peak |y| {float(np.abs(a.samples).max()):.3f}")
+            rec["served"].setdefault(f"generate_{sched}", []).append(secs)
+
+        model = WT.load_ema(str(proj / "ckpt"), cfg.model, dev)
+        batches = WT._load_segments(str(proj), cfg, np.random.default_rng(1), dev)
+        audio, mel = next(batches)
+        (net, losses), secs, launches, peak = timed(
+            lambda: WT.train_schedule_net(model, audio, mel, steps=DIFF_BDDM_STEPS, lr=1e-4))
+        add(launches, "bddm train")
+        expect(all(np.isfinite(losses)), f"bddm losses {losses}")
+        sched, secs2, launches, _ = timed(lambda: WT.bddm_noise_scheduling(model, net, mel[:1]))
+        add(launches, "bddm search")
+        log(f"{tag} (a) BDDM: {DIFF_BDDM_STEPS} schedule-net steps at batch 8 in {secs:.3f} s "
+            f"(losses {losses[0]:.4g} -> {losses[-1]:.4g}, peak {peak:.2f} GB); the schedule "
+            f"search {secs2:.3f} s -> {len(sched.betas)} betas "
+            f"{[float(f'{b:.3g}') for b in sched.betas]}")
+        rec["bddm_s"] = (secs, secs2)
+
+        chunk_mel = WT._mel_of(torch.from_numpy(src[:19200]).to(dev)[None], cfg)
+        draws = WG.sample_draws(6, 1, 19200, 3, torch.device("cpu"))
+        out, secs, launches, _ = timed(
+            lambda: WG.sample(model, chunk_mel, WG.FAST_6, draws=draws.to(dev)))
+        add(launches, "sample")
+        ref = WG.sample(copy.deepcopy(model).cpu(), chunk_mel.cpu(), WG.FAST_6, draws=draws)
+        rec["sample_err"] = card_vs_cpu("one chunk's FAST_6 sample (64 frames, WaveGrad at "
+                                        "WTConfig())", out.cpu(), ref, 1e-3, tag=f"{tag} (a)")
+        log(f"{tag} (a) one chunk's FAST_6 sample on the card: {secs * 1e3:.1f} ms")
+        if profile_dir:
+            scale, eps = WG.loss_draws(8, audio.shape[-1], 0, dev)
+
+            def train_step():
+                model.zero_grad(set_to_none=True)
+                WG.diffusion_loss(model, audio, mel, scale, eps).backward()
+
+            train_step()
+            step_s = timed(train_step)[1]
+            profile_call("wavegrad train step", train_step, {"step": step_s}, dev, profile_dir,
+                         card, tag)
+            chunks = WT._mel_of(torch.from_numpy(src[:40 * 18000 + 1200]).to(dev).unfold(
+                0, 19200, 18000), cfg)
+            sample_s = timed(lambda: WG.sample(model, chunks, WG.FAST_6))[1]
+            profile_call("wavegrad FAST_6 on 40 chunks",
+                         lambda: WG.sample(model, chunks, WG.FAST_6), {"sample": sample_s},
+                         dev, profile_dir, card, tag)
+        del model, net, batches, audio, mel
+
+        # (b) Super Resolution by WaveGrad
+        data = work / "sr_data"
+        data.mkdir()
+        for i in range(2):
+            write_wav(data / f"music{i}.wav",
+                      harmonic_tone(48000, 8 * 48000, 220.0 * (i + 1), 50 + i), 48000)
+        sr_cfg = SRT.SRTrainConfig(wt=WT.WTConfig(sr=48000, steps=DIFF_SR_STEPS,
+                                                  ckpt_every=DIFF_SR_STEPS))
+        res, secs, launches, peak = timed(lambda: SRT.train_superres(str(data), sr_cfg, device=dev))
+        add(launches, "train_superres")
+        log(f"{tag} (b) train_superres at 48 kHz, batch 8 x 7200, {DIFF_SR_STEPS} steps: "
+            f"{secs:.3f} s, first step {res['first_step_s']:.3f} s, warm step "
+            f"{res['warm_step_s'] * 1e3:.2f} ms, loss {res['loss']:.4f}, peak {peak:.2f} GB")
+        SuperResolution.configure(enhancer_fn=SRT.load_enhancer(str(data), sr_cfg, device=dev))
+        stereo = np.stack([harmonic_tone(44100, int(DIFF_SR_S * 44100), 196.0, 60),
+                           harmonic_tone(44100, int(DIFF_SR_S * 44100), 247.0, 61)])
+        song = [_wav_payload(work, "song.wav", stereo, 44100)]
+
+        def super_resolution(label: str) -> list[float]:
+            times = []
+            for rep in ("cold", "warm"):
+                reset_counts()
+                _peak_reset(cuda)
+                t0 = time.perf_counter()
+                status, resp = http("POST", f"{url}/process/super_resolution", {"files": song})
+                secs = time.perf_counter() - t0
+                expect(status == 200, f"{label}: HTTP {status} {resp}")
+                add(counts(), label)
+                a = _served_wav(work, resp["files"][0]["content"], "sr.wav")
+                want = (2, int(DIFF_SR_S * 48000))
+                expect(a.sample_rate == 48000 and a.samples.shape == want
+                       and bool(np.isfinite(a.samples).all()), f"{label}: {a.samples.shape}")
+                log(f"{tag} {label} {rep}: {secs:.3f} s ({DIFF_SR_S:.0f} s stereo, 2 chunks of "
+                    f"10.24 s), peak {_peak_gb(cuda):.2f} GB | {card}")
+                times.append(secs)
+            return times
+
+        rec["served"]["super_res_wavegrad"] = super_resolution(
+            "(b) POST process/super_resolution, WaveGrad enhancer")
+        SuperResolution.configure()
+
+        # (c) AudioSR at the published widths
+        with torch.device(dev):
+            vae, unet, voc = AudioSRVAE(), AudioSRUNet(), AudioSRVocoder()
+        for i, m in enumerate((vae, unet, voc)):
+            fast_init(m.eval(), 70 + i)
+        n_params = [sum(p.numel() for p in m.parameters()) / 1e6 for m in (vae, unet, voc)]
+        pipe = AudioSRCheckpointPipeline(vae, unet, voc)
+        chunk = torch.from_numpy(stereo[None, :, :491520].copy()).to(dev)
+        times = []
+        for rep in ("cold", "warm"):
+            out, secs, launches, peak = timed(
+                lambda: pipe.enhance_chunks(chunk, steps=DIFF_DDIM_STEPS, seed=1))
+            add(launches, "enhance_chunks")
+            expect(tuple(out.shape) == (1, 2, 491520) and bool(torch.isfinite(out).all()),
+                   f"enhance_chunks {tuple(out.shape)}")
+            times.append(secs)
+            log(f"{tag} (c) AudioSR enhance_chunks at the published widths (VAE / UNet / "
+                f"vocoder {n_params[0]:.1f} / {n_params[1]:.1f} / {n_params[2]:.1f} M), one "
+                f"10.24 s stereo chunk, {DIFF_DDIM_STEPS} DDIM steps at guidance 3.5 (UNet "
+                f"batch 4 on 16 x 128 x 32 latents) {rep}: {secs:.3f} s, peak {peak:.2f} GB | "
+                f"{card}")
+        rec["audiosr_s"] = times
+        if profile_dir:
+            profile_call("audiosr enhance_chunks", lambda: pipe.enhance_chunks(
+                chunk, steps=DIFF_DDIM_STEPS, seed=1), {"enhance": times[-1]}, dev, profile_dir,
+                card, tag)
+        t_seq = ddim_timesteps(1000, 50)          # the check steps from t_seq[10] to [11]
+        gen = torch.Generator().manual_seed(2)
+        z = torch.randn((1, 16, 32, 32), generator=gen)
+        cond = torch.cat([torch.randn((1, 16, 32, 32), generator=gen),
+                          torch.full((1, 16, 32, 32), -11.4981)])
+        x = torch.cat([torch.cat([z, z]), cond], dim=1)
+        tt = torch.full((2,), float(t_seq[10]))
+        cpu_pipe = AudioSRCheckpointPipeline(None, copy.deepcopy(unet).cpu(), None)
+        with torch.inference_mode():
+            rec["unet_err"] = card_vs_cpu(
+                "the UNet's v (AudioSRUNetConfig(), batch 2 on 32 x 32 x 32)",
+                unet(x.to(dev), tt.to(dev)).cpu(), cpu_pipe.unet(x, tt), 1e-4, tag=f"{tag} (c)")
+        rec["ddim_err"] = card_vs_cpu(
+            "one guided DDIM step from it", pipe.ddim_step(z.to(dev), cond.to(dev), t_seq[10],
+                                                            t_seq[11]).cpu(),
+            cpu_pipe.ddim_step(z, cond, t_seq[10], t_seq[11]), 1e-5, tag=f"{tag} (c)")
+        del cpu_pipe
+        SuperResolution.configure(ckpt_pipeline=pipe)
+        rec["served"]["super_res_audiosr"] = super_resolution(
+            "(c) POST process/super_resolution, AudioSR ckpt_pipeline")
+    finally:
+        SuperResolution.enhancer_fn, SuperResolution.ckpt_pipeline = slots
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        shutil.rmtree(work, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    rec["launches"] = path
+    log(f"{tag} the path's launches (every step above): {path}")
+    return rec
+
+
 def urllib_get(url: str, timeout: float = 60.0) -> bytes:
     import urllib.request
 
@@ -4212,6 +4530,7 @@ def main() -> int:
 
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
+    diffused = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "long"} & set(phases)
     if need_chain:
@@ -4272,6 +4591,10 @@ def main() -> int:
         # first call of each span, counts reset just before each and read
         # just after (the decode and the VAD launch none)
         heard = phase_transcribe(dev, card)["launches"]
+    if "diffusion" in phases:
+        # this slice's path: every step of the phase, counts reset just
+        # before each and read just after (it launches none of K1-K7)
+        diffused = phase_diffusion(dev, card, profile_dir=args.profile)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -4285,6 +4608,7 @@ def main() -> int:
            "engines_launches": None if engines is None else engines[r["kernel"]],
            "chatterbox_launches": None if chatter is None else chatter[r["kernel"]],
            "transcribe_launches": None if heard is None else heard[r["kernel"]],
+           "diffusion_launches": None if diffused is None else diffused[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),

@@ -26,6 +26,7 @@ from audiolab_tpu.utils.convert import convert_chatterbox_t3, convert_voice_enco
 from audiolab_tpu_torch.models import chatterbox_t3 as TT3
 from audiolab_tpu_torch.pipelines import tts as TT
 from tests import torch_port_tiny as tiny
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _close(out, ref, rel):

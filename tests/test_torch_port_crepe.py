@@ -27,6 +27,7 @@ from audiolab_tpu_torch.models import crepe as TCr
 from audiolab_tpu_torch.pipelines import rvc as TP
 from audiolab_tpu_torch.utils import weights as W
 from tests import torch_port_tiny as tiny
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 SR = 16000
 

@@ -1764,3 +1764,68 @@ def test_pyannet_on_the_card_matches_the_cpu(cuda_device):
     (lp_c, r_c), (lp_h, r_h) = out["cuda"], out["cpu"]
     assert (lp_c - lp_h).abs().max() <= 1e-5 * lp_h.abs().max()
     assert r_c == r_h
+
+
+def test_wavegrad_sample_and_gradients_on_the_card_match_the_cpu(cuda_device):
+    """WaveGrad at WaveGradConfig()'s widths on two chunks of 8 frames:
+    FAST_6's sample under the same draws within 1e-3 of max|out| (its noise
+    levels are near 1, where the level's Fourier features sin(5000 s f) move
+    by up to 6e-4 with a 1-ulp difference of fp32 exp in f); at noise levels
+    up to 0.01, where those features are well conditioned, the L1 loss
+    within 1e-5 and each gradient within 1e-4 of its tensor's max|g|; no
+    kernel launched."""
+    from audiolab_tpu_torch.core.device import resolve_device
+    from audiolab_tpu_torch.models import wavegrad as WG
+
+    model = _seeded_built(lambda: WG.WaveGrad(WG.WaveGradConfig()), 5, 0.02)
+    g = torch.Generator().manual_seed(6)
+    mel = torch.randn(2, 8, 128, generator=g)
+    audio = 0.3 * torch.randn(2, 2400, generator=g)
+    scale, eps = 0.01 * torch.rand(2, generator=g), torch.randn(2, 2400, generator=g)
+    draws = WG.sample_draws(6, 2, 2400, 7, torch.device("cpu"))
+    out, grads = {}, {}
+    for dev in ("cpu", cuda_device):
+        dev = resolve_device(dev)            # the precision policy, as train_model applies it
+        model = model.to(dev)
+        TA.reset_launch_counts()
+        out[str(dev)] = WG.sample(model, mel.to(dev), WG.FAST_6, draws=draws.to(dev)).cpu()
+        model.zero_grad()
+        loss = WG.diffusion_loss(model, audio.to(dev), mel.to(dev), scale.to(dev), eps.to(dev))
+        loss.backward()
+        grads[str(dev)] = (loss.item(), {k: p.grad.detach().cpu().clone()
+                                         for k, p in model.named_parameters()})
+        assert TA.flash_attention_fwd.launches == 0
+    assert (out["cuda"] - out["cpu"]).abs().max() <= 1e-3 * out["cpu"].abs().max()
+    (l_c, g_c), (l_h, g_h) = grads["cuda"], grads["cpu"]
+    assert abs(l_c - l_h) <= 1e-5 * abs(l_h)
+    errs = {k: float((g_c[k] - ref).abs().max() / ref.abs().max()) for k, ref in g_h.items()}
+    assert max(errs.values()) <= 1e-4, sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+
+
+def test_audiosr_pipeline_on_the_card_matches_the_cpu(cuda_device):
+    """The AudioSR stack at narrow widths (UNet model 64 x (1, 2) with
+    attention at rate 2, VAE ch 32 x (1, 2), vocoder 64 channels, 16 mels):
+    enhance_chunks with 3 guided DDIM steps from the same starting latent on
+    (1, 2, 9000) chunks within 1e-4 of max|out|; no kernel launched."""
+    from audiolab_tpu_torch.models.audiosr_unet import AudioSRUNet, AudioSRUNetConfig
+    from audiolab_tpu_torch.models.audiosr_vae import AudioSRVAE
+    from audiolab_tpu_torch.models.audiosr_vocoder import AudioSRVocoder
+    from audiolab_tpu_torch.pipelines.super_res import AudioSRCheckpointPipeline
+
+    unet = _seeded_built(lambda: AudioSRUNet(AudioSRUNetConfig(
+        model_channels=64, num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2))),
+        8, 0.02)
+    vae = _seeded_built(lambda: AudioSRVAE(ch=32, ch_mult=(1, 2), num_res_blocks=1), 9, 0.02)
+    voc = _seeded_built(lambda: AudioSRVocoder(num_mels=16, initial_channel=64), 10, 0.02)
+    g = torch.Generator().manual_seed(11)
+    x = 0.2 * torch.randn(1, 2, 9000, generator=g)
+    z = torch.randn(2, 16, 32, 8, generator=g)           # 19 fbank frames padded to 64
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pipe = AudioSRCheckpointPipeline(vae.to(dev), unet.to(dev), voc.to(dev),
+                                         scale_factor=0.7, n_mels=16)
+        TA.reset_launch_counts()
+        out[str(dev)] = pipe.enhance_chunks(x.to(dev), steps=3, z=z.to(dev)).cpu()
+        assert TA.flash_attention_fwd.launches == 0
+    assert out["cuda"].shape == x.shape
+    assert (out["cuda"] - out["cpu"]).abs().max() <= 1e-4 * out["cpu"].abs().max()

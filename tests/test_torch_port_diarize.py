@@ -23,6 +23,7 @@ from audiolab_tpu_torch.models import diarize as TD
 from audiolab_tpu_torch.pipelines import cloning as TCl
 from audiolab_tpu_torch.utils import weights as W
 from tests import torch_port_tiny as tiny
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = dict(n_mels=32, hidden=16, emb_dim=12, chunk_s=2.0, chunk_hop_s=1.0, min_turn_s=0.1,
            cluster_threshold=0.03)

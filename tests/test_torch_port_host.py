@@ -18,6 +18,7 @@ from audiolab_tpu_torch.kernels.resample import resample_poly_np
 from audiolab_tpu_torch.pipelines import rvc as TP
 from audiolab_tpu_torch.retrieval import index as TI
 from tests import torch_port_tiny as tiny
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("rates", [(44100, 16000), (16000, 48000), (48000, 48000)])

@@ -29,6 +29,7 @@ from audiolab_tpu_torch.models import rmvpe as TRm
 from audiolab_tpu_torch.models.rvc import synthesizer as TSy
 from audiolab_tpu_torch.pipelines import rvc as TP
 from audiolab_tpu_torch.pipelines import separate as TSep
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "audiolab_tpu")
@@ -448,3 +449,33 @@ def test_listening_entry_points_default_to_the_card(no_cuda):
     assert phoneme_features(x, 16000, rtla, device="cpu").shape[0] == 4
     assert chroma_features(x, 16000, device="cpu").shape[1] == 12
     assert align_take(x, x, 16000, words, words, device="cpu")[0].shape == x.shape
+
+
+def test_diffusion_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """train_model, generate, load_ema, train_superres and load_enhancer
+    default to the card and raise without one; each runs on the CPU when
+    asked (a two-step training of a tiny WaveGrad, then the loaders)."""
+    from audiolab_tpu_torch.core.audio_io import write_wav
+    from audiolab_tpu_torch.models.wavegrad import WaveGradConfig
+    from audiolab_tpu_torch.train import super_res as SRT
+    from audiolab_tpu_torch.train import wavetransfer as WT
+
+    mc = WaveGradConfig(n_mels=8, hop=12, factors=(3, 2, 2), ublock_ch=(8, 8, 8),
+                        dblock_ch=(4, 8), base_ch=4)
+    wt = WT.WTConfig(sr=8000, n_mels=8, seg_frames=48, batch_size=2, steps=2, ckpt_every=2,
+                     model=mc)
+    cfg = SRT.SRTrainConfig(wt=wt, cutoff_lo_hz=800.0, cutoff_hi_hz=1500.0)
+    write_wav(tmp_path / "a.wav", 0.1 * np.sin(np.arange(4000) * 0.3).astype(np.float32), 8000)
+    ckpt = str(tmp_path / "ckpt")
+    for call in (lambda: WT.train_model(str(tmp_path), wt), lambda: WT.load_ema(ckpt, mc),
+                 lambda: WT.generate(str(tmp_path), np.zeros(800, np.float32), 8000, wt),
+                 lambda: SRT.train_superres(str(tmp_path), cfg),
+                 lambda: SRT.load_enhancer(str(tmp_path), cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert SRT.train_superres(str(tmp_path), cfg, device="cpu")["steps"] == 2
+    assert next(WT.load_ema(ckpt, mc, device="cpu").parameters()).device.type == "cpu"
+    y, sr = WT.generate(str(tmp_path), np.zeros(800, np.float32), 8000, wt, device="cpu")
+    assert sr == 8000 and y.shape == (800,)
+    out = SRT.load_enhancer(str(tmp_path), cfg, device="cpu")(torch.zeros(1, 2, 600))
+    assert out.shape == (1, 2, 600)

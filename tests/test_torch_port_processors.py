@@ -34,6 +34,7 @@ from audiolab_tpu_torch.pipelines.processors import separate as TSepProc
 from audiolab_tpu_torch.utils.daw import detect_bpm
 from tests import test_torch_port_chain as chain_parity
 from tests.test_torch_port_rvc import _mel_l1, _Noise
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 PORTED = ("Separate", "Clone", "Export", "Merge", "Remaster", "Super Resolution", "Convert",
           "Compare")

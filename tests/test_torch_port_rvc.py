@@ -29,6 +29,7 @@ from audiolab_tpu_torch.models.rvc import synthesizer as TSy
 from audiolab_tpu_torch.pipelines import rvc as TP
 from audiolab_tpu_torch.retrieval.index import knn_blend
 from audiolab_tpu_torch.utils import weights as W
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 HCFG = dict(dim=32, ffn_dim=64, heads=4, layers=2, final_dim=16)
 RM_SIZES = dict(en_de_layers=2, inter_layers=1, n_blocks=1, en_out_channels=4, gru_hidden=8)

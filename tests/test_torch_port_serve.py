@@ -27,6 +27,7 @@ from audiolab_tpu_torch.core.audio_io import read_wav, write_wav
 from audiolab_tpu_torch.serve import rvc_api
 from audiolab_tpu_torch.serve.api import create_app
 from audiolab_tpu_torch.serve.http import serve_background
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PCM16 = 1.0 / 32767.0 + 1e-6   # one 16-bit step: see test_torch_port_processors

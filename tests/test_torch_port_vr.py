@@ -20,6 +20,7 @@ from audiolab_tpu_torch.models.separation import vr as TV
 from audiolab_tpu_torch.models.separation import vr_bands as TB
 from audiolab_tpu_torch.pipelines import separate as TSep
 from audiolab_tpu_torch.utils.weights import vr_from_jax
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = {
     "cascaded_asppnet": dict(arch="cascaded_asppnet", ch=4, dilations=(1, 2, 3)),

@@ -14,6 +14,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from audiolab_tpu.models import codecs as JC
@@ -58,6 +59,17 @@ DAC = dict(dim=16, rates=(8, 8, 4, 2), n_q=3, codebook_size=34, codebook_dim=8,
 SYNTH = dict(spec_channels=129, segment_size=3840, inter_channels=16, hidden_channels=16,
              filter_channels=32, n_heads=2, n_layers=1, upsample_initial_channel=32,
              spk_embed_dim=4, gin_channels=16, sr=48000, feat_channels=32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side on one CPU thread (imported by a test module, it is
+    autouse there): its small convolutions, recurrences and attention ops
+    run fastest so, and the suite's workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def seeded(make, seed: int, scale: float = 0.1) -> torch.nn.Module:
@@ -622,3 +634,78 @@ def transcriber_pair(jax_kw: dict | None = None, port_kw: dict | None = None):
     j = JT.Transcriber(cfg, p, **(jax_kw or {}))
     j.model = Jitted(j.model)
     return j, TT.Transcriber(tm, device="cpu", **(port_kw or {}))
+
+
+# WaveGrad at test width: DBlock strides 2, 2, 3 and UBlock factors 5, 3, 2, 2
+WAVEGRAD = dict(n_mels=16, hop=60, factors=(5, 3, 2, 2), ublock_ch=(16, 16, 8, 8),
+                dblock_ch=(8, 8, 16), base_ch=4)
+
+
+@functools.lru_cache(maxsize=None)
+def wavegrad(seed: int = 60):
+    """(JAX WaveGrad, flax template, flax params from :func:`filled`, port
+    WaveGrad) at WAVEGRAD."""
+    from audiolab_tpu.models import wavegrad as JWG
+    from audiolab_tpu_torch.models import wavegrad as TWG
+
+    jm = JWG.WaveGrad(JWG.WaveGradConfig(**WAVEGRAD))
+    tpl = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 240)),
+                                         jnp.zeros((1, 4, 16)), jnp.ones((1,))))["params"]
+    p = filled(tpl, seed)
+    return jm, tpl, p, _load(TWG.WaveGrad(TWG.WaveGradConfig(**WAVEGRAD)),
+                             W.wavegrad_from_jax(p))
+
+
+def jax_sample_draws(key, steps: int, b: int, n: int) -> np.ndarray:
+    """The JAX ``sample``'s draws for ``key`` in the port's (steps + 1, b, n)
+    layout: the start from ``key``, step i's noise from ``fold_in(key, i)``."""
+    return np.stack([np.asarray(jax.random.normal(key, (b, n)))]
+                    + [np.asarray(jax.random.normal(jax.random.fold_in(key, i), (b, n)))
+                       for i in range(steps)])
+
+
+def jax_loss_draws(key, b: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The JAX ``diffusion_loss``'s (noise level (b,), eps (b, n)) for ``key``."""
+    from audiolab_tpu.models import wavegrad as JWG
+
+    k1, k2 = jax.random.split(key)
+    return (np.asarray(JWG.sample_noise_level(k1, b)),
+            np.asarray(jax.random.normal(k2, (b, n))))
+
+
+# the AudioSR stack at test width (GroupNorm's 32 groups bound the channels)
+AUDIOSR_UNET = dict(in_channels=8, model_channels=32, out_channels=4, num_res_blocks=1,
+                    attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=32)
+AUDIOSR_VAE = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=4, embed_dim=4)
+AUDIOSR_VOCODER = dict(num_mels=16, initial_channel=64, resblock_kernels=(3, 7),
+                       resblock_dilations=((1, 3, 5),) * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def audiosr(seed: int = 61):
+    """{"unet" | "vae" | "vocoder": (JAX module, flax template, flax params,
+    port module)} at the AUDIOSR_* widths."""
+    from audiolab_tpu.models import audiosr_unet as JU
+    from audiolab_tpu.models import audiosr_vae as JV
+    from audiolab_tpu.models import audiosr_vocoder as JVo
+    from audiolab_tpu_torch.models import audiosr_unet as TU
+    from audiolab_tpu_torch.models import audiosr_vae as TV
+    from audiolab_tpu_torch.models import audiosr_vocoder as TVo
+
+    out = {}
+    ju = JU.AudioSRUNet(JU.AudioSRUNetConfig(**AUDIOSR_UNET))
+    tpl = jax.eval_shape(lambda: ju.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 8)),
+                                         jnp.zeros((1,))))["params"]
+    p = filled(tpl, seed)
+    ucfg = TU.AudioSRUNetConfig(**AUDIOSR_UNET)
+    out["unet"] = (ju, tpl, p, _load(TU.AudioSRUNet(ucfg), W.audiosr_unet_from_jax(p, ucfg)))
+    jv = JV.AudioSRVAE(**AUDIOSR_VAE)
+    tpl = jax.eval_shape(lambda: jv.init(jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 1))))["params"]
+    p = filled(tpl, seed + 1)
+    out["vae"] = (jv, tpl, p, _load(TV.AudioSRVAE(**AUDIOSR_VAE), W.audiosr_vae_from_jax(p)))
+    jo = JVo.AudioSRVocoder(**AUDIOSR_VOCODER)
+    tpl = jax.eval_shape(lambda: jo.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 16))))["params"]
+    p = filled(tpl, seed + 2)
+    out["vocoder"] = (jo, tpl, p, _load(TVo.AudioSRVocoder(**AUDIOSR_VOCODER),
+                                        W.audiosr_vocoder_from_jax(p)))
+    return out

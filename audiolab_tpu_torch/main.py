@@ -10,9 +10,10 @@ processors run their DSP on ``--device``, which defaults to the card and
 fails without one.  Models are injected through the processors'
 ``configure`` by a caller that has weights.  ``--demo-backends`` registers
 a random-weight Zonos as the "zonos" TTS engine, the random XTTS as "coqui",
-the random Chatterbox as "chatterbox" and the random Whisper transcriber as
-"whisper" on ``--device``, as the JAX server does, and names the engines the
-port does not have yet.
+the random Chatterbox as "chatterbox", the random Whisper transcriber as
+"whisper", and the random Stable Audio and ACE-Step as the "stable_audio"
+and "acestep" music backends on ``--device``, as the JAX server does, and
+names the engines the port does not have yet.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from http.server import ThreadingHTTPServer
 
 # the JAX server's demo engines the port has no model for yet, by ROADMAP
 # queue 1 item
-MISSING_DEMO_BACKENDS = {"18 (music)": ("stable_audio", "acestep", "yue")}
+MISSING_DEMO_BACKENDS = {"18c (YuE)": ("yue",)}
 
 
 def setup_logging() -> None:
@@ -41,18 +42,23 @@ def setup_logging() -> None:
 def register_demo_backends(device: str, log: logging.Logger) -> None:
     """Register the random-weight demo engines the port has (Zonos as
     "zonos", the XTTS engine as "coqui", Chatterbox as "chatterbox", the
-    Whisper transcriber as "whisper", on ``device``) and log the ones it does
-    not have yet."""
+    Whisper transcriber as "whisper", Stable Audio as "stable_audio" and
+    ACE-Step as "acestep", on ``device``) and log the ones it does not have
+    yet."""
+    from audiolab_tpu_torch.pipelines.acestep import random_acestep
+    from audiolab_tpu_torch.pipelines.music import random_stable_audio
     from audiolab_tpu_torch.pipelines.transcribe import random_transcriber
     from audiolab_tpu_torch.pipelines.tts import random_chatterbox, random_xtts, random_zonos
-    from audiolab_tpu_torch.serve import transcribe_api, tts_api
+    from audiolab_tpu_torch.serve import music_api, transcribe_api, tts_api
 
-    log.info("loading demo (random-weight) backends on %s: zonos, coqui, chatterbox, whisper",
-             device)
+    log.info("loading demo (random-weight) backends on %s: zonos, coqui, chatterbox, "
+             "whisper, stable_audio, acestep", device)
     tts_api.register_backend("zonos", random_zonos(device=device))
     tts_api.register_backend("coqui", random_xtts(device=device))
     tts_api.register_backend("chatterbox", random_chatterbox(device=device))
     transcribe_api.register_backend("whisper", random_transcriber(device=device))
+    music_api.register_backend("stable_audio", random_stable_audio(device=device))
+    music_api.register_backend("acestep", random_acestep(device=device))
     log.warning("--demo-backends: the port has no model yet for %s",
                 "; ".join(f"{', '.join(names)} (ROADMAP queue 1, item {item})"
                           for item, names in MISSING_DEMO_BACKENDS.items()))
@@ -67,8 +73,8 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument(
         "--demo-backends", action="store_true",
         help="register random-weight generation backends (the port has the zonos, coqui "
-             "and chatterbox TTS engines and the whisper transcriber; the others are "
-             "logged as missing)")
+             "and chatterbox TTS engines, the whisper transcriber and the stable_audio "
+             "and acestep music backends; yue is logged as missing)")
     parser.add_argument("--device", default="cuda",
                         help="where the processors run (default: the card)")
     args = parser.parse_args(argv)

@@ -1,5 +1,6 @@
-"""The DAC decoder that turns Zonos's 9-codebook tokens into 44.1 kHz audio
-(counterpart of audiolab_tpu/models/codecs.py:29-41,223-292).
+"""The DAC decoder that turns Zonos's 9-codebook tokens into 44.1 kHz audio,
+and the Vocos iSTFT vocoder behind ACE-Step (counterpart of
+audiolab_tpu/models/codecs.py:29-41,223-360).
 
 Parameter names are descript-audio-codec's (``quantizer.quantizers.N`` and
 ``decoder.model.N``), the names ``convert_dac`` maps; weight-normed
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from audiolab_tpu_torch.kernels.stft import istft
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -157,3 +160,66 @@ class DACDecoder(nn.Module):
         for layer in self.decoder.model:
             h = layer(h)
         return torch.tanh(h)[:, 0]
+
+
+# ------------------------------------------------------------ Vocos (iSTFT head)
+
+@dataclass(frozen=True)
+class VocosConfig:
+    dim: int = 512
+    n_layers: int = 8
+    ffn_mult: int = 3
+    n_fft: int = 1024
+    hop: int = 256
+
+
+class ConvNeXtBlock(nn.Module):
+    """Depthwise Conv(7) -> LayerNorm (eps 1e-6) -> Linear -> tanh GELU ->
+    Linear, scaled by ``gamma``, residual; on (b, t, dim)."""
+
+    def __init__(self, dim: int, ffn_mult: int = 3):
+        super().__init__()
+        self.dwconv = nn.Conv1d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = nn.LayerNorm(dim, eps=1e-6)
+        self.pwconv1 = nn.Linear(dim, dim * ffn_mult)
+        self.pwconv2 = nn.Linear(dim * ffn_mult, dim)
+        self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.dwconv(x.transpose(1, 2)).transpose(1, 2)
+        h = self.pwconv2(F.gelu(self.pwconv1(self.norm(h)), approximate="tanh"))
+        return x + self.gamma * h
+
+
+class Vocos(nn.Module):
+    """ConvNeXt trunk -> (log magnitude, phase) -> ``kernels/stft.py::istft``
+    (the JAX module's iDFT matmul, overlap-add and n_fft // 2 crops): latents
+    (b, t, in_dim) -> audio (b, t * hop).  Names are charactr/vocos'
+    (``backbone.embed``, ``backbone.norm``, ``backbone.convnext.N``,
+    ``backbone.final_layer_norm``, ``head.out``), the names ``convert_vocos``
+    maps.  The magnitude is exp of the log magnitude clipped at 12, then
+    clipped at 1e2, as the JAX module computes it."""
+
+    def __init__(self, cfg: VocosConfig = VocosConfig(), in_dim: int | None = None):
+        super().__init__()
+        c = cfg
+        self.cfg = c
+        self.backbone = nn.Module()
+        self.backbone.embed = nn.Conv1d(in_dim or c.dim, c.dim, 7, padding=3)
+        self.backbone.norm = nn.LayerNorm(c.dim, eps=1e-6)
+        self.backbone.convnext = nn.ModuleList(ConvNeXtBlock(c.dim, c.ffn_mult)
+                                               for _ in range(c.n_layers))
+        self.backbone.final_layer_norm = nn.LayerNorm(c.dim, eps=1e-6)
+        self.head = nn.Module()
+        self.head.out = nn.Linear(c.dim, 2 * (c.n_fft // 2 + 1))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        c, bb = self.cfg, self.backbone
+        h = bb.norm(bb.embed(z.transpose(1, 2)).transpose(1, 2))
+        for block in bb.convnext:
+            h = block(h)
+        out = self.head.out(bb.final_layer_norm(h)).float()
+        logmag, phase = torch.chunk(out, 2, dim=-1)
+        mag = torch.clamp(torch.exp(torch.clamp(logmag, max=12.0)), max=1e2)
+        return istft(mag * torch.cos(phase), mag * torch.sin(phase), c.n_fft, c.hop,
+                     center=True)

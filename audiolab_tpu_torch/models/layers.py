@@ -40,10 +40,16 @@ class Pins:
       in.  The replay keeps the largest difference from its own
       (``phase_err``, cycles) and the recorded phases' length and largest
       value (``phase_n``, ``phase_max``) for the caller's bound.
+    - ``phasor``: the direction X / |X| of each STFT bin of the generated
+      audio in the training mel loss, the factor the loss's gradient takes
+      through the magnitude.  At bins with |X| near 0 it is set by the
+      rounding of the bin's real and imaginary parts, and the fp32 step
+      then sits up to 1.5e-4 of a weight gradient's max|g| from the fp64
+      one, by the order the device (or the CPU's thread count) sums in.
     """
 
     def __init__(self):
-        self.values: dict[str, list[torch.Tensor]] = {"side": [], "phase": []}
+        self.values: dict[str, list[torch.Tensor]] = {"side": [], "phase": [], "phasor": []}
         self.replayed: dict[str, int] | None = None
         self.flips, self.phase_err = 0, 0.0
         self.phase_n, self.phase_max = 0, 0.0
@@ -59,7 +65,7 @@ class Pins:
         self.replayed[kind] += 1
         if kind == "side":
             self.flips += int((ref != value).sum())
-        else:
+        elif kind == "phase":
             self.phase_err = max(self.phase_err, float((ref - value).abs().max()))
         return ref
 
@@ -79,6 +85,11 @@ def pinned(pins: Pins, replay: bool = False):
     if replay and any(pins.replayed[k] != len(v) for k, v in pins.values.items()):
         raise RuntimeError(f"replayed {pins.replayed} of "
                            f"{ {k: len(v) for k, v in pins.values.items()} }")
+
+
+def pinning() -> bool:
+    """Whether a :func:`pinned` block is recording or replaying."""
+    return _PINS.get() is not None
 
 
 def pin(kind: str, value: torch.Tensor) -> torch.Tensor:

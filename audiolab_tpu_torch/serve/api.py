@@ -13,10 +13,11 @@ clone endpoints the port has (RVC training among them), the TTS and
 transcription routes (serve/tts_api.py, serve/transcribe_api.py: a backend
 that is not loaded answers 501), multi-take alignment (serve/align_api.py),
 WaveTransfer projects, training and generation (serve/wavetransfer_api.py),
+music generation by Stable Audio and ACE-Step (serve/music_api.py),
 /openapi.json and the web UI.  Routes whose models the port does not have
-yet (music) are not registered and answer 404.  Processor, TTS,
-transcription, alignment and WaveTransfer runs hold the inference lock: one
-request at a time on the card.
+yet (YuE, ACE-Step's LoRA) are not registered and answer 404.  Processor,
+TTS, transcription, alignment, WaveTransfer and music runs hold the
+inference lock: one request at a time on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from audiolab_tpu_torch.pipelines.chain import run_chain
 from audiolab_tpu_torch.serve import (
     align_api,
     clone_api,
+    music_api,
     rvc_api,
     transcribe_api,
     tts_api,
@@ -127,6 +129,9 @@ def create_app(output_root: str = "outputs/process",
     transcribe_api.register(router)
     # multi-take alignment (layouts/align.py)
     align_api.register(router, dev)
+    # music generation: Stable Audio and ACE-Step (layouts/stable_audio.py,
+    # layouts/acestep.py)
+    music_api.register(router)
     # WaveTransfer project training and inference (layouts/wavetransfer.py)
     wavetransfer_api.register(
         router, os.path.join(os.path.dirname(output_root), "wavetransfer"), dev)

@@ -5,7 +5,9 @@ metrics and every gradient compared.
 The reference step records the values where fp32 evaluation is
 ill-conditioned and the step under test replays them
 (``models.layers.Pins``): which side of its kink every leaky ReLU input
-took, and the NSF excitation's phase.  Without that the comparison is
+took, the NSF excitation's phase, and the direction X / |X| of each STFT
+bin in the mel loss (whose gradient goes through the magnitude; at a bin
+near 0 the direction is the rounding's).  Without that the comparison is
 ill-posed.  One leaky ReLU input within rounding of 0 takes the other
 slope and moves a weight gradient summed over a few thousand positions by
 a percent of its max|g|: the v2-48k step on the H100 read 1.8e-02 from an

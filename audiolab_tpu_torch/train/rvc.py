@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from audiolab_tpu_torch.core.device import resolve_device
-from audiolab_tpu_torch.kernels.mel import log_mel, mel_spectrogram
+from audiolab_tpu_torch.kernels.mel import log_mel, mel_filterbank, mel_spectrogram
+from audiolab_tpu_torch.kernels.stft import stft
+from audiolab_tpu_torch.models.layers import pin, pinning
 from audiolab_tpu_torch.models.rvc.discriminator import MultiPeriodDiscriminatorV2
 from audiolab_tpu_torch.models.rvc.synthesizer import (
     SynthesizerConfig,
@@ -44,11 +46,24 @@ MEL_CFG = {
 
 
 def _mel(wav: torch.Tensor, sr: int) -> torch.Tensor:
+    """The loss's log mel of ``wav`` (``mel_spectrogram`` with power 1).
+    Inside :func:`pinned` its magnitude sqrt(re^2 + im^2 + eps) is written
+    as its value plus a term of value 0 whose gradient is the magnitude's
+    own, (re, im) / |X|, taken through :func:`pin` ("phasor"), so that a step
+    held against a reference replays the reference's directions
+    (``models.layers.Pins``); the value and the gradient are the same."""
     m = MEL_CFG[sr]
-    return log_mel(mel_spectrogram(
-        wav, sr=sr, n_fft=m["n_fft"], hop=m["hop"], win_length=m["win_length"],
-        n_mels=m["n_mels"], fmin=0.0, fmax=None, norm="slaney", htk=False, power=1.0,
-        center=False))
+    if not pinning():
+        return log_mel(mel_spectrogram(
+            wav, sr=sr, n_fft=m["n_fft"], hop=m["hop"], win_length=m["win_length"],
+            n_mels=m["n_mels"], fmin=0.0, fmax=None, norm="slaney", htk=False, power=1.0,
+            center=False))
+    re, im = stft(wav, m["n_fft"], m["hop"], m["win_length"], "hann", False)
+    mag = torch.sqrt(re * re + im * im + 1e-9)
+    u = pin("phasor", torch.stack([re, im]).detach() / mag.detach())
+    mag = mag.detach() + (re - re.detach()) * u[0] + (im - im.detach()) * u[1]
+    fb = mel_filterbank(sr, m["n_fft"], m["n_mels"], 0.0, None, False, "slaney")
+    return log_mel(mag @ torch.from_numpy(fb).to(mag.device, mag.dtype))
 
 
 class DecayedAdamW(torch.optim.AdamW):

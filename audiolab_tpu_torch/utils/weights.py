@@ -1600,3 +1600,166 @@ def audiosr_vocoder_from_jax(params: dict) -> dict:
                 _conv1d(sd, f"{key}.convs1.{d}", res[f"c1_{d}"])
                 _conv1d(sd, f"{key}.convs2.{d}", res[f"c2_{d}"])
     return sd
+
+
+# ------------------------------------------------ music: DiT, Stable Audio, ACE-Step
+
+def _flax_walk(sd: dict, key: str, node, conv_t: tuple = ()) -> None:
+    """A flax tree under its names joined by ``.``: Dense and Conv kernels
+    (transposed convolutions where the module name starts with one of
+    ``conv_t``), norms' scale and bias as weight and bias, embeddings, and
+    ``MultiHeadDotProductAttention``'s (dim, heads, head_dim) query, key and
+    value and (heads, head_dim, dim) ``out`` as Linears over heads * head_dim.
+    A Snake's (ch,) ``alpha`` becomes the port's (1, ch, 1); other leaves are
+    taken as they are."""
+    leaf = key.rsplit(".", 1)[-1]
+    if "kernel" in node:
+        k = np.asarray(node["kernel"])
+        if leaf in ("query", "key", "value"):
+            sd[f"{key}.weight"] = _t(k.reshape(k.shape[0], -1).T)
+            sd[f"{key}.bias"] = _t(np.asarray(node["bias"]).reshape(-1))
+        elif leaf == "out" and k.ndim == 3:
+            sd[f"{key}.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
+            sd[f"{key}.bias"] = _t(node["bias"])
+        elif k.ndim == 3:
+            (_conv_t1d if leaf.startswith(conv_t) else _conv1d)(sd, key, node)
+        else:
+            _dense(sd, key, node)
+        return
+    if "scale" in node:
+        _norm(sd, key, node)
+        return
+    if "embedding" in node:
+        sd[f"{key}.weight"] = _t(node["embedding"])
+        return
+    for name, child in node.items():
+        sub = f"{key}.{name}" if key else name
+        if isinstance(child, dict):
+            _flax_walk(sd, sub, child, conv_t)
+        else:
+            arr = np.asarray(child)
+            sd[sub] = _t(arr.reshape(1, -1, 1) if name == "alpha" else arr)
+
+
+def dit_from_jax(params: dict) -> dict:
+    """DiT flax params -> port state_dict (the flax names: the in-repo DiT has
+    no upstream checkpoint layout)."""
+    sd: dict = {}
+    _flax_walk(sd, "", params)
+    return sd
+
+
+def stable_audio_from_jax(params: dict) -> dict:
+    """StableAudioModel flax params -> port state_dict (the flax names; the
+    decoder's ``up_N`` are transposed convolutions)."""
+    sd: dict = {}
+    _flax_walk(sd, "", params, conv_t=("up_",))
+    return sd
+
+
+def acestep_from_jax(params: dict) -> dict:
+    """ACEStepModel flax params -> port state_dict (the flax names; the DCAE
+    decoder's ``up_N`` are transposed convolutions)."""
+    sd: dict = {}
+    _flax_walk(sd, "", params, conv_t=("up_",))
+    return sd
+
+
+def t5_from_jax(params: dict) -> dict:
+    """T5Encoder flax params -> port state_dict (transformers'
+    ``T5EncoderModel`` names, the inverse of ``t5_mapping``)."""
+    sd: dict = {"shared.weight": _t(params["emb"]["embedding"]),
+                "encoder.final_layer_norm.weight": _t(params["final_ln"]["weight"])}
+    for i in range(_count(params, "attn_")):
+        b = f"encoder.block.{i}.layer"
+        rel = params.get(f"rel_bias_{i}") or (params.get("rel_bias") if i == 0 else None)
+        if rel is not None:
+            sd[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = _t(rel["embedding"])
+        sd[f"{b}.0.layer_norm.weight"] = _t(params[f"ln1_{i}"]["weight"])
+        sd[f"{b}.1.layer_norm.weight"] = _t(params[f"ln2_{i}"]["weight"])
+        for p in ("q", "k", "v", "o"):
+            _dense(sd, f"{b}.0.SelfAttention.{p}", params[f"attn_{i}"][p])
+        for name, node in params[f"ffn_{i}"].items():
+            _dense(sd, f"{b}.1.DenseReluDense.{name}", node)
+    return sd
+
+
+def number_embedder_from_jax(params: dict) -> dict:
+    """NumberEmbedder flax params -> port state_dict (the stable-audio
+    checkpoint's ``embedding.0.weights``, ``embedding.1``)."""
+    sd: dict = {"embedding.0.weights": _t(params["fourier_w"])}
+    _dense(sd, "embedding.1", params["proj"])
+    return sd
+
+
+def sao_dit_from_jax(params: dict) -> dict:
+    """StableAudioDiT flax params -> port state_dict (stable_audio_tools'
+    names, the inverse of ``sao_dit_mapping``; the gamma-only norms' zero
+    ``beta`` buffers included)."""
+    sd: dict = {"timestep_features.weight": _t(params["timestep_w"])}
+    for ours, theirs in (("t1", "to_timestep_embed.0"), ("t2", "to_timestep_embed.2"),
+                         ("c1", "to_cond_embed.0"), ("c2", "to_cond_embed.2"),
+                         ("g1", "to_global_embed.0"), ("g2", "to_global_embed.2"),
+                         ("project_in", "transformer.project_in"),
+                         ("project_out", "transformer.project_out")):
+        _dense(sd, theirs, params[ours])
+    for name in ("preprocess_conv", "postprocess_conv"):
+        sd[f"{name}.weight"] = _t(np.asarray(params[name]["kernel"]).T[:, :, None])
+    for i in range(_count(params, "layer_")):
+        p, b = params[f"layer_{i}"], f"transformer.layers.{i}"
+        for norm in ("pre_norm", "cross_attend_norm", "ff_norm"):
+            gamma = np.asarray(p[norm]["ln"]["scale"])
+            sd[f"{b}.{norm}.gamma"] = _t(gamma)
+            sd[f"{b}.{norm}.beta"] = torch.zeros(gamma.shape)
+        _dense(sd, f"{b}.self_attn.to_qkv", p["self_attn"]["to_qkv"])
+        _dense(sd, f"{b}.self_attn.to_out", p["self_attn"]["to_out"])
+        for n in ("to_q", "to_kv", "to_out"):
+            _dense(sd, f"{b}.cross_attn.{n}", p["cross_attn"][n])
+        _dense(sd, f"{b}.ff.ff.0.proj", p["ff"]["proj"])
+        _dense(sd, f"{b}.ff.ff.2", p["ff"]["out"])
+    return sd
+
+
+def sao_oobleck_from_jax(params: dict) -> dict:
+    """The checkpoint OobleckDecoder's flax params -> port state_dict
+    (stable_audio_tools' ``layers.N`` names, the inverse of
+    ``oobleck_mapping``)."""
+    sd: dict = {}
+
+    def snake(key, node):
+        sd[f"{key}.alpha"] = _t(node["alpha"])
+        sd[f"{key}.beta"] = _t(node["beta"])
+
+    _conv1d(sd, "layers.0", params["conv_in"])
+    n = _count(params, "up_snake_")
+    for bi in range(n):
+        blk = f"layers.{1 + bi}.layers"
+        snake(f"{blk}.0", params[f"up_snake_{bi}"])
+        _conv_t1d(sd, f"{blk}.1", params[f"up_{bi}"])
+        for j in range(3):
+            res, node = f"{blk}.{2 + j}.layers", params[f"res_{bi}_{j}"]
+            snake(f"{res}.0", node["s1"])
+            _conv1d(sd, f"{res}.1", node["c1"])
+            snake(f"{res}.2", node["s2"])
+            _conv1d(sd, f"{res}.3", node["c2"])
+    snake(f"layers.{1 + n}", params["snake_out"])
+    _conv1d(sd, f"layers.{2 + n}", params["conv_out"])
+    return sd
+
+
+def vocos_from_jax(params: dict) -> dict:
+    """Vocos flax params -> port state_dict (charactr/vocos' names, the
+    inverse of ``vocos_mapping``)."""
+    sd: dict = {}
+    _conv1d(sd, "backbone.embed", params["embed"])
+    _norm(sd, "backbone.norm", params["norm_in"])
+    for i in range(_count(params, "block_")):
+        p, b = params[f"block_{i}"], f"backbone.convnext.{i}"
+        _conv1d(sd, f"{b}.dwconv", p["dwconv"])
+        _norm(sd, f"{b}.norm", p["norm"])
+        _dense(sd, f"{b}.pwconv1", p["pw1"])
+        _dense(sd, f"{b}.pwconv2", p["pw2"])
+        sd[f"{b}.gamma"] = _t(p["gamma"])
+    _norm(sd, "backbone.final_layer_norm", params["norm_out"])
+    _dense(sd, "head.out", params["head"])
+    return sd

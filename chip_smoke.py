@@ -2,8 +2,9 @@
 holds each against its plain PyTorch version at the main path's shapes,
 drives the separate -> RVC chain, RVC training, Zonos TTS, the speech
 engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription,
-multi-take alignment, WaveTransfer and Super Resolution's learned enhancers
-at full width, and checks the output.
+multi-take alignment, WaveTransfer, Super Resolution's learned enhancers and
+music generation (Stable Audio, ACE-Step) at full width, and checks the
+output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -28,6 +29,9 @@ at full width, and checks the output.
                                                    # generate, BDDM) through its routes,
                                                    # Super Resolution by WaveGrad and by
                                                    # AudioSR at published widths
+    python3 chip_smoke.py --phases card,kernels,music  # stable-audio-open's DiT, T5 and
+                                                   # Oobleck, the in-repo Stable Audio,
+                                                   # ACE-Step, the music routes
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
                                                    # a Dia call, an XTTS-v2 synthesize,
@@ -41,8 +45,10 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              (K2 in fp32 and in bf16, at Zonos's causal fp32 prefill, and at
              Dia's causal fp32 prefill with scale 1.0, d = 64 and 128, and its
              BOS-only t = 1 call, at T3's causal fp32 teacher-forced
-             forward, at the wav2vec2 aligner's spans of 5-30 s and at
-             Whisper's causal uncached decoder forward; every K2 case timed
+             forward, at the wav2vec2 aligner's spans of 5-30 s, at
+             Whisper's causal uncached decoder forward and at the music DiTs'
+             self-attention (fp32 2 x 24 x 1013, bf16 2 x 16 x 1012 and
+             2 x 16 x 323, the bf16 ones on the Hopper route); every K2 case timed
              over 200 launches), K1's
              Hopper design against the WMMA core
              on each axis (in turns); the 16-bit K2 on its Hopper design at
@@ -61,7 +67,10 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              HuBERT, full RMVPE and a 4096 x 768 index; 12 K2 launches
   fidelity   the same RVC input under the fp32 and the bf16 matmul policy:
              mel-L1 < 1e-2 (BASELINE.md's gate, measured as tests/test_fidelity.py),
-             held with retrieval off (see phase_fidelity); the policy's
+             held with retrieval off (see phase_fidelity), and printed with
+             retrieval on over the random index and over an index of
+             well-separated rows (the k-means centres of the track's own
+             HuBERT features plus noise) beside each index's tie margin; the policy's
              convolutions against fp64 (stops above 1e-4 of max|y|), and the
              RVC seconds and mel-L1 with them run two other ways
   f0         convert on the separator's vocals with the f0 methods beside rmvpe:
@@ -203,6 +212,17 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              memory, the UNet and one guided DDIM step card against CPU, the
              Super Resolution route with ckpt_pipeline on 20 s of stereo; no
              kernel launched
+  music      the DiT family at published widths, cut only in sampler steps: (a)
+             StableAudioCheckpointPipeline at stable-audio-open-1.0's geometry
+             (SAO DiT 1536 x 24, fp32; T5-base; the Oobleck decoder) on 47 s,
+             DPM++ 3M SDE, 8 of 100 steps (24 fp32 K2 a guided step); (b) the
+             in-repo Stable Audio (DiT 1024 x 16, bf16) generate_audio on 47 s,
+             8 of 50 steps (16 K2 a step on the Hopper route); (c) ACE-Step at
+             ACEStepConfig() generate on 30 s at its 27 steps and a repaint;
+             each cold and warm with seconds, peak memory, launches and a
+             guided step's milliseconds; (d) POST /api/v1/audio/generate and
+             /api/v1/acestep/generate; (e) card against CPU at 2 layers of
+             each DiT: a forward and one sampler step
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -224,7 +244,7 @@ import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
-          "transcribe", "diffusion")
+          "transcribe", "diffusion", "music")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -594,6 +614,56 @@ def phase_kernels(dev, card: str) -> list[dict]:
         rec.update(case=key, kernel="K2", on_main_path=False, on_transcribe_path=True)
         recs.append(rec)
         del q, k, v
+    # the music path: the DiT family's self-attention at its published
+    # widths (d = 64, not causal): stable-audio-open's fp32 DiT at 47 s (CFG
+    # batch 2 x 24 heads over 1,012 latents and the prepended global token),
+    # the in-repo Stable Audio DiT at 47 s and ACE-Step's at 30 s (bf16, CFG
+    # batch 2 x 16 heads); q and k with fast_init's spread (std 0.02 sqrt(dim))
+    k2_music_tol = ((0.0, 2e-5), "fp32 sums over 1,013 keys in another order")
+    for label, key, qs, dt, sd in (
+            ("K2 flash_attention_fwd (stable-audio-open DiT, 47 s, fp32)", "k2_sao_dit",
+             (2, 24, 1013, 64), torch.float32, 0.78),
+            ("K2 flash_attention_fwd (Stable Audio DiT, 47 s, bf16)", "k2_sa_dit_bf16",
+             (2, 16, 1012, 64), bf, 0.64),
+            ("K2 flash_attention_fwd (ACE-Step DiT, 30 s, bf16)", "k2_ace_dit_bf16",
+             (2, 16, 323, 64), bf, 0.64)):
+        q, k, v = (sd * rnd(qs, torch.float32) for _ in range(3))
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+        fp32 = dt == torch.float32
+        rec = check_kernel(
+            label, lambda q, k, v: A.flash_attention_fwd(q, k, v),
+            lambda q, k, v: A.flash_attention_reference(q, k, v, False, 0.125),
+            sdpa(False), (q, k, v), attention_shape(q, k, False),
+            *(k2_music_tol if fp32 else k1_tol), attention_work(q, k, False),
+            PEAK_FP32 if fp32 else PEAK_BF16, k2_rep, iters=200)
+        expect(hopper_launches(lambda: A.flash_attention_fwd(q, k, v),
+                               A.flash_attention_fwd) == (0 if fp32 else 1),
+               f"{label}: the launch was {'' if fp32 else 'not '}on the Hopper design")
+        rec.update(case=key, kernel="K2", on_main_path=False, on_music_path=True,
+                   k2_route=A.k2_route(qs[0] * qs[1], qs[2], qs[2], 64, dt, False, True))
+        recs.append(rec)
+        del q, k, v
+    # ACE-Step's clips under about 12 s: every key fits one 128-key block, so
+    # the DiT's self-attention takes K1 (the served 10 s request: 108 frames)
+    from audiolab_tpu_torch.models.acestep import ACEStepConfig
+
+    t_short = max(1, int(round(MUSIC_SERVED_S * ACEStepConfig().latent_rate)))
+    qs = (2, 16, t_short, 64)
+    q, k, v = (0.64 * rnd(qs, torch.float32).to(bf) for _ in range(3))
+    label = f"K1 attention_nk1 (ACE-Step DiT, {MUSIC_SERVED_S:g} s, bf16)"
+    rec = check_kernel(
+        label, lambda q, k, v: A.flash_attention(q, k, v),
+        lambda q, k, v: A.attention_nk1_reference(q, k, v, 0.125),
+        sdpa(False), (q, k, v), attention_shape(q, k, False), *k1_tol,
+        attention_work(q, k, False), PEAK_BF16, k1_rep, iters=200)
+    route = A.k1_route(qs[0] * qs[1], t_short, t_short, 64, bf)
+    expect(route == "time", f"{label}: routed to {route}")
+    expect(hopper_launches(lambda: A.flash_attention(q, k, v), A.attention_nk1) == 1,
+           f"{label}: the launch was not on K1's Hopper design")
+    rec.update(case="k1_ace_dit_short", kernel="K1", on_main_path=False, on_music_path=True,
+               k1_route=route)
+    recs.append(rec)
+    del q, k, v
     # the language model's uncached prefill is on the engines path too
     for rec in recs:
         if rec["case"] == "k2_lm_prefill_bf16":
@@ -956,7 +1026,63 @@ def phase_fidelity(dev, vcs, x16, out_bf16) -> float:
         f"random index, not gated): mel-L1 {chain_err:.6f}; "
         f"{time.perf_counter() - t0:.3f} s {'OK' if err < MEL_L1_GATE else 'FAIL'}")
     expect(err < MEL_L1_GATE, f"fidelity: mel-L1 {err} >= {MEL_L1_GATE}")
+    phase_fidelity_index(dev, vcs, x16, chain_err)
     phase_conv_policy(dev, vcs, x16, off["highest"], chain32)
+    return err
+
+
+def phase_fidelity_index(dev, vcs, x16, random_err: float, clusters: int = 256) -> float:
+    """The bf16 policy against fp32 with retrieval on (0.75) over an index of
+    well-separated rows: the k-means centres (``clusters``) of the track's
+    own HuBERT layer-12 features (fp32, the high-passed 16 kHz input in 8 s
+    chunks) plus noise of 5 % of the features' spread.  Beside it the tie
+    measure of each index: the median over the track's feature rows of
+    (d9 - d8) / d8, the gap between the 8th and 9th nearest rows that a
+    rounding must cross to swap a neighbour of the 8-row blend.  Printed,
+    not gated: it tells whether the random index's mel-L1 comes from its
+    near-ties or from the policy."""
+    import torch
+
+    from audiolab_tpu_torch.core import precision as P
+    from audiolab_tpu_torch.pipelines.rvc import _highpass_device
+    from audiolab_tpu_torch.retrieval.index import _topk_l2, kmeans
+
+    t0 = time.perf_counter()
+    vc32 = vcs["highest"]
+    sr = vc32.synth_cfg.sr
+    x = _highpass_device(x16)
+    n = x.shape[-1] // 128000 * 128000
+    with torch.inference_mode(), P.matmul_precision("highest"):
+        feats = vc32.hubert(x[:n].reshape(-1, 128000)).float()
+    feats = feats.reshape(-1, feats.shape[-1])
+    centres = kmeans(feats, n_clusters=clusters, iters=20, seed=0)
+    g = torch.Generator(device=dev).manual_seed(1)
+    index = centres + 0.05 * feats.std() * torch.randn(centres.shape, generator=g, device=dev)
+
+    def tie_margin(data) -> float:
+        d2, _ = _topk_l2(feats, data, k=9)
+        d = torch.sqrt(torch.clamp(d2.float(), min=0.0))
+        return float(((d[:, 8] - d[:, 7]) / torch.clamp(d[:, 7], min=1e-12)).median())
+
+    random_margin = tie_margin(vc32.index_features)
+    margin = tie_margin(index)
+    saved = {p: vcs[p].index_features for p in vcs}
+    try:
+        for p in vcs:
+            vcs[p].index_features = index
+        on = {p: vcs[p].convert(x16, sid=0, seed=0, as_numpy=False) for p in vcs}
+    finally:
+        for p in vcs:
+            vcs[p].index_features = saved[p]
+    sync(dev)
+    err = mel_l1(on["bfloat16"], on["highest"], sr)
+    log(f"[fidelity] bf16 policy vs fp32 with retrieval on (0.75): the random "
+        f"{tuple(saved['highest'].shape)} index mel-L1 {random_err:.6f} (tie margin "
+        f"{random_margin:.2e}); an index of the k-means centres of the track's own "
+        f"{feats.shape[0]} HuBERT rows ({clusters} centres + 5 % noise) mel-L1 {err:.6f} "
+        f"(tie margin {margin:.2e}); gate < {MEL_L1_GATE}, not held here; "
+        f"{time.perf_counter() - t0:.3f} s")
+    expect(bool(torch.isfinite(on["bfloat16"]).all()), "fidelity index: output not finite")
     return err
 
 
@@ -3434,14 +3560,14 @@ def build_openvoice(dev):
 
 
 def card_vs_cpu(label: str, card_out, cpu_out, tol: float, scale: float | None = None,
-                tag: str = "[processors] (g)") -> float:
+                tag: str = "[processors] (g)", kind: str = "fp32") -> float:
     """max |card - cpu| over ``scale`` (default max |cpu|), printed with its
     tolerance after ``tag``; stops above it."""
     a = np.asarray(card_out, np.float64)
     b = np.asarray(cpu_out, np.float64)
     scale = float(np.abs(b).max()) if scale is None else scale
     err = float(np.abs(a - b).max()) / scale
-    log(f"{tag} {label}, card against CPU in fp32: {err:.3e} of the scale {scale:.4g} "
+    log(f"{tag} {label}, card against CPU in {kind}: {err:.3e} of the scale {scale:.4g} "
         f"(tolerance {tol:g}) | shape {b.shape}")
     expect(a.shape == b.shape and bool(np.isfinite(a).all()) and err <= tol,
            f"{tag} {label} card {err:.3e} from the CPU's (tolerance {tol:g})")
@@ -4486,6 +4612,334 @@ def phase_diffusion(dev, card: str, profile_dir: str | None = None) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- music
+
+MUSIC_SAO_S = 47.0           # stable-audio-open's longest generation
+MUSIC_SAO_STEPS = 8          # of the published sampler's 100
+MUSIC_SA_S = 47.0
+MUSIC_SA_STEPS = 8           # of generate_audio's 50
+MUSIC_ACE_S = 30.0
+MUSIC_REPAINT_S = (10.0, 20.0)
+MUSIC_SERVED_S = 10.0
+MUSIC_CHECK_FRAMES = 200     # latent frames of the card-against-CPU checks
+MUSIC_PROMPT = "warm analog pads over a slow hip hop beat, vinyl crackle"
+MUSIC_LYRICS = "[verse] walking through the night [chorus] we are the light"
+
+
+def music_spm_model(path: Path) -> str:
+    """A SentencePiece model in T5's id layout (<pad> 0, </s> 1, <unk> 2),
+    written with the port's ``build_model_proto``: T5's tokenizer file is
+    not in the repository, and with random weights any vocabulary serves."""
+    from audiolab_tpu_torch.utils.spm import build_model_proto
+
+    words = sorted(set(MUSIC_PROMPT.replace(",", "").split()))
+    pieces = ([("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -3.0, 1)]
+              + [(f"▁{w}", -1.0, 1) for w in words]
+              + [(c, -4.0, 1) for c in "abcdefghijklmnopqrstuvwxyz,"])
+    path.write_bytes(build_model_proto(pieces, unk_id=2, bos_id=-1, eos_id=1, pad_id=0))
+    return str(path)
+
+
+def phase_music(dev, card: str) -> dict:
+    """Music generation on the DiT family at published widths, weights by
+    bench.py's rules (utils/fast_init.py), cut only in sampler steps: (a)
+    StableAudioCheckpointPipeline at stable-audio-open-1.0's geometry
+    (SAODiTConfig(): 1536 x 24 layers, 24 heads, fp32; T5-base; the
+    checkpoint Oobleck decoder, 128 x (1, 2, 4, 8, 16)) on 47 s with
+    DPM++ 3M SDE, MUSIC_SAO_STEPS of the published 100 steps: one fp32 K2 a
+    layer a guided step; (b) the in-repo StableAudioModel at
+    StableAudioConfig() (DiT 1024 x 16 layers x 16 heads, bf16) through
+    generate_audio on 47 s, MUSIC_SA_STEPS of 50 steps: one 16-bit K2 a
+    layer a step, on the Hopper route; (c) ACEStepPipeline at
+    ACEStepConfig() (the DiT 1024 x 16 x 16 bf16, DCAE 64 x 3, Vocos 512 x
+    8 at n_fft 2048, hop 512) generate on 30 s at the default 27 Euler
+    steps, then a repaint of 10-20 s; each call cold and warm with its
+    seconds, peak memory and launches (counts reset just before and read
+    just after); seconds per guided step from one DiT call timed with CUDA
+    events; (d) POST /api/v1/audio/generate and POST
+    /api/v1/acestep/generate on 10 s through create_app; (e) card against
+    CPU at 2 layers of each DiT over MUSIC_CHECK_FRAMES frames: the SAO DiT
+    (fp32) and one guided DPM++ step, the in-repo DiT (bf16) and one
+    ACE-Step Euler step (bf16).  Returns the path's launches: (a)-(c)'s
+    cold calls, the repaint and (d)'s two requests (the 10 s ACE-Step clip's
+    108 frames fit one key block and take K1)."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.models.acestep import ACEStepConfig, ACEStepModel, fm_sample
+    from audiolab_tpu_torch.models.codecs import VocosConfig
+    from audiolab_tpu_torch.models.dit import DiTConfig
+    from audiolab_tpu_torch.models.ksampler import (
+        sample_dpmpp_3m_sde,
+        sigmas_polyexponential,
+        v_denoiser,
+    )
+    from audiolab_tpu_torch.models.stable_audio import StableAudioConfig
+    from audiolab_tpu_torch.models.stable_audio_dit import SAODiTConfig, StableAudioDiT
+    from audiolab_tpu_torch.pipelines.acestep import random_acestep
+    from audiolab_tpu_torch.pipelines.music import (
+        random_stable_audio,
+        random_stable_audio_checkpoint,
+    )
+    from audiolab_tpu_torch.serve import music_api
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    tag = "[music]"
+    rec: dict = {}
+    path = dict.fromkeys(KERNELS, 0)
+
+    def timed(fn):
+        reset_counts()
+        h0 = A.flash_attention_fwd.sm90_launches
+        _peak_reset(cuda)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return (out, time.perf_counter() - t0, counts(),
+                A.flash_attention_fwd.sm90_launches - h0, _peak_gb(cuda))
+
+    def event_ms(fn) -> float:
+        return cuda_ms(fn, iters=3) if cuda else float("nan")
+
+    def run(label: str, fn, k2: int, hopper: bool, first: bool) -> tuple:
+        """One call: seconds, peak, launches; on the path when ``first``."""
+        out, secs, launches, sm90, peak = timed(fn)
+        log(f"{tag} {label}: {secs:.3f} s, peak {peak:.2f} GB, launches {launches} "
+            f"({sm90} on K2's Hopper route) | {card}")
+        if cuda:     # the plain versions on the CPU count nothing
+            expect(only(launches, "K2", k2), f"{label}: launches {launches}, expected K2 {k2}")
+            expect(sm90 == (k2 if hopper else 0), f"{label}: {sm90} K2 on the Hopper route")
+        if first:
+            for k in KERNELS:
+                path[k] += launches[k]
+        return out, secs, peak
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_music_"))
+    spm = music_spm_model(work / "t5.model")
+
+    # (a) stable-audio-open-1.0's geometry through the checkpoint pipeline
+    t0 = time.perf_counter()
+    sao = random_stable_audio_checkpoint(spm, device=dev)
+    sync(dev)
+    n_dit = sum(p.numel() for p in sao.dit.parameters())
+    n_dec = sum(p.numel() for p in sao.decoder.parameters())
+    log(f"{tag} (a) StableAudioCheckpointPipeline built in {time.perf_counter() - t0:.1f} s: "
+        f"SAO DiT {n_dit / 1e9:.3f} B, Oobleck decoder {n_dec / 1e6:.1f} M, T5-base "
+        f"{sum(p.numel() for p in sao.t5.parameters()) / 1e6:.1f} M parameters, fp32")
+    depth = sao.dit_cfg.depth
+    t_lat = sao.latent_frames(MUSIC_SAO_S)
+    kw = dict(seconds_total=MUSIC_SAO_S, steps=MUSIC_SAO_STEPS, cfg_scale=7.0, seed=0,
+              negative_prompt="")
+    secs = []
+    for i in range(2):
+        (y, sr), s, peak = run(f"(a) generate {MUSIC_SAO_S:g} s, dpmpp-3m-sde, "
+                               f"{MUSIC_SAO_STEPS} steps ({'cold' if i == 0 else 'warm'})",
+                               lambda: sao.generate(MUSIC_PROMPT, **kw),
+                               MUSIC_SAO_STEPS * depth, False, i == 0)
+        secs.append(s)
+    expect(y.shape == (2, t_lat * 2048) and np.isfinite(y).all() and sr == 44100,
+           f"(a) output {y.shape}, finite {np.isfinite(y).all()}")
+    cross, glob = sao.conditioning([MUSIC_PROMPT], 0.0, MUSIC_SAO_S)
+    cross2, glob2 = torch.cat([cross, torch.zeros_like(cross)]), torch.cat([glob, glob])
+    x2 = torch.randn(2, t_lat, 64, device=dev)
+    with torch.inference_mode():
+        step_ms = event_ms(lambda: sao.dit(x2, torch.full((2,), 0.5, device=dev), cross2,
+                                           glob2))
+        z = torch.randn(1, t_lat, 64, device=dev)
+        dec_ms = event_ms(lambda: sao.decoder(z))
+    rec["sao"] = dict(cold_s=secs[0], warm_s=secs[1], peak_gb=peak, step_ms=step_ms,
+                      decoder_ms=dec_ms, k2_per_call=MUSIC_SAO_STEPS * depth)
+    log(f"{tag} (a) {t_lat} latents (+1 global token: {t_lat + 1} positions), a guided step "
+        f"(CFG batch 2) {step_ms:.2f} ms, the Oobleck decoder on {MUSIC_SAO_S:g} s "
+        f"{dec_ms:.2f} ms; cold {secs[0]:.3f} s, warm {secs[1]:.3f} s "
+        f"({secs[1] / MUSIC_SAO_S:.4f} s per second of audio); K2 per call "
+        f"{MUSIC_SAO_STEPS * depth} (fp32, none on the Hopper route); output "
+        f"{y.shape} peak |y| {np.abs(y).max():.3e} | {card}")
+    del sao, y, cross2, glob2, x2, z
+    torch.cuda.empty_cache() if cuda else None
+
+    # (b) the in-repo Stable Audio at StableAudioConfig()
+    t0 = time.perf_counter()
+    sa = random_stable_audio(StableAudioConfig(), device=dev)
+    sync(dev)
+    log(f"{tag} (b) StableAudioModel at StableAudioConfig() built in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        f"{sum(p.numel() for p in sa.model.parameters()) / 1e6:.1f} M parameters (DiT "
+        f"{sum(p.numel() for p in sa.model.dit.parameters()) / 1e6:.1f} M, bf16 compute)")
+    n_layers = sa.cfg.dit.n_layers
+    secs = []
+    for i in range(2):
+        (y, sr), s, peak = run(f"(b) generate_audio {MUSIC_SA_S:g} s, DDIM {MUSIC_SA_STEPS} "
+                               f"steps ({'cold' if i == 0 else 'warm'})",
+                               lambda: sa.generate(MUSIC_PROMPT, seconds_total=MUSIC_SA_S,
+                                                   steps=MUSIC_SA_STEPS, seed=1),
+                               MUSIC_SA_STEPS * n_layers, True, i == 0)
+        secs.append(s)
+    t_sa = round(MUSIC_SA_S * 44100 / 2048)
+    expect(y.shape == (2, t_sa * 2048) and np.isfinite(y).all(), f"(b) output {y.shape}")
+    ctx = torch.randn(2, 130, 768, device=dev)
+    zz = torch.randn(2, t_sa, 64, device=dev)
+    with torch.inference_mode():
+        step_ms = event_ms(lambda: sa.model.denoise(zz, torch.full((2,), 0.5, device=dev), ctx))
+    rec["stable_audio"] = dict(cold_s=secs[0], warm_s=secs[1], peak_gb=peak, step_ms=step_ms,
+                               k2_per_call=MUSIC_SA_STEPS * n_layers)
+    log(f"{tag} (b) {t_sa} latents, a guided step (CFG batch 2) {step_ms:.2f} ms; cold "
+        f"{secs[0]:.3f} s, warm {secs[1]:.3f} s; K2 per call {MUSIC_SA_STEPS * n_layers}, all "
+        f"on the Hopper route (bf16, d = 64) | {card}")
+    del y, ctx, zz
+
+    # (c) ACE-Step at ACEStepConfig()
+    t0 = time.perf_counter()
+    ace = random_acestep(ACEStepConfig(), vocos_cfg=VocosConfig(n_fft=2048, hop=512),
+                         device=dev)
+    sync(dev)
+    log(f"{tag} (c) ACEStepPipeline at ACEStepConfig() built in {time.perf_counter() - t0:.1f}"
+        f" s: {sum(p.numel() for p in ace.model.parameters()) / 1e6:.1f} M parameters, Vocos "
+        f"{sum(p.numel() for p in ace.vocos.parameters()) / 1e6:.1f} M")
+    steps, n_layers = ace.pcfg.steps, ace.cfg.dit.n_layers
+    secs = []
+    for i in range(2):
+        (y, sr), s, peak = run(f"(c) generate {MUSIC_ACE_S:g} s, Euler {steps} steps "
+                               f"({'cold' if i == 0 else 'warm'})",
+                               lambda: ace.generate(MUSIC_PROMPT, lyrics=MUSIC_LYRICS,
+                                                    duration=MUSIC_ACE_S, seed=2),
+                               steps * n_layers, True, i == 0)
+        secs.append(s)
+    frames = ace._frames(MUSIC_ACE_S)
+    expect(np.isfinite(y).all() and y.shape == ((frames * 8 - 1) * 512,),
+           f"(c) output {y.shape}")
+    song = y
+    (y, sr), rs, peak_r = run(f"(c) repaint {MUSIC_REPAINT_S[0]:g}-{MUSIC_REPAINT_S[1]:g} s of "
+                              f"the {MUSIC_ACE_S:g} s song", lambda: ace.repaint(
+                                  song, MUSIC_PROMPT, *MUSIC_REPAINT_S, seed=3),
+                              steps * n_layers, True, True)
+    expect(np.isfinite(y).all(), "(c) repaint not finite")
+    ctx2 = ace._context2(MUSIC_PROMPT, MUSIC_LYRICS)
+    z2 = torch.randn(2, frames, 8, device=dev)
+    with torch.inference_mode():
+        step_ms = event_ms(lambda: ace.model.velocity(z2, torch.full((2,), 0.5, device=dev),
+                                                      ctx2))
+    rec["acestep"] = dict(cold_s=secs[0], warm_s=secs[1], repaint_s=rs, peak_gb=peak,
+                          step_ms=step_ms, k2_per_call=steps * n_layers)
+    log(f"{tag} (c) {frames} latent frames, a guided step (CFG batch 2) {step_ms:.2f} ms; "
+        f"generate cold {secs[0]:.3f} s, warm {secs[1]:.3f} s ({MUSIC_ACE_S / secs[1]:.1f} "
+        f"audio-s/s), repaint {rs:.3f} s; K2 per call {steps * n_layers}, all on the Hopper "
+        f"route | {card}")
+
+    # (d) the served routes
+    saved = dict(music_api._BACKENDS)
+    server = None
+    try:
+        music_api._BACKENDS.clear()
+        music_api.register_backend("stable_audio", sa)
+        music_api.register_backend("acestep", ace)
+        server, port = serve_background(create_app(str(work / "process"), device=dev))
+        url = f"http://127.0.0.1:{port}/api/v1"
+        rec["served"] = {}
+        # the in-repo DiT over 215 latents takes K2; ACE-Step's over 108
+        # frames fits one 128-key block and takes K1, both on the Hopper route
+        for route, body, t_keys, n in (
+                ("audio/generate", {"prompt": MUSIC_PROMPT, "settings": {
+                    "seconds_total": MUSIC_SERVED_S, "steps": MUSIC_SA_STEPS}},
+                 round(MUSIC_SERVED_S * 44100 / 2048), MUSIC_SA_STEPS * sa.cfg.dit.n_layers),
+                ("acestep/generate", {"prompt": MUSIC_PROMPT, "lyrics": MUSIC_LYRICS,
+                                      "duration": MUSIC_SERVED_S},
+                 ace._frames(MUSIC_SERVED_S), steps * ace.cfg.dit.n_layers)):
+            kern, wrapper = (("K2", A.flash_attention_fwd) if t_keys > 128
+                             else ("K1", A.attention_nk1))
+            reset_counts()
+            h0 = wrapper.sm90_launches
+            t0 = time.perf_counter()
+            status, resp = http("POST", f"{url}/{route}", body)
+            secs = time.perf_counter() - t0
+            launches = counts()
+            sm90 = wrapper.sm90_launches - h0
+            expect(status == 200, f"POST {route}: HTTP {status} {resp}")
+            a = _served_wav(work, resp["audio"], "served.wav")
+            expect(a.samples.shape[-1] > 0 and np.isfinite(a.samples).all(), f"{route} WAV")
+            log(f"{tag} (d) POST /api/v1/{route} ({MUSIC_SERVED_S:g} s): HTTP {status} "
+                f"{secs:.3f} s, {a.samples.shape} at {a.sample_rate} Hz, launches {launches} "
+                f"({sm90} on {kern}'s Hopper route) | {card}")
+            if cuda:
+                expect(only(launches, kern, n), f"POST {route}: launches {launches}, "
+                       f"expected {kern} {n}")
+                expect(sm90 == n, f"POST {route}: {sm90} {kern} on the Hopper route")
+            for k in KERNELS:
+                path[k] += launches[k]
+            rec["served"][route] = dict(seconds=secs, kernel=kern, launches=launches[kern])
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        music_api._BACKENDS.clear()
+        music_api._BACKENDS.update(saved)
+    del sa, ace, song, y, ctx2, z2
+    torch.cuda.empty_cache() if cuda else None
+
+    # (e) card against CPU at 2 layers of each DiT
+    if cuda:
+        cpu = torch.device("cpu")
+        g = torch.Generator().manual_seed(5)
+        n = MUSIC_CHECK_FRAMES
+        with torch.device(dev):
+            sao_dit = fast_init(StableAudioDiT(SAODiTConfig(depth=2)), 6)
+        args = (torch.randn(2, n, 64, generator=g), torch.tensor([0.4, 0.4]),
+                0.5 * torch.randn(2, 130, 768, generator=g), torch.randn(2, 1536, generator=g))
+        sig = sigmas_polyexponential(4, 0.3, 500.0)
+        draws = torch.randn(4, 1, n, 64, generator=g)
+        outs = {}
+        for d in (dev, cpu):
+            m = sao_dit if d == dev else copy.deepcopy(sao_dit).to(cpu)
+            a = tuple(x.to(d) for x in args)
+            with torch.inference_mode():
+                v = m(*a)
+
+                def guided(x, t, m=m, a=a):
+                    vv = m(torch.cat([x, x]), torch.full((2,), t, device=x.device), a[2], a[3])
+                    return vv[1:] + 7.0 * (vv[:1] - vv[1:])
+
+                x1 = sample_dpmpp_3m_sde(v_denoiser(guided), a[0][:1] * float(sig[0]),
+                                         sig[:2], draws=draws[:1].to(d))
+            outs["card" if d is dev else "cpu"] = (v.cpu(), x1.cpu())
+        rec["card_vs_cpu"] = {
+            "sao_forward": card_vs_cpu("SAO DiT forward, 2 of 24 layers at full width",
+                                       outs["card"][0], outs["cpu"][0], 1e-5, tag=f"{tag} (e)"),
+            "sao_step": card_vs_cpu("one guided DPM++ 3M SDE step", outs["card"][1],
+                                    outs["cpu"][1], 1e-5, tag=f"{tag} (e)")}
+        del sao_dit
+        cfg = ACEStepConfig(dit=DiTConfig(dim=1024, n_layers=2, n_heads=16, cond_dim=768,
+                                          in_dim=8, out_dim=8), text_layers=1)
+        with torch.device(dev):
+            ace_m = fast_init(ACEStepModel(cfg), 7)
+        ctx2 = torch.randn(2, 192, 768, generator=g)
+        z0 = torch.randn(1, n, 8, generator=g)
+        zs, vs = {}, {}
+        for d in (dev, cpu):
+            m = ace_m if d == dev else copy.deepcopy(ace_m).to(cpu)
+            with torch.inference_mode():
+                vs["card" if d is dev else "cpu"] = m.velocity(torch.cat([z0, z0]).to(d), torch.full((2,), 0.7,
+                                                                             device=d),
+                                        ctx2.to(d)).cpu()
+            zs["card" if d is dev else "cpu"] = fm_sample(m, ctx2.to(d), n, steps=1, z_init=z0.to(d)).cpu()
+        # bf16 products in another order, as the DiT's CPU parity test holds them
+        rec["card_vs_cpu"]["dit_bf16_forward"] = card_vs_cpu(
+            "in-repo DiT forward, 2 of 16 layers at 1024 wide", vs["card"], vs["cpu"],
+            2e-2, tag=f"{tag} (e)", kind="bf16")
+        rec["card_vs_cpu"]["acestep_step"] = card_vs_cpu(
+            "one guided ACE-Step Euler step", zs["card"], zs["cpu"], 2e-2,
+            tag=f"{tag} (e)", kind="bf16")
+    rec["launches"] = path
+    log(f"{tag} the path's launches (the cold calls of (a)-(c), the repaint and the served "
+        f"calls of (d)): {path}")
+    return rec
+
+
 def urllib_get(url: str, timeout: float = 60.0) -> bytes:
     import urllib.request
 
@@ -4530,7 +4984,7 @@ def main() -> int:
 
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
-    diffused = None
+    diffused = composed = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "long"} & set(phases)
     if need_chain:
@@ -4595,6 +5049,11 @@ def main() -> int:
         # this slice's path: every step of the phase, counts reset just
         # before each and read just after (it launches none of K1-K7)
         diffused = phase_diffusion(dev, card, profile_dir=args.profile)["launches"]
+    if "music" in phases:
+        # this slice's path: the cold generate of each music pipeline,
+        # ACE-Step's repaint and the two served calls, counts reset just
+        # before each and read just after
+        composed = phase_music(dev, card)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -4609,10 +5068,12 @@ def main() -> int:
            "chatterbox_launches": None if chatter is None else chatter[r["kernel"]],
            "transcribe_launches": None if heard is None else heard[r["kernel"]],
            "diffusion_launches": None if diffused is None else diffused[r["kernel"]],
+           "music_launches": None if composed is None else composed[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),
            "on_transcribe_path": r.get("on_transcribe_path", False),
+           "on_music_path": r.get("on_music_path", False),
            "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
                              "core_ms") if k in r}

@@ -82,6 +82,7 @@ def test_k2_matches_plain_fp32(cuda_device, tq, tk, causal, d):
     ((1, 3), 40, 300),    # one query tile: the second warpgroup has none
     ((3, 45), 62, 62),    # band axis, 135 slices: not a multiple of 132 CTAs
     ((2, 4), 64, 64),     # band axis, whole tile and chunk
+    ((2, 16), 108, 108),  # ACE-Step's DiT at 10 s: CFG 2 x 16 heads, every key in one block
     ((1, 2), 5, 33)])     # band axis, ragged both ways
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 def test_k1_hopper_route_matches_plain(cuda_device, bh, tq, tk, dtype):
@@ -1829,3 +1830,77 @@ def test_audiosr_pipeline_on_the_card_matches_the_cpu(cuda_device):
         assert TA.flash_attention_fwd.launches == 0
     assert out["cuda"].shape == x.shape
     assert (out["cuda"] - out["cpu"]).abs().max() <= 1e-4 * out["cpu"].abs().max()
+
+
+# ------------------------------------------------------------------ music (the DiT family)
+
+@pytest.mark.parametrize("b,h,t,dtype", [
+    (2, 24, 1013, "float32"),     # stable-audio-open: CFG 2 x 24 heads, 47 s + the global token
+    (2, 16, 1012, "bfloat16"),    # the in-repo Stable Audio DiT at 47 s
+    (2, 16, 323, "bfloat16")])    # ACE-Step at 30 s
+def test_k2_at_the_music_shapes_matches_plain(cuda_device, b, h, t, dtype):
+    """K2 at the DiT family's self-attention shapes (not causal, d = 64):
+    the fp32 call on the register-tiled kernel, the bf16 calls on the Hopper
+    design (``.sm90_launches``), each against its plain version."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(cuda_device, dt, b, h, t, t, 64)
+    TA.reset_launch_counts()
+    out = TA.flash_attention(q, k, v)
+    ref = TA.flash_attention_reference(q, k, v, False, 0.125)
+    torch.cuda.synchronize()
+    assert TA.flash_attention_fwd.launches == 1
+    assert TA.flash_attention_fwd.sm90_launches == (0 if dt == torch.float32 else 1)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= (2e-5 if dt == torch.float32 else _k1_tol(ref))
+
+
+def test_sao_dit_on_the_card_matches_the_cpu(cuda_device):
+    """stable-audio-open's DiT at its widths, 2 of 24 layers, over 200
+    latents with a 130-token context: the card within 1e-5 of max|v| of the
+    CPU (fp32, TF32 off), one fp32 K2 a layer."""
+    from audiolab_tpu_torch.core.device import resolve_device
+    from audiolab_tpu_torch.models.stable_audio_dit import SAODiTConfig, StableAudioDiT
+
+    model = _seeded_built(lambda: StableAudioDiT(SAODiTConfig(depth=2)), 12, 0.02)
+    g = torch.Generator().manual_seed(13)
+    args = (torch.randn(2, 200, 64, generator=g), torch.tensor([0.3, 0.3]),
+            torch.randn(2, 130, 768, generator=g), torch.randn(2, 1536, generator=g))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dev = resolve_device(dev)
+        TA.reset_launch_counts()
+        with torch.no_grad():
+            out[str(dev)] = model.to(dev)(*(a.to(dev) for a in args)).cpu()
+        assert TA.flash_attention_fwd.launches == (2 if dev.type == "cuda" else 0)
+        assert TA.flash_attention_fwd.sm90_launches == 0
+    assert (out["cuda"] - out["cpu"]).abs().max() <= 1e-5 * out["cpu"].abs().max()
+
+
+@pytest.mark.parametrize("frames,kernel", [(200, "K2"), (108, "K1")])
+def test_acestep_step_on_the_card_matches_the_cpu(cuda_device, frames, kernel):
+    """One guided Euler step of ACE-Step's solve with a bf16 DiT (256 wide, 2
+    layers, 4 heads of 64): over 200 latent frames one 16-bit K2 a layer,
+    over 108 (a 10 s clip, every key in one block) one K1 a layer, each on
+    its Hopper route; the card within 2e-2 of max|z| of the CPU (bf16
+    products in another order, as the DiT's CPU parity holds them)."""
+    from audiolab_tpu_torch.core.device import resolve_device
+    from audiolab_tpu_torch.models import acestep as A
+    from audiolab_tpu_torch.models.dit import DiTConfig
+
+    cfg = A.ACEStepConfig(dit=DiTConfig(dim=256, n_layers=2, n_heads=4, cond_dim=128, in_dim=8,
+                                        out_dim=8), text_dim=128, text_layers=1)
+    model = _seeded_built(lambda: A.ACEStepModel(cfg), 14, 0.02)
+    g = torch.Generator().manual_seed(15)
+    ctx2, z = torch.randn(2, 192, 128, generator=g), torch.randn(1, frames, 8, generator=g)
+    wrapper = TA.flash_attention_fwd if kernel == "K2" else TA.attention_nk1
+    other = TA.attention_nk1 if kernel == "K2" else TA.flash_attention_fwd
+    out = {}
+    for dev in ("cpu", cuda_device):
+        dev = resolve_device(dev)
+        TA.reset_launch_counts()
+        out[str(dev)] = A.fm_sample(model.to(dev), ctx2.to(dev), frames, steps=1,
+                                    z_init=z.to(dev)).cpu()
+        if dev.type == "cuda":
+            assert wrapper.launches == wrapper.sm90_launches == 2
+            assert other.launches == 0
+    assert (out["cuda"] - out["cpu"]).abs().max() <= 2e-2 * out["cpu"].abs().max()

@@ -479,3 +479,55 @@ def test_diffusion_entry_points_default_to_the_card(no_cuda, tmp_path):
     assert sr == 8000 and y.shape == (800,)
     out = SRT.load_enhancer(str(tmp_path), cfg, device="cpu")(torch.zeros(1, 2, 600))
     assert out.shape == (1, 2, 600)
+
+
+def test_music_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """generate_audio, the Stable Audio pipelines, ACE-Step's pipeline and
+    the random demo backends default to the card and raise without one;
+    each runs on the CPU when asked."""
+    from audiolab_tpu_torch.models.dit import DiTConfig
+    from audiolab_tpu_torch.models.stable_audio import (
+        OobleckConfig,
+        StableAudioConfig,
+        StableAudioModel,
+        generate_audio,
+    )
+    from audiolab_tpu_torch.models.stable_audio_dit import OobleckConfig as CkptVAE
+    from audiolab_tpu_torch.models.stable_audio_dit import SAODiTConfig
+    from audiolab_tpu_torch.models.t5 import T5Config
+    from audiolab_tpu_torch.pipelines.acestep import ACEStepPipeline, random_acestep
+    from audiolab_tpu_torch.pipelines.music import (
+        StableAudioPipeline,
+        random_stable_audio,
+        random_stable_audio_checkpoint,
+    )
+    from audiolab_tpu_torch.utils.spm import build_model_proto
+
+    spm = tmp_path / "t5.model"
+    spm.write_bytes(build_model_proto([("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2),
+                                       ("▁a", -1.0, 1)], unk_id=2, bos_id=-1, eos_id=1,
+                                      pad_id=0))
+    cfg = StableAudioConfig(sr=4000, max_seconds=2.0,
+                            vae=OobleckConfig(channels=1, latent_dim=4, base_ch=4, ratios=(2, 2)),
+                            dit=DiTConfig(dim=16, n_layers=1, n_heads=2, cond_dim=16, in_dim=4,
+                                          out_dim=4, dtype="float32"),
+                            text_dim=16, text_layers=1)
+    model = StableAudioModel(cfg)
+    ckpt = dict(dit_cfg=SAODiTConfig(io_channels=4, embed_dim=64, depth=1, num_heads=4,
+                                     cond_token_dim=16, global_cond_dim=32),
+                vae_cfg=CkptVAE(out_channels=1, channels=2, latent_dim=4, c_mults=(1, 2),
+                                strides=(16, 16)),
+                t5_cfg=T5Config(vocab_size=8, dim=16, d_kv=8, heads=2, d_ff=16, layers=1))
+    for call in (lambda: generate_audio(model, "a", steps=1), lambda: StableAudioPipeline(model),
+                 random_stable_audio, random_acestep,
+                 lambda: random_stable_audio_checkpoint(str(spm), **ckpt)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    y, sr = random_stable_audio(device="cpu").generate("a", seconds_total=1.0, steps=1)
+    assert sr == 16000 and y.shape == (16000,) and np.isfinite(y).all()
+    pipe = random_stable_audio_checkpoint(str(spm), device="cpu", **ckpt)
+    y, sr = pipe.generate("a", seconds_total=1.0, steps=2)
+    assert sr == 44100 and y.shape == (pipe.latent_frames(1.0) * 256,) and np.isfinite(y).all()
+    ace = random_acestep(device="cpu")
+    assert isinstance(ace, ACEStepPipeline) and ace.device.type == "cpu"
+    assert np.isfinite(ace.generate("a", duration=1.0, infer_step=1)[0]).all()

@@ -130,8 +130,11 @@ def test_openapi_document(server):
     assert "/api/v1/process/chain" in body["paths"]
     assert "/api/v1/rvc/models" in body["paths"]
     # routes whose models the port lacks are not served; training, TTS,
-    # transcription and alignment are
+    # transcription, alignment and music generation are
     assert "/api/v1/yue/generate" not in body["paths"]
+    assert "/api/v1/acestep/lora/train" not in body["paths"]
+    assert "/api/v1/audio/generate" in body["paths"]
+    assert "/api/v1/acestep/task" in body["paths"]
     assert "/api/v1/rvc/train" in body["paths"]
     assert "/api/v1/audio/speech" in body["paths"]
     assert "/api/v1/audio/transcriptions" in body["paths"]
@@ -391,15 +394,20 @@ def test_speech_route_serves_dia_and_coqui(server, jax_router, speech_engines, t
 
 def test_main_demo_backends_names_the_missing_items(caplog):
     """--demo-backends registers the random Zonos as "zonos", the random
-    XTTS as "coqui", the random Chatterbox as "chatterbox" and the random
-    Whisper transcriber as "whisper" on the given device, as the JAX server
-    does, and names every engine the port does not have (no server)."""
+    XTTS as "coqui", the random Chatterbox as "chatterbox", the random
+    Whisper transcriber as "whisper", and the random Stable Audio and
+    ACE-Step as "stable_audio" and "acestep" on the given device, as the JAX
+    server does, and names every engine the port does not have: only "yue"
+    (no server)."""
+    from audiolab_tpu_torch.pipelines.acestep import ACEStepPipeline
+    from audiolab_tpu_torch.pipelines.music import StableAudioPipeline
     from audiolab_tpu_torch.pipelines.transcribe import Transcriber
     from audiolab_tpu_torch.pipelines.tts import ChatterboxCheckpointEngine, XTTSEngine, ZonosTTS
-    from audiolab_tpu_torch.serve import transcribe_api, tts_api
+    from audiolab_tpu_torch.serve import music_api, transcribe_api, tts_api
 
     saved = dict(tts_api._BACKENDS)
     saved_tr = dict(transcribe_api._BACKENDS)
+    saved_mu = dict(music_api._BACKENDS)
     try:
         with caplog.at_level(logging.INFO):
             port_main.register_demo_backends("cpu", logging.getLogger("test"))
@@ -411,16 +419,21 @@ def test_main_demo_backends_names_the_missing_items(caplog):
         assert chatterbox.device.type == "cpu"
         whisper = transcribe_api._BACKENDS["whisper"]
         assert isinstance(whisper, Transcriber) and whisper.device.type == "cpu"
+        sa, ace = music_api._BACKENDS["stable_audio"], music_api._BACKENDS["acestep"]
+        assert isinstance(sa, StableAudioPipeline) and sa.device.type == "cpu"
+        assert isinstance(ace, ACEStepPipeline) and ace.device.type == "cpu"
     finally:
         tts_api._BACKENDS.clear()
         tts_api._BACKENDS.update(saved)
         transcribe_api._BACKENDS.clear()
         transcribe_api._BACKENDS.update(saved_tr)
+        music_api._BACKENDS.clear()
+        music_api._BACKENDS.update(saved_mu)
     missing = caplog.text.split("no model yet for", 1)[1]
-    for name in ("stable_audio", "acestep", "yue"):
-        assert name in missing
-    assert "chatterbox" not in missing and "whisper" not in missing
-    assert "item 18 (" in caplog.text
+    assert "yue" in missing
+    for name in ("stable_audio", "acestep", "chatterbox", "whisper"):
+        assert name not in missing
+    assert "item 18c (" in caplog.text
     assert "item 17 (" not in caplog.text and "item 19 (" not in caplog.text
 
 
@@ -524,3 +537,174 @@ def test_main_serves_on_the_cpu_and_stops_on_sigterm(tmp_path):
             proc.kill()
             proc.wait()
         proc.stdout.close()
+
+
+# ------------------------------------------------------------------ music routes
+
+
+@pytest.fixture(scope="module")
+def music_backends():
+    """"stable_audio" and "acestep" registered in both packages' music
+    tables: the JAX demo backends (``random_stable_audio``, ``random_acestep``,
+    their modules jitted) and the port's pipelines on the same weights, the
+    port drawing the JAX keys' normals; 3 sampler steps.  The tables are
+    restored afterwards."""
+    import jax
+
+    from audiolab_tpu.pipelines import acestep as j_ace
+    from audiolab_tpu.pipelines import music as j_music
+    from audiolab_tpu.serve import music_api as j_api
+    from audiolab_tpu_torch.models import acestep as TA
+    from audiolab_tpu_torch.models import codecs as TC
+    from audiolab_tpu_torch.models import dit as TD
+    from audiolab_tpu_torch.models import stable_audio as TS
+    from audiolab_tpu_torch.pipelines import acestep as t_ace
+    from audiolab_tpu_torch.pipelines import music as t_music
+    from audiolab_tpu_torch.serve import music_api as t_api
+    from audiolab_tpu_torch.utils import weights as W
+    from tests import torch_port_tiny as tiny
+    from tests.test_torch_port_acestep import JaxDraws
+
+    js = j_music.random_stable_audio()
+    js.model = tiny.Jitted(js.model)
+    c = js.cfg
+    tcfg = TS.StableAudioConfig(
+        sr=c.sr, max_seconds=c.max_seconds, vae=TS.OobleckConfig(**vars(c.vae)),
+        dit=TD.DiTConfig(**vars(c.dit)), text_dim=c.text_dim, text_layers=c.text_layers)
+
+    class JaxKeyed(t_music.StableAudioPipeline):
+        """The port's pipeline started from ``generate_audio``'s JAX latents."""
+
+        def generate(self, prompt, seconds_total=10.0, seed=0, **kw):
+            t_lat = TS.latent_frames(float(np.clip(seconds_total, 1.0, c.max_seconds)), c.sr,
+                                     c.vae.hop)
+            k_init, _ = jax.random.split(jax.random.PRNGKey(seed))
+            z = np.asarray(jax.random.normal(k_init, (1, t_lat, c.vae.latent_dim)))
+            return super().generate(prompt, seconds_total=seconds_total, seed=seed,
+                                    z=torch.from_numpy(z), **kw)
+
+    import torch
+
+    ts = JaxKeyed(tiny._load(TS.StableAudioModel(tcfg), W.stable_audio_from_jax(js.params)),
+                  device="cpu")
+    ja = j_ace.random_acestep()
+    ja.model, ja.vocos = tiny.Jitted(ja.model), tiny.Jitted(ja.vocos)
+    a, v = ja.cfg, ja.vocos.cfg
+    acfg = TA.ACEStepConfig(sr=a.sr, mel_hop=a.mel_hop, dcae=TA.DCAEConfig(**vars(a.dcae)),
+                            dit=TD.DiTConfig(**vars(a.dit)), text_dim=a.text_dim,
+                            text_layers=a.text_layers, lyric_vocab=a.lyric_vocab)
+    ta = t_ace.ACEStepPipeline(
+        tiny._load(TA.ACEStepModel(acfg), W.acestep_from_jax(ja.params)),
+        tiny._load(TC.Vocos(TC.VocosConfig(**vars(v)), in_dim=a.dcae.n_mels),
+                   W.vocos_from_jax(ja.vocos_params)),
+        device="cpu", draws=JaxDraws())
+    ja.pcfg.steps = ta.pcfg.steps = 3
+    saved = dict(j_api._BACKENDS), dict(t_api._BACKENDS)
+    for api, sa, ace in ((j_api, js, ja), (t_api, ts, ta)):
+        api._BACKENDS.clear()
+        api.register_backend("stable_audio", sa)
+        api.register_backend("acestep", ace)
+    yield
+    for api, table in zip((j_api, t_api), saved):
+        api._BACKENDS.clear()
+        api._BACKENDS.update(table)
+
+
+def _same_audio(body, ref, tmp_path, tol=1e-4):
+    """Same keys (but the file id) and values; the WAVs at one rate and shape,
+    within ``tol`` of max|y| and a 16-bit step."""
+    assert set(body) == set(ref)
+    for k in set(body) - {"audio", "file_id"}:
+        assert body[k] == ref[k], k
+    out = []
+    for tag, b in (("got", body), ("want", ref)):
+        p = tmp_path / f"{tag}.wav"
+        p.write_bytes(base64.b64decode(b["audio"]))
+        out.append(read_wav(p))
+    a, b = out
+    assert a.sample_rate == b.sample_rate and a.samples.shape == b.samples.shape
+    assert np.isfinite(a.samples).all() and a.samples.shape[-1] > 0
+    assert np.abs(a.samples - b.samples).max() <= tol * np.abs(b.samples).max() + PCM16
+
+
+def _music_clip(tmp_path, sr=8000, seconds=2.0):
+    rng = np.random.default_rng(3)
+    t = np.arange(int(sr * seconds)) / sr
+    x = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(t.size))
+    p = tmp_path / "clip.wav"
+    write_wav(p, x.astype(np.float32)[None], sr)
+    return {"filename": "clip.wav", "content": base64.b64encode(p.read_bytes()).decode()}
+
+
+MUSIC_POSTS = {
+    "audio_generate": ("/api/v1/audio/generate", dict(
+        prompt="warm pads", settings={"seconds_total": 1.0, "steps": 3, "cfg_scale": 3.0,
+                                      "negative_prompt": "noise", "seed": 2})),
+    "audio_continue": ("/api/v1/audio/continue", dict(
+        prompt="glass", settings={"seconds_total": 1.0, "steps": 3, "seed": 1}, clip=16000)),
+    "acestep_generate": ("/api/v1/acestep/generate", dict(
+        prompt="lofi beat", lyrics="[verse] la la", duration=1.5, infer_step=3, seed=4)),
+    "acestep_retake": ("/api/v1/acestep/task", dict(
+        task="retake", prompt="jazz", settings={"variance": 0.4, "seed": 5}, clip=8000)),
+    "acestep_repaint": ("/api/v1/acestep/task", dict(
+        task="repaint", prompt="jazz", settings={"start_s": 0.5, "end_s": 1.5, "seed": 6},
+        clip=8000)),
+    "acestep_edit": ("/api/v1/acestep/task", dict(
+        task="edit", tags="rock", settings={"strength": 0.7, "lyrics": "[chorus] oh"},
+        clip=8000)),
+    "acestep_extend": ("/api/v1/acestep/task", dict(
+        task="extend", prompt="rock", settings={"right_s": 1.0, "left_s": 0.5}, clip=8000)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MUSIC_POSTS))
+def test_music_routes_match_the_jax_router(server, jax_router, music_backends, tmp_path, case):
+    """The POST music routes on the demo backends (same weights, JAX's
+    draws): status, keys and audio within 1e-4 of max|y| and a 16-bit step;
+    the file id downloads the same WAV."""
+    path, body = MUSIC_POSTS[case]
+    body = dict(body)
+    sr = body.pop("clip", None)
+    if sr:
+        body["files"] = [_music_clip(tmp_path, sr=sr)]
+    status, resp = _post(f"{server}{path}", body)
+    code, ref = jax_router.dispatch("POST", path, body)
+    assert status == code == 200, resp
+    _same_audio(resp, ref, tmp_path)
+    st, _h, raw = _get(f"{server}/api/v1/audio/download/{resp['file_id']}")
+    assert st == 200 and raw == base64.b64decode(resp["audio"])
+
+
+def test_music_listings_and_errors_match_the_jax_router(server, jax_router, music_backends):
+    for path in ("/api/v1/audio/models", "/api/v1/audio/formats"):
+        status, _h, raw = _get(f"{server}{path}")
+        assert status == 200 and json.loads(raw) == jax_router.dispatch("GET", path, {})[1]
+    assert json.loads(_get(f"{server}/api/v1/audio/models")[2])["models"] == [
+        "acestep", "stable_audio"]
+    for path, body in (("/api/v1/acestep/task", {"task": "remix", "files": []}),
+                       ("/api/v1/acestep/task", {"task": "retake"}),
+                       ("/api/v1/audio/continue", {"prompt": "x"})):
+        status, _resp = _post(f"{server}{path}", body)
+        assert status == jax_router.dispatch("POST", path, body)[0] == 400, (path, body)
+    assert _get(f"{server}/api/v1/audio/download/nope")[0] == 404
+
+
+def test_generation_settings_keep_what_generate_names():
+    """The body's top-level knobs merge under ``settings`` (``settings`` wins)
+    and, for a ``generate`` without ``**kwargs``, only the parameters it
+    names pass, as the JAX package's ``_generate_with`` filters them."""
+    from audiolab_tpu_torch.serve.music_api import generation_settings
+
+    class Named:
+        def generate(self, prompt, seed=0, duration=1.0):
+            return prompt
+
+    class Open:
+        def generate(self, prompt, **kw):
+            return prompt
+
+    body = {"prompt": "x", "model": "m", "seed": 3, "extra": 1,
+            "settings": {"duration": 2.0, "seed": 5, "other": 2}}
+    assert generation_settings(Named(), body) == {"duration": 2.0, "seed": 5}
+    assert generation_settings(Open(), body) == {"duration": 2.0, "seed": 5, "other": 2,
+                                                 "extra": 1}

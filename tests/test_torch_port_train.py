@@ -26,12 +26,14 @@ from audiolab_tpu.train import losses as JL
 from audiolab_tpu.train import rvc as JR
 from audiolab_tpu_torch.kernels import attention as TA
 from audiolab_tpu_torch.kernels import norms as TN
+from audiolab_tpu_torch.models.layers import Pins, pinned
 from audiolab_tpu_torch.models.rvc.synthesizer import TrainDraws
 from audiolab_tpu_torch.train import checkpoint as TC
 from audiolab_tpu_torch.train import losses as TL
 from audiolab_tpu_torch.train import rvc as TR
 from audiolab_tpu_torch.utils import weights as W
 from tests import torch_port_tiny as tiny
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401
 from tests.test_train import make_batch, tiny_cfg
 
 PERIODS = (2, 3)
@@ -67,7 +69,8 @@ def setup():
 @pytest.fixture(scope="module")
 def stepped(setup):
     """One JAX ``make_train_step`` call and one port step on the same
-    weights, batch and draws.  The gradients JAX's step took are read from
+    weights, batch and draws, the port's step replaying the kink sides,
+    excitation phase and STFT directions of the same step in fp64.  The gradients JAX's step took are read from
     its first Adam moment: after one update mu = (1 - 0.8) g."""
     cfg, gp, dp, tg, td, batch = setup
     gen, disc = JSy.SynthesizerTrn(cfg), JD.MultiPeriodDiscriminatorV2(PERIODS)
@@ -80,11 +83,27 @@ def stepped(setup):
     new, jm = JR.make_train_step(cfg, gen, disc)(state, batch, rng)
     grads = [jax.tree_util.tree_map(lambda m: np.asarray(m) / (1.0 - 0.8), opt[0].mu)
              for opt in (new.g_opt, new.d_opt)]
-    tg2, td2 = (copy.deepcopy(m).train() for m in (tg, td))
-    ts = TR.RVCTrainState(0, tg2, td2, TR.make_optimizer(tg2.parameters()),
-                          TR.make_optimizer(td2.parameters()))
     keys = jax.random.split(jax.random.fold_in(rng, 0), 3)   # the step's draws at step 0
-    ts, tm = TR.make_train_step(cfg)(ts, _torch_batch(batch), 1, draws=_draws(cfg, keys))
+    pins = Pins()
+
+    def port_step(dtype, replay):
+        tg2, td2 = (copy.deepcopy(m).train().to(dtype) for m in (tg, td))
+        ts = TR.RVCTrainState(0, tg2, td2, TR.make_optimizer(tg2.parameters()),
+                              TR.make_optimizer(td2.parameters()))
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in _torch_batch(batch).items()}
+        d = _draws(cfg, keys)
+        d = TrainDraws(d.posterior.to(dtype), d.starts, d.sine.to(dtype))
+        with pinned(pins, replay=replay):
+            ts, tm = TR.make_train_step(cfg)(ts, b, 1, draws=d)
+        return tg2, td2, ts, tm
+
+    # the port's fp32 step replays its fp64 step's pins (models/layers.py
+    # Pins): unpinned, one leaky ReLU input of the generator within rounding
+    # of 0 takes the other side on one CPU thread and moves dec.conv_pre's
+    # gradient by 1.6e-3 of its max|g|
+    port_step(torch.float64, False)
+    tg2, td2, ts, tm = port_step(torch.float32, True)
     return ({k: float(v) for k, v in jm.items()}, {k: float(v) for k, v in tm.items()},
             grads, (tg2, td2), ts)
 

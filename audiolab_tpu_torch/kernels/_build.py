@@ -5,6 +5,8 @@ into ``build/kernels/lib<name>-<hash>.so`` at the repository root; the hash
 covers the source and the command, so an edited source rebuilds and an
 unchanged one loads the library already built.  :func:`build` starts one
 ``nvcc`` per source, all at once.  Nothing here runs at import time.
+:func:`no_grad_only` is the wrappers' shared guard for kernels that have
+no backward.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -92,3 +96,16 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _LIBS[name] = lib
         return lib
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would have to go through a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
+def no_grad_only(name: str, *tensors) -> None:
+    """Refuse a call that autograd would have to go through: the kernel has
+    no backward, and its output would silently cut the gradient."""
+    if wants_grad(*tensors):
+        raise RuntimeError(f"{name}: no gradient through this kernel; call it under "
+                           "torch.no_grad() or on tensors that do not require grad")

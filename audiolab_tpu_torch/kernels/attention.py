@@ -46,6 +46,16 @@ It counts its launches in a plain integer attribute (``.launches``), and
 those on the Hopper design in ``.sm90_launches`` (K1, K2, K3, K6, K7).
 The plain versions repeat each kernel's rounding points, so a CPU run
 computes what the card computes up to summation order.
+
+Gradients: when grad mode is on and q, k or v requires grad, K1 and K2 run
+through an ``autograd.Function`` (:class:`_K1Grad`, :class:`_K2Grad`)
+whose forward is the same call on the same route, counted as always, and
+whose backward is the gradient of the kernel's plain version, recomputed
+from the saved q, k, v: the JAX package has no backward kernel (on the CPU
+its gradient is autodiff of the plain attention), so there is none to port.
+Under ``no_grad``/``inference_mode``, or when nothing requires grad, the
+call is the plain call.  K3-K7 and the yardstick entries have no gradient
+and refuse a call autograd would have to go through (``_build.no_grad_only``).
 """
 
 from __future__ import annotations
@@ -221,6 +231,59 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
+def _plain_grads(plain, inputs, grad_out, needs):
+    """The gradients of ``plain(*inputs)`` (recomputed in grad mode from
+    detached copies) with respect to the inputs that ``needs`` marks."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+        out = plain(*leaves)
+    wanted = [x for x in leaves if x.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _K1Grad(torch.autograd.Function):
+    """K1 with a gradient: the forward is the wrapper's own call (the kernel
+    on its route for CUDA tensors, counted as always), the backward the
+    gradient of :func:`attention_nk1_reference` at the saved q, k, v.  The
+    JAX package has no backward kernel (on the CPU its gradient is autodiff
+    of the plain attention), so there is none to port.  The recompute holds
+    fp32 scores and probabilities: 2 * b*h*tq*tk*4 bytes at once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _attention_nk1(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        scale = ctx.scale
+        return (*_plain_grads(lambda q, k, v: attention_nk1_reference(q, k, v, scale),
+                              ctx.saved_tensors, grad_out, ctx.needs_input_grad[:3]), None)
+
+
+class _K2Grad(torch.autograd.Function):
+    """K2 with a gradient: the forward is the wrapper's own call, the
+    backward the gradient of :func:`flash_attention_reference` at the saved
+    q, k, v (see :class:`_K1Grad`; the recompute holds b*h*tq*tk*4 bytes of
+    fp32 scores and as many of probabilities)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _flash_attention_fwd(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, scale = ctx.causal, ctx.scale
+        grads = _plain_grads(
+            lambda q, k, v: flash_attention_reference(q, k, v, causal, scale),
+            ctx.saved_tensors, grad_out, ctx.needs_input_grad[:3])
+        return (*grads, None, None)
+
+
 def k1_slices_per_cta(bh: int, tq: int) -> int:
     """Slices one K1 CTA walks through: short sequences (one 64-row query
     tile) pack 8 slices per CTA so 44k band-axis slices are 5.5k CTAs."""
@@ -255,9 +318,15 @@ def attention_nk1(q, k, v, scale: float | None = None):
     WMMA core ``k1_attention_nk1``; CPU tensors take
     :func:`attention_nk1_reference`."""
     _check("attention_nk1", q, k, v, (torch.bfloat16, torch.float16))
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if _build.wants_grad(q, k, v):
+        return _K1Grad.apply(q, k, v, scale)
+    return _attention_nk1(q, k, v, scale)
+
+
+def _attention_nk1(q, k, v, scale: float):
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if not q.is_cuda:
         return attention_nk1_reference(q, k, v, scale)
     if d not in _K1_HEAD_DIMS:
@@ -288,6 +357,7 @@ def attention_nk1_core(q, k, v, scale: float | None = None):
     Hopper design is timed against.  The package routes through
     :func:`attention_nk1`; CPU tensors take :func:`attention_nk1_reference`."""
     _check("attention_nk1_core", q, k, v, (torch.bfloat16, torch.float16))
+    _build.no_grad_only("attention_nk1_core", q, k, v)
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if not q.is_cuda:
@@ -359,8 +429,14 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale: float | None = Non
     first tq - tk rows, which see no key, the mean of v, as the reference
     does (:func:`with_keyless_rows`)."""
     _check("flash_attention_fwd", q, k, v, tuple(_DTYPE_CODE))
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if _build.wants_grad(q, k, v):
+        return _K2Grad.apply(q, k, v, bool(causal), scale)
+    return _flash_attention_fwd(q, k, v, causal, scale)
+
+
+def _flash_attention_fwd(q, k, v, causal: bool, scale: float):
     d = q.shape[-1]
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, causal, scale)
     if d > 256:
@@ -391,6 +467,7 @@ def flash_attention_fwd_core(q, k, v, causal: bool = False, scale: float | None 
     The package routes through :func:`flash_attention_fwd`; CPU tensors take
     :func:`flash_attention_reference`."""
     _check("flash_attention_fwd_core", q, k, v, _HALF_TYPES)
+    _build.no_grad_only("flash_attention_fwd_core", q, k, v)
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     if not q.is_cuda:
@@ -453,6 +530,7 @@ def attention_nk1_rope(q, k, v, rope_cos, rope_sin, scale: float | None = None):
     ``k3_attention_nk1_rope``; CPU tensors take
     :func:`attention_nk1_rope_reference`."""
     _check("attention_nk1_rope", q, k, v, _HALF_TYPES)
+    _build.no_grad_only("attention_nk1_rope", q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -487,6 +565,7 @@ def attention_nk1_rope_core(q, k, v, rope_cos, rope_sin, scale: float | None = N
     :func:`attention_nk1_rope_reference`."""
     name = "attention_nk1_rope_core"
     _check(name, q, k, v, _HALF_TYPES)
+    _build.no_grad_only(name, q, k, v)
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     cos, sin = _rope_tables_for(name, rope_cos, rope_sin, max(q.shape[2], k.shape[2]), d,
@@ -543,6 +622,7 @@ def slim_attention(q, k, v, scale: float | None = None):
     this card the number of slices the band design keeps in flight; depths
     of 4 to 9 measured alike, so it keeps K1's."""
     _check("slim_attention", q, k, v, (torch.bfloat16, torch.float16))
+    _build.no_grad_only("slim_attention", q, k, v)
     b, h, tq, d = q.shape
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if not q.is_cuda:
@@ -569,6 +649,7 @@ def slim_attention_core(q, k, v, scale: float | None = None):
     Hopper band design is timed against.  The package routes through
     :func:`slim_attention`; CPU tensors take :func:`attention_nk1_reference`."""
     _check("slim_attention_core", q, k, v, (torch.bfloat16, torch.float16))
+    _build.no_grad_only("slim_attention_core", q, k, v)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if not q.is_cuda:
         return attention_nk1_reference(q, k, v, scale)
@@ -650,6 +731,7 @@ def packed_attention(q, k, v, heads: int, dim_head: int, scale: float | None = N
     tensors take :func:`packed_attention_reference`."""
     name = "packed_attention"
     _packed_check(name, q, k, v, heads, dim_head)
+    _build.no_grad_only(name, q, k, v)
     b, t, inner = q.shape
     scale = 1.0 / math.sqrt(dim_head) if scale is None else float(scale)
     if not q.is_cuda:
@@ -678,6 +760,7 @@ def packed_attention_core(q, k, v, heads: int, dim_head: int, scale: float | Non
     :func:`packed_attention_reference`."""
     name = "packed_attention_core"
     _packed_check(name, q, k, v, heads, dim_head)
+    _build.no_grad_only(name, q, k, v)
     scale = 1.0 / math.sqrt(dim_head) if scale is None else float(scale)
     if not q.is_cuda:
         return packed_attention_reference(q, k, v, heads, dim_head, scale)

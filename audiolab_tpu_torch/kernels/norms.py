@@ -6,7 +6,9 @@ Both compute in fp32 and return x's type.  A CUDA tensor launches the
 kernel for any last axis up to :data:`MAX_D` (the TPU path ran its kernel
 only when d % 128 == 0, a lane rule the card does not have) and raises
 above it; a CPU tensor takes the plain version.  Each wrapper counts its
-launches in ``.launches``.
+launches in ``.launches``.  Neither has a backward: a call that autograd
+would have to go through raises (nothing on the port's paths trains
+through them).
 """
 
 from __future__ import annotations
@@ -87,6 +89,7 @@ def rms_norm(x, weight, eps: float = 1e-5):
     tensors launch ``k4_rms_norm``; CPU tensors take
     :func:`rms_norm_reference`."""
     _check("rms_norm", x, (weight,))
+    _build.no_grad_only("rms_norm", x, weight)
     if not x.is_cuda:
         return rms_norm_reference(x, weight, eps)
     return _launch(rms_norm, _lib().k4_rms_norm, x, (weight,), eps)
@@ -100,6 +103,7 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     CUDA tensors launch ``k5_layer_norm``; CPU tensors take
     :func:`layer_norm_reference`."""
     _check("layer_norm", x, (weight, bias))
+    _build.no_grad_only("layer_norm", x, weight, bias)
     if not x.is_cuda:
         return layer_norm_reference(x, weight, bias, eps)
     return _launch(layer_norm, _lib().k5_layer_norm, x, (weight, bias), eps)

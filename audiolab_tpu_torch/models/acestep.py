@@ -12,6 +12,13 @@ tanh form, ``Conv``/``ConvTranspose`` with ``padding="SAME"`` as in
 ``.``.  The JAX solve splits ``jax.random`` keys inside ``lax.scan``; here
 every draw comes from a :class:`Draws` (by default seeded
 ``torch.Generator``s, or one the caller passes), made before the loop.
+
+LoRA: :func:`lora_init` makes factors for the DiT's ``wq``/``wk``/``wv``/
+``wo``, :func:`lora_weights` merges them, differentiably, into the DiT's
+parameters for ``torch.func.functional_call`` (training) or
+``load_state_dict`` (a pipeline built with an adapter), and
+:class:`LoRAModel` runs a model through an adapter without writing it (a
+served request).
 """
 
 from __future__ import annotations
@@ -392,16 +399,60 @@ def fm_sample(
 
 # ------------------------------------------------------------------ LoRA
 
-def lora_apply(state_dict: dict, lora: dict, alpha: float = 1.0) -> dict:
-    """A copy of a model's ``state_dict`` with ``alpha * (a @ b)`` merged into
-    each adapted Linear: ``lora`` maps a module path (a tuple, the flax tree's
-    path, e.g. ``("dit", "block_0", "wq")``) to its factors ``{"a": (din,
-    rank), "b": (rank, dout)}``."""
-    out = dict(state_dict)
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+
+def lora_init(dit: nn.Module, rank: int = 8, targets: Sequence[str] = LORA_TARGETS,
+              seed: int = 0) -> dict:
+    """Low-rank factors for every target Linear of ``dit``: ``{path: {"a":
+    (din, rank) N(0, 1) * 0.01, "b": (rank, dout) zeros}}``, paths relative
+    to the DiT (``("block_0", "wq")``), as the JAX ``lora_init(base["dit"])``
+    gives them.  The draws come from a ``torch.Generator`` seeded by
+    ``seed`` on the CPU, in module order (the JAX function seeds each factor
+    by Python's ``hash()`` of its path, which changes with PYTHONHASHSEED)."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, mod in dit.named_modules():
+        if name.rsplit(".", 1)[-1] in targets and isinstance(mod, nn.Linear):
+            w = mod.weight
+            a = torch.randn((mod.in_features, rank), generator=g) * 0.01
+            out[tuple(name.split("."))] = {
+                "a": a.to(w.device), "b": torch.zeros((rank, mod.out_features), device=w.device)}
+    return out
+
+
+def lora_weights(dit: nn.Module, lora: dict, alpha: float = 1.0) -> dict:
+    """Every parameter of ``dit`` by name, detached, with ``alpha * (a @ b)``
+    added to each adapted Linear's weight, differentiably in the factors
+    (tensors or arrays): the parameters of ``torch.func.functional_call(dit,
+    ...)`` for a forward with the adapter merged, the module itself
+    unchanged and its weights out of the graph."""
+    out = {n: p.detach() for n, p in dit.named_parameters()}
     for path, ab in lora.items():
         key = ".".join(path) + ".weight"
         w = out[key]
-        a, b = (torch.as_tensor(np.asarray(ab[n]), dtype=w.dtype, device=w.device)
-                for n in ("a", "b"))
+        a, b = (torch.as_tensor(ab[n], dtype=w.dtype, device=w.device) for n in ("a", "b"))
         out[key] = w + alpha * (a @ b).T
     return out
+
+
+class LoRAModel:
+    """An :class:`ACEStepModel` seen through an adapter: ``velocity`` and
+    ``velocity_hidden`` run its DiT by ``functional_call`` on
+    :func:`lora_weights`, everything else is the model's own.  The shared
+    module is never written, so a request that brings an adapter leaves the
+    registered backend's weights as they were."""
+
+    def __init__(self, model: ACEStepModel, lora: dict, alpha: float = 1.0):
+        self.base = model
+        self.weights = lora_weights(model.dit, lora, alpha)
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
+
+    def velocity(self, z, t, context):
+        return torch.func.functional_call(self.base.dit, self.weights, (z, t, context))
+
+    def velocity_hidden(self, z, t, context, depth: int):
+        return torch.func.functional_call(self.base.dit, self.weights, (z, t, context),
+                                          {"return_hidden_at": depth})

@@ -1763,3 +1763,185 @@ def vocos_from_jax(params: dict) -> dict:
     _norm(sd, "backbone.final_layer_norm", params["norm_out"])
     _dense(sd, "head.out", params["head"])
     return sd
+
+
+# ------------------------------------------------ music: checkpoint ACE-Step, CLAP, LoRA
+
+def acestep_dit_from_jax(params: dict) -> dict:
+    """The checkpoint-layout ACEStepDiT's flax params -> port state_dict
+    (the published transformer's names, the inverse of
+    ``acestep_dit_mapping``): ``proj_in``'s Dense over flattened
+    (channel, height) patches becomes the (16, 1) Conv2d."""
+    sd: dict = {"lyric_embs.weight": _t(params["lyric_embs"]["embedding"])}
+    for ours, theirs in (("speaker_embedder", "speaker_embedder"),
+                         ("genre_embedder", "genre_embedder"), ("lyric_proj", "lyric_proj"),
+                         ("timestep_embedder_linear_1", "timestep_embedder.linear_1"),
+                         ("timestep_embedder_linear_2", "timestep_embedder.linear_2"),
+                         ("t_block", "t_block.1")):
+        _dense(sd, theirs, params[ours])
+    pin = params["proj_in"]
+    k0 = np.asarray(pin["early0"]["kernel"])               # (c * kh, mid)
+    kh = k0.shape[0] // (k0.shape[1] // 256)
+    sd["proj_in.early_conv_layers.0.weight"] = _t(k0.T.reshape(k0.shape[1], -1, kh, 1))
+    sd["proj_in.early_conv_layers.0.bias"] = _t(pin["early0"]["bias"])
+    _norm(sd, "proj_in.early_conv_layers.1", pin["gn"])
+    sd["proj_in.early_conv_layers.2.weight"] = _t(np.asarray(pin["early2"]["kernel"]).T[:, :, None, None])
+    sd["proj_in.early_conv_layers.2.bias"] = _t(pin["early2"]["bias"])
+    for i in range(_count(params, "block_")):
+        p, b = params[f"block_{i}"], f"transformer_blocks.{i}"
+        sd[f"{b}.scale_shift_table"] = _t(p["scale_shift_table"])
+        for a in ("attn", "cross_attn"):
+            for proj in ("to_q", "to_k", "to_v"):
+                _dense(sd, f"{b}.{a}.{proj}", p[a][proj])
+            _dense(sd, f"{b}.{a}.to_out.0", p[a]["to_out"])
+        for conv in ("inverted_conv", "depth_conv", "point_conv"):
+            _conv1d(sd, f"{b}.ff.{conv}.conv", p["ff"][conv])
+    sd["final_layer.scale_shift_table"] = _t(params["final_layer"]["scale_shift_table"])
+    _dense(sd, "final_layer.linear", params["final_layer"]["linear"])
+    i = 0
+    while f"projector_{i}_0" in params:
+        for j in range(3):
+            _dense(sd, f"projectors.{i}.{2 * j}", params[f"projector_{i}_{j}"])
+        i += 1
+    return sd
+
+
+def acestep_lyric_from_jax(params: dict) -> dict:
+    """LyricConformerEncoder flax params -> port state_dict (the checkpoint's
+    ``lyric_encoder`` names, the inverse of ``acestep_lyric_mapping``)."""
+    sd: dict = {}
+    _dense(sd, "embed.out.0", params["embed_lin"])
+    _norm(sd, "embed.out.1", params["embed_norm"])
+    for i in range(_count(params, "attn_")):
+        a, b = params[f"attn_{i}"], f"encoders.{i}"
+        for lin in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            _dense(sd, f"{b}.self_attn.{lin}", a[lin])
+        sd[f"{b}.self_attn.pos_bias_u"] = _t(a["pos_bias_u"])
+        sd[f"{b}.self_attn.pos_bias_v"] = _t(a["pos_bias_v"])
+        _norm(sd, f"{b}.norm_mha", params[f"norm_mha_{i}"])
+        _norm(sd, f"{b}.norm_ff", params[f"norm_ff_{i}"])
+        _dense(sd, f"{b}.feed_forward.w_1", params[f"ff_w1_{i}"])
+        _dense(sd, f"{b}.feed_forward.w_2", params[f"ff_w2_{i}"])
+    _norm(sd, "after_norm", params["after_norm"])
+    return sd
+
+
+def _dcae_walk(sd: dict, key: str, node: dict) -> None:
+    """A DCAE subtree under diffusers' names: ``down_i_j``/``up_i_j`` ->
+    ``down_blocks.i.j``/``up_blocks.i.j``, ``to_qkv_multiscale_s`` ->
+    ``to_qkv_multiscale.s``; 4-D kernels are Conv2d, 2-D ones Linear, the
+    RMSNorms' weight and bias leaves as they are."""
+    if "kernel" in node:
+        (_conv2d if np.ndim(node["kernel"]) == 4 else _dense)(sd, key, node)
+        return
+    for name, child in node.items():
+        m = re.fullmatch(r"(down|up)_(\d+)_(\d+)", name)
+        if m:
+            name = f"{m.group(1)}_blocks.{m.group(2)}.{m.group(3)}"
+        name = re.sub(r"^to_qkv_multiscale_(\d+)$", r"to_qkv_multiscale.\1", name)
+        sub = f"{key}.{name}" if key else name
+        if isinstance(child, dict):
+            _dcae_walk(sd, sub, child)
+        else:
+            sd[sub] = _t(child)
+
+
+def dcae_from_jax(params: dict) -> dict:
+    """AutoencoderDC flax params -> port state_dict (diffusers' names, the
+    inverse of ``dcae_mapping``)."""
+    sd: dict = {}
+    _dcae_walk(sd, "", params)
+    return sd
+
+
+def adamos_from_jax(params: dict) -> dict:
+    """AdamosVocoder flax params -> port state_dict (music_vocoder.py's
+    names, the inverse of ``adamos_mapping``; weight-normed convolutions
+    as their folded ``weight``)."""
+    sd: dict = {}
+    bk, hd = params["backbone"], params["head"]
+    _conv1d(sd, "backbone.channel_layers.0.0", bk["stem_conv"])
+    _norm(sd, "backbone.channel_layers.0.1", bk["stem_norm"])
+    for i in range(1, 1 + _count(bk, "mid_norm_")):
+        _norm(sd, f"backbone.channel_layers.{i}.0", bk[f"mid_norm_{i}"])
+        _dense_as_conv1x1(sd, f"backbone.channel_layers.{i}.1", bk[f"mid_proj_{i}"])
+    for name, node in bk.items():
+        m = re.fullmatch(r"stage_(\d+)_(\d+)", name)
+        if not m:
+            continue
+        b = f"backbone.stages.{m.group(1)}.{m.group(2)}"
+        _conv1d(sd, f"{b}.dwconv", node["dwconv"])
+        _norm(sd, f"{b}.norm", node["norm"])
+        _dense(sd, f"{b}.pwconv1", node["pwconv1"])
+        _dense(sd, f"{b}.pwconv2", node["pwconv2"])
+        sd[f"{b}.gamma"] = _t(node["gamma"])
+    _norm(sd, "backbone.norm", bk["final_norm"])
+    _conv1d(sd, "head.conv_pre", hd["conv_pre"])
+    n_kernels = _count(hd, "res_0_")
+    for i in range(_count(hd, "up_")):
+        _conv_t1d(sd, f"head.ups.{i}", hd[f"up_{i}"])
+        for j in range(n_kernels):
+            res, key = hd[f"res_{i}_{j}"], f"head.resblocks.{i * n_kernels + j}"
+            for d in range(_count(res, "c1_")):
+                _conv1d(sd, f"{key}.convs1.{d}", res[f"c1_{d}"])
+                _conv1d(sd, f"{key}.convs2.{d}", res[f"c2_{d}"])
+    _conv1d(sd, "head.conv_post", hd["conv_post"])
+    return sd
+
+
+def clap_text_from_jax(params: dict) -> dict:
+    """ClapTextBranch flax params -> port state_dict (laion_clap's names, the
+    inverse of ``clap_text_mapping``)."""
+    e = "text_branch.embeddings"
+    sd: dict = {f"{e}.word_embeddings.weight": _t(params["word_emb"]["embedding"]),
+                f"{e}.position_embeddings.weight": _t(params["pos_emb"]["embedding"]),
+                f"{e}.token_type_embeddings.weight": _t(params["type_emb"]["embedding"])}
+    _norm(sd, f"{e}.LayerNorm", params["emb_ln"])
+    for i in range(_count(params, "layer_")):
+        p, b = params[f"layer_{i}"], f"text_branch.encoder.layer.{i}"
+        for ours, theirs in (("q", "attention.self.query"), ("k", "attention.self.key"),
+                             ("v", "attention.self.value"), ("attn_out", "attention.output.dense"),
+                             ("ffn_in", "intermediate.dense"), ("ffn_out", "output.dense")):
+            _dense(sd, f"{b}.{theirs}", p[ours])
+        _norm(sd, f"{b}.attention.output.LayerNorm", p["attn_ln"])
+        _norm(sd, f"{b}.output.LayerNorm", p["ffn_ln"])
+    _dense(sd, "text_branch.pooler.dense", params["pooler"])
+    _dense(sd, "text_projection.0", params["proj0"])
+    _dense(sd, "text_projection.2", params["proj1"])
+    return sd
+
+
+def clap_audio_from_jax(params: dict) -> dict:
+    """ClapAudioBranch flax params -> port state_dict (laion_clap's HTSAT
+    names, the inverse of ``clap_audio_mapping``)."""
+    sd: dict = {}
+    _conv2d(sd, "audio_branch.patch_embed.proj", params["patch_proj"])
+    _norm(sd, "audio_branch.patch_embed.norm", params["patch_norm"])
+    li = 0
+    while f"l{li}_b0" in params:
+        bi = 0
+        while f"l{li}_b{bi}" in params:
+            p, b = params[f"l{li}_b{bi}"], f"audio_branch.layers.{li}.blocks.{bi}"
+            _norm(sd, f"{b}.norm1", p["norm1"])
+            _dense(sd, f"{b}.attn.qkv", p["qkv"])
+            sd[f"{b}.attn.relative_position_bias_table"] = _t(p["rel_bias"])
+            _dense(sd, f"{b}.attn.proj", p["proj"])
+            _norm(sd, f"{b}.norm2", p["norm2"])
+            _dense(sd, f"{b}.mlp.fc1", p["fc1"])
+            _dense(sd, f"{b}.mlp.fc2", p["fc2"])
+            bi += 1
+        if f"merge_{li}_norm" in params:
+            _norm(sd, f"audio_branch.layers.{li}.downsample.norm", params[f"merge_{li}_norm"])
+            _dense(sd, f"audio_branch.layers.{li}.downsample.reduction", params[f"merge_{li}_red"])
+        li += 1
+    _norm(sd, "audio_branch.norm", params["norm"])
+    _dense(sd, "audio_projection.0", params["proj0"])
+    _dense(sd, "audio_projection.2", params["proj1"])
+    return sd
+
+
+def lora_from_jax(lora: dict) -> dict:
+    """The JAX ``lora_init``/``train_lora`` factors ``{path: {"a", "b"}}`` ->
+    the port's (the same paths, relative to the DiT: the port's DiT keeps
+    the flax module names; fp32 CPU tensors)."""
+    return {tuple(p): {n: _t(ab[n]) for n in ("a", "b")} for p, ab in lora.items()}

@@ -32,6 +32,9 @@ output.
     python3 chip_smoke.py --phases card,kernels,music  # stable-audio-open's DiT, T5 and
                                                    # Oobleck, the in-repo Stable Audio,
                                                    # ACE-Step, the music routes
+    python3 chip_smoke.py --phases card,kernels,lora  # ACE-Step LoRA training (gradients
+                                                   # through K1 and K2), the LoRA routes,
+                                                   # the checkpoint ACE-Step, CLAP
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
                                                    # a Dia call, an XTTS-v2 synthesize,
@@ -223,6 +226,22 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              guided step's milliseconds; (d) POST /api/v1/audio/generate and
              /api/v1/acestep/generate; (e) card against CPU at 2 layers of
              each DiT: a forward and one sampler step
+  lora       ACE-Step's LoRA and checkpoint model, CLAP: (a) train_lora at
+             ACEStepConfig() (DiT 1024 x 16, bf16) with LoRATrainConfig()
+             (rank 8, batch 2, 32 frames) on two 10 s clips, 6 of 200 steps
+             (16 K1 a step; the backward is the plain version's gradient and
+             launches none), and 3 steps with the SSL loss on HuBERT; (b) the
+             b gradients of wq/wk/wv through K1 (32 frames) and the 16-bit K2
+             (200 frames) against the plain version's; (c) POST
+             /api/v1/acestep/lora/train (polled to done) and lora/generate with
+             the adapter, the base generate unchanged around it; (d)
+             CheckpointACEStep at the JAX widths (DiT 1536 x 28, fp32, the
+             lyric conformer, UMT5-base, MusicDCAE on AutoencoderDC and ADaMoS)
+             on 30 s, 8 of 60 steps, no kernel launched; (e) CLAP's branches,
+             card against CPU; (f) card against CPU at 2 layers: the
+             checkpoint DiT, the DCAE round trip, ADaMoS, one LoRA step's
+             gradients.  Phase kernels adds K1's and K2's forward + backward
+             at (b)'s shapes
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -244,7 +263,7 @@ import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
-          "transcribe", "diffusion", "music")
+          "transcribe", "diffusion", "music", "lora")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -361,6 +380,18 @@ def attention_work(q, k, causal: bool) -> tuple[float, float, float]:
     flops = 4.0 * bh * pairs * d
     nbytes = float((2 * q.numel() + 2 * k.numel()) * q.element_size())
     return flops, nbytes, float(bh * pairs)
+
+
+def with_grad(fn, grad_out):
+    """``fn``'s (dq, dk, dv), flattened into one tensor, for ``grad_out``."""
+    import torch
+
+    def call(q, k, v):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        grads = torch.autograd.grad(fn(*leaves), leaves, grad_out)
+        return torch.cat([g.flatten() for g in grads])
+
+    return call
 
 
 def norm_work(x, params) -> tuple[float, float]:
@@ -664,6 +695,58 @@ def phase_kernels(dev, card: str) -> list[dict]:
                k1_route=route)
     recs.append(rec)
     del q, k, v
+    # the LoRA path at the trainer's shapes (the DiT at ACEStepConfig(),
+    # batch 2 x 16 heads, bf16): 32-frame segments take K1, 200 frames the
+    # 16-bit K2.  The record is the kernel's forward, held against its plain
+    # version and timed and bounded alone.  The gradient through the wrapper
+    # (kernels/attention.py::_K1Grad, _K2Grad) is a note beside it: its
+    # backward recomputes the plain version from the saved q, k, v, so it
+    # equals the plain version's gradient by construction; the note shows
+    # that, and times forward + backward beside the plain version's and
+    # SDPA's.  The whole-DiT check that the kernel's forward feeds the
+    # gradient is phase lora's (b).
+    for label, key, kern, t in (("K1 attention_nk1 (LoRA, 32 frames)", "k1_lora", "K1", 32),
+                                ("K2 flash_attention_fwd (LoRA, 200 frames)", "k2_lora",
+                                 "K2", 200)):
+        qs = (2, 16, t, 64)
+        q, k, v = (0.64 * rnd(qs, torch.float32).to(bf) for _ in range(3))
+        go = rnd(qs, torch.float32).to(bf)
+        plain = (A.attention_nk1_reference if kern == "K1"
+                 else lambda q, k, v, s: A.flash_attention_reference(q, k, v, False, s))
+        rep = k1_rep if kern == "K1" else k2_rep
+        rec = check_kernel(
+            label, lambda q, k, v: A.flash_attention(q, k, v),
+            lambda q, k, v: plain(q, k, v, 0.125), sdpa(False), (q, k, v),
+            attention_shape(q, k, False), *k1_tol, attention_work(q, k, False), PEAK_BF16,
+            rep, iters=200)
+        wrapper = A.attention_nk1 if kern == "K1" else A.flash_attention_fwd
+        grad_call = with_grad(lambda q, k, v: A.flash_attention(q, k, v), go)
+        plain_grad = with_grad(lambda q, k, v: plain(q, k, v, 0.125), go)
+        expect(hopper_launches(lambda: grad_call(q, k, v), wrapper) == 1,
+               f"{label}: the forward under autograd was not one launch on the Hopper design")
+        got, want = grad_call(q, k, v), plain_grad(q, k, v)
+        grad_err = (got.float() - want.float()).abs().max().item()
+        expect(bool(torch.isfinite(got).all()) and grad_err == 0.0,
+               f"{label}: the gradient through the wrapper is not the plain version's "
+               f"(max diff {grad_err:.3e})")
+        del got, want
+        grad = dict(max_abs_err_vs_plain=grad_err,
+                    note="backward = autograd of the plain version at the saved q, k, v "
+                         "(no TPU backward kernel): equal to the plain gradient by "
+                         "construction, not a check of the kernel",
+                    ms=cuda_ms(lambda: grad_call(q, k, v), iters=50, warmup=3),
+                    plain_ms=cuda_ms(lambda: plain_grad(q, k, v), iters=10),
+                    library_ms=cuda_ms(lambda: with_grad(sdpa(False), go)(q, k, v), iters=50))
+        log(f"[kernels] {label} gradient through the wrapper: max diff {grad_err:.3e} from "
+            f"the plain version's ({grad['note']}); forward + backward {grad['ms']:.3f} ms, "
+            f"plain {grad['plain_ms']:.3f} ms, SDPA {grad['library_ms']:.3f} ms | {card}")
+        route = (A.k1_route(32, t, t, 64, bf) if kern == "K1"
+                 else A.k2_route(32, t, t, 64, bf, False, True))
+        rec.update(case=key, kernel=kern, on_main_path=False, on_lora_path=True,
+                   backward="plain PyTorch gradient (no TPU backward kernel)", grad=grad,
+                   **({"k1_route": route} if kern == "K1" else {"k2_route": route}))
+        recs.append(rec)
+        del q, k, v, go
     # the language model's uncached prefill is on the engines path too
     for rec in recs:
         if rec["case"] == "k2_lm_prefill_bf16":
@@ -4940,6 +5023,526 @@ def phase_music(dev, card: str) -> dict:
     return rec
 
 
+LORA_CLIP_S = 10.0           # the two training clips
+LORA_STEPS = 6               # of LoRATrainConfig()'s 200
+LORA_SSL_STEPS = 3           # the run with the SSL loss
+LORA_ROUTE_STEPS = 4         # the served job's steps
+LORA_GRAD_FRAMES = (32, 200)  # K1 (the default segment) and the 16-bit K2
+CKPT_S = 30.0
+CKPT_STEPS = 8               # of checkpoint_pcfg()'s 60
+CKPT_CHECK_FRAMES = 64       # latent frames of the card-against-CPU checks
+CLAP_S = 10.0
+
+
+def lora_clip(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """A seeded chord of three harmonic tones with a little noise (float32)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = sum(0.2 * np.sin(2 * np.pi * f * t) for f in rng.uniform(110.0, 440.0, 3))
+    return (x + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def plain_dit_attention(q, k, v, *args, **kw):
+    """The DiT's self-attention by the plain version of the kernel
+    ``flash_attention`` routes it to (K1 when every key fits one 128-key
+    block, else K2), on any device: the yardstick of the LoRA gradients."""
+    from audiolab_tpu_torch.kernels import attention as A
+
+    scale = q.shape[-1] ** -0.5
+    if k.shape[2] <= 128:
+        return A.attention_nk1_reference(q, k, v, scale)
+    return A.flash_attention_reference(q, k, v, False, scale)
+
+
+def lora_loss(pipe, factors, t_frames: int, seed: int, plain: bool = False):
+    """One LoRA training loss on ``pipe``'s DiT (batch 2, ``t_frames``
+    frames, seeded latents, context and draws) with ``factors`` merged; with
+    ``plain`` the self-attention runs by :func:`plain_dit_attention`."""
+    import torch
+
+    from audiolab_tpu_torch.models import dit as D
+    from audiolab_tpu_torch.models.acestep import LoRAModel
+    from audiolab_tpu_torch.train.acestep_lora import flow_match_loss
+
+    dev = pipe.device
+    g = torch.Generator().manual_seed(seed)
+    c = pipe.cfg
+    z0, eps = (torch.randn(2, t_frames, c.dcae.latent_dim, generator=g).to(dev) for _ in range(2))
+    ctx = (0.5 * torch.randn(2, 192, c.text_dim, generator=g)).to(dev)
+    t = torch.tensor([0.3, 0.8], device=dev)
+    saved = D.flash_attention
+    D.flash_attention = plain_dit_attention if plain else saved
+    try:
+        return flow_match_loss(LoRAModel(pipe.model, factors), z0, ctx, t, eps)
+    finally:
+        D.flash_attention = saved
+
+
+def lora_factor_grads(pipe, t_frames: int, plain: bool = False):
+    """(loss, {path: gradient of b}) of one :func:`lora_loss` from
+    ``lora_init``'s factors (b = 0, so a gets none)."""
+    import torch
+
+    from audiolab_tpu_torch.models.acestep import lora_init
+
+    factors = {p: {n: x.requires_grad_(True) for n, x in ab.items()}
+               for p, ab in lora_init(pipe.model.dit, 8, seed=11).items()}
+    loss = lora_loss(pipe, factors, t_frames, 12, plain)
+    paths = sorted(factors)
+    grads = torch.autograd.grad(loss, [factors[p]["b"] for p in paths])
+    return float(loss), dict(zip(paths, grads))
+
+
+def lora_step_trace(pipe, steps: int = 3) -> dict:
+    """Device time of ``steps`` warm LoRA steps (:func:`lora_loss` and its
+    backward at 32 frames) under torch.profiler: the total, the part under
+    the attention Functions' backward nodes (the plain version's gradient)
+    and under their forward (the kernel), and the five kernels that take
+    most.  Device times are NaN where the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audiolab_tpu_torch.models.acestep import lora_init
+
+    factors = {p: {n: x.requires_grad_(True) for n, x in ab.items()}
+               for p, ab in lora_init(pipe.model.dit, 8, seed=13).items()}
+
+    def step():
+        lora_loss(pipe, factors, LORA_GRAD_FRAMES[0], 14).backward()
+
+    step()
+    sync(pipe.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        sync(pipe.device)
+
+    def dev_total(e):
+        return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+
+    def dev_self(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    events = prof.events()
+    total = sum(dev_self(e) for e in events) / 1e3 / steps
+    bwd = sum(dev_total(e) for e in events if e.name.startswith(
+        "autograd::engine::evaluate_function: _K") and "GradBackward" in e.name) / 1e3 / steps
+    fwd = sum(dev_total(e) for e in events if e.name in ("_K1Grad", "_K2Grad")) / 1e3 / steps
+    table = sorted(prof.key_averages(), key=dev_self, reverse=True)[:5]
+    top = [(e.key[:60], dev_self(e) / 1e3 / steps) for e in table]
+    if not total:
+        total = bwd = fwd = float("nan")
+    return dict(step_device_ms=total, attention_backward_ms=bwd, attention_forward_ms=fwd,
+                top_kernels_ms=top)
+
+
+def phase_lora(dev, card: str) -> dict:
+    """ACE-Step's LoRA training, its routes, the checkpoint-layout model and
+    CLAP on the card, weights by bench.py's rules (utils/fast_init.py):
+    (a) ``train_lora`` at ACEStepConfig() (the DiT 1024 x 16 layers x 16
+    heads, bf16) with LoRATrainConfig() (rank 8, batch 2, 32-frame
+    segments) on two LORA_CLIP_S clips, cut to LORA_STEPS of 200 steps:
+    the first and warm steps' seconds, peak memory and launches (K1 on its
+    Hopper route, 16 a step: the backward launches none); then LORA_SSL_STEPS
+    with the SSL loss on HuBERT's features (12 fp32 K2 a clip); (b) the b
+    gradients of wq, wk and wv through the kernels' autograd.Function on
+    the card against the plain version's (the DiT's attention replaced by
+    the plain functions), at 32 frames (K1) and 200 frames (the 16-bit K2);
+    (c) POST /api/v1/acestep/lora/train (polled to its end), lora/generate
+    of LORA_SERVED_S with the adapter, and the base generate at the same seed
+    before and after, which must be equal; (d) CheckpointACEStep at the
+    JAX widths (ACEStepDiTConfig(): 1536 x 28 layers, fp32;
+    LyricConformerEncoder(); UMT5-base through ACEStepTextEncoder; MusicDCAE
+    on AutoencoderDC at DCAEConfig() and AdamosVocoder at AdamosConfig())
+    on CKPT_S at CKPT_STEPS of checkpoint_pcfg()'s 60 steps, cold and warm,
+    a guided step by CUDA events, no K1-K7 launch; (e) CLAP's branches at
+    their defaults, card against CPU; (f) card against CPU at 2 layers: the
+    checkpoint DiT's decode, the DCAE round trip, ADaMoS, one LoRA step's
+    loss and factor gradients.  Returns the path's launches: (a)'s cold
+    run, (b)'s kernel runs and (c)'s three calls."""
+    import copy
+    import tempfile
+    import types
+
+    import torch
+
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.kernels.resample import resample
+    from audiolab_tpu_torch.models.acestep import ACEStepConfig, ACEStepModel
+    from audiolab_tpu_torch.models.acestep_dit import (
+        ACEStepDiT,
+        ACEStepDiTConfig,
+        LyricConformerEncoder,
+    )
+    from audiolab_tpu_torch.models.adamos_vocoder import AdamosConfig, AdamosVocoder
+    from audiolab_tpu_torch.models.clap import (
+        ClapAudioBranch,
+        ClapAudioConfig,
+        ClapTextBranch,
+        ClapTextConfig,
+        clap_mel_image,
+    )
+    from audiolab_tpu_torch.models.codecs import VocosConfig
+    from audiolab_tpu_torch.models.dcae import AutoencoderDC, DCAEConfig
+    from audiolab_tpu_torch.models.dit import DiTConfig
+    from audiolab_tpu_torch.models.hubert import HubertFeatureExtractor
+    from audiolab_tpu_torch.models.music_dcae import MusicDCAE, dcae_codec_fns
+    from audiolab_tpu_torch.models.t5 import T5Encoder, umt5_base
+    from audiolab_tpu_torch.models.acestep import tokenize_lyrics
+    from audiolab_tpu_torch.pipelines.acestep import (
+        ACEStepTextEncoder,
+        CheckpointACEStep,
+        checkpoint_pcfg,
+        random_acestep,
+    )
+    from audiolab_tpu_torch.serve import music_api
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.train.acestep_lora import LoRATrainConfig, train_lora
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    tag = "[lora]"
+    rec: dict = {}
+    path = dict.fromkeys(KERNELS, 0)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_lora_"))
+
+    def add_path(launches):
+        for k in KERNELS:
+            path[k] += launches[k]
+
+    def event_ms(fn) -> float:
+        return cuda_ms(fn, iters=3) if cuda else float("nan")
+
+    # (a) LoRA training at ACEStepConfig()
+    t0 = time.perf_counter()
+    pipe = random_acestep(ACEStepConfig(), vocos_cfg=VocosConfig(n_fft=2048, hop=512),
+                          device=dev)
+    sync(dev)
+    n_layers, sr = pipe.cfg.dit.n_layers, pipe.cfg.sr
+    log(f"{tag} (a) ACEStepPipeline at ACEStepConfig() built in {time.perf_counter() - t0:.1f} "
+        f"s; cuts: {LORA_STEPS} of 200 steps, two {LORA_CLIP_S:g} s clips, random weights")
+    dataset = [(lora_clip(LORA_CLIP_S, sr, i), MUSIC_PROMPT, MUSIC_LYRICS) for i in range(2)]
+
+    def train(cfg, ssl_model=None):
+        stamps = []
+
+        def tick(*_):
+            sync(dev)
+            stamps.append(time.perf_counter())
+
+        reset_counts()
+        h0 = A.attention_nk1.sm90_launches
+        _peak_reset(cuda)
+        start = time.perf_counter()
+        out = train_lora(pipe, dataset, cfg, callback=tick, ssl_model=ssl_model)
+        sync(dev)
+        return (out, stamps[0] - start, float(np.mean(np.diff(stamps))), counts(),
+                A.attention_nk1.sm90_launches - h0, _peak_gb(cuda))
+
+    cfg = LoRATrainConfig(steps=LORA_STEPS)
+    out, first_s, warm_s, launches, sm90, peak = train(cfg)
+    expect(np.isfinite(out["loss"]), f"(a) loss {out['loss']}")
+    expect(all(float(ab["b"].abs().max()) > 0 for ab in out["lora"].values()),
+           "(a) a factor b that training left at zero")
+    if cuda:
+        k1 = LORA_STEPS * n_layers
+        expect(only(launches, "K1", k1), f"(a) launches {launches}, expected K1 {k1}")
+        expect(sm90 == k1, f"(a) {sm90} of {k1} K1 on the Hopper route")
+    add_path(launches)
+    route = A.k1_route(2 * pipe.cfg.dit.n_heads, cfg.seg_latent, cfg.seg_latent,
+                       pipe.cfg.dit.dim // pipe.cfg.dit.n_heads, torch.bfloat16)
+    rec["train"] = dict(first_step_s=first_s, warm_step_s=warm_s, peak_gb=peak,
+                        launches=launches, k1_per_step=launches["K1"] / LORA_STEPS,
+                        k1_route=route, loss=out["loss"])
+    log(f"{tag} (a) train_lora {LORA_STEPS} steps (rank {cfg.rank}, batch {cfg.batch_size}, "
+        f"{cfg.seg_latent} frames): first step (with the clips' latents and contexts) "
+        f"{first_s:.3f} s, warm step {warm_s:.4f} s, peak {peak:.2f} GB, launches {launches} "
+        f"({launches['K1'] / LORA_STEPS:g} K1 a step, {sm90} on K1's Hopper {route} route; "
+        f"the backward launches none), loss {out['loss']:.5f} | {card}")
+    with torch.device(dev):
+        hubert = fast_init(HubertFeatureExtractor("v2"), 9).eval()
+
+    def ssl_model(audio):
+        with torch.no_grad():
+            x = torch.as_tensor(audio, dtype=torch.float32, device=dev)[None]
+            return hubert(resample(x, sr, 16000))
+
+    cfg_ssl = LoRATrainConfig(steps=LORA_SSL_STEPS, ssl_coeff=0.5, ssl_depth=1)
+    out, first_s, warm_s, launches, sm90, peak = train(cfg_ssl, ssl_model)
+    expect(np.isfinite(out["loss"]) and "proj" in out, f"(a) SSL loss {out['loss']}")
+    if cuda:
+        k1, k2 = LORA_SSL_STEPS * n_layers, 2 * hubert.cfg.layers
+        expect(launches["K1"] == k1 and launches["K2"] == k2
+               and all(launches[k] == 0 for k in KERNELS if k not in ("K1", "K2")),
+               f"(a) SSL launches {launches}, expected K1 {k1}, K2 {k2}")
+    rec["train_ssl"] = dict(first_step_s=first_s, warm_step_s=warm_s, peak_gb=peak,
+                            launches=launches, loss=out["loss"])
+    log(f"{tag} (a) with the SSL loss (coefficient {cfg_ssl.ssl_coeff}, block "
+        f"{cfg_ssl.ssl_depth}, HuBERT v2 features): {LORA_SSL_STEPS} steps, first {first_s:.3f}"
+        f" s, warm {warm_s:.4f} s, peak {peak:.2f} GB, launches {launches} (HuBERT's fp32 K2 "
+        f"over each clip, then K1), loss {out['loss']:.5f} | {card}")
+    del hubert
+    tr = lora_step_trace(pipe)
+    rec["trace"] = tr
+    log(f"{tag} (a) trace of 3 warm LoRA steps (the loss at 32 frames and its backward, "
+        f"torch.profiler): device time a step {tr['step_device_ms']:.3f} ms, of which the "
+        f"attention's plain backward {tr['attention_backward_ms']:.3f} ms and its K1 forward "
+        f"{tr['attention_forward_ms']:.3f} ms; top kernels "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in tr["top_kernels_ms"]) + f" | {card}")
+
+    # (b) the gradient on the card against the plain version's
+    rec["grads"] = {}
+    for t_frames in LORA_GRAD_FRAMES:
+        kern = "K1" if t_frames <= 128 else "K2"
+        wrapper = A.attention_nk1 if kern == "K1" else A.flash_attention_fwd
+        reset_counts()
+        h0 = wrapper.sm90_launches
+        loss_k, g_k = lora_factor_grads(pipe, t_frames)
+        sync(dev)
+        launches, sm90 = counts(), wrapper.sm90_launches - h0
+        add_path(launches)
+        loss_p, g_p = lora_factor_grads(pipe, t_frames, plain=True)
+        errs = {}
+        for target in ("wq", "wk", "wv", "wo"):
+            ps = [p for p in g_k if p[-1] == target]
+            gk = torch.stack([g_k[p] for p in ps]).float()
+            gp = torch.stack([g_p[p] for p in ps]).float()
+            scale = float(gp.abs().max())
+            errs[target] = float((gk - gp).abs().max()) / scale
+            expect(scale > 0 and float(gk.abs().max()) > 0,
+                   f"(b) {t_frames} frames: no gradient reached b of {target}")
+        if cuda:
+            expect(only(launches, kern, n_layers) and sm90 == n_layers,
+                   f"(b) {t_frames} frames: launches {launches} ({sm90} on the Hopper route), "
+                   f"expected {kern} {n_layers}")
+        expect(max(errs.values()) <= 2e-2 and abs(loss_k - loss_p) <= 2e-2 * abs(loss_p),
+               f"(b) {t_frames} frames: b gradients {errs} from the plain version's "
+               "(tolerance 2e-2)")
+        rec["grads"][t_frames] = dict(kernel=kern, launches=launches, errs=errs,
+                                      loss=loss_k, loss_plain=loss_p)
+        log(f"{tag} (b) {t_frames} frames: the b gradients of wq/wk/wv/wo through {kern}'s "
+            f"autograd.Function against the plain version's, max |diff| over max |g|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tolerance 2e-2, bf16 DiT); loss {loss_k:.6f} vs {loss_p:.6f}; launches "
+            f"{launches} ({sm90} on {kern}'s Hopper route) | {card}")
+
+    # (c) the two LoRA routes
+    saved = dict(music_api._BACKENDS)
+    server = None
+    try:
+        music_api._BACKENDS.clear()
+        music_api.register_backend("acestep", pipe)
+        server, port = serve_background(create_app(str(work / "process"), device=dev))
+        url = f"http://127.0.0.1:{port}/api/v1"
+        clips = [dict(_wav_payload(work, f"clip{i}.wav", a[None], sr), prompt=p, lyrics=l)
+                 for i, (a, p, l) in enumerate(dataset)]
+        reset_counts()
+        t0 = time.perf_counter()
+        status, resp = http("POST", f"{url}/acestep/lora/train", {
+            "clips": clips, "settings": {"steps": LORA_ROUTE_STEPS, "rank": 8}})
+        expect(status == 200, f"POST lora/train: HTTP {status} {resp}")
+        while True:
+            _s, info = http("GET", f"{url}/rvc/job/{resp['job_id']}")
+            if info.get("status") != "running" or time.perf_counter() - t0 > 600:
+                break
+            time.sleep(0.2)
+        train_s = time.perf_counter() - t0
+        launches = counts()
+        expect(info.get("status") == "done", f"lora/train job: {info}")
+        if cuda:
+            expect(only(launches, "K1", LORA_ROUTE_STEPS * n_layers),
+                   f"lora/train: launches {launches}")
+        add_path(launches)
+        log(f"{tag} (c) POST /api/v1/acestep/lora/train ({LORA_ROUTE_STEPS} steps on two "
+            f"{LORA_CLIP_S:g} s clips): done in {train_s:.3f} s, loss "
+            f"{info['result']['loss']:.5f}, launches {launches} | {card}")
+        body = {"prompt": MUSIC_PROMPT, "lyrics": MUSIC_LYRICS, "duration": MUSIC_SERVED_S,
+                "seed": 5}
+        answers = {}
+        k1 = pipe.pcfg.steps * n_layers
+        for label, b in (("base", body),
+                         ("adapter", dict(body, lora_file_id=info["result"]["file_id"])),
+                         ("base again", body)):
+            reset_counts()
+            t0 = time.perf_counter()
+            status, r = http("POST", f"{url}/acestep/lora/generate", b)
+            secs = time.perf_counter() - t0
+            launches = counts()
+            expect(status == 200, f"lora/generate ({label}): HTTP {status} {r}")
+            a = _served_wav(work, r["audio"], "lora.wav")
+            expect(a.samples.shape[-1] > 0 and np.isfinite(a.samples).all(), f"{label} WAV")
+            if cuda:
+                expect(only(launches, "K1", k1), f"lora/generate ({label}): {launches}")
+            add_path(launches)
+            answers[label] = r["audio"]
+            log(f"{tag} (c) POST /api/v1/acestep/lora/generate ({label}, "
+                f"{MUSIC_SERVED_S:g} s): HTTP {status} {secs:.3f} s, {a.samples.shape} at "
+                f"{a.sample_rate} Hz, launches {launches} | {card}")
+        expect(answers["base"] == answers["base again"],
+               "(c) the base generate changed after an adapter request")
+        expect(answers["adapter"] != answers["base"], "(c) the adapter changed nothing")
+        rec["served"] = dict(train_s=train_s)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        music_api._BACKENDS.clear()
+        music_api._BACKENDS.update(saved)
+    del pipe
+    torch.cuda.empty_cache() if cuda else None
+
+    # (d) CheckpointACEStep at the JAX widths
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        dit = fast_init(ACEStepDiT(ACEStepDiTConfig()), 20)
+        lyr = fast_init(LyricConformerEncoder(), 21)
+        t5 = fast_init(T5Encoder(umt5_base()), 22)
+        dcae = fast_init(AutoencoderDC(DCAEConfig()), 23).eval()
+        voc = fast_init(AdamosVocoder(AdamosConfig()), 24).eval()
+    enc = ACEStepTextEncoder(t5, music_spm_model(work / "umt5.model"), device=dev)
+    pcfg = checkpoint_pcfg()
+    pcfg.steps = CKPT_STEPS
+    ck = CheckpointACEStep(dit, lyr, pcfg=pcfg, decode_fn=MusicDCAE(*dcae_codec_fns(dcae),
+                                                                     voc).decode,
+                           text_encoder=enc, device=dev)
+    sync(dev)
+    n_par = {name: sum(p.numel() for p in m.parameters()) / 1e6
+             for name, m in (("DiT", dit), ("conformer", lyr), ("UMT5", t5), ("DCAE", dcae),
+                             ("ADaMoS", voc))}
+    log(f"{tag} (d) CheckpointACEStep built in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} M" for k, v in n_par.items())
+        + f" parameters, fp32; cut: {CKPT_STEPS} of 60 steps, random weights")
+    hidden, mask = ck.text_embeddings([MUSIC_PROMPT])
+    null = enc.null_embeddings([MUSIC_PROMPT])
+    ids = tokenize_lyrics(MUSIC_LYRICS, 128)
+    n_tok = int(np.count_nonzero(ids))
+    ltoks = torch.from_numpy(ids[:n_tok].astype(np.int64))[None].to(dev)
+    lmask = torch.ones_like(ltoks)
+    speaker = torch.zeros(1, dit.cfg.speaker_embedding_dim, device=dev)
+    secs = []
+    for i in range(2):
+        reset_counts()
+        _peak_reset(cuda)
+        t0 = time.perf_counter()
+        y = ck.generate(hidden, mask, speaker, ltoks, lmask, duration=CKPT_S, seed=0,
+                        text_hidden_null=null)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+        launches, peak = counts(), _peak_gb(cuda)
+        expect(all(v == 0 for v in launches.values()), f"(d) launches {launches}")
+    frames = int(round(CKPT_S * ck.latent_rate))
+    expect(y.shape == (1, 2, frames * 8 * 512) and np.isfinite(y).all(),
+           f"(d) output {y.shape}, finite {np.isfinite(y).all()}")
+    enc_c, m_c = ck.encode_cond(hidden, mask, speaker, ltoks, lmask)
+    z = torch.randn(1, frames, 128, device=dev)
+    tb = torch.full((1,), 500.0, device=dev)
+    vel = ck._velocity(enc_c, m_c)
+    with torch.inference_mode():
+        step_ms = event_ms(lambda: (vel(z, tb), vel(z, tb)))
+        lat = torch.randn(1, 8, 16, frames, device=dev)
+        dec_ms = event_ms(lambda: ck.decode_fn(lat))
+    rec["checkpoint"] = dict(cold_s=secs[0], warm_s=secs[1], peak_gb=peak, step_ms=step_ms,
+                             decode_ms=dec_ms, launches=launches)
+    log(f"{tag} (d) generate {CKPT_S:g} s ({frames} latent frames), {CKPT_STEPS} Euler steps "
+        f"shift 3, guidance on the middle half, ERG: cold {secs[0]:.3f} s, warm {secs[1]:.3f} s,"
+        f" peak {peak:.2f} GB; a guided step (cond + uncond forwards) {step_ms:.2f} ms, "
+        f"MusicDCAE.decode {dec_ms:.2f} ms; launches {launches} (none expected: linear "
+        f"self-attention, plain cross-attention) | {card}")
+    del ck, enc, t5, lyr, y, z, lat, vel
+    torch.cuda.empty_cache() if cuda else None
+
+    # (f) card against CPU at 2 layers (and the full-width codec)
+    rec["card_vs_cpu"] = {}
+    if cuda:
+        g = torch.Generator().manual_seed(31)
+        n = CKPT_CHECK_FRAMES
+        with torch.device(dev):
+            dit2 = fast_init(ACEStepDiT(ACEStepDiTConfig(num_layers=2)), 25)
+        c = dit2.cfg
+        args = (torch.randn(1, 8, 16, n, generator=g), torch.ones(1, n),
+                0.5 * torch.randn(1, 24, 768, generator=g), torch.ones(1, 24, dtype=torch.long),
+                torch.randn(1, c.speaker_embedding_dim, generator=g), torch.tensor([400.0]),
+                torch.randn(1, 20, c.lyric_hidden_size, generator=g),
+                torch.ones(1, 20, dtype=torch.long))
+        outs = {}
+        for d in (dev, cpu):
+            m = dit2 if d == dev else copy.deepcopy(dit2).to(cpu)
+            with torch.inference_mode():
+                outs[d.type] = m(*(x.to(d) for x in args), return_hidden=False).cpu()
+        rec["card_vs_cpu"]["dit_decode"] = card_vs_cpu(
+            "checkpoint DiT decode, 2 of 28 layers at full width", outs["cuda"], outs["cpu"],
+            1e-4, tag=f"{tag} (f)")
+        mel = torch.randn(1, 2, 128, n, generator=g)
+        mel_v = torch.randn(1, 32, 128, generator=g)
+        for name, mod, fn, x in (("DCAE round trip at DCAEConfig()", dcae,
+                                  lambda m, x: m.decode(m.encode(x)), mel),
+                                 ("ADaMoS at AdamosConfig()", voc, lambda m, x: m(x), mel_v)):
+            o = {}
+            for d in (dev, cpu):
+                m = mod if d == dev else copy.deepcopy(mod).to(cpu)
+                with torch.inference_mode():
+                    o[d.type] = fn(m, x.to(d)).cpu()
+            rec["card_vs_cpu"][name] = card_vs_cpu(name, o["cuda"], o["cpu"], 1e-4,
+                                                   tag=f"{tag} (f)")
+        lcfg = ACEStepConfig(dit=DiTConfig(dim=1024, n_layers=2, n_heads=16, cond_dim=768,
+                                           in_dim=8, out_dim=8), text_layers=1)
+        with torch.device(dev):
+            small = fast_init(ACEStepModel(lcfg), 26)
+        res = {}
+        for d in (dev, cpu):
+            p = types.SimpleNamespace(device=d, cfg=lcfg,
+                                      model=small if d == dev else copy.deepcopy(small).to(cpu))
+            res[d.type] = lora_factor_grads(p, LORA_GRAD_FRAMES[0])
+        for target in ("wq", "wk", "wv", "wo"):
+            ps = sorted(p for p in res["cpu"][1] if p[-1] == target)
+            rec["card_vs_cpu"][f"lora_grad_{target}"] = card_vs_cpu(
+                f"one LoRA step's gradient of b of {target} (bf16 DiT, 2 layers)",
+                torch.stack([res["cuda"][1][p] for p in ps]).float().cpu(),
+                torch.stack([res["cpu"][1][p] for p in ps]).float(), 2e-2, tag=f"{tag} (f)",
+                kind="bf16")
+        rec["card_vs_cpu"]["lora_loss"] = card_vs_cpu(
+            "one LoRA step's loss", np.array([res["cuda"][0]]), np.array([res["cpu"][0]]),
+            2e-2, tag=f"{tag} (f)", kind="bf16")
+        del dit2, small
+    del dcae, voc, dit
+    torch.cuda.empty_cache() if cuda else None
+
+    # (e) CLAP's two branches at their defaults, on the card only
+    if not cuda:
+        rec["launches"] = path
+        return rec
+    with torch.device(dev):
+        text_b = fast_init(ClapTextBranch(ClapTextConfig()), 27).eval()
+        audio_b = fast_init(ClapAudioBranch(ClapAudioConfig()), 28).eval()
+    g = torch.Generator().manual_seed(32)
+    ids = torch.randint(3, ClapTextConfig().vocab_size, (2, 32), generator=g)
+    ids[:, 0] = 0
+    ids[1, 20:] = ClapTextConfig().pad_id
+    amask = (ids != ClapTextConfig().pad_id).long()
+    wav = torch.from_numpy(lora_clip(CLAP_S, 48000, 7))[None]
+    img = clap_mel_image(wav.to(dev))
+    for name, mod, x in (("text branch", text_b, (ids, amask)), ("audio branch", audio_b, (img,))):
+        o = {}
+        for d in (dev, cpu):
+            m = mod if d == dev else copy.deepcopy(mod).to(cpu)
+            with torch.inference_mode():
+                o[d.type] = m(*(a.to(d) for a in x)).cpu()
+        with torch.inference_mode():
+            ms = event_ms(lambda: mod(*(a.to(dev) for a in x)))
+        expect(o["cuda"].shape == (x[0].shape[0], 512), f"(e) CLAP {name} {o['cuda'].shape}")
+        rec[f"clap_{name}"] = dict(ms=ms, err=card_vs_cpu(
+            f"CLAP {name} at its defaults ({ms:.2f} ms on the card)", o["cuda"], o["cpu"],
+            1e-4, tag=f"{tag} (e)"))
+    del text_b, audio_b
+    torch.cuda.empty_cache() if cuda else None
+    rec["launches"] = path
+    log(f"{tag} the path's launches ((a)'s first run, (b)'s kernel runs and (c)'s calls): "
+        f"{path}")
+    return rec
+
+
 def urllib_get(url: str, timeout: float = 60.0) -> bytes:
     import urllib.request
 
@@ -4966,7 +5569,11 @@ def main() -> int:
     from audiolab_tpu_torch.kernels import _build
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        log(f"[card] phase {phase} starts at {time.perf_counter() - t_run:.1f} s")
+
     libs = _build.build(["attention", "norms"])
     build_s = time.perf_counter() - t0
     card = card_line()
@@ -4980,14 +5587,16 @@ def main() -> int:
 
     kernel_recs: list[dict] = []
     if "kernels" in phases:
+        mark("kernels")
         kernel_recs = phase_kernels(dev, card)
 
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
-    diffused = composed = None
+    diffused = composed = adapted = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "long"} & set(phases)
     if need_chain:
+        mark("separator")
         t0 = time.perf_counter()
         sep = build_separator(dev)
         vcs = build_rvc(dev)
@@ -5002,58 +5611,80 @@ def main() -> int:
         for k in main_launches:
             main_launches[k] += launches[k]
         if "fidelity" in phases:
+            mark("fidelity")
             phase_fidelity(dev, vcs, x16, out)
         if "f0" in phases:
+            mark("f0")
             phase_f0(dev, vcs["bfloat16"], stems["vocals"])
         if "vr" in phases:
+            mark("vr")
             phase_vr(dev, stems["vocals"])
         del stems, x16, out
         if "reference" in phases:
+            mark("reference")
             phase_reference(dev, sep, vcs)
         if "timing" in phases:
+            mark("timing")
             phase_timing(dev, sep, vcs["bfloat16"], audio, card, args.profile)
         if "serve" in phases:
+            mark("serve")
             served = phase_serve(dev, sep, vcs["bfloat16"], audio, card)["served_launches"][0]
         if "separators" in phases:
+            mark("separators")
             family = phase_separators(dev, sep, audio, card,
                                       profile_dir=args.profile)["ensemble_launches"]
         if "processors" in phases:
+            mark("processors")
             processed = phase_processors(dev, sep, vcs["bfloat16"], audio,
                                          card)["served_launches"]
         if "long" in phases:
+            mark("long")
             del audio
             torch.cuda.empty_cache()
             phase_long(dev, sep, vcs["bfloat16"], card)
         del sep, vcs
         torch.cuda.empty_cache()
     if "train" in phases:
+        mark("train")
         trained = phase_train(dev, card)["train_launches"]
     if "tts" in phases:
+        mark("tts")
         # this slice's path: one synthesize call, counts reset just before it
         # and read just after (the first mamba1 call)
         spoken = phase_tts(dev, card, profile_dir=args.profile)["launches"]
     if "engines" in phases:
+        mark("engines")
         # this slice's path: Dia's first synthesize and the LM's uncached
         # forward, counts reset just before each and read just after
         engines = phase_engines(dev, card, profile_dir=args.profile)["launches"]
     if "chatterbox" in phases:
+        mark("chatterbox")
         # this slice's path: T3's teacher-forced forward, counts reset just
         # before and read just after (Chatterbox's generation launches none)
         chatter = phase_chatterbox(dev, card, profile_dir=args.profile)["launches"]
     if "transcribe" in phases:
+        mark("transcribe")
         # this slice's path: Whisper's uncached forward and the aligner's
         # first call of each span, counts reset just before each and read
         # just after (the decode and the VAD launch none)
         heard = phase_transcribe(dev, card)["launches"]
     if "diffusion" in phases:
+        mark("diffusion")
         # this slice's path: every step of the phase, counts reset just
         # before each and read just after (it launches none of K1-K7)
         diffused = phase_diffusion(dev, card, profile_dir=args.profile)["launches"]
     if "music" in phases:
+        mark("music")
         # this slice's path: the cold generate of each music pipeline,
         # ACE-Step's repaint and the two served calls, counts reset just
         # before each and read just after
         composed = phase_music(dev, card)["launches"]
+    if "lora" in phases:
+        mark("lora")
+        # this slice's path: the first training run, the gradient checks'
+        # kernel runs and the three served calls, counts reset just before
+        # each and read just after
+        adapted = phase_lora(dev, card)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -5069,15 +5700,18 @@ def main() -> int:
            "transcribe_launches": None if heard is None else heard[r["kernel"]],
            "diffusion_launches": None if diffused is None else diffused[r["kernel"]],
            "music_launches": None if composed is None else composed[r["kernel"]],
+           "lora_launches": None if adapted is None else adapted[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),
            "on_transcribe_path": r.get("on_transcribe_path", False),
            "on_music_path": r.get("on_music_path", False),
+           "on_lora_path": r.get("on_lora_path", False),
            "bound_parts_ms": r["bound_parts_ms"]}
         | {k: r[k] for k in ("k1_route", "k2_route", "k3_route", "k6_route", "k7_route",
-                             "core_ms") if k in r}
+                             "core_ms", "backward", "grad") if k in r}
         for r in kernel_recs]}))
+    mark("end")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

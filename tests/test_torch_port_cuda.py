@@ -1904,3 +1904,69 @@ def test_acestep_step_on_the_card_matches_the_cpu(cuda_device, frames, kernel):
             assert wrapper.launches == wrapper.sm90_launches == 2
             assert other.launches == 0
     assert (out["cuda"] - out["cpu"]).abs().max() <= 2e-2 * out["cpu"].abs().max()
+
+
+# ------------------------------------------------------------------ LoRA: gradients through K1 and K2
+
+@pytest.mark.parametrize("t,kernel", [(32, "K1"), (200, "K2")])
+def test_attention_gradient_on_the_card_is_the_plain_versions(cuda_device, t, kernel):
+    """K1 (32 frames) and the 16-bit K2 (200 frames) with q, k, v requiring
+    grad: one launch on the Hopper design through the autograd Function,
+    the output within 2 bf16 ulps of the plain version's and the gradients
+    equal to autograd of the plain version on the same inputs (the backward
+    is that gradient)."""
+    q, k, v = _qkv(cuda_device, torch.bfloat16, 2, 16, t, t, 64)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    go = torch.randn_like(q)
+    wrapper = TA.attention_nk1 if kernel == "K1" else TA.flash_attention_fwd
+    plain = (TA.attention_nk1_reference if kernel == "K1"
+             else lambda q, k, v, s: TA.flash_attention_reference(q, k, v, False, s))
+    TA.reset_launch_counts()
+    out = TA.flash_attention(q, k, v)
+    assert wrapper.launches == wrapper.sm90_launches == 1
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    ref = plain(*leaves, 0.125)
+    assert (out.float() - ref.float()).abs().max().item() <= _k1_tol(ref)
+    got = torch.autograd.grad(out, (q, k, v), go)
+    want = torch.autograd.grad(ref, leaves, go)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.abs().max() > 0
+        assert (a.float() - b.float()).abs().max() <= 2.0 ** -8 * b.float().abs().max()
+    assert wrapper.launches == 1
+
+
+def test_lora_factor_gradients_reach_q_k_v_on_the_card(cuda_device):
+    """One LoRA loss of a bf16 DiT (256 wide, 2 layers, 4 heads of 64) on
+    the card: the b factors of wq, wk and wv get gradients (through K1's
+    Function; a cut graph would leave them at zero) within 2e-2 of max|g| of
+    the CPU's."""
+    from audiolab_tpu_torch.models import acestep as A
+    from audiolab_tpu_torch.models.dit import DiTConfig
+    from audiolab_tpu_torch.train.acestep_lora import flow_match_loss
+
+    cfg = A.ACEStepConfig(dit=DiTConfig(dim=256, n_layers=2, n_heads=4, cond_dim=128, in_dim=8,
+                                        out_dim=8), text_dim=128, text_layers=1)
+    model = _seeded_built(lambda: A.ACEStepModel(cfg), 16, 0.02)
+    g = torch.Generator().manual_seed(17)
+    z0, eps = torch.randn(2, 32, 8, generator=g), torch.randn(2, 32, 8, generator=g)
+    ctx, t = torch.randn(2, 64, 128, generator=g), torch.tensor([0.3, 0.8])
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        m = model.to(dev)
+        lora = {p: {n: x.to(dev).requires_grad_(True) for n, x in ab.items()}
+                for p, ab in A.lora_init(m.dit, 4, seed=1).items()}
+        TA.reset_launch_counts()
+        loss = flow_match_loss(A.LoRAModel(m, lora), z0.to(dev), ctx.to(dev), t.to(dev),
+                               eps.to(dev))
+        paths = sorted(lora)
+        grads[dev] = dict(zip(paths, (x.cpu() for x in torch.autograd.grad(
+            loss, [lora[p]["b"] for p in paths]))))
+        if dev == "cuda":
+            assert TA.attention_nk1.launches == TA.attention_nk1.sm90_launches == 2
+    for target in ("wq", "wk", "wv", "wo"):
+        ps = [p for p in grads["cpu"] if p[-1] == target]
+        gc = torch.stack([grads["cuda"][p] for p in ps]).float()
+        gp = torch.stack([grads["cpu"][p] for p in ps]).float()
+        assert gc.abs().max() > 0
+        assert (gc - gp).abs().max() <= 2e-2 * gp.abs().max()

@@ -531,3 +531,37 @@ def test_music_entry_points_default_to_the_card(no_cuda, tmp_path):
     ace = random_acestep(device="cpu")
     assert isinstance(ace, ACEStepPipeline) and ace.device.type == "cpu"
     assert np.isfinite(ace.generate("a", duration=1.0, infer_step=1)[0]).all()
+
+
+def test_checkpoint_music_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """The checkpoint ACE-Step pipeline, its random factory and its text
+    encoder default to the card and raise without one (``train_lora`` runs
+    on its pipeline's device); each runs on the CPU when asked."""
+    from audiolab_tpu_torch.models.acestep_dit import ACEStepDiT, ACEStepDiTConfig
+    from audiolab_tpu_torch.models.t5 import T5Config, T5Encoder
+    from audiolab_tpu_torch.pipelines.acestep import (
+        ACEStepTextEncoder,
+        CheckpointACEStep,
+        random_checkpoint_acestep,
+    )
+    from audiolab_tpu_torch.utils.spm import build_model_proto
+
+    spm = tmp_path / "umt5.model"
+    spm.write_bytes(build_model_proto([("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2),
+                                       ("▁a", -1.0, 1)], unk_id=2, bos_id=-1, eos_id=1,
+                                      pad_id=0))
+    t5 = T5Encoder(T5Config(vocab_size=8, dim=16, d_kv=8, heads=2, d_ff=16, layers=1))
+    dit = ACEStepDiT(ACEStepDiTConfig(num_layers=1, num_attention_heads=2, attention_head_dim=8,
+                                      in_channels=2, out_channels=2, patch_height=4,
+                                      lyric_hidden_size=16, ssl_latent_dims=()))
+    for call in (random_checkpoint_acestep, lambda: CheckpointACEStep(dit),
+                 lambda: ACEStepTextEncoder(t5, str(spm))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    pipe = random_checkpoint_acestep(device="cpu")
+    pipe.pcfg.steps = 2
+    lat = pipe.generate(torch.zeros(1, 3, 8), torch.ones(1, 3, dtype=torch.long),
+                        torch.zeros(1, 8), duration=2.0)
+    assert pipe.device.type == "cpu" and lat.shape == (1, 2, 4, 4) and torch.isfinite(lat).all()
+    hidden, mask = ACEStepTextEncoder(t5, str(spm), device="cpu")(["a a"])
+    assert hidden.shape == (1, 3, 16) and mask.tolist() == [[1, 1, 1]]

@@ -10,7 +10,13 @@ alignment): the rope variant of K1's Hopper time design takes d = 64 in
 16-bit types with tk <= 768 when q, k, v and both tables lie on 16-byte
 boundaries (a band-shaped call too: it runs the time design over one
 chunk), the WMMA core everything else.  A CPU tensor takes the plain version
-whatever the route and counts no launch.
+whatever the route and counts no launch: a spy on the plain function shows
+that its call answered, output and all (the suite once saw two fp32 einsums
+of the plain version, one through the wrapper and one direct, differ in a
+bf16 rounding when other test files shared the worker; the port cannot fix
+the CPU BLAS's summation order, so the route is asserted, not a second
+evaluation's bits).  The port's side runs on one torch thread
+(``one_torch_thread``), as every port test file does.
 
 The plain version of K2 is held in bf16 against the Pallas ``_flash_kernel``
 in interpret mode at d = 64 and 128, causal and not: tolerance 2 bf16 ulps
@@ -30,6 +36,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from audiolab_tpu.kernels import attention as JA
 from audiolab_tpu_torch.kernels import attention as TA
+from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
 
 BF, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 
@@ -102,13 +109,24 @@ def _counts():
     (33, 50, 80, True),       # another head dim: the row-per-thread-group kernel's
     (20, 20, 256, False)])
 @pytest.mark.parametrize("dtype", [BF, F16])
-def test_k2_cpu_tensors_take_the_plain_version_on_every_route(tq, tk, d, causal, dtype):
+def test_k2_cpu_tensors_take_the_plain_version_on_every_route(tq, tk, d, causal, dtype,
+                                                              monkeypatch):
     rng = np.random.default_rng(tq + tk + d)
     q, k, v = (_rand(rng, (1, 2, n, d), dtype) for n in (tq, tk, tk))
+    plain, calls = TA.flash_attention_reference, []
+
+    def spy(*args):
+        calls.append((args, plain(*args)))
+        return calls[-1][1]
+
+    monkeypatch.setattr(TA, "flash_attention_reference", spy)
     TA.reset_launch_counts()
-    ref = TA.flash_attention_reference(q, k, v, causal, d ** -0.5)
-    assert torch.equal(TA.flash_attention_fwd(q, k, v, causal=causal), ref)
-    assert torch.equal(TA.flash_attention_fwd_core(q, k, v, causal=causal), ref)
+    for fn in (TA.flash_attention_fwd, TA.flash_attention_fwd_core):
+        out = fn(q, k, v, causal=causal)
+        (a_q, a_k, a_v, a_causal, a_scale), answer = calls[-1]
+        assert out is answer and all(a is b for a, b in zip((a_q, a_k, a_v), (q, k, v)))
+        assert a_causal is causal and a_scale == 1.0 / np.sqrt(d)
+    assert len(calls) == 2
     assert _counts() == (0,) * 6
 
 

@@ -130,9 +130,10 @@ def test_openapi_document(server):
     assert "/api/v1/process/chain" in body["paths"]
     assert "/api/v1/rvc/models" in body["paths"]
     # routes whose models the port lacks are not served; training, TTS,
-    # transcription, alignment and music generation are
+    # transcription, alignment, music generation and ACE-Step's LoRA are
     assert "/api/v1/yue/generate" not in body["paths"]
-    assert "/api/v1/acestep/lora/train" not in body["paths"]
+    assert "/api/v1/acestep/lora/train" in body["paths"]
+    assert "/api/v1/acestep/lora/generate" in body["paths"]
     assert "/api/v1/audio/generate" in body["paths"]
     assert "/api/v1/acestep/task" in body["paths"]
     assert "/api/v1/rvc/train" in body["paths"]
@@ -673,6 +674,93 @@ def test_music_routes_match_the_jax_router(server, jax_router, music_backends, t
     _same_audio(resp, ref, tmp_path)
     st, _h, raw = _get(f"{server}/api/v1/audio/download/{resp['file_id']}")
     assert st == 200 and raw == base64.b64decode(resp["audio"])
+
+
+def _job_result(poll, job_id, seconds=120):
+    deadline = time.time() + seconds
+    while True:
+        info = poll(job_id)
+        if info["status"] != "running" or time.time() > deadline:
+            return info
+        time.sleep(0.05)
+
+
+@pytest.fixture
+def lora_backends():
+    """"acestep" in both music tables: the pipelines of
+    ``tests/test_torch_port_lora.py`` (random_acestep's widths with filled
+    weights; the demo backend's flax init zeroes the DiT's output projection,
+    so no adapter could show there), restored afterwards."""
+    from audiolab_tpu.serve import music_api as j_api
+    from audiolab_tpu_torch.serve import music_api as t_api
+    from tests.test_torch_port_lora import pipelines
+
+    saved = [dict(api._BACKENDS) for api in (j_api, t_api)]
+    for api, be in zip((j_api, t_api), pipelines()):
+        api.register_backend("acestep", be)
+    yield t_api._BACKENDS["acestep"]
+    for api, table in zip((j_api, t_api), saved):
+        api._BACKENDS.clear()
+        api._BACKENDS.update(table)
+
+
+def test_acestep_lora_routes_match_the_jax_router(server, jax_router, lora_backends, tmp_path):
+    """``lora/train`` on two clips: both routers' jobs end done with a
+    finite loss and an ``.npz`` of the same paths and shapes.
+    ``lora/generate`` with an adapter of the trained one's keys and shapes
+    but N(0, 0.3^2) factors (two training steps move a tiny model's audio by
+    less than a 16-bit step), registered in both packages' file tables: the
+    same audio as JAX's within 1e-4 of max|y| and a 16-bit step, and not the
+    base audio; the base generate at the same seed is bit-equal before and
+    after the adapter request, and the backend's weights unchanged."""
+    import torch
+
+    from audiolab_tpu.serve import files as j_files
+    from audiolab_tpu_torch.serve import files as t_files
+
+    clips = [dict(_music_clip(tmp_path, sr=8000), prompt=p, lyrics="[verse] la la")
+             for p in ("jazz", "rock")]
+    body = {"clips": clips, "settings": {"steps": 2, "rank": 4, "lr": 0.05}}
+    status, resp = _post(f"{server}/api/v1/acestep/lora/train", body)
+    code, ref = jax_router.dispatch("POST", "/api/v1/acestep/lora/train", body)
+    assert status == code == 200 and set(resp) == set(ref) == {"job_id"}
+    got = _job_result(lambda j: json.loads(_get(f"{server}/api/v1/rvc/job/{j}")[2]),
+                      resp["job_id"])
+    want = _job_result(lambda j: jax_router.dispatch("GET", f"/api/v1/rvc/job/{j}", {})[1],
+                       ref["job_id"])
+    assert got["status"] == want["status"] == "done", (got, want)
+    assert set(got["result"]) == set(want["result"]) == {"loss", "lora_path", "file_id"}
+    assert np.isfinite(got["result"]["loss"])
+    with np.load(got["result"]["lora_path"]) as a, np.load(want["result"]["lora_path"]) as b:
+        assert {k: a[k].shape for k in a.files} == {k: b[k].shape for k in b.files}
+
+    backend = lora_backends
+    before = {k: v.clone() for k, v in backend.model.state_dict().items()}
+    base = dict(prompt="lofi beat", duration=1.5, infer_step=3, seed=4)
+    s0, first = _post(f"{server}/api/v1/acestep/lora/generate", base)
+    rng = np.random.default_rng(8)
+    path = str(tmp_path / "adapter.npz")
+    with np.load(want["result"]["lora_path"]) as trained:
+        np.savez(path, **{k: (0.3 * rng.standard_normal(trained[k].shape)).astype(np.float32)
+                          for k in trained.files})
+    status, resp = _post(f"{server}/api/v1/acestep/lora/generate",
+                         dict(base, lora_file_id=t_files.register_file(path)))
+    code, ref = jax_router.dispatch("POST", "/api/v1/acestep/lora/generate",
+                                    dict(base, lora_file_id=j_files.register_file(path)))
+    assert s0 == status == code == 200, resp
+    _same_audio(resp, ref, tmp_path)
+    s1, again = _post(f"{server}/api/v1/acestep/lora/generate", base)
+    assert s1 == 200 and again["audio"] == first["audio"]
+    assert resp["audio"] != first["audio"]
+    _same_audio(first, jax_router.dispatch("POST", "/api/v1/acestep/generate", base)[1],
+                tmp_path)
+    assert all(torch.equal(v, backend.model.state_dict()[k]) for k, v in before.items())
+    # the JAX route reads any server path a client names (ROADMAP queue 3);
+    # the port refuses the key
+    assert jax_router.dispatch("POST", "/api/v1/acestep/lora/generate",
+                               dict(base, lora_path=path))[0] == 200
+    status, err = _post(f"{server}/api/v1/acestep/lora/generate", dict(base, lora_path=path))
+    assert status == 400 and "lora_path" in err["error"]
 
 
 def test_music_listings_and_errors_match_the_jax_router(server, jax_router, music_backends):

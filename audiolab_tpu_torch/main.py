@@ -11,9 +11,10 @@ fails without one.  Models are injected through the processors'
 ``configure`` by a caller that has weights.  ``--demo-backends`` registers
 a random-weight Zonos as the "zonos" TTS engine, the random XTTS as "coqui",
 the random Chatterbox as "chatterbox", the random Whisper transcriber as
-"whisper", and the random Stable Audio and ACE-Step as the "stable_audio"
-and "acestep" music backends on ``--device``, as the JAX server does, and
-names the engines the port does not have yet.
+"whisper", and the random Stable Audio, ACE-Step and YuE as the
+"stable_audio", "acestep" and "yue" music backends on ``--device``, as the
+JAX server does, and names the engines the port does not have yet (none
+since YuE).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from http.server import ThreadingHTTPServer
 
 # the JAX server's demo engines the port has no model for yet, by ROADMAP
 # queue 1 item
-MISSING_DEMO_BACKENDS = {"18c (YuE)": ("yue",)}
+MISSING_DEMO_BACKENDS: dict[str, tuple[str, ...]] = {}
 
 
 def setup_logging() -> None:
@@ -42,9 +43,10 @@ def setup_logging() -> None:
 def register_demo_backends(device: str, log: logging.Logger) -> None:
     """Register the random-weight demo engines the port has (Zonos as
     "zonos", the XTTS engine as "coqui", Chatterbox as "chatterbox", the
-    Whisper transcriber as "whisper", Stable Audio as "stable_audio" and
-    ACE-Step as "acestep", on ``device``) and log the ones it does not have
-    yet."""
+    Whisper transcriber as "whisper", Stable Audio as "stable_audio",
+    ACE-Step as "acestep" and YuE as "yue", on ``device``) and log the ones
+    it does not have yet."""
+    from audiolab_tpu_torch.models.yue import random_yue
     from audiolab_tpu_torch.pipelines.acestep import random_acestep
     from audiolab_tpu_torch.pipelines.music import random_stable_audio
     from audiolab_tpu_torch.pipelines.transcribe import random_transcriber
@@ -52,16 +54,18 @@ def register_demo_backends(device: str, log: logging.Logger) -> None:
     from audiolab_tpu_torch.serve import music_api, transcribe_api, tts_api
 
     log.info("loading demo (random-weight) backends on %s: zonos, coqui, chatterbox, "
-             "whisper, stable_audio, acestep", device)
+             "whisper, stable_audio, acestep, yue", device)
     tts_api.register_backend("zonos", random_zonos(device=device))
     tts_api.register_backend("coqui", random_xtts(device=device))
     tts_api.register_backend("chatterbox", random_chatterbox(device=device))
     transcribe_api.register_backend("whisper", random_transcriber(device=device))
     music_api.register_backend("stable_audio", random_stable_audio(device=device))
     music_api.register_backend("acestep", random_acestep(device=device))
-    log.warning("--demo-backends: the port has no model yet for %s",
-                "; ".join(f"{', '.join(names)} (ROADMAP queue 1, item {item})"
-                          for item, names in MISSING_DEMO_BACKENDS.items()))
+    music_api.register_backend("yue", random_yue(device=device))
+    if MISSING_DEMO_BACKENDS:
+        log.warning("--demo-backends: the port has no model yet for %s",
+                    "; ".join(f"{', '.join(names)} (ROADMAP queue 1, item {item})"
+                              for item, names in MISSING_DEMO_BACKENDS.items()))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -72,9 +76,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--output-root", default="outputs/process")
     parser.add_argument(
         "--demo-backends", action="store_true",
-        help="register random-weight generation backends (the port has the zonos, coqui "
-             "and chatterbox TTS engines, the whisper transcriber and the stable_audio "
-             "and acestep music backends; yue is logged as missing)")
+        help="register random-weight generation backends (the zonos, coqui and "
+             "chatterbox TTS engines, the whisper transcriber and the stable_audio, "
+             "acestep and yue music backends)")
     parser.add_argument("--device", default="cuda",
                         help="where the processors run (default: the card)")
     args = parser.parse_args(argv)

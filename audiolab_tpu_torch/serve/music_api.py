@@ -1,9 +1,9 @@
 """Music generation endpoints (counterpart of audiolab_tpu/serve/music_api.py;
 reference layouts/stable_audio.py /api/v1/audio/generate, layouts/acestep.py
-/api/v1/acestep/*).
+/api/v1/acestep/*, layouts/music.py /api/v1/yue/*).
 
 Backends are objects with ``.generate(prompt, **settings) -> (samples,
-sr)``, registered by name ("stable_audio", "acestep").  A request's
+sr)``, registered by name ("stable_audio", "acestep", "yue").  A request's
 generation knobs may sit at the top level of the body or under
 ``settings``; the two are merged and, unless the backend's ``generate``
 takes ``**kwargs``, filtered to the parameters it names.  A backend that is
@@ -15,8 +15,9 @@ and registers the ``.npz`` as a file; ``lora/generate`` generates with an
 adapter given by its ``file_id``, merged for that request only (the
 backend's model is seen through ``models/acestep.py::LoRAModel`` and never
 written).  Unlike the JAX route, a client-supplied ``lora_path`` is
-refused: request settings do not name server paths.  The YuE routes are not
-served yet (404).
+refused: request settings do not name server paths.  ``yue/generate``
+answers like the other generate routes; ``yue/stream/{file_id}`` downloads a
+generated file, as ``audio/download`` does.
 """
 
 from __future__ import annotations
@@ -175,6 +176,10 @@ def _lora_train(body: dict) -> dict:
 
 
 def register(router) -> None:
+    @router.post("/api/v1/yue/generate", "YuE lyrics-to-song generation")
+    def yue(_params, body):
+        return _generate("yue", body)
+
     @router.post("/api/v1/acestep/generate", "ACE-Step text-to-music")
     def acestep(_params, body):
         return _generate("acestep", body)
@@ -236,6 +241,7 @@ def register(router) -> None:
             y, sr = be.continue_audio(audio, body.get("prompt", ""), **body.get("settings", {}))
         return _answer(y, sr, "continue")
 
+    @router.get("/api/v1/yue/stream/{file_id}", "Download a generated file")
     @router.get("/api/v1/audio/download/{file_id}", "Download a generated file")
     def download(params, _body):
         return file_response(params["file_id"])

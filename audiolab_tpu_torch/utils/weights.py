@@ -1945,3 +1945,58 @@ def lora_from_jax(lora: dict) -> dict:
     the port's (the same paths, relative to the DiT: the port's DiT keeps
     the flax module names; fp32 CPU tensors)."""
     return {tuple(p): {n: _t(ab[n]) for n in ("a", "b")} for p, ab in lora.items()}
+
+
+# ------------------------------------------------------------ YuE and its codecs
+
+def soundstream_from_jax(params: dict) -> dict:
+    """SoundStreamCodec flax params -> port state_dict (the flax names:
+    SEANet has no upstream checkpoint; the decoder's ``up_N`` are transposed
+    convolutions, ``rvq.codebooks`` is taken as it is)."""
+    sd: dict = {}
+    _flax_walk(sd, "", params, conv_t=("up_",))
+    return sd
+
+
+def xcodec_from_jax(params: dict) -> dict:
+    """XCodecDecoder flax params -> port state_dict under the xcodec
+    checkpoint's names (the inverse of ``xcodec_mapping`` on folded
+    weights): the codebooks as ``quantizer.vq.layers.N._codebook.embed``,
+    ``fc_post2``, and ``decoder_2.model.N`` with each upsampler's kernel
+    (the dilate-pad-conv kernel of ``TorchConvTranspose``, spatially
+    flipped) back in torch's (in, out, k)."""
+    sd: dict = {}
+    for i in range(_count(params, "codebook_")):
+        sd[f"quantizer.vq.layers.{i}._codebook.embed"] = _t(params[f"codebook_{i}"]["embedding"])
+    _dense(sd, "fc_post2", params["fc_post2"])
+
+    def snake(key: str, node: dict) -> None:
+        sd[f"{key}.alpha"] = _t(np.asarray(node["alpha"]).reshape(1, -1, 1))
+
+    _conv1d(sd, "decoder_2.model.0", params["conv_in"])
+    n_rates = _count(params, "up_")
+    for i in range(n_rates):
+        blk = f"decoder_2.model.{1 + i}.block"
+        snake(f"{blk}.0", params[f"snake_{i}"])
+        _conv_t1d(sd, f"{blk}.1", params[f"up_{i}"]["conv"])
+        for j in range(3):
+            res, node = f"{blk}.{2 + j}.block", params[f"res_{i}_{j}"]
+            snake(f"{res}.0", node["s1"])
+            _conv1d(sd, f"{res}.1", node["c1"])
+            snake(f"{res}.2", node["s2"])
+            _conv1d(sd, f"{res}.3", node["c2"])
+    snake(f"decoder_2.model.{1 + n_rates}", params["snake_out"])
+    _conv1d(sd, f"decoder_2.model.{2 + n_rates}", params["conv_out"])
+    return sd
+
+
+def yue_from_jax(s1_params: dict, s2_params: dict, codec_params: dict | None = None,
+                 vocos_params: dict | None = None,
+                 xcodec_params: dict | None = None) -> dict[str, dict | None]:
+    """A JAX YuEPipeline's trees -> the port modules' state_dicts: "s1" and
+    "s2" (``lm_from_jax``, HF LLaMA's names), "codec", "vocos" and "xcodec"
+    (None where the tree is)."""
+    return {"s1": lm_from_jax(s1_params), "s2": lm_from_jax(s2_params),
+            "codec": None if codec_params is None else soundstream_from_jax(codec_params),
+            "vocos": None if vocos_params is None else vocos_from_jax(vocos_params),
+            "xcodec": None if xcodec_params is None else xcodec_from_jax(xcodec_params)}

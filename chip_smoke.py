@@ -3,8 +3,8 @@ holds each against its plain PyTorch version at the main path's shapes,
 drives the separate -> RVC chain, RVC training, Zonos TTS, the speech
 engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription,
 multi-take alignment, WaveTransfer, Super Resolution's learned enhancers and
-music generation (Stable Audio, ACE-Step) at full width, and checks the
-output.
+music generation (Stable Audio, ACE-Step, YuE) at full width, and checks
+the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -35,11 +35,15 @@ output.
     python3 chip_smoke.py --phases card,kernels,lora  # ACE-Step LoRA training (gradients
                                                    # through K1 and K2), the LoRA routes,
                                                    # the checkpoint ACE-Step, CLAP
+    python3 chip_smoke.py --phases card,kernels,yue  # YuE's two LM stages and xcodec at
+                                                   # YuEConfig(), the YuE routes, the
+                                                   # checkpoint path
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
                                                    # a Dia call, an XTTS-v2 synthesize,
                                                    # a Chatterbox clone, a WaveGrad train
-                                                   # step and FAST_6, an AudioSR chunk
+                                                   # step and FAST_6, an AudioSR chunk,
+                                                   # a full-width YuE generate_music
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -242,6 +246,21 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              checkpoint DiT, the DCAE round trip, ADaMoS, one LoRA step's
              gradients.  Phase kernels adds K1's and K2's forward + backward
              at (b)'s shapes
+  yue        YuE: (a) random_yue (2 + 2 layers, fp32) with captured steps on the
+             card against a CPU copy under the same draws (identical codes,
+             audio to 1e-5 of max|y|), XCodecConfig()'s decoder card against
+             CPU; (b) YuEConfig() (stage 1 2048 x 16 bf16, stage 2 1024 x 8,
+             83,734 ids) with XCodecConfig() on one 512-frame segment at CFG
+             1.5, top-p 0.93, repetition penalty 1.2: stage 1's prefill and
+             captured steps/s against 32 eager frames (identical codes), stage
+             2's blocks and steps/s, the xcodec decode, generate_music cold and
+             warm with peak memory; no kernel launched (both stages prefill
+             through the static cache); (c) POST /api/v1/yue/generate and GET
+             /api/v1/yue/stream/{file_id}; (d) a 2 + 2-layer stack at the
+             published widths written in the upstream layout (sharded bf16
+             safetensors, the xcodec .pth with weight-norm pairs, a
+             tokenizer.model) and loaded by load_yue_pipeline onto the card:
+             the same weights and codes as the pipeline it was written from
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -263,7 +282,7 @@ import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
-          "transcribe", "diffusion", "music", "lora")
+          "transcribe", "diffusion", "music", "lora", "yue")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -5543,6 +5562,363 @@ def phase_lora(dev, card: str) -> dict:
     return rec
 
 
+YUE_GENRE = "inspiring female uplifting pop airy vocal electronic bright vocal"
+YUE_LYRICS = ("[verse]\nwalking through the night with the city lights\n"
+              "every step a heartbeat in the quiet streets\n\n"
+              "[chorus]\nwe are the light, we are the fire\nhold on tight and take me higher")
+YUE_FRAMES = 512             # one segment, 10.24 s at 50 frames a second
+YUE_EAGER_FRAMES = 32        # stage 1's eager steps against the captured ones
+YUE_SERVED_S = 2.0           # the served request's segment
+YUE_CKPT_S = 1.0             # the checkpoint path's segment
+
+
+def yue_draws(seed: int, shape: tuple):
+    """Stage-1 Gumbel draws made on the CPU from ``seed``: the same numbers
+    for the card's and the CPU's pipelines."""
+    import torch
+
+    from audiolab_tpu_torch.models.lm import gumbel_draws
+
+    return gumbel_draws(*shape, seed, torch.device("cpu"))
+
+
+def write_safetensors(path: Path, sd: dict) -> int:
+    """``sd`` in the safetensors layout (an 8-byte little-endian header
+    length, the JSON header of dtypes, shapes and offsets, the raw bytes),
+    written here: the card's machine has no safetensors package.  Returns
+    the file's bytes."""
+    import struct
+
+    import torch
+
+    names = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.int64: "I64"}
+    header, blobs, off = {}, [], 0
+    for k, v in sd.items():
+        v = v.detach().contiguous().cpu()
+        raw = v.view(torch.uint8).numpy().tobytes() if v.numel() else b""
+        header[k] = {"dtype": names[v.dtype], "shape": list(v.shape),
+                     "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+    return 8 + len(head) + off
+
+
+def write_yue_stack(root: Path, s1, s2, xdec, shards: int = 2) -> dict:
+    """YuE's published layout for the port modules ``s1``, ``s2`` and
+    ``xdec``: per stage a directory with config.json and bf16 safetensors in
+    ``shards`` files with model.safetensors.index.json, the xcodec decoder
+    as final.pth ({"codec_model": ...}, ``model.`` prefixes, each
+    convolution as a weight-norm pair), and a tokenizer.model with the mm
+    control pieces.  Returns the paths and the bytes written."""
+    import torch
+
+    from audiolab_tpu_torch.models.mm_vocab import MM_SPECIAL_TOKENS
+    from audiolab_tpu_torch.utils.spm import UNIGRAM, build_model_proto
+
+    out, total = {}, 0
+    for stage, lm in (("stage1", s1), ("stage2", s2)):
+        c, d = lm.cfg, root / stage
+        d.mkdir(parents=True)
+        (d / "config.json").write_text(json.dumps(dict(
+            architectures=["LlamaForCausalLM"], model_type="llama", vocab_size=c.vocab_size,
+            hidden_size=c.dim, intermediate_size=c.ffn_dim, num_hidden_layers=c.n_layers,
+            num_attention_heads=c.n_heads, num_key_value_heads=c.n_kv_heads,
+            max_position_embeddings=c.max_seq_len, rms_norm_eps=c.norm_eps,
+            rope_theta=c.rope_theta, tie_word_embeddings=False, torch_dtype="bfloat16")))
+        sd = {k: v.bfloat16() for k, v in lm.state_dict().items()}
+        keys = sorted(sd)
+        per = -(-len(keys) // shards)
+        weight_map = {}
+        for si in range(shards):
+            name = f"model-{si + 1:05d}-of-{shards:05d}.safetensors"
+            part = keys[si * per:(si + 1) * per]
+            total += write_safetensors(d / name, {k: sd[k] for k in part})
+            weight_map.update(dict.fromkeys(part, name))
+        (d / "model.safetensors.index.json").write_text(json.dumps(
+            {"metadata": {"total_size": total}, "weight_map": weight_map}))
+        out[stage] = str(d)
+    xsd = {}
+    for k, v in xdec.state_dict().items():
+        v = v.detach().cpu()
+        if k.endswith(".weight") and v.dim() == 3:
+            xsd[f"model.{k[:-6]}weight_g"] = v.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+            xsd[f"model.{k[:-6]}weight_v"] = 2.0 * v
+        else:
+            xsd[f"model.{k}"] = v
+    out["xcodec"] = str(root / "final.pth")
+    torch.save({"codec_model": xsd}, out["xcodec"])
+    pieces = ([("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3), ("▁", -2.0, 1)]
+              + [(f"▁{w}", -3.0, 1) for w in sorted(set(YUE_LYRICS.split()))]
+              + [(ch, -8.0, 1) for ch in "abcdefghijklmnopqrstuvwxyz[]_.,\n"]
+              + [(tok, 0.0, 3) for tok in MM_SPECIAL_TOKENS])
+    out["tokenizer"] = str(root / "tokenizer.model")
+    Path(out["tokenizer"]).write_bytes(build_model_proto(pieces, model_type=UNIGRAM))
+    out["bytes"] = total + Path(out["xcodec"]).stat().st_size
+    return out
+
+
+def phase_yue(dev, card: str, profile_dir: str | None = None) -> dict:
+    """YuE on the card: (a) random_yue (2 + 2 layers, fp32) with its decode
+    steps captured against a CPU copy under the same draws: identical codes,
+    the audio within 1e-5 of max|y|; XCodecConfig()'s decoder on 50 frames,
+    card against CPU; (b) YuEConfig() (stage 1 2048 x 16 layers, bf16;
+    stage 2 1024 x 8), YuEVocab() (83,734 ids) and XCodecConfig(), weights
+    by bench.py's rules (utils/fast_init.py), on one YUE_FRAMES-frame
+    segment at the published sampling (CFG 1.5, top-p 0.93, repetition
+    penalty 1.2): stage 1's prefill seconds and captured steps/s against
+    YUE_EAGER_FRAMES eager frames (identical codes under the same draws),
+    stage 2's block count and steps/s, the xcodec decode's seconds, the
+    whole generate_music cold and warm with its peak memory and launches
+    (none of K1-K7: both stages prefill through the static cache, where
+    the attention is the plain version); (c) POST /api/v1/yue/generate on
+    YUE_SERVED_S and GET /api/v1/yue/stream/{file_id}; (d) a 2-layer stack at
+    the published widths written in the upstream layout (sharded bf16
+    safetensors with their index and config.json per stage, an xcodec .pth
+    with weight-norm pairs, a tokenizer.model), loaded by load_yue_pipeline
+    onto the card: the same weights and codes as the pipeline of the
+    modules it was written from.  ``profile_dir``: (b)'s warm call once more
+    under torch.profiler, its device time by kernel.  Returns the path's
+    launches: (b)'s cold call and (c)'s request."""
+    import base64
+    import copy
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.models.codecs import XCodecConfig, XCodecDecoder
+    from audiolab_tpu_torch.models.lm import TransformerLM
+    from audiolab_tpu_torch.models.mm_vocab import MMTokenizer
+    from audiolab_tpu_torch.models.yue import (
+        YuEConfig,
+        YuEPipeline,
+        random_yue,
+        stage1_generate,
+    )
+    from audiolab_tpu_torch.serve import music_api
+    from audiolab_tpu_torch.serve.api import create_app
+    from audiolab_tpu_torch.serve.http import serve_background
+    from audiolab_tpu_torch.utils.convert import load_yue_pipeline
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    tag = "[yue]"
+    rec: dict = {}
+    path = dict.fromkeys(KERNELS, 0)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_yue_"))
+
+    def add_path(launches):
+        for k in KERNELS:
+            path[k] += launches[k]
+
+    # (a) card against CPU
+    small = random_yue(seed=4, device=dev)
+    small.draws = yue_draws
+    host = copy.copy(small)
+    for name in ("s1", "s2", "codec"):
+        setattr(host, name, copy.deepcopy(getattr(small, name)).to(cpu))
+    host.device = cpu
+    res = {}
+    for label, pipe in (("card", small), ("cpu", host)):
+        stats: dict = {}
+        out = pipe.generate_music("pop", "la la la\n\nna na na", n_segments=2, seed=3,
+                                  stats=stats)
+        res[label] = (stats["codes"], out)
+    expect(torch.equal(res["card"][0], res["cpu"][0]),
+           "(a) random_yue's codes on the card differ from the CPU's")
+    rec["card_vs_cpu"] = {k: card_vs_cpu(f"random_yue {k}", res["card"][1][k],
+                                         res["cpu"][1][k], 1e-5, tag=f"{tag} (a)")
+                          for k in ("vocal", "inst", "mix")}
+    log(f"{tag} (a) random_yue (2 + 2 layers of 32, fp32, two 16-frame segments) with captured "
+        f"steps on the card and eager on the CPU under the same draws: codes identical "
+        f"{tuple(res['cpu'][0].shape)}")
+    del small, host
+    with torch.device(dev):
+        xdec = fast_init(XCodecDecoder(XCodecConfig()), 42).eval()
+    codes = torch.from_numpy(np.random.default_rng(6).integers(0, 1024, (2, 8, 50)))
+    with torch.inference_mode():
+        got = xdec(codes.to(dev)).cpu()
+        want = copy.deepcopy(xdec).to(cpu)(codes)
+    rec["card_vs_cpu"]["xcodec"] = card_vs_cpu(
+        "XCodecDecoder at XCodecConfig() on 50 frames", got, want, 1e-5, tag=f"{tag} (a)")
+
+    # (b) full width
+    cfg = YuEConfig()
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        s1 = fast_init(TransformerLM(cfg.stage1), 40).eval()
+        s2 = fast_init(TransformerLM(cfg.stage2), 41).eval()
+    pipe = YuEPipeline(cfg, s1, s2, xcodec=xdec, device=dev)
+    pipe.pcfg.segment_frames = YUE_FRAMES
+    sync(dev)
+    n_par = {k: sum(p.numel() for p in m.parameters()) / 1e6
+             for k, m in (("stage 1", s1), ("stage 2", s2), ("xcodec", xdec))}
+    log(f"{tag} (b) YuEConfig() built in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} M" for k, v in n_par.items())
+        + f" parameters (stage 1 {cfg.stage1.dtype}, lm_head fp32); vocabulary "
+        f"{cfg.vocab.size}; cut: one {YUE_FRAMES}-frame segment, random weights")
+    prompt, vf = pipe._prompt(YUE_GENRE, YUE_LYRICS.split("\n\n")[0], full_lyrics=YUE_LYRICS)
+    runs = {}
+    for label, graph in (("graph", cuda), ("eager", False)):
+        stats = {}
+        runs[label] = stage1_generate(
+            s1, prompt, YUE_EAGER_FRAMES, cfg.vocab, valid_from=vf, seed=7, graph=graph,
+            stats=stats, device=dev)
+        runs[label + "_stats"] = stats
+    expect(torch.equal(runs["graph"], runs["eager"]),
+           "(b) stage 1's captured steps give other codes than the eager steps")
+    eager_sps = runs["eager_stats"]["steps"] / runs["eager_stats"]["decode_s"]
+    secs, stats_all = [], []
+    for i in range(2):
+        stats = {}
+        reset_counts()
+        _peak_reset(cuda)
+        t0 = time.perf_counter()
+        out = pipe.generate_music(YUE_GENRE, YUE_LYRICS, n_segments=1, seed=0, stats=stats)
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+        launches, peak = counts(), _peak_gb(cuda)
+        stats_all.append(stats)
+        expect(all(v == 0 for v in launches.values()), f"(b) launches {launches}")
+        if i == 0:
+            add_path(launches)
+    expect(out["sr"] == 16000 and out["mix"].shape == (YUE_FRAMES * 320,)
+           and np.isfinite(out["mix"]).all() and np.abs(out["mix"]).max() <= 0.99 + 1e-6,
+           f"(b) output {out['mix'].shape} at {out['sr']} Hz")
+    full = stats["codes"]
+    expect(full.shape == (2, cfg.n_q, YUE_FRAMES) and int(full.min()) >= 0
+           and int(full.max()) < 1024, f"(b) codes {tuple(full.shape)}")
+    st1, st2 = stats["stage1"][0], stats["stage2"]
+    cold1 = stats_all[0]["stage1"][0]
+    rec["full"] = dict(cold_s=secs[0], warm_s=secs[1], peak_gb=peak, launches=launches,
+                       s1_prefill_s=st1["prefill_s"], s1_steps=st1["steps"],
+                       s1_steps_per_s=st1["steps"] / st1["decode_s"],
+                       s1_cold_steps_per_s=cold1["steps"] / cold1["decode_s"],
+                       s1_eager_steps_per_s=eager_sps,
+                       s2_blocks=st2["blocks"], s2_bucket=st2["blocks_bucket"],
+                       s2_prefill_s=st2["prefill_s"], s2_steps=st2["steps"],
+                       s2_steps_per_s=st2["steps"] / st2["decode_s"],
+                       xcodec_s=stats["decode_s"], audio_s=len(out["mix"]) / out["sr"])
+    r = rec["full"]
+    log(f"{tag} (b) generate_music, one {YUE_FRAMES}-frame segment ({r['audio_s']:g} s at "
+        f"16 kHz): cold {secs[0]:.3f} s, warm {secs[1]:.3f} s, peak {peak:.2f} GB, launches "
+        f"{launches} | {card}")
+    log(f"{tag} (b) stage 1 (prompt {prompt.shape[1]} tokens, bucket "
+        f"{-(-prompt.shape[1] // 128) * 128}): prefill {st1['prefill_s']:.4f} s, "
+        f"{st1['steps']} captured steps at {r['s1_steps_per_s']:.1f} steps/s "
+        f"({1e3 / r['s1_steps_per_s']:.3f} ms a step; cold call {r['s1_cold_steps_per_s']:.1f})"
+        f"; eager {eager_sps:.1f} steps/s over {2 * YUE_EAGER_FRAMES} steps, codes identical to "
+        f"the captured ones | {card}")
+    log(f"{tag} (b) stage 2: {st2['blocks']} blocks of {cfg.stage2_block} (bucket "
+        f"{st2['blocks_bucket']}), prefill {st2['prefill_s']:.4f} s, {st2['steps']} captured "
+        f"steps at {r['s2_steps_per_s']:.1f} steps/s ({1e3 / r['s2_steps_per_s']:.3f} ms a "
+        f"step); xcodec decode {stats['decode_s']:.4f} s | {card}")
+    if profile_dir and cuda:
+        rec["profile"] = profile_call(
+            "YuE generate_music warm", lambda: pipe.generate_music(
+                YUE_GENRE, YUE_LYRICS, n_segments=1, seed=0),
+            {"stage 1": st1["prefill_s"] + st1["decode_s"],
+             "stage 2": st2["prefill_s"] + st2["decode_s"], "xcodec": stats["decode_s"]},
+            dev, profile_dir, card, tag=tag)
+
+    # (c) the served request
+    saved = dict(music_api._BACKENDS)
+    server = None
+    try:
+        music_api._BACKENDS.clear()
+        music_api.register_backend("yue", pipe)
+        server, port = serve_background(create_app(str(work / "process"), device=dev))
+        url = f"http://127.0.0.1:{port}/api/v1"
+        reset_counts()
+        t0 = time.perf_counter()
+        status, resp = http("POST", f"{url}/yue/generate", {
+            "prompt": YUE_GENRE, "lyrics": YUE_LYRICS,
+            "settings": {"seconds_per_segment": YUE_SERVED_S, "seed": 2}})
+        served_s = time.perf_counter() - t0
+        launches = counts()
+        expect(status == 200, f"POST yue/generate: HTTP {status} {resp}")
+        a = _served_wav(work, resp["audio"], "yue.wav")
+        n_smp = int(YUE_SERVED_S * 50) * 320
+        expect(a.sample_rate == 16000 and a.samples.shape[-1] == n_smp
+               and np.isfinite(a.samples).all(), f"yue WAV {a.samples.shape} {a.sample_rate}")
+        expect(all(v == 0 for v in launches.values()), f"(c) launches {launches}")
+        add_path(launches)
+        raw = urllib_get(f"{url}/yue/stream/{resp['file_id']}")
+        expect(raw == base64.b64decode(resp["audio"]), "(c) yue/stream gives another file")
+        rec["served"] = dict(seconds=served_s, launches=launches)
+        log(f"{tag} (c) POST /api/v1/yue/generate ({YUE_SERVED_S:g} s): HTTP {status} "
+            f"{served_s:.3f} s, {a.samples.shape} at {a.sample_rate} Hz, launches {launches}; "
+            f"GET /api/v1/yue/stream/{{file_id}}: the same {len(raw)} bytes | {card}")
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        music_api._BACKENDS.clear()
+        music_api._BACKENDS.update(saved)
+    del pipe, s1, s2
+    torch.cuda.empty_cache() if cuda else None
+
+    # (d) the checkpoint path: a 2-layer stack at the published widths
+    c2 = YuEConfig(stage1=dataclasses.replace(cfg.stage1, n_layers=2),
+                   stage2=dataclasses.replace(cfg.stage2, n_layers=2))
+    with torch.device(dev):
+        s1 = fast_init(TransformerLM(c2.stage1), 50).eval()
+        s2 = fast_init(TransformerLM(c2.stage2), 51).eval()
+    with torch.no_grad():
+        for lm in (s1, s2):       # the published files are bf16: so are these numbers
+            for prm in lm.parameters():
+                prm.copy_(prm.bfloat16())
+    t0 = time.perf_counter()
+    files = write_yue_stack(work / "stack", s1, s2, xdec)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_yue_pipeline(files["stage1"], files["stage2"], files["xcodec"],
+                               tokenizer_model=files["tokenizer"], device=dev)
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    expect(vars(loaded.cfg.stage1) == vars(c2.stage1) and vars(loaded.cfg.stage2) == vars(
+        c2.stage2), f"(d) configs {loaded.cfg.stage1} {loaded.cfg.stage2}")
+    for name, lm in (("s1", s1), ("s2", s2)):
+        mine = lm.state_dict()
+        expect(all(torch.equal(v, mine[k]) for k, v in getattr(loaded, name).state_dict().items()),
+               f"(d) {name}'s loaded weights differ from the written ones")
+    ref = YuEPipeline(c2, s1, s2, xcodec=xdec, tokenizer=MMTokenizer(
+        model_file=files["tokenizer"]), device=dev)
+    outs = {}
+    for label, p in (("in memory", ref), ("loaded", loaded)):
+        p.draws = yue_draws
+        stats = {}
+        outs[label] = (p.generate_music(YUE_GENRE, YUE_LYRICS, seconds_per_segment=YUE_CKPT_S,
+                                        seed=1, stats=stats), stats["codes"])
+    expect(torch.equal(outs["loaded"][1], outs["in memory"][1]),
+           "(d) the loaded stack's codes differ from the in-memory pipeline's")
+    a, b = outs["loaded"][0]["mix"], outs["in memory"][0]["mix"]
+    err = float(np.abs(a - b).max() / np.abs(b).max())
+    expect(a.shape == b.shape and np.isfinite(a).all() and err <= 1e-5,
+           f"(d) the loaded stack's mix {err:.3e} of max|y| from the in-memory pipeline's")
+    rec["checkpoint"] = dict(write_s=write_s, load_s=load_s, bytes=files["bytes"], mix_err=err)
+    log(f"{tag} (d) load_yue_pipeline of a 2 + 2-layer stack at the published widths "
+        f"({files['bytes'] / 1e9:.2f} GB: sharded bf16 safetensors with their index, the "
+        f"xcodec .pth with weight-norm pairs, tokenizer.model) written in {write_s:.2f} s, "
+        f"loaded onto the card in {load_s:.2f} s: weights equal, codes "
+        f"{tuple(outs['loaded'][1].shape)} identical to the in-memory pipeline's, the mix "
+        f"{err:.3e} of max|y| from it (tolerance 1e-5: the weight-norm fold rounds) | {card}")
+    del loaded, ref, s1, s2, xdec
+    torch.cuda.empty_cache() if cuda else None
+    rec["launches"] = path
+    log(f"{tag} the path's launches ((b)'s cold call and (c)'s request): {path}")
+    return rec
+
+
 def urllib_get(url: str, timeout: float = 60.0) -> bytes:
     import urllib.request
 
@@ -5592,7 +5968,7 @@ def main() -> int:
 
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
-    diffused = composed = adapted = None
+    diffused = composed = adapted = sung = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "long"} & set(phases)
     if need_chain:
@@ -5685,6 +6061,12 @@ def main() -> int:
         # kernel runs and the three served calls, counts reset just before
         # each and read just after
         adapted = phase_lora(dev, card)["launches"]
+    if "yue" in phases:
+        mark("yue")
+        # this slice's path: the full-width generate_music's cold call and
+        # the served request, counts reset just before each and read just
+        # after (YuE launches none of K1-K7)
+        sung = phase_yue(dev, card, profile_dir=args.profile)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -5701,6 +6083,7 @@ def main() -> int:
            "diffusion_launches": None if diffused is None else diffused[r["kernel"]],
            "music_launches": None if composed is None else composed[r["kernel"]],
            "lora_launches": None if adapted is None else adapted[r["kernel"]],
+           "yue_launches": None if sung is None else sung[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),

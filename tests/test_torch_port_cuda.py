@@ -1970,3 +1970,113 @@ def test_lora_factor_gradients_reach_q_k_v_on_the_card(cuda_device):
         gp = torch.stack([grads["cpu"][p] for p in ps]).float()
         assert gc.abs().max() > 0
         assert (gc - gp).abs().max() <= 2e-2 * gp.abs().max()
+
+
+# ------------------------------------------------------------------ YuE
+
+def _yue_draws(seed, shape):
+    from audiolab_tpu_torch.models.lm import gumbel_draws
+
+    return gumbel_draws(*shape, seed, torch.device("cpu"))
+
+
+def test_yue_on_the_card_matches_the_cpu(cuda_device):
+    """random_yue (fp32, 2 + 2 layers) on the card with its decode steps
+    captured, against eager steps on the card and against a CPU copy, all
+    under the same draws: identical codes, the audio within 1e-5 of
+    max|y|; no kernel launched."""
+    import copy
+
+    import numpy as np
+
+    from audiolab_tpu_torch.kernels import norms as TN
+    from audiolab_tpu_torch.models.yue import random_yue
+
+    card = random_yue(seed=4, device=cuda_device)
+    card.draws = _yue_draws
+    cpu = copy.copy(card)
+    for name in ("s1", "s2", "codec"):
+        setattr(cpu, name, copy.deepcopy(getattr(card, name)).cpu())
+    cpu.device = torch.device("cpu")
+    outs = {}
+    TA.reset_launch_counts()
+    TN.reset_launch_counts()
+    for label, pipe, graph in (("graph", card, True), ("eager", card, False),
+                               ("cpu", cpu, False)):
+        pipe.graph, stats = graph, {}
+        out = pipe.generate_music("pop", "la la\n\nna na", n_segments=2, seed=3, stats=stats)
+        outs[label] = (stats["codes"], out)
+    assert TA.flash_attention_fwd.launches == TA.attention_nk1.launches == 0
+    for label in ("eager", "cpu"):
+        assert torch.equal(outs[label][0], outs["graph"][0]), label
+        for k in ("vocal", "inst", "mix"):
+            want = outs[label][1][k]
+            assert np.abs(outs["graph"][1][k] - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_yue_checkpoint_loader_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """load_yue_pipeline of a 2-layer stack in the upstream layout (bf16
+    safetensors stages written by chip_smoke.py's writer, stage 2 in two
+    shards with an index, an xcodec .pth with weight-norm pairs) onto the
+    card and onto the CPU: the same weights, and in fp32 identical codes
+    under the same draws."""
+    import dataclasses
+    import json
+
+    from chip_smoke import write_safetensors
+    from audiolab_tpu_torch.models.codecs import XCodecConfig, XCodecDecoder
+    from audiolab_tpu_torch.models.lm import LMConfig, TransformerLM
+    from audiolab_tpu_torch.models.yue import YuEVocab
+    from audiolab_tpu_torch.utils.convert import load_yue_pipeline
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    vocab = YuEVocab(codebook_size=32, text_size=64, pre_xcodec_codebooks=2, n_q_total=8,
+                     post_xcodec_ids=16)
+    for stage, shards in (("stage1", 1), ("stage2", 2)):
+        d = tmp_path / stage
+        d.mkdir()
+        (d / "config.json").write_text(json.dumps(dict(
+            vocab_size=vocab.size, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, rms_norm_eps=1e-5)))
+        lm = fast_init(TransformerLM(LMConfig(vocab_size=vocab.size, dim=64, n_layers=2,
+                                              n_heads=4, n_kv_heads=2, ffn_dim=128)),
+                       seed=len(stage) + shards)
+        sd = {k: v.bfloat16() for k, v in lm.state_dict().items()}
+        keys = sorted(sd)
+        names = [f"model-{i + 1:05d}-of-{shards:05d}.safetensors" for i in range(shards)]
+        if shards == 1:
+            write_safetensors(d / "model.safetensors", sd)
+        else:
+            half = len(keys) // 2
+            for name, part in zip(names, (keys[:half], keys[half:])):
+                write_safetensors(d / name, {k: sd[k] for k in part})
+            (d / "model.safetensors.index.json").write_text(json.dumps(
+                {"weight_map": {k: names[int(i >= half)] for i, k in enumerate(keys)}}))
+    xc = XCodecConfig(n_q=2, codebook_size=16, dim=12, acoustic_dim=4, decoder_dim=16,
+                      rates=(2, 5))
+    dec = fast_init(XCodecDecoder(xc), seed=5)
+    xsd = {}
+    for k, v in dec.state_dict().items():
+        if k.endswith(".weight") and v.dim() == 3:
+            norm = v.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+            xsd[k[:-6] + "weight_g"], xsd[k[:-6] + "weight_v"] = norm, 3.0 * v
+        else:
+            xsd[k] = v
+    torch.save({"codec_model": xsd}, tmp_path / "final.pth")
+    pipes = [load_yue_pipeline(str(tmp_path / "stage1"), str(tmp_path / "stage2"),
+                               str(tmp_path / "final.pth"), xcodec_cfg=xc, vocab=vocab,
+                               device=d) for d in (cuda_device, "cpu")]
+    for a, b in zip(pipes[0].s2.state_dict().values(), pipes[1].s2.state_dict().values()):
+        assert torch.equal(a.cpu(), b)
+    codes = []
+    for pipe in pipes:
+        for name in ("s1", "s2"):
+            lm = getattr(pipe, name)
+            f32 = TransformerLM(dataclasses.replace(lm.cfg, dtype="float32"))
+            f32.load_state_dict({k: v.float() for k, v in lm.state_dict().items()})
+            setattr(pipe, name, f32.to(pipe.device).eval())
+        pipe.cfg.stage2_block, pipe.draws, stats = 16, _yue_draws, {}
+        out = pipe.generate_music("pop", "la la", seconds_per_segment=0.3, stats=stats)
+        assert out["sr"] == 500 and out["mix"].shape == (150,)
+        codes.append(stats["codes"])
+    assert torch.equal(codes[0], codes[1])

@@ -565,3 +565,52 @@ def test_checkpoint_music_entry_points_default_to_the_card(no_cuda, tmp_path):
     assert pipe.device.type == "cpu" and lat.shape == (1, 2, 4, 4) and torch.isfinite(lat).all()
     hidden, mask = ACEStepTextEncoder(t5, str(spm), device="cpu")(["a a"])
     assert hidden.shape == (1, 3, 16) and mask.tolist() == [[1, 1, 1]]
+
+
+def test_yue_entry_points_default_to_the_card(no_cuda, tmp_path):
+    """random_yue, YuEPipeline, both stages' generate functions and the
+    checkpoint loaders (load_llama_checkpoint, load_xcodec_checkpoint,
+    load_yue_pipeline) default to the card and raise without one; each runs
+    on the CPU when asked."""
+    from audiolab_tpu_torch.models.codecs import XCodecConfig, XCodecDecoder
+    from audiolab_tpu_torch.models.lm import LMConfig
+    from audiolab_tpu_torch.models.yue import (
+        YuEPipeline,
+        random_yue,
+        stage1_generate,
+        stage2_generate,
+    )
+    from audiolab_tpu_torch.utils.convert import (
+        load_llama_checkpoint,
+        load_xcodec_checkpoint,
+        load_yue_pipeline,
+    )
+
+    pipe = random_yue(device="cpu")
+    prompt, vf = pipe._prompt("pop", "la")
+    v = pipe.cfg.vocab
+    cfg = LMConfig(vocab_size=8, dim=8, n_layers=1, n_heads=2, ffn_dim=8)
+    llama = tmp_path / "lm.pth"
+    torch.save(pipe.s1.state_dict(), llama)
+    xc = XCodecConfig(n_q=1, codebook_size=4, dim=4, acoustic_dim=2, decoder_dim=4, rates=(2,))
+    xpath = tmp_path / "x.pth"
+    torch.save({"state_dict": XCodecDecoder(xc).state_dict()}, xpath)
+    for call in (random_yue, lambda: YuEPipeline(pipe.cfg, pipe.s1, pipe.s2, pipe.codec),
+                 lambda: stage1_generate(pipe.s1, prompt, 2, v, valid_from=vf),
+                 lambda: stage2_generate(pipe.s2, np.zeros((1, 3), np.int64), v, n_q=2, block=4),
+                 lambda: load_llama_checkpoint(str(llama), cfg),
+                 lambda: load_xcodec_checkpoint(str(xpath), xc),
+                 lambda: load_yue_pipeline("s1", "s2", str(xpath))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(ValueError, match="CUDA graph needs the card"):
+        stage1_generate(pipe.s1, prompt, 2, v, valid_from=vf, device="cpu", graph=True)
+    y, sr = pipe.generate("pop", lyrics="la", seconds_per_segment=0.1)
+    assert sr == 16000 and y.shape == (5 * 8,) and np.isfinite(y).all()
+    codes = stage1_generate(pipe.s1, prompt, 2, v, valid_from=vf, device="cpu")
+    assert codes.shape == (2, 2) and codes.device.type == "cpu"
+    assert stage2_generate(pipe.s2, codes, v, n_q=2, block=4, device="cpu").shape == (2, 2, 2)
+    lm = load_llama_checkpoint(str(llama), pipe.cfg.stage1, device="cpu")
+    assert next(lm.parameters()).device.type == "cpu"
+    dec = load_xcodec_checkpoint(str(xpath), xc, device="cpu")
+    assert dec(torch.zeros(1, 1, 3, dtype=torch.long)).shape == (1, 6)

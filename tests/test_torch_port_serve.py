@@ -95,6 +95,15 @@ def _same_files(body, ref, tmp_path):
         assert np.abs(a.samples - b.samples).max() <= PCM16
 
 
+def test_route_table_equals_jax(server, jax_router):
+    """Every route of the JAX router, YuE's two among them, and no other."""
+    port = {(r.method, r.pattern) for r in create_app("unused", device="cpu").routes}
+    ref = {(r.method, r.pattern) for r in jax_router.routes}
+    assert port == ref, (sorted(ref - port), sorted(port - ref))
+    assert len(ref) == 48
+    assert {("POST", "/api/v1/yue/generate"), ("GET", "/api/v1/yue/stream/{file_id}")} <= port
+
+
 def test_route_table_is_a_subset_of_jax(server, jax_router):
     port = {(r.method, r.pattern) for r in create_app("unused", device="cpu").routes}
     ref = {(r.method, r.pattern) for r in jax_router.routes}
@@ -129,9 +138,10 @@ def test_openapi_document(server):
     assert status == 200
     assert "/api/v1/process/chain" in body["paths"]
     assert "/api/v1/rvc/models" in body["paths"]
-    # routes whose models the port lacks are not served; training, TTS,
-    # transcription, alignment, music generation and ACE-Step's LoRA are
-    assert "/api/v1/yue/generate" not in body["paths"]
+    # every route of the JAX router is served: training, TTS, transcription,
+    # alignment, music generation, ACE-Step's LoRA and YuE
+    assert "/api/v1/yue/generate" in body["paths"]
+    assert "/api/v1/yue/stream/{file_id}" in body["paths"]
     assert "/api/v1/acestep/lora/train" in body["paths"]
     assert "/api/v1/acestep/lora/generate" in body["paths"]
     assert "/api/v1/audio/generate" in body["paths"]
@@ -215,10 +225,11 @@ def test_missing_files_is_400(server):
     assert "error" in body
 
 
-@pytest.mark.parametrize("path", ["/api/v1/does/not/exist", "/api/v1/yue/generate"])
-def test_unknown_or_unported_route_404(server, path):
+@pytest.mark.parametrize("path", ["/api/v1/does/not/exist", "/api/v1/yue/train"])
+def test_unknown_or_unported_route_404(server, jax_router, path):
+    """Paths neither router has: 404 from both."""
     status, _body = _post(f"{server}{path}", {})
-    assert status == 404
+    assert status == jax_router.dispatch("POST", path, {})[0] == 404
 
 
 def test_rvc_models_and_jobs(server):
@@ -396,10 +407,11 @@ def test_speech_route_serves_dia_and_coqui(server, jax_router, speech_engines, t
 def test_main_demo_backends_names_the_missing_items(caplog):
     """--demo-backends registers the random Zonos as "zonos", the random
     XTTS as "coqui", the random Chatterbox as "chatterbox", the random
-    Whisper transcriber as "whisper", and the random Stable Audio and
-    ACE-Step as "stable_audio" and "acestep" on the given device, as the JAX
-    server does, and names every engine the port does not have: only "yue"
-    (no server)."""
+    Whisper transcriber as "whisper", and the random Stable Audio, ACE-Step
+    and YuE as "stable_audio", "acestep" and "yue" on the given device, as
+    the JAX server does; no engine is missing any more, and none is named
+    as missing."""
+    from audiolab_tpu_torch.models.yue import YuEPipeline
     from audiolab_tpu_torch.pipelines.acestep import ACEStepPipeline
     from audiolab_tpu_torch.pipelines.music import StableAudioPipeline
     from audiolab_tpu_torch.pipelines.transcribe import Transcriber
@@ -423,6 +435,9 @@ def test_main_demo_backends_names_the_missing_items(caplog):
         sa, ace = music_api._BACKENDS["stable_audio"], music_api._BACKENDS["acestep"]
         assert isinstance(sa, StableAudioPipeline) and sa.device.type == "cpu"
         assert isinstance(ace, ACEStepPipeline) and ace.device.type == "cpu"
+        yue = music_api._BACKENDS["yue"]
+        assert isinstance(yue, YuEPipeline) and yue.device.type == "cpu"
+        assert next(yue.s1.parameters()).device.type == "cpu"
     finally:
         tts_api._BACKENDS.clear()
         tts_api._BACKENDS.update(saved)
@@ -430,12 +445,9 @@ def test_main_demo_backends_names_the_missing_items(caplog):
         transcribe_api._BACKENDS.update(saved_tr)
         music_api._BACKENDS.clear()
         music_api._BACKENDS.update(saved_mu)
-    missing = caplog.text.split("no model yet for", 1)[1]
-    assert "yue" in missing
-    for name in ("stable_audio", "acestep", "chatterbox", "whisper"):
-        assert name not in missing
-    assert "item 18c (" in caplog.text
-    assert "item 17 (" not in caplog.text and "item 19 (" not in caplog.text
+    assert port_main.MISSING_DEMO_BACKENDS == {}
+    assert "no model yet for" not in caplog.text and "item 18c (" not in caplog.text
+    assert "stable_audio, acestep, yue" in caplog.text
 
 
 @pytest.fixture
@@ -796,3 +808,41 @@ def test_generation_settings_keep_what_generate_names():
     assert generation_settings(Named(), body) == {"duration": 2.0, "seed": 5}
     assert generation_settings(Open(), body) == {"duration": 2.0, "seed": 5, "other": 2,
                                                  "extra": 1}
+
+
+@pytest.fixture
+def yue_backends():
+    """"yue" in both packages' music tables: the JAX demo pipeline
+    (``random_yue``) and the port's on its weights with the JAX keys' draws
+    (tests/test_torch_port_yue.py); the tables are restored afterwards."""
+    from audiolab_tpu.serve import music_api as j_api
+    from audiolab_tpu_torch.serve import music_api as t_api
+    from tests.test_torch_port_yue import pipelines
+
+    saved = [dict(api._BACKENDS) for api in (j_api, t_api)]
+    for api, be in zip((j_api, t_api), pipelines("seanet")):
+        api.register_backend("yue", be)
+    yield
+    for api, table in zip((j_api, t_api), saved):
+        api._BACKENDS.clear()
+        api._BACKENDS.update(table)
+
+
+def test_yue_routes_match_the_jax_router(server, jax_router, yue_backends, tmp_path):
+    """POST /api/v1/yue/generate (knobs at the top level and under
+    ``settings``): the JAX router's keys and audio within 1e-4 of max|y| and
+    a 16-bit step; GET /api/v1/yue/stream/{file_id} gives the same WAV; an
+    unknown knob is refused by both."""
+    body = {"prompt": "pop upbeat", "lyrics": "la la la\n\nsecond verse", "n_segments": 2,
+            "settings": {"seconds_per_segment": 0.2, "seed": 3}}
+    status, resp = _post(f"{server}/api/v1/yue/generate", body)
+    code, ref = jax_router.dispatch("POST", "/api/v1/yue/generate", body)
+    assert status == code == 200, resp
+    assert resp["sample_rate"] == ref["sample_rate"] == 16000
+    _same_audio(resp, ref, tmp_path)
+    st, _h, raw = _get(f"{server}/api/v1/yue/stream/{resp['file_id']}")
+    assert st == 200 and raw == base64.b64decode(resp["audio"])
+    assert _get(f"{server}/api/v1/yue/stream/nope")[0] == 404
+    bad = dict(body, settings={"seconds_per_segment": 0.2, "temperature": 0.5})
+    status, _resp = _post(f"{server}/api/v1/yue/generate", bad)
+    assert status == jax_router.dispatch("POST", "/api/v1/yue/generate", bad)[0]

@@ -141,6 +141,16 @@ class CrepePredictor:
                 net = fast_init(Crepe(model), seed)
         self.net = net.to(self.device).eval()
 
+    @classmethod
+    def from_checkpoint(cls, path: str, model: str = "full",
+                        device: str | torch.device = "cuda") -> "CrepePredictor":
+        """A predictor over torchcrepe's ``full.pth`` / ``tiny.pth``, as the
+        JAX package's ``CrepePredictor.from_checkpoint``
+        (``utils/convert.load_crepe_checkpoint``)."""
+        from audiolab_tpu_torch.utils.convert import load_crepe_checkpoint
+
+        return cls(load_crepe_checkpoint(path, model, device), model, device=device)
+
     def _probs(self, x: torch.Tensor, hop: int, fmin: float, fmax: float) -> torch.Tensor:
         """(b, n) 16 kHz -> salience (b, t, 360), zero outside [fmin, fmax]."""
         b, n = x.shape

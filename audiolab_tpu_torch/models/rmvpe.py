@@ -191,6 +191,14 @@ class RMVPE(E2E):
     def __init__(self, dtype: str | None = "bfloat16", **sizes):
         super().__init__(dtype=dtype, **sizes)
 
+    @classmethod
+    def from_checkpoint(cls, path: str, device: str | torch.device = "cuda") -> "RMVPE":
+        """The published rmvpe.pt (a torch state_dict) on ``device``
+        (``utils/convert.load_rmvpe_checkpoint``)."""
+        from audiolab_tpu_torch.utils.convert import load_rmvpe_checkpoint
+
+        return load_rmvpe_checkpoint(path, device)
+
     def mel(self, audio16k: torch.Tensor) -> torch.Tensor:
         m = mel_spectrogram(audio16k, sr=16000, n_fft=1024, hop=160, n_mels=N_MELS,
                             fmin=30.0, fmax=8000.0, htk=True, norm="slaney", power=1.0)

@@ -12,11 +12,11 @@ import os
 import shutil
 import time
 
-import numpy as np
 import torch
 
 from audiolab_tpu_torch.core.device import resolve_device
 from audiolab_tpu_torch.models.hubert import HubertConfig, HubertFeatureExtractor
+from audiolab_tpu_torch.utils.convert import load_hubert_state, torch_load_weights
 
 
 def hubert_weights_path() -> str | None:
@@ -38,10 +38,12 @@ def hubert_weights_path() -> str | None:
 def _hubert_apply_for(settings: dict,
                       device: str | torch.device = "cuda") -> HubertFeatureExtractor:
     """The feature extractor of a training request on ``device``, a module
-    called as ``wav16 (b, n) -> (b, t50, d)``: HuBERT with
-    the checkpoint of :func:`hubert_weights_path` when there is one (fairseq
-    names; loaded with ``weights_only=True``, so a fairseq pickle that it
-    refuses raises), else torch's default initialisers drawn from seed 0
+    called as ``wav16 (b, n) -> (b, t50, d)``: HuBERT with the checkpoint of
+    :func:`hubert_weights_path` when there is one (fairseq names, read by
+    ``utils/convert.torch_load_weights`` with ``weights_only=True``, so a
+    fairseq pickle that it refuses raises, and loaded as the JAX trainer
+    loads it: ``load_hubert_state``, non-strict, pos_conv's weight-norm
+    pair folded), else torch's default initialisers drawn from seed 0
     (features are still a stable embedding: fine for the pipeline's wiring,
     not for a production voice).  ``small_hubert`` (default) keeps 2 layers
     of ``feat_channels`` width, as the JAX adapter does."""
@@ -55,13 +57,8 @@ def _hubert_apply_for(settings: dict,
         model = HubertFeatureExtractor(settings.get("version", "v2"), cfg)
     path = hubert_weights_path()
     if path:
-        if path.endswith(".npz"):
-            sd = {k: torch.from_numpy(v) for k, v in np.load(path, allow_pickle=False).items()}
-        else:
-            sd = torch.load(path, map_location="cpu", weights_only=True)
-            sd = sd.get("model", sd)
-        model.load_state_dict({k: v.float() for k, v in sd.items() if torch.is_tensor(v)},
-                              strict=False)
+        sd = torch_load_weights(path)
+        load_hubert_state(model, sd.get("model", sd))
     return model.to(dev).eval()
 
 

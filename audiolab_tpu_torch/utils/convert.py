@@ -18,6 +18,20 @@ published layout differs, and ``load_state_dict(strict=True)``:
 - ``load_llama_checkpoint``, ``load_xcodec_checkpoint`` and
   ``load_yue_pipeline``: YuE's stage LMs, its xcodec decoder and the whole
   stack with the mm tokenizer.
+- The Separate -> Clone chain's formats: ``load_roformer_checkpoint``
+  (BS- and mel-band RoFormer ``.ckpt``), ``load_rvc_checkpoint`` (the
+  process_ckpt ``.pth``), ``load_hubert_state`` (fairseq HuBERT names, the
+  trainer's non-strict path, as the JAX trainer's), ``load_rmvpe_checkpoint``, ``load_crepe_checkpoint``,
+  ``load_htdemucs_checkpoint``, ``load_mdx23c_checkpoint`` and
+  ``load_vr_checkpoint``.  Each gives the module the JAX package's loader
+  gives: where that loader folds a layout (weight norm, RMVPE's GRU and
+  VR's LSTM biases, VR's batch norms) the port folds it by the same numpy
+  expression and stores it as ``utils/weights.py`` stores the JAX tree.
+
+Every loader builds its module on ``device`` (default the card; raises
+without one) and, ``load_hubert_state`` aside, loads strictly: a missing key or a wrong shape raises and
+names the key.  The checkpoint's other tensors are dropped, as the JAX
+loaders read only the keys their templates map.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ import json
 import logging
 import mmap
 import os
+import re
 import struct
 
 import numpy as np
@@ -94,10 +109,10 @@ def fold_weight_norm(g, v, dim: int = 0) -> torch.Tensor:
     return torch.from_numpy(g * v / np.maximum(norm, 1e-12))
 
 
-def fold_state_dict(sd: dict) -> dict:
+def fold_state_dict(sd: dict, dim: int = 0) -> dict:
     """``sd`` with each weight-norm pair (``.weight_g`` / ``.weight_v``, or
     torch 2's ``.parametrizations.weight.original0`` / ``original1``)
-    folded into a plain ``.weight`` over dim 0."""
+    folded into a plain ``.weight`` over ``dim``."""
     out = {}
     pairs = (("weight_g", "weight_v"),
              ("parametrizations.weight.original0", "parametrizations.weight.original1"))
@@ -106,7 +121,7 @@ def fold_state_dict(sd: dict) -> dict:
         for g_sfx, v_sfx in pairs:
             if name.endswith("." + g_sfx):
                 prefix = k[: -len(g_sfx)]
-                out[prefix + "weight"] = fold_weight_norm(v, sd[prefix + v_sfx], dim=0)
+                out[prefix + "weight"] = fold_weight_norm(v, sd[prefix + v_sfx], dim=dim)
                 break
             if name.endswith("." + v_sfx):
                 break
@@ -118,8 +133,14 @@ def fold_state_dict(sd: dict) -> dict:
 def _load_strict(model: torch.nn.Module, sd: dict, what: str) -> torch.nn.Module:
     """``model.load_state_dict(strict=True)`` with the keys the module has;
     the checkpoint's others (the parts a decode path does not use) are
-    dropped."""
+    dropped.  A batch norm's ``num_batches_tracked``, which no loader of the
+    JAX package reads (and checkpoints older than torch 0.4.1 lack), keeps
+    the module's own count when the file has none."""
     own = model.state_dict()
+    sd = dict(sd)
+    for k in own:
+        if k.endswith(".num_batches_tracked") and k not in sd:
+            sd[k] = own[k]
     missing = sorted(set(own) - set(sd))
     if missing:
         raise KeyError(f"{what}: the checkpoint lacks {missing[:8]}"
@@ -129,6 +150,61 @@ def _load_strict(model: torch.nn.Module, sd: dict, what: str) -> torch.nn.Module
         logger.debug("%s: %d checkpoint tensors not used", what, dropped)
     model.load_state_dict({k: sd[k] for k in own}, strict=True)
     return model
+
+
+# ------------------------------------------------------------ shared steps
+
+def _floats(sd: dict) -> dict:
+    """The checkpoint's tensors, the floating ones in fp32 (the JAX loaders
+    read every tensor through ``.float()``: published fp16 weights become
+    fp32 exactly); entries that are not tensors are dropped."""
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in sd.items() if torch.is_tensor(v)}
+
+
+def _strip(sd: dict, prefixes: tuple[str, ...]) -> dict:
+    """``sd`` with the first of ``prefixes`` that a key starts with removed."""
+    out = {}
+    for k, v in sd.items():
+        for pre in prefixes:
+            if k.startswith(pre):
+                k = k[len(pre):]
+                break
+        out[k] = v
+    return out
+
+
+_RECURRENT_BIAS = re.compile(r"^(.*)\.bias_hh_(l\d+(?:_reverse)?)$")
+
+
+def _fold_recurrent_biases(sd: dict, lstm: bool) -> None:
+    """Fold each recurrent layer's hidden-side bias into its input-side one
+    in place, as the JAX converter does (its cells keep one bias a gate):
+    an LSTM's four gate blocks, a GRU's r and z (its n keeps the hidden
+    bias, which sits inside r * (...)) become ``b_ih + b_hh`` in fp32 and
+    their ``b_hh`` 0."""
+    for k in [k for k in sd if _RECURRENT_BIAS.match(k)]:
+        base, sfx = _RECURRENT_BIAS.match(k).groups()
+        bi, bh = sd[f"{base}.bias_ih_{sfx}"].clone(), sd[k].clone()
+        n = bi.shape[0] if lstm else 2 * bi.shape[0] // 3
+        bi[:n] += bh[:n]
+        bh[:n] = 0.0
+        sd[f"{base}.bias_ih_{sfx}"], sd[k] = bi, bh
+
+
+def _fold_batch_norms(sd: dict) -> None:
+    """Every batch norm of ``sd`` folded for inference in place, by the JAX
+    converter's float64 expression (``extract`` "bnfold_w" / "bnfold_b":
+    scale w / sqrt(var + 1e-5), bias b - mean * w / sqrt(var + 1e-5)), and
+    stored as ``utils/weights.py`` stores a folded norm (mean 0, variance
+    1 - eps, so the eval-mode norm multiplies by the scale)."""
+    from audiolab_tpu_torch.utils.weights import _folded_bn
+
+    for key in [k[: -len(".running_var")] for k in sd if k.endswith(".running_var")]:
+        w, b = (sd[f"{key}.{n}"].double().numpy() for n in ("weight", "bias"))
+        rm, rv = (sd[f"{key}.{n}"].double().numpy() for n in ("running_mean", "running_var"))
+        _folded_bn(sd, key, {"scale": w / np.sqrt(rv + 1e-5),
+                             "bias": b - rm * w / np.sqrt(rv + 1e-5)})
 
 
 # ------------------------------------------------------------------ LLaMA
@@ -213,13 +289,7 @@ def load_xcodec_checkpoint(path: str, cfg=None, device: str | torch.device = "cu
     dev = resolve_device(device)
     ckpt = torch_load_weights(path)
     sd = ckpt.get("codec_model", ckpt.get("state_dict", ckpt))
-    stripped = {}
-    for k, v in sd.items():
-        for pre in ("codec_model.", "model."):
-            if k.startswith(pre):
-                k = k[len(pre):]
-                break
-        stripped[k] = v
+    stripped = _strip(sd, ("codec_model.", "model."))
     with dev:
         model = XCodecDecoder(cfg or XCodecConfig())
     return _load_strict(model, fold_state_dict(stripped), "xcodec checkpoint").eval()
@@ -257,3 +327,172 @@ def load_yue_pipeline(stage1_dir: str, stage2_dir: str, xcodec_path: str,
     tok = MMTokenizer(model_file=tokenizer_model) if tokenizer_model else None
     cfg = YuEConfig(vocab=vocab, stage1=s1_cfg, stage2=s2_cfg)
     return YuEPipeline(cfg, s1, s2, xcodec=xcodec, tokenizer=tok, device=dev)
+
+
+# ------------------------------------------------------------ BS-RoFormer
+
+def load_roformer_checkpoint(path: str, cfg, device: str | torch.device = "cuda"):
+    """A published BS-RoFormer or mel-band RoFormer ``.ckpt`` (lucidrains
+    names; ZFTurbo's files nest them under ``state_dict`` or ``state``, a
+    Lightning file prefixes ``model.``) -> ``models/separation/roformer.
+    BSRoformer`` of ``cfg`` on ``device``.  ``cfg``'s dims, bands and stems
+    (in order: ``mask_estimators.{i}`` is ``cfg.stems[i]``; a residual stem
+    has no estimator) must be the checkpoint yaml's."""
+    from audiolab_tpu_torch.models.separation.roformer import BSRoformer
+
+    dev = resolve_device(device)
+    ckpt = torch_load_weights(path)
+    sd = _strip(_floats(ckpt.get("state_dict", ckpt.get("state", ckpt))), ("model.",))
+    with dev:
+        model = BSRoformer(cfg)
+    return _load_strict(model, sd, "RoFormer checkpoint").eval()
+
+
+# ------------------------------------------------------------------- RVC
+
+_RVC_SR_TAGS = {"32k": 32000, "40k": 40000, "48k": 48000}
+
+
+def load_rvc_checkpoint(path: str, device: str | torch.device = "cuda"):
+    """A voice's ``.pth`` as upstream's process_ckpt writes it (``{"weight",
+    "config", "sr", "f0", "version"}``, fp16 tensors, weight-norm pairs) ->
+    (``models/rvc/synthesizer.SynthesizerTrn`` on ``device``, its config).
+    As in the JAX loader, the config is ``config_for`` of the ``sr`` tag
+    (an unknown tag reads as 48 kHz) and ``version`` (default v2), the
+    tensors are made fp32, the pairs folded over dim 0, and the training
+    posterior ``enc_q.*`` is dropped.  A file marked ``f0: 0`` (upstream's
+    pitchless ``*_nono`` synthesizer, whose decoder has no harmonic source)
+    is refused: neither package has that synthesizer."""
+    from audiolab_tpu_torch.models.rvc import synthesizer as S
+
+    dev = resolve_device(device)
+    cpt = torch_load_weights(path)
+    if not int(cpt.get("f0", 1)):
+        raise ValueError(f"{path}: f0 0 is a voice without pitch (upstream's *_nono "
+                         "synthesizer); only the NSF synthesizer is supported")
+    sr = _RVC_SR_TAGS.get(str(cpt.get("sr", "48k")), 48000)
+    cfg = S.config_for(sr, cpt.get("version", "v2"))
+    with dev:
+        model = S.SynthesizerTrn(cfg)
+    sd = fold_state_dict(_floats(cpt["weight"]))
+    return _load_strict(model, sd, "RVC checkpoint").eval(), cfg
+
+
+# ---------------------------------------------------------------- HuBERT
+
+def load_hubert_state(model: torch.nn.Module, state_dict: dict):
+    """A fairseq HuBERT state_dict (``hubert_base.pt``'s ``model`` entry, or a
+    flat ``.npz`` of the same names) into the port's ``Hubert`` /
+    ``HubertFeatureExtractor`` as the trainer loads it, the counterpart of the
+    JAX trainer's ``convert_hubert(..., strict=False)``: tensors in fp32,
+    ``encoder.pos_conv.0``'s weight-norm pair folded over dim 2 (fairseq's
+    ``weight_g`` is (1, 1, k)), the keys the file has loaded and the module's
+    own values kept for the others; a wrong shape raises."""
+    sd = fold_state_dict(_floats(state_dict), dim=2)
+    own = model.state_dict()
+    model.load_state_dict({k: v for k, v in sd.items() if k in own}, strict=False)
+    return model
+
+
+# ----------------------------------------------------------------- RMVPE
+
+def load_rmvpe_checkpoint(path: str, device: str | torch.device = "cuda"):
+    """The published ``rmvpe.pt`` (a state_dict) -> a full-size
+    ``models/rmvpe.RMVPE`` (the bf16 U-Net, the reference's half-precision
+    mode) on ``device``: batch norms with their statistics, the GRU's r and z
+    hidden biases folded into the input ones."""
+    from audiolab_tpu_torch.models import rmvpe as R
+
+    dev = resolve_device(device)
+    sd = _floats(torch_load_weights(path))
+    _fold_recurrent_biases(sd, lstm=False)
+    with dev:
+        model = R.RMVPE()
+    return _load_strict(model, sd, "RMVPE checkpoint").eval()
+
+
+# ----------------------------------------------------------------- CREPE
+
+def load_crepe_checkpoint(path: str, model: str = "full", device: str | torch.device = "cuda"):
+    """torchcrepe's ``full.pth`` / ``tiny.pth`` -> ``models/crepe.Crepe(model)``
+    on ``device``, batch norms with their statistics."""
+    from audiolab_tpu_torch.models.crepe import Crepe
+
+    dev = resolve_device(device)
+    with dev:
+        net = Crepe(model)
+    return _load_strict(net, _floats(torch_load_weights(path)), "CREPE checkpoint").eval()
+
+
+# --------------------------------------------------------------- HTDemucs
+
+def load_htdemucs_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """A demucs v4 state_dict (``models.0.`` / ``model.`` / ``state.``
+    prefixes stripped; attention's packed ``in_proj_weight``, or the same as
+    ``in_proj.weight``) -> ``models/separation/htdemucs.HTDemucs`` of ``cfg``
+    (default ``HTDemucsConfig()``, htdemucs_6s) on ``device``.  demucs's own
+    packages (``klass``, ``args``, ``state``) need a full unpickle: re-save
+    their ``state`` as a plain state_dict."""
+    from audiolab_tpu_torch.models.separation.htdemucs import HTDemucs, HTDemucsConfig
+
+    dev = resolve_device(device)
+    sd = _strip(_floats(torch_load_weights(path)), ("models.0.", "model.", "state."))
+    for k in list(sd):
+        for sfx in ("weight", "bias"):
+            if k.endswith(f".in_proj.{sfx}"):
+                sd.setdefault(k[: -len(f".in_proj.{sfx}")] + f".in_proj_{sfx}", sd[k])
+    with dev:
+        model = HTDemucs(cfg or HTDemucsConfig())
+    return _load_strict(model, sd, "HTDemucs checkpoint").eval()
+
+
+# ---------------------------------------------------- MDX23C (TFC-TDF v3)
+
+_MDX23C_SCALE = re.compile(r"^((?:encoder_blocks\.\d+\.downscale)|(?:decoder_blocks\.\d+\.upscale))"
+                           r"\.conv\.")
+
+
+def load_mdx23c_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """An MDX23C ``.ckpt`` (ZFTurbo's tfc_tdf_v3 names; ``model.`` /
+    ``module.`` / ``state_dict.`` prefixes stripped, the down/upscale
+    Sequential under ``.conv`` or not) -> ``models/separation/mdx23c.
+    TFCTDFNetV3`` on ``device``.  ``cfg``: an ``MDX23CConfig`` or a dict of
+    its fields (the checkpoint yaml's audio and model sections; default
+    InstVoc_HQ)."""
+    from audiolab_tpu_torch.models.separation.mdx23c import MDX23CConfig, TFCTDFNetV3
+
+    dev = resolve_device(device)
+    cfg = MDX23CConfig(**cfg) if isinstance(cfg, dict) else (cfg or MDX23CConfig())
+    sd = _strip(_floats(torch_load_weights(path)), ("model.", "module.", "state_dict."))
+    sd = {_MDX23C_SCALE.sub(r"\1.", k): v for k, v in sd.items()}
+    with dev:
+        model = TFCTDFNetV3(cfg)
+    return _load_strict(model, sd, "MDX23C checkpoint").eval()
+
+
+# -------------------------------------------- UVR VR architecture (.pth)
+
+def load_vr_checkpoint(path: str, cfg=None, n_fft: int | None = None,
+                       device: str | torch.device = "cuda"):
+    """A UVR VR-arch ``.pth`` (tsurumeso lib_v5 names; ``model.`` /
+    ``module.`` stripped) -> ``models/separation/vr`` net on ``device``.  The
+    arch and widths are sniffed from the file's own keys (``infer_vr_config``,
+    before the prefixes go, as the JAX loader sniffs: a prefixed file needs
+    ``cfg``) unless ``cfg`` is given; ``n_fft`` (2 x the band params' combined
+    bins) is needed for the old arch.  As the JAX loader does, every batch norm is
+    folded for inference and each LSTM's biases summed; the training-only
+    auxiliary heads, which the JAX nets do not carry, are 0."""
+    from audiolab_tpu_torch.models.separation.vr import infer_vr_config, make_vr_net
+
+    dev = resolve_device(device)
+    sd = _floats(torch_load_weights(path))
+    cfg = cfg or infer_vr_config(sd, n_fft=n_fft)
+    sd = _strip(sd, ("model.", "module."))
+    with dev:
+        model = make_vr_net(cfg)
+    _fold_batch_norms(sd)
+    _fold_recurrent_biases(sd, lstm=True)
+    for k, v in model.state_dict().items():
+        if k.split(".")[0] in ("aux_out", "aux1_out", "aux2_out"):
+            sd[k] = torch.zeros_like(v, device="cpu")
+    return _load_strict(model, sd, "VR checkpoint").eval()

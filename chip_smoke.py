@@ -3,8 +3,8 @@ holds each against its plain PyTorch version at the main path's shapes,
 drives the separate -> RVC chain, RVC training, Zonos TTS, the speech
 engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription,
 multi-take alignment, WaveTransfer, Super Resolution's learned enhancers and
-music generation (Stable Audio, ACE-Step, YuE) at full width, and checks
-the output.
+music generation (Stable Audio, ACE-Step, YuE) at full width, loads the
+chain's checkpoint formats, and checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -38,6 +38,9 @@ the output.
     python3 chip_smoke.py --phases card,kernels,yue  # YuE's two LM stages and xcodec at
                                                    # YuEConfig(), the YuE routes, the
                                                    # checkpoint path
+    python3 chip_smoke.py --phases card,loaders    # the chain's checkpoint formats written
+                                                   # in the upstream layouts and loaded
+                                                   # onto the card, the chain from them
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
                                                    # a Dia call, an XTTS-v2 synthesize,
@@ -261,6 +264,21 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              safetensors, the xcodec .pth with weight-norm pairs, a
              tokenizer.model) and loaded by load_yue_pipeline onto the card:
              the same weights and codes as the pipeline it was written from
+  loaders    the checkpoint formats of the Separate -> Clone chain at full width,
+             written from seeded modules in the upstream containers and names
+             (two BS-RoFormer .ckpt under state_dict with Lightning's model.,
+             fairseq's hubert_base.pt with pos_conv's weight-norm pair, rmvpe.pt,
+             process_ckpt's v2-48k .pth in fp16 with weight-norm pairs,
+             torchcrepe's full.pth, htdemucs_6s, MDX23C InstVoc_HQ under ZFTurbo's
+             names, both VR nets; batch norms and recurrent biases drawn off
+             their initial values) and read by the port's loaders onto the
+             card: every tensor equal to its module's with the loader's folds
+             applied, each folded net (RMVPE's BiGRU, the VR nets) in fp64
+             within 1e-5 of max|y| of the net it was written from, each file's
+             MiB, write and load seconds; the 60 s chain from the loaded files
+             (48 K1, all Hopper, 12 K2) against the chain in memory (1e-6 of
+             max|y|); HTDemucs, MDX23C and the VR nets from their files on 10 s
+             against theirs
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -282,7 +300,7 @@ import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
-          "transcribe", "diffusion", "music", "lora", "yue")
+          "transcribe", "diffusion", "music", "lora", "yue", "loaders")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -5926,6 +5944,330 @@ def urllib_get(url: str, timeout: float = 60.0) -> bytes:
         return r.read()
 
 
+# ---------------------------------------------------------------- loaders
+
+# upstream's weight-normed convolutions: RVC's WaveNet layers, decoder
+# upsamplers, resblocks and conv_post; fairseq HuBERT's positional conv
+RVC_WN = re.compile(r"^(flow\.flows\.\d+\.enc|enc_q\.enc)\.(in_layers\.\d+|res_skip_layers\.\d+"
+                    r"|cond_layer)\.weight$|^dec\.(conv_post|ups\.\d+|resblocks\.\d+\.convs[12]"
+                    r"\.\d+)\.weight$")
+HUBERT_WN = re.compile(r"^encoder\.pos_conv\.0\.weight$")
+MDX23C_SCALES = re.compile(r"^((?:encoder_blocks\.\d+\.downscale)|(?:decoder_blocks\.\d+"
+                           r"\.upscale))\.(\d+\.)")
+
+
+def cpu_state(module) -> dict:
+    """A copy of ``module``'s state_dict on the host (never its own tensors)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+
+
+def weight_norm_pairs(sd: dict, pattern, dim: int = 0) -> dict:
+    """``sd`` with each ``.weight`` whose key ``pattern`` matches split into
+    upstream's weight-norm pair: ``weight_g`` its norm over every axis but
+    ``dim`` (summed in fp32, stored in the weight's type), ``weight_v`` the
+    weight itself."""
+    out = {}
+    for k, v in sd.items():
+        if pattern.match(k):
+            axes = [i for i in range(v.dim()) if i != dim]
+            out[k[:-6] + "weight_g"] = v.float().pow(2).sum(axes, keepdim=True).sqrt().to(v.dtype)
+            out[k[:-6] + "weight_v"] = v
+        else:
+            out[k] = v
+    return out
+
+
+def rvc_process_ckpt(sd: dict, cfg, sr_tag: str = "48k", version: str = "v2",
+                     f0: int = 1) -> dict:
+    """A voice as upstream's process_ckpt saves it: ``weight`` the fp16
+    state_dict with weight-norm pairs, ``config`` the hparams list, the
+    ``sr`` tag, ``f0`` and ``version``."""
+    weight = weight_norm_pairs({k: v.detach().cpu().half() for k, v in sd.items()}, RVC_WN)
+    config = [cfg.spec_channels, cfg.segment_size // (cfg.sr // 100), cfg.inter_channels,
+              cfg.hidden_channels, cfg.filter_channels, cfg.n_heads, cfg.n_layers,
+              cfg.kernel_size, 0, "1", list(cfg.resblock_kernel_sizes),
+              [list(d) for d in cfg.resblock_dilation_sizes], list(cfg.upsample_rates),
+              cfg.upsample_initial_channel, list(cfg.upsample_kernel_sizes), cfg.spk_embed_dim,
+              cfg.gin_channels, cfg.sr]
+    return {"weight": weight, "config": config, "info": "0epoch", "sr": sr_tag, "f0": f0,
+            "version": version}
+
+
+def mdx23c_upstream_names(sd: dict) -> dict:
+    """The port's MDX23C state_dict under ZFTurbo's tfc_tdf_v3 names, whose
+    down/upscale Sequential sits under ``.conv``."""
+    return {MDX23C_SCALES.sub(r"\1.conv.\2", k): v for k, v in sd.items()}
+
+
+def off_their_init(module, seed: int):
+    """``module`` in place with every batch norm's gain, bias and running
+    statistics and every GRU / LSTM bias drawn from ``seed`` (fast_init
+    leaves them at 1, 0, 0, 1 and 0, where a loader's fold of them is the
+    identity or cannot tell a sum from a copy)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+
+    def draw(shape, scale, shift=0.0, uniform=False):
+        r = (torch.rand if uniform else torch.randn)(shape, generator=g, device="cpu")
+        return shift + scale * r
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                c = m.num_features
+                m.weight.copy_(draw(c, 0.2, 1.0))
+                m.bias.copy_(draw(c, 0.1))
+                m.running_mean.copy_(draw(c, 0.1))
+                m.running_var.copy_(draw(c, 1.0, 0.5, uniform=True))
+            elif isinstance(m, (torch.nn.GRU, torch.nn.LSTM)):
+                for name, b in m.named_parameters():
+                    if name.startswith("bias"):
+                        b.copy_(draw(b.shape, 0.1))
+    return module
+
+
+LOADERS_CLIP_S = 10.0     # the clip HTDemucs, MDX23C and the VR nets separate from their files
+FOLD_TOL = 1e-5           # of max|y|: folded against unfolded in fp64 (fp32-rounded folds)
+
+
+def phase_loaders(dev, sep, vc, audio, card: str) -> dict:
+    """The chain's checkpoint formats at full width, written here in the
+    upstream containers and names from seeded modules and read back by the
+    port's loaders onto the card: (a) each file's tensors equal to its
+    module's and on the card, with its bytes, write and load seconds; (b)
+    the chain built from the loaded RoFormer, HuBERT, RMVPE and RVC files on
+    the 60 s track, counts reset just before and read just after (48 K1 on
+    the Hopper routes, 12 K2), against the same chain from the modules in
+    memory; (c) HTDemucs, MDX23C and both VR nets from their files on a
+    10 s clip against the modules in memory.  Batch norms and recurrent
+    biases are first drawn off their initial values
+    (``off_their_init``), so the folds the loaders make (RMVPE's GRU biases,
+    VR's batch norms and LSTM biases) change numbers.  Where a format stores
+    what the loader folds (weight-norm pairs, fp16 RVC tensors, those folds,
+    VR's training heads) the module in memory is first brought to what the
+    loader should make of its file, so the two should agree bit for bit;
+    each folded module is also held in fp64 against the module it was
+    written from, on one input, within ``FOLD_TOL``.  Each file is deleted
+    once it is loaded."""
+    import copy
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.models.crepe import Crepe, CrepePredictor
+    from audiolab_tpu_torch.models.rmvpe import RMVPE
+    from audiolab_tpu_torch.models.separation.htdemucs import HTDemucs, HTDemucsConfig
+    from audiolab_tpu_torch.models.separation.mdx23c import MDX23CConfig, TFCTDFNetV3
+    from audiolab_tpu_torch.models.separation.vr import VRConfig, make_vr_net
+    from audiolab_tpu_torch.models.separation.vr_bands import BAND_PARAMS
+    from audiolab_tpu_torch.pipelines.rvc import VoiceConverter
+    from audiolab_tpu_torch.pipelines.separate import (
+        KARAOKE,
+        EnsembleMember,
+        StemSeparator,
+        htdemucs_member,
+        mdx23c_member,
+        vr_split,
+    )
+    from audiolab_tpu_torch.train.rvc_train import _hubert_apply_for
+    from audiolab_tpu_torch.utils import convert as C
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    t_phase = time.perf_counter()
+    draws = torch.Generator().manual_seed(213)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_loaders_"))
+    weights_dir = os.environ.get("AUDIOLAB_WEIGHTS_DIR")
+    files: dict[str, dict] = {}
+
+    def through_file(label: str, name: str, obj, load, module):
+        """Write ``obj`` to ``name``, load it with ``load``, and hold the
+        loaded module's tensors against ``module``'s, on the card."""
+        path = work / name
+        t0 = time.perf_counter()
+        torch.save(obj, path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = load(str(path))
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        size = path.stat().st_size
+        path.unlink()           # one file on the disk at a time (the RoFormers' are 1.6 GiB)
+        net = got[0] if isinstance(got, tuple) else got
+        own, mine = net.state_dict(), module.state_dict()
+        expect(set(own) == set(mine), f"loaders {label}: keys differ: "
+                                      f"{sorted(set(own) ^ set(mine))[:8]}")
+        unequal = [k for k in mine if not torch.equal(own[k], mine[k].to(own[k].device))]
+        off = [k for k in own if own[k].device.type != dev.type]
+        files[label] = dict(bytes=size, write_s=write_s, load_s=load_s, tensors=len(own))
+        log(f"[loaders] {label}: {name} {size / 2**20:.1f} MiB, written in "
+            f"{write_s:.3f} s, loaded onto {dev.type} in {load_s:.3f} s; {len(own)} tensors, "
+            f"{len(unequal)} unequal, {len(off)} off {dev.type} | {card}")
+        expect(not unequal, f"loaders {label}: tensors differ from the module's: {unequal[:8]}")
+        expect(not off, f"loaders {label}: tensors off {dev.type}: {off[:8]}")
+        return got
+
+    def folded_like(module, sd: dict):
+        """A copy of ``module`` holding ``sd``."""
+        twin = copy.deepcopy(module)
+        twin.load_state_dict(sd)
+        return twin
+
+    def same_function_fp64(label: str, folded, unfolded, shape) -> None:
+        """``folded`` (what a loader made of a file) and ``unfolded`` (the
+        module the file was written from) in fp64 on one seeded input."""
+        x = torch.randn(shape, generator=draws, dtype=torch.float64).abs().to(dev)
+        with torch.no_grad():
+            a = copy.deepcopy(folded).double().eval()(x)
+            b = copy.deepcopy(unfolded).double().eval()(x)
+        d, peak = float((a - b).abs().max()), float(b.abs().max())
+        log(f"[loaders] {label} folded by its loader against the module it was written from, "
+            f"fp64 on {tuple(shape)}: max|diff| {d:.3e} (tolerance {FOLD_TOL * peak:.3e}: "
+            f"{FOLD_TOL:g} of max|y|) | {card}")
+        expect(d <= FOLD_TOL * peak, f"loaders {label}: the fold changes the function")
+
+    try:
+        # (a) the chain's four formats
+        members = []
+        for i, m in enumerate(sep.members):
+            model = m.apply_fn
+            ckpt = {"state_dict": {f"model.{k}": v for k, v in cpu_state(model).items()}}
+            got = through_file(f"BS-RoFormer {i}", f"bs_roformer_{i}.ckpt", ckpt,
+                               lambda p, c=model.cfg: C.load_roformer_checkpoint(p, c), model)
+            members.append(EnsembleMember(m.name, got, m.weight_vocals, m.weight_inst))
+        hubert = copy.deepcopy(vc.hubert)
+        fairseq = weight_norm_pairs(cpu_state(hubert), HUBERT_WN, dim=2)
+        hubert.load_state_dict(C.fold_state_dict(fairseq, dim=2))
+        os.environ["AUDIOLAB_WEIGHTS_DIR"] = str(work)
+        got_hubert = through_file(
+            "HuBERT", "hubert_base.pt", {"model": fairseq},
+            lambda p: _hubert_apply_for({"small_hubert": False, "version": "v2"}), hubert)
+        rmvpe = off_their_init(copy.deepcopy(vc.rmvpe), 211)
+        written = cpu_state(rmvpe)
+        want = dict(written)
+        C._fold_recurrent_biases(want, lstm=False)
+        rmvpe_mem = folded_like(rmvpe, want)
+        got_rmvpe = through_file("RMVPE", "rmvpe.pt", written, RMVPE.from_checkpoint, rmvpe_mem)
+        same_function_fp64("RMVPE BiGRU", got_rmvpe.fc[0], rmvpe.fc[0],
+                           (1, 200, rmvpe.fc[0].gru.input_size))
+        del rmvpe
+        synth = copy.deepcopy(vc.synth)
+        cpt = rvc_process_ckpt(cpu_state(synth), synth.cfg, "48k", "v2")
+        synth.load_state_dict(C.fold_state_dict({k: v.float() for k, v in cpt["weight"].items()}))
+        got_synth, got_cfg = through_file("RVC v2-48k", "voice.pth", cpt, C.load_rvc_checkpoint,
+                                          synth)
+        expect(got_cfg == synth.cfg, f"loaders RVC: config {got_cfg} != {synth.cfg}")
+        with torch.device(dev):
+            crepe = fast_init(Crepe("full"), seed=210)
+        off_their_init(crepe, 212)
+        through_file("CREPE full", "full.pth", cpu_state(crepe),
+                     lambda p: CrepePredictor.from_checkpoint(p).net, crepe)
+        del crepe
+
+        # (b) the chain from the loaded files against the chain in memory
+        kw = dict(sr=sep.sr, chunk_seconds=sep.chunk_seconds, overlap_seconds=sep.overlap_seconds,
+                  device_batch=sep.device_batch, device=dev)
+        sep_file = StemSeparator(members, **kw)
+        vc_file = VoiceConverter(got_synth, got_hubert, got_rmvpe,
+                                 index_features=vc.index_features, cfg=vc.cfg, device=dev)
+        vc_mem = VoiceConverter(synth, hubert, rmvpe_mem, index_features=vc.index_features,
+                                cfg=vc.cfg, device=dev)
+        stems_f, l_sep, sep_s = phase_separator(dev, sep_file, audio, 48)
+        _, out_f, l_rvc, rvc_s = phase_rvc(dev, vc_file, stems_f["vocals"], 12)
+        launches = {k: l_sep[k] + l_rvc[k] for k in KERNELS}
+        stems_m, _, _ = phase_separator(dev, sep, audio, 48)
+        _, out_m, _, _ = phase_rvc(dev, vc_mem, stems_m["vocals"], 12)
+        d_stems = max(float((stems_f[k] - stems_m[k]).abs().max()) for k in stems_m)
+        d_out = float((out_f - out_m).abs().max())
+        same = all(torch.equal(stems_f[k], stems_m[k]) for k in stems_m) and torch.equal(
+            out_f, out_m)
+        tol = 1e-6 * float(out_m.abs().max())
+        log(f"[loaders] the chain from the files: separate {sep_s:.3f} s, RVC {rvc_s:.3f} s, "
+            f"launches {launches}; against the chain in memory: bit-equal {same}, stems "
+            f"max|diff| {d_stems:.3e}, RVC output max|diff| {d_out:.3e} (tolerance "
+            f"{tol:.3e}: 1e-6 of max|y|) | {card}")
+        expect(launches["K1"] == 48 and launches["K2"] == 12
+               and all(launches[k] == 0 for k in KERNELS if k not in ("K1", "K2")),
+               f"loaders: launches {launches}, expected K1 48 and K2 12")
+        expect(d_stems <= 1e-6 * float(max(v.abs().max() for v in stems_m.values()))
+               and d_out <= tol, "loaders: the chain from the files differs from the modules'")
+        del sep_file, vc_file, vc_mem, members, got_synth, got_hubert, got_rmvpe, rmvpe_mem
+        del synth, hubert
+        del stems_f, stems_m, out_f, out_m
+        torch.cuda.empty_cache()
+
+        # (c) the rest of the separator family on a clip
+        clip = audio[:, : int(LOADERS_CLIP_S * SEP_SR)]
+        with torch.device(dev):
+            htd = fast_init(HTDemucs(HTDemucsConfig()), seed=201)
+            mdx = fast_init(TFCTDFNetV3(MDX23CConfig()), seed=200)
+        got_htd = through_file("HTDemucs 6s", "htdemucs_6s.th", cpu_state(htd),
+                               lambda p: C.load_htdemucs_checkpoint(p, htd.cfg), htd)
+        got_mdx = through_file("MDX23C InstVoc_HQ", "MDX23C-8KFFT-InstVoc_HQ.ckpt",
+                               mdx23c_upstream_names(cpu_state(mdx)),
+                               lambda p: C.load_mdx23c_checkpoint(p, mdx.cfg), mdx)
+        runs = {}      # label: (the split from the file, the split in memory)
+        for label, make, pair in (("HTDemucs 6s", htdemucs_member, (got_htd, htd)),
+                                  ("MDX23C InstVoc_HQ", mdx23c_member, (got_mdx, mdx))):
+            runs[label] = tuple(
+                lambda m=make(net): StemSeparator([m], **kw).separate(clip, as_numpy=False)
+                for net in pair)
+        for arch, band in VR_CASES:
+            bins = BAND_PARAMS[band]["bins"]
+            with torch.device(dev):
+                net = fast_init(make_vr_net(VRConfig(arch=arch, n_fft=2 * bins)), seed=200)
+            off_their_init(net, 214)
+            written = cpu_state(net)
+            want = dict(written)       # what the loader should make of the file
+            C._fold_batch_norms(want)
+            C._fold_recurrent_biases(want, lstm=True)
+            for k, v in want.items():
+                if k.split(".")[0] in ("aux_out", "aux1_out", "aux2_out"):
+                    want[k] = torch.zeros_like(v)
+            net_mem = folded_like(net, want)
+            label = f"VR {arch}"
+            got_vr = through_file(label, f"vr_{arch}.pth", written,
+                                  lambda p, a=arch, b=bins: C.load_vr_checkpoint(
+                                      p, n_fft=2 * b if a == "cascaded_asppnet" else None),
+                                  net_mem)
+            same_function_fp64(label, got_vr, net, (1, 2, bins + 1, 128))
+            del net
+            runs[label] = tuple(
+                lambda split=vr_split(g, band, KARAOKE, device=dev): split(clip, as_numpy=False)
+                for g in (got_vr, net_mem))
+        separated = {}
+        for label, (from_file, in_memory) in runs.items():
+            reset_counts()
+            t0 = time.perf_counter()
+            a = from_file()
+            sync(dev)
+            secs = time.perf_counter() - t0
+            member_launches = counts()
+            b = in_memory()
+            d = max(float((a[k] - b[k]).abs().max()) for k in b)
+            peak = max(float(v.abs().max()) for v in b.values())
+            finite = all(bool(torch.isfinite(v).all()) for v in a.values())
+            separated[label] = dict(seconds=secs, max_abs_diff=d, launches=member_launches)
+            log(f"[loaders] {label} from its file on {LOADERS_CLIP_S:.0f} s: stems {sorted(a)} "
+                f"finite {finite}, {secs:.3f} s, launches {member_launches}; against the module in "
+                f"memory max|diff| {d:.3e} (tolerance {1e-6 * peak:.3e}: 1e-6 of max|y|)")
+            expect(set(a) == set(b) and finite, f"loaders {label}: stems")
+            expect(d <= 1e-6 * peak, f"loaders {label}: differs from the module in memory")
+    finally:
+        if weights_dir is None:
+            os.environ.pop("AUDIOLAB_WEIGHTS_DIR", None)
+        else:
+            os.environ["AUDIOLAB_WEIGHTS_DIR"] = weights_dir
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[loaders] {len(files)} files, {sum(f['bytes'] for f in files.values()) / 2**30:.2f} "
+        f"GiB written in {sum(f['write_s'] for f in files.values()):.1f} s and loaded in "
+        f"{sum(f['load_s'] for f in files.values()):.1f} s; phase {phase_s:.1f} s | {card}")
+    return dict(launches=launches, files=files, separated=separated, phase_s=phase_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5968,9 +6310,9 @@ def main() -> int:
 
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
-    diffused = composed = adapted = sung = None
+    diffused = composed = adapted = sung = loaded = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
-                  "serve", "separators", "processors", "long"} & set(phases)
+                  "serve", "separators", "processors", "loaders", "long"} & set(phases)
     if need_chain:
         mark("separator")
         t0 = time.perf_counter()
@@ -6013,6 +6355,11 @@ def main() -> int:
             mark("processors")
             processed = phase_processors(dev, sep, vcs["bfloat16"], audio,
                                          card)["served_launches"]
+        if "loaders" in phases:
+            mark("loaders")
+            # this slice's path: the chain built from the loaded files, counts
+            # reset just before it and read just after
+            loaded = phase_loaders(dev, sep, vcs["bfloat16"], audio, card)["launches"]
         if "long" in phases:
             mark("long")
             del audio
@@ -6084,6 +6431,7 @@ def main() -> int:
            "music_launches": None if composed is None else composed[r["kernel"]],
            "lora_launches": None if adapted is None else adapted[r["kernel"]],
            "yue_launches": None if sung is None else sung[r["kernel"]],
+           "loaders_launches": None if loaded is None else loaded[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),

@@ -2080,3 +2080,138 @@ def test_yue_checkpoint_loader_on_the_card_matches_the_cpu(cuda_device, tmp_path
         assert out["sr"] == 500 and out["mix"].shape == (150,)
         codes.append(stats["codes"])
     assert torch.equal(codes[0], codes[1])
+
+
+def _loader_files(tmp_path, monkeypatch):
+    """One small file a format of the chain's loaders, written in the
+    upstream container from a seeded port module: {label: (path, load with
+    the default device, the module, the keys the load folds: "all" or a
+    set)}.
+    HuBERT loads through the trainer's path from ``AUDIOLAB_WEIGHTS_DIR``."""
+    import dataclasses
+    import functools
+
+    from chip_smoke import HUBERT_WN, cpu_state, mdx23c_upstream_names, weight_norm_pairs
+    from audiolab_tpu_torch.models.crepe import Crepe
+    from audiolab_tpu_torch.models.hubert import HubertConfig, HubertFeatureExtractor
+    from audiolab_tpu_torch.models.rmvpe import RMVPE
+    from audiolab_tpu_torch.models.separation.htdemucs import HTDemucs, HTDemucsConfig
+    from audiolab_tpu_torch.models.separation.mdx23c import MDX23CConfig, TFCTDFNetV3
+    from audiolab_tpu_torch.models.separation.roformer import BSRoformer, RoformerConfig
+    from audiolab_tpu_torch.models.separation.vr import VRConfig, make_vr_net
+    from audiolab_tpu_torch.train.rvc_train import _hubert_apply_for
+    from audiolab_tpu_torch.utils import convert as C
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    rof = RoformerConfig(dim=64, depth=1, heads=2, dim_head=64, freqs_per_bands=(64, 65),
+                         n_fft=256, hop=64, stems=("vocals",), residual_stem="other")
+    hub = HubertConfig(dim=128, ffn_dim=512, heads=2, layers=2, final_dim=256)  # the trainer's
+    htd = HTDemucsConfig(sources=("vocals", "other"), channels=4, nfft=128, depth=2,
+                         norm_groups=2, dconv_comp=2, bottom_channels=8, t_layers=1, t_heads=2,
+                         segment_seconds=1.0, samplerate=800)
+    mdx = MDX23CConfig(sample_rate=8000, n_fft=256, hop_length=64, dim_f=128, num_subbands=2,
+                       num_scales=2, num_blocks_per_scale=1, channels=8, growth=8)
+    models = {
+        "roformer": fast_init(BSRoformer(rof), 1),
+        "hubert": fast_init(HubertFeatureExtractor("v2", hub), 2),
+        "rmvpe": fast_init(RMVPE(en_de_layers=2, inter_layers=1, n_blocks=1, en_out_channels=4,
+                                 gru_hidden=8), 3),
+        "crepe": fast_init(Crepe("tiny"), 4),
+        "htdemucs": fast_init(HTDemucs(htd), 5),
+        "mdx23c": fast_init(TFCTDFNetV3(mdx), 6),
+        "vr": fast_init(make_vr_net(VRConfig(n_fft=128, nout=8, nout_lstm=8)), 7),
+    }
+    monkeypatch.setenv("AUDIOLAB_WEIGHTS_DIR", str(tmp_path))
+    out = {}
+    for label, module in models.items():
+        path = str(tmp_path / ("hubert_base.pt" if label == "hubert" else f"{label}.pt"))
+        sd = cpu_state(module)
+        if label == "roformer":
+            sd = {"state_dict": {f"model.{k}": v for k, v in sd.items()}}
+        elif label == "hubert":
+            sd = {"model": weight_norm_pairs(sd, HUBERT_WN, dim=2)}
+        elif label == "mdx23c":
+            sd = mdx23c_upstream_names(sd)
+        torch.save(sd, path)
+        load = {
+            "roformer": functools.partial(C.load_roformer_checkpoint, cfg=rof),
+            "hubert": lambda p: _hubert_apply_for({"feat_channels": 128, "version": "v2"}),
+            "rmvpe": RMVPE.from_checkpoint,
+            "crepe": functools.partial(C.load_crepe_checkpoint, model="tiny"),
+            "htdemucs": functools.partial(C.load_htdemucs_checkpoint, cfg=htd),
+            "mdx23c": functools.partial(C.load_mdx23c_checkpoint, cfg=dataclasses.asdict(mdx)),
+            "vr": C.load_vr_checkpoint,
+        }[label]
+        folded = {"hubert": {"encoder.pos_conv.0.weight"}, "vr": "all"}.get(label, set())
+        out[label] = (path, load, module, folded)
+    return out
+
+
+def test_loaders_default_to_the_card(cuda_device, tmp_path, monkeypatch):
+    """Every loader of the chain's formats, called without a device, builds
+    its module on the card: every tensor there, equal to the module written
+    (a weight-norm or batch-norm fold aside).  RVC and RMVPE, whose loaders
+    build the full-size module, run at small widths here."""
+    import dataclasses
+
+    from chip_smoke import cpu_state, rvc_process_ckpt
+    from audiolab_tpu_torch.models import rmvpe as R
+    from audiolab_tpu_torch.models.rvc import synthesizer as S
+    from audiolab_tpu_torch.utils import convert as C
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    small = dict(inter_channels=16, hidden_channels=16, filter_channels=32, n_heads=2,
+                 n_layers=1, upsample_initial_channel=32, spk_embed_dim=4, gin_channels=16)
+    real = S.config_for
+    monkeypatch.setattr(S, "config_for",
+                        lambda sr, v="v2": dataclasses.replace(real(sr, v), **small))
+    files = _loader_files(tmp_path, monkeypatch)
+    full = R.RMVPE
+
+    class Small(full):
+        def __init__(self, dtype="bfloat16"):
+            super().__init__(dtype, en_de_layers=2, inter_layers=1, n_blocks=1,
+                             en_out_channels=4, gru_hidden=8)
+
+    monkeypatch.setattr(R, "RMVPE", Small)      # the loader's full-size module, narrowed
+    synth = fast_init(S.SynthesizerTrn(S.config_for(48000, "v2")), 8)
+    torch.save(rvc_process_ckpt(cpu_state(synth), synth.cfg), tmp_path / "voice.pth")
+    files["rvc"] = (str(tmp_path / "voice.pth"), lambda p: C.load_rvc_checkpoint(p)[0], synth,
+                    "all")
+    for label, (path, load, module, folded) in files.items():
+        got = load(path)
+        sd = got.state_dict()
+        assert all(t.device.type == "cuda" for t in sd.values()), label
+        assert set(sd) == set(module.state_dict()), label
+        if folded != "all":
+            for k, v in module.state_dict().items():
+                assert k in folded or torch.equal(sd[k].cpu(), v), (label, k)
+
+
+def test_loaded_roformer_and_hubert_launch_k1_and_k2(cuda_device, tmp_path, monkeypatch):
+    """The RoFormer from its .ckpt in bf16 runs K1 on the card (one launch an
+    axial transformer: time and band, on the Hopper routes), HuBERT from its
+    fairseq file runs the fp32 K2 once a layer, counted by the wrappers."""
+    from audiolab_tpu_torch.models.separation.roformer import RoformerConfig
+
+    files = _loader_files(tmp_path, monkeypatch)
+    path, load, _, _ = files["roformer"]
+    cfg = RoformerConfig(dim=64, depth=1, heads=2, dim_head=64, freqs_per_bands=(64, 65),
+                         n_fft=256, hop=64, stems=("vocals",), residual_stem="other",
+                         dtype="bfloat16")
+    rof = load(path, cfg=cfg)
+    TA.reset_launch_counts()
+    with torch.no_grad():
+        stems = rof(torch.randn(1, 2, 4096, device=cuda_device))
+    torch.cuda.synchronize()
+    assert set(stems) == {"vocals", "other"}
+    assert (TA.attention_nk1.launches, TA.flash_attention_fwd.launches) == (2, 0)
+    assert TA.attention_nk1.sm90_launches == 2
+    path, load, _, _ = files["hubert"]
+    hubert = load(path).eval()
+    TA.reset_launch_counts()
+    with torch.no_grad():
+        feats = hubert(torch.randn(1, 16000, device=cuda_device))
+    torch.cuda.synchronize()
+    assert feats.shape == (1, 49, 128) and bool(torch.isfinite(feats).all())
+    assert (TA.flash_attention_fwd.launches, TA.attention_nk1.launches) == (2, 0)

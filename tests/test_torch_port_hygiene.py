@@ -209,6 +209,26 @@ def test_new_entry_points_default_to_the_card(no_cuda, tmp_path):
     assert VRSeparator(net, device="cpu").device.type == "cpu"
 
 
+LOADERS = ("load_roformer_checkpoint", "load_rvc_checkpoint", "load_rmvpe_checkpoint",
+           "load_crepe_checkpoint", "load_htdemucs_checkpoint", "load_mdx23c_checkpoint",
+           "load_vr_checkpoint")
+
+
+@pytest.mark.parametrize("name", LOADERS)
+def test_checkpoint_loaders_default_to_the_card(no_cuda, tmp_path, name):
+    """Each loader of the chain's formats builds on the card unless told
+    otherwise: without one it raises before it reads the file (there is
+    none here), and falls back neither to the CPU nor to random weights."""
+    from audiolab_tpu_torch.models.separation.roformer import RoformerConfig
+    from audiolab_tpu_torch.utils import convert
+
+    args = (RoformerConfig(),) if name == "load_roformer_checkpoint" else ()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(convert, name)(str(tmp_path / "absent.pth"), *args)
+    with pytest.raises(FileNotFoundError):
+        getattr(convert, name)(str(tmp_path / "absent.pth"), *args, device="cpu")
+
+
 def test_training_entry_points_default_to_the_card(no_cuda, tmp_path):
     from audiolab_tpu_torch.train.data import RVCDataLoader, extract_features
     from audiolab_tpu_torch.train.rvc import create_train_state

@@ -27,9 +27,18 @@ published layout differs, and ``load_state_dict(strict=True)``:
   gives: where that loader folds a layout (weight norm, RMVPE's GRU and
   VR's LSTM biases, VR's batch norms) the port folds it by the same numpy
   expression and stores it as ``utils/weights.py`` stores the JAX tree.
+- Super Resolution, transcription, diarization and alignment:
+  ``load_audiosr_scale_factor`` and ``load_audiosr_{vocoder,vae,unet}_checkpoint``
+  (one whole AudioSR checkpoint holds all four), ``load_whisper_state`` (a
+  state_dict, as ``convert_whisper`` takes it), ``load_wav2vec2_checkpoint``
+  (HF ``Wav2Vec2ForCTC`` -> ``CTCWordAligner``), ``load_pyannet_checkpoint``
+  (-> the state_dict ``NeuralDiarizer(pyannet_params=)`` takes),
+  ``load_wespeaker_checkpoint`` and ``load_rtla_crnn_checkpoint``, folding
+  weight norm, LSTM biases and batch norms (an affine-free one included)
+  as the JAX converters do.
 
-Every loader builds its module on ``device`` (default the card; raises
-without one) and, ``load_hubert_state`` aside, loads strictly: a missing key or a wrong shape raises and
+Every loader of a file builds its module on ``device`` (default the card;
+raises without one) and, ``load_hubert_state`` aside, loads strictly: a missing key or a wrong shape raises and
 names the key.  The checkpoint's other tensors are dropped, as the JAX
 loaders read only the keys their templates map.
 """
@@ -197,12 +206,20 @@ def _fold_batch_norms(sd: dict) -> None:
     converter's float64 expression (``extract`` "bnfold_w" / "bnfold_b":
     scale w / sqrt(var + 1e-5), bias b - mean * w / sqrt(var + 1e-5)), and
     stored as ``utils/weights.py`` stores a folded norm (mean 0, variance
-    1 - eps, so the eval-mode norm multiplies by the scale)."""
-    from audiolab_tpu_torch.utils.weights import _folded_bn
+    1 - eps, so the eval-mode norm multiplies by the scale).  A norm without
+    affine (no ``.weight``) folds by "bnfoldna_w" / "bnfoldna_b" (scale
+    1 / sqrt(var + 1e-5), bias -mean / sqrt(var + 1e-5)), rounded to fp32
+    as the JAX tree holds it, and is stored as the statistics that fold to
+    that (``weights._affine_free_bn``)."""
+    from audiolab_tpu_torch.utils.weights import _affine_free_bn, _folded_bn
 
     for key in [k[: -len(".running_var")] for k in sd if k.endswith(".running_var")]:
-        w, b = (sd[f"{key}.{n}"].double().numpy() for n in ("weight", "bias"))
         rm, rv = (sd[f"{key}.{n}"].double().numpy() for n in ("running_mean", "running_var"))
+        if f"{key}.weight" not in sd:
+            _affine_free_bn(sd, key, {"scale": (1.0 / np.sqrt(rv + 1e-5)).astype(np.float32),
+                                      "bias": (-rm / np.sqrt(rv + 1e-5)).astype(np.float32)})
+            continue
+        w, b = (sd[f"{key}.{n}"].double().numpy() for n in ("weight", "bias"))
         _folded_bn(sd, key, {"scale": w / np.sqrt(rv + 1e-5),
                              "bias": b - rm * w / np.sqrt(rv + 1e-5)})
 
@@ -496,3 +513,200 @@ def load_vr_checkpoint(path: str, cfg=None, n_fft: int | None = None,
         if k.split(".")[0] in ("aux_out", "aux1_out", "aux2_out"):
             sd[k] = torch.zeros_like(v, device="cpu")
     return _load_strict(model, sd, "VR checkpoint").eval()
+
+
+# ---------------------------------------------------------------- AudioSR
+
+def load_audiosr_scale_factor(path: str, default: float = 1.0) -> float:
+    """The latent ``scale_factor`` buffer of an AudioSR checkpoint (audiosr
+    ddpm.py:672; set by scale_by_std at :747), under ``scale_factor``,
+    ``model.scale_factor`` or ``state_dict.scale_factor``, read through fp32
+    as the JAX loader reads it; ``default`` where the file has none.
+    ``AudioSRCheckpointPipeline(scale_factor=)`` takes it."""
+    sd = torch_load_weights(path)
+    for k in ("scale_factor", "model.scale_factor", "state_dict.scale_factor"):
+        if k in sd:
+            return float(torch.as_tensor(sd[k]).float().reshape(()))
+    return float(default)
+
+
+def load_audiosr_vocoder_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """An AudioSR checkpoint's 48 kHz vocoder (``first_stage_model.vocoder.``
+    / ``vocoder.`` / ``generator.`` stripped; every convolution a
+    weight-norm pair, ``ups.*`` transposed, folded over dim 0) ->
+    ``models/audiosr_vocoder.AudioSRVocoder(**kw)`` on ``device``."""
+    from audiolab_tpu_torch.models.audiosr_vocoder import AudioSRVocoder
+
+    dev = resolve_device(device)
+    sd = _strip(_floats(torch_load_weights(path)),
+                ("first_stage_model.vocoder.", "vocoder.", "generator."))
+    with dev:
+        model = AudioSRVocoder(**kw)
+    return _load_strict(model, fold_state_dict(sd), "AudioSR vocoder checkpoint").eval()
+
+
+def load_audiosr_vae_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """An AudioSR checkpoint's VAE (``first_stage_model.`` stripped) ->
+    ``models/audiosr_vae.AudioSRVAE(**kw)`` on ``device``.  A whole AudioSR
+    checkpoint's vocoder and UNet tensors are dropped."""
+    from audiolab_tpu_torch.models.audiosr_vae import AudioSRVAE
+
+    dev = resolve_device(device)
+    sd = _strip(_floats(torch_load_weights(path)), ("first_stage_model.",))
+    with dev:
+        model = AudioSRVAE(**kw)
+    return _load_strict(model, sd, "AudioSR VAE checkpoint").eval()
+
+
+def load_audiosr_unet_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """An AudioSR checkpoint's UNet (``model.diffusion_model.`` stripped;
+    the names of the ``unet_layer_schedule`` the module walks) ->
+    ``models/audiosr_unet.AudioSRUNet(cfg)`` (default the basic
+    configuration) on ``device``."""
+    from audiolab_tpu_torch.models.audiosr_unet import AudioSRUNet, AudioSRUNetConfig
+
+    dev = resolve_device(device)
+    sd = _strip(_floats(torch_load_weights(path)), ("model.diffusion_model.",))
+    with dev:
+        model = AudioSRUNet(cfg or AudioSRUNetConfig())
+    return _load_strict(model, sd, "AudioSR UNet checkpoint").eval()
+
+
+# ---------------------------------------------------------------- Whisper
+
+def load_whisper_state(model: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """An openai-whisper state_dict (``model_state_dict`` of its ``.pt``; the
+    port's names, fp16 tensors made fp32) into ``models/whisper.
+    WhisperModel``, the counterpart of ``convert_whisper``.  The encoder's
+    sinusoidal positions and the alignment heads, which the module computes
+    or does not use, are dropped."""
+    return _load_strict(model, _floats(state_dict), "Whisper state_dict")
+
+
+# ---------------------------------------------------------------- wav2vec2
+
+# HF Wav2Vec2ForCTC's names -> the port's (fairseq's, under ``encoder.``):
+# the inverse of ``weights._W2V_HF``
+_HF_W2V = (
+    (r"^wav2vec2\.feature_extractor\.conv_layers\.0\.layer_norm\.",
+     "encoder.feature_extractor.conv_layers.0.2."),
+    (r"^wav2vec2\.feature_extractor\.conv_layers\.(\d+)\.conv\.",
+     r"encoder.feature_extractor.conv_layers.\1.0."),
+    (r"^wav2vec2\.feature_projection\.layer_norm\.", "encoder.layer_norm."),
+    (r"^wav2vec2\.feature_projection\.projection\.", "encoder.post_extract_proj."),
+    (r"^wav2vec2\.encoder\.pos_conv_embed\.conv\.", "encoder.encoder.pos_conv.0."),
+    (r"^wav2vec2\.encoder\.layer_norm\.", "encoder.encoder.layer_norm."),
+    (r"^wav2vec2\.encoder\.layers\.(\d+)\.attention\.(\w+)\.",
+     r"encoder.encoder.layers.\1.self_attn.\2."),
+    (r"^wav2vec2\.encoder\.layers\.(\d+)\.layer_norm\.",
+     r"encoder.encoder.layers.\1.self_attn_layer_norm."),
+    (r"^wav2vec2\.encoder\.layers\.(\d+)\.feed_forward\.intermediate_dense\.",
+     r"encoder.encoder.layers.\1.fc1."),
+    (r"^wav2vec2\.encoder\.layers\.(\d+)\.feed_forward\.output_dense\.",
+     r"encoder.encoder.layers.\1.fc2."),
+    (r"^wav2vec2\.encoder\.layers\.(\d+)\.final_layer_norm\.",
+     r"encoder.encoder.layers.\1.final_layer_norm."),
+)
+
+
+def load_wav2vec2_checkpoint(path: str, cfg=None, vocab: dict | None = None,
+                             device: str | torch.device = "cuda"):
+    """An HF ``Wav2Vec2ForCTC`` checkpoint (``wav2vec2.*`` and ``lm_head``) ->
+    ``models/wav2vec2.CTCWordAligner`` of ``cfg`` (default
+    ``Wav2Vec2Config()``, wav2vec2-base-960h) with ``vocab`` on ``device``.
+    The positional convolution's weight-norm pair (``weight_g`` /
+    ``weight_v``, or torch 2's ``parametrizations.weight.original0/1``) is
+    folded over dim 2."""
+    from audiolab_tpu_torch.models.wav2vec2 import CTCWordAligner, Wav2Vec2Config, Wav2Vec2CTC
+
+    dev = resolve_device(device)
+    sd = {}
+    for k, v in _floats(torch_load_weights(path)).items():
+        for pat, rep in _HF_W2V:
+            k2 = re.sub(pat, rep, k)
+            if k2 != k:
+                k = k2
+                break
+        sd[k] = v
+    with dev:
+        model = Wav2Vec2CTC(cfg or Wav2Vec2Config())
+    model = _load_strict(model, fold_state_dict(sd, dim=2), "wav2vec2 checkpoint")
+    return CTCWordAligner(model, vocab, device=dev)
+
+
+# ---------------------------------------------------------------- PyanNet
+
+def load_pyannet_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda") -> dict:
+    """A pyannote segmentation-3.0 state_dict (Lightning's ``model.``
+    stripped) -> the state_dict of ``models/pyannet.PyanNet(cfg)`` (default
+    ``PyanNetConfig()``) loaded on ``device``, which
+    ``NeuralDiarizer(pyannet_params=)`` takes.  The sinc filterbank's
+    ``low_hz_`` / ``band_hz_`` pass through; each LSTM direction's hidden
+    bias is folded into its input bias, as the JAX converter folds it."""
+    from audiolab_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
+
+    dev = resolve_device(device)
+    sd = _strip(_floats(torch_load_weights(path)), ("model.",))
+    _fold_recurrent_biases(sd, lstm=True)
+    with dev:
+        model = PyanNet(cfg or PyanNetConfig())
+    return _load_strict(model, sd, "PyanNet checkpoint").eval().state_dict()
+
+
+# ----------------------------------------------------------------- RTLA
+
+def load_rtla_crnn_checkpoint(path: str, config_json: str | None = None,
+                              device: str | torch.device = "cuda"):
+    """RTLA's pretrained model -> ``models/rtla.RtlaCRNN`` on ``device``
+    (``align_take``'s ``phoneme_model``).  A ``.pt`` / ``.pth`` is a dict of
+    ``model_state_dict`` and ``config``; a ``.safetensors`` comes with its
+    sibling JSON (``config_json``, hyperparameters under ``config``).  What
+    the config lacks comes from the file's shapes: ``num_lbl`` from
+    ``model.2.bias``, the complexity from ``model.2.weight``'s columns / 16
+    (``n_mels`` defaults to 66).  The three batch norms and the LSTM's
+    hidden bias are folded as the JAX converter folds them."""
+    from audiolab_tpu_torch.models.rtla import RtlaCRNN, RtlaCRNNConfig
+
+    dev = resolve_device(device)
+    if path.endswith((".pt", ".pth")):
+        blob = torch_load_weights(path)
+        sd, meta = blob.get("model_state_dict", blob), {"config": blob.get("config", {})}
+    else:
+        sd, meta = torch_load_weights(path), {}
+        if config_json:
+            with open(config_json) as f:
+                meta = json.load(f)
+    sd = _floats(sd)
+    mc = dict(meta.get("config", {}))
+    cfg = RtlaCRNNConfig(
+        n_mels=int(mc.get("n_mels", 66)),
+        num_lbl=int(mc.get("num_lbl", sd["model.2.bias"].shape[0])),
+        model_complexity=int(mc.get("model_complexity", sd["model.2.weight"].shape[1] // 16)))
+    _fold_batch_norms(sd)
+    _fold_recurrent_biases(sd, lstm=True)
+    with dev:
+        model = RtlaCRNN(cfg)
+    return _load_strict(model, sd, "RTLA CRNN checkpoint").eval()
+
+
+# ------------------------------------------------------------- WeSpeaker
+
+def load_wespeaker_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """wespeaker-voxceleb-resnet34-LM's ``pytorch_model.bin`` (``resnet.`` /
+    ``model.`` / ``speaker_encoder.`` stripped, the margin head
+    ``projection.*`` dropped) -> ``models/wespeaker.WeSpeakerResNet`` on
+    ``device`` (``NeuralDiarizer(wespeaker=)``).  Without ``cfg``,
+    ``two_emb_layer`` is sniffed from a ``seg_2.weight`` in the file.  Every
+    batch norm is folded as the JAX converter folds it, ``seg_bn_1`` (no
+    affine) included."""
+    from audiolab_tpu_torch.models.wespeaker import WeSpeakerConfig, WeSpeakerResNet
+
+    dev = resolve_device(device)
+    raw = _floats(torch_load_weights(path))
+    cfg = cfg or WeSpeakerConfig(two_emb_layer=any(k.endswith("seg_2.weight") for k in raw))
+    sd = {k: v for k, v in _strip(raw, ("resnet.", "model.", "speaker_encoder.")).items()
+          if not k.startswith("projection.")}
+    _fold_batch_norms(sd)
+    with dev:
+        model = WeSpeakerResNet(cfg)
+    return _load_strict(model, sd, "WeSpeaker checkpoint").eval()

@@ -394,6 +394,18 @@ def _folded_bn(sd: dict, key: str, node: dict) -> None:
     sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
 
 
+def _affine_free_bn(sd: dict, key: str, node: dict) -> None:
+    """A folded batch norm without affine (``x * scale + bias``, its
+    ``scale`` and ``bias`` in fp32) as the running statistics of torch's
+    ``BatchNorm(affine=False)`` that fold to it: mean -bias / scale, variance
+    1 / scale² - eps, computed in fp64 from the fp32 values."""
+    scale = np.asarray(node["scale"], np.float32).astype(np.float64)
+    bias = np.asarray(node["bias"], np.float32).astype(np.float64)
+    sd[f"{key}.running_mean"] = _t(-bias / scale)
+    sd[f"{key}.running_var"] = _t(1.0 / scale ** 2 - _BN_EPS)
+    sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
 def _vr_cba(sd: dict, key: str, node: dict) -> None:
     _conv2d(sd, f"{key}.conv.0", node["conv"])
     _folded_bn(sd, f"{key}.conv.1", node["bn"])
@@ -1326,11 +1338,7 @@ def wespeaker_from_jax(params: dict) -> dict:
             _folded_bn(sd, f"{key}.shortcut.1", node["short_bn"])
     _dense(sd, "seg_1", params["seg_1"])
     if "seg_2" in params:
-        scale = np.asarray(params["seg_bn_1"]["scale"], np.float64)
-        bias = np.asarray(params["seg_bn_1"]["bias"], np.float64)
-        sd["seg_bn_1.running_mean"] = _t(-bias / scale)
-        sd["seg_bn_1.running_var"] = _t(1.0 / scale ** 2 - _BN_EPS)
-        sd["seg_bn_1.num_batches_tracked"] = torch.tensor(0)
+        _affine_free_bn(sd, "seg_bn_1", params["seg_bn_1"])
         _dense(sd, "seg_2", params["seg_2"])
     return sd
 

@@ -300,7 +300,7 @@ import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
-          "transcribe", "diffusion", "music", "lora", "yue", "loaders")
+          "transcribe", "diffusion", "music", "lora", "yue", "loaders", "loaders_listen")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -3337,7 +3337,7 @@ def phase_chatterbox(dev, card: str, profile_dir: str | None = None) -> dict:
         S3TokenizerV2,
         s3_log_mel,
     )
-    from audiolab_tpu_torch.models.wespeaker import WeSpeakerConfig, WeSpeakerResNet
+    from audiolab_tpu_torch.models.wespeaker import WeSpeakerResNet
     from audiolab_tpu_torch.pipelines.tts import (
         ChatterboxCheckpointEngine,
         chatterbox_punc_norm,
@@ -3489,8 +3489,7 @@ def phase_chatterbox(dev, card: str, profile_dir: str | None = None) -> dict:
         rec[f"builtin_{name.split()[0]}"] = secs
 
     # (d) the diarizer's wespeaker back end
-    with torch.device(dev):
-        ws = fast_init(WeSpeakerResNet(WeSpeakerConfig()), 5)
+    ws = build_wespeaker(dev)
     diar = NeuralDiarizer(DiarizeConfig(), wespeaker=ws, device=dev)
     with torch.no_grad():
         # speaker 0 active in every chunk: one region a chunk for the back end
@@ -4025,6 +4024,79 @@ def phase_processors(dev, sep, vc, audio, card: str) -> dict:
 # ---------------------------------------------------------- transcribe
 
 # openai-whisper's ModelDimensions for large-v3 (1.55 B parameters)
+def build_whisper(dev, seed: int = 0, **cut):
+    """Whisper at large-v3's dimensions on ``dev`` (``cut`` overrides its
+    depths), weights by bench.py's rules."""
+    import torch
+
+    from audiolab_tpu_torch.models.whisper import WhisperConfig, WhisperModel
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return fast_init(WhisperModel(WhisperConfig(**dict(WHISPER_LARGE_V3, **cut))), seed).eval()
+
+
+def build_w2v(dev, seed: int = 2):
+    """The CTC aligner's net at wav2vec2-base-960h's widths on ``dev``."""
+    import torch
+
+    from audiolab_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2CTC
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return fast_init(Wav2Vec2CTC(Wav2Vec2Config()), seed).eval()
+
+
+def build_pyannet(dev, seed: int = 3):
+    """PyanNet at segmentation-3.0's widths (``PyanNetConfig()``) on ``dev``."""
+    import torch
+
+    from audiolab_tpu_torch.models.pyannet import PyanNet, PyanNetConfig
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return fast_init(PyanNet(PyanNetConfig()), seed).eval()
+
+
+def build_rtla(dev, seed: int = 4):
+    """RTLA's CRNN at ``RtlaCRNNConfig()`` on ``dev``."""
+    import torch
+
+    from audiolab_tpu_torch.models.rtla import RtlaCRNN, RtlaCRNNConfig
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return fast_init(RtlaCRNN(RtlaCRNNConfig()), seed).eval()
+
+
+def build_wespeaker(dev, seed: int = 5):
+    """The WeSpeaker ResNet34 (``WeSpeakerConfig()``) on ``dev``."""
+    import torch
+
+    from audiolab_tpu_torch.models.wespeaker import WeSpeakerConfig, WeSpeakerResNet
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return fast_init(WeSpeakerResNet(WeSpeakerConfig()), seed)
+
+
+def build_audiosr(dev, seed: int = 70):
+    """AudioSR's VAE, UNet and vocoder at the published widths on ``dev``,
+    seeded ``seed``, ``seed + 1``, ``seed + 2``."""
+    import torch
+
+    from audiolab_tpu_torch.models.audiosr_unet import AudioSRUNet
+    from audiolab_tpu_torch.models.audiosr_vae import AudioSRVAE
+    from audiolab_tpu_torch.models.audiosr_vocoder import AudioSRVocoder
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        mods = AudioSRVAE(), AudioSRUNet(), AudioSRVocoder()
+    for i, m in enumerate(mods):
+        fast_init(m.eval(), seed + i)
+    return mods
+
+
 WHISPER_LARGE_V3 = dict(n_mels=128, n_audio_ctx=1500, dim=1280, n_heads=20, n_audio_layers=32,
                         n_text_layers=32, vocab_size=51866, n_text_ctx=448, sot=50258,
                         eot=50257, no_timestamps=50364, timestamp_base=50365)
@@ -4121,7 +4193,6 @@ def phase_transcribe(dev, card: str) -> dict:
     from audiolab_tpu_torch.serve import align_api, transcribe_api
     from audiolab_tpu_torch.serve.api import create_app
     from audiolab_tpu_torch.serve.http import serve_background
-    from audiolab_tpu_torch.utils.fast_init import fast_init
 
     cuda = dev.type == "cuda"
     cpu = torch.device("cpu")
@@ -4153,8 +4224,7 @@ def phase_transcribe(dev, card: str) -> dict:
     # (a) Whisper at large-v3's dimensions
     cfg = WhisperConfig(**WHISPER_LARGE_V3)
     t0 = time.perf_counter()
-    with torch.device(dev):
-        whisper = fast_init(WhisperModel(cfg), 0).eval()
+    whisper = build_whisper(dev)
     sync(dev)
     log(f"{tag} (a) Whisper large-v3 dimensions: {n_params(whisper):.1f} M parameters fp32, "
         f"built in {time.perf_counter() - t0:.1f} s")
@@ -4210,8 +4280,7 @@ def phase_transcribe(dev, card: str) -> dict:
     rec["whisper_cached_vs_uncached"] = err
     del logits, cached
     cut_kw = dict(WHISPER_LARGE_V3, n_audio_layers=2, n_text_layers=2)
-    with torch.device(dev):
-        cut = fast_init(WhisperModel(WhisperConfig(**cut_kw)), 1).eval()
+    cut = build_whisper(dev, 1, n_audio_layers=2, n_text_layers=2)
     cut_cpu = cpu_copy(cut, lambda: WhisperModel(WhisperConfig(**cut_kw)))
     mel_cpu = log_mel_30s(x60, cfg, cpu)
     # as power: the log magnifies cuFFT's rounding in bins 60-80 dB under the
@@ -4229,8 +4298,7 @@ def phase_transcribe(dev, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # (b) the CTC aligner at wav2vec2-base-960h's widths
-    with torch.device(dev):
-        w2v = fast_init(Wav2Vec2CTC(Wav2Vec2Config()), 2).eval()
+    w2v = build_w2v(dev)
     aligner = CTCWordAligner(w2v, device=dev)
     aligner_cpu = CTCWordAligner(cpu_copy(w2v, lambda: Wav2Vec2CTC(Wav2Vec2Config())),
                                  device="cpu")
@@ -4265,8 +4333,7 @@ def phase_transcribe(dev, card: str) -> dict:
     del aligner_cpu
 
     # (c) PyanNet and its VAD; the diarizer's PyanNet back end
-    with torch.device(dev):
-        pn = fast_init(PyanNet(PyanNetConfig()), 3).eval()
+    pn = build_pyannet(dev)
     vad = pyannet_vad(pn, device=dev)
     secs = []
     for _ in range(1 + TR_WARM):
@@ -4307,8 +4374,7 @@ def phase_transcribe(dev, card: str) -> dict:
     take_d *= ALIGN_S / take_d.sum()
     master, take = gliding_notes(master_d, 0), gliding_notes(take_d, 1)
     mw, tw = note_words(master_d), note_words(take_d)
-    with torch.device(dev):
-        rtla = fast_init(RtlaCRNN(RtlaCRNNConfig()), 4).eval()
+    rtla = build_rtla(dev)
     rec["align"] = {}
     for label, model in (("chroma", None), ("chroma + RtlaCRNN phonemes", rtla)):
         secs = []
@@ -4496,16 +4562,12 @@ def phase_diffusion(dev, card: str, profile_dir: str | None = None) -> dict:
 
     from audiolab_tpu_torch.core.audio_io import write_wav
     from audiolab_tpu_torch.models import wavegrad as WG
-    from audiolab_tpu_torch.models.audiosr_unet import AudioSRUNet
-    from audiolab_tpu_torch.models.audiosr_vae import AudioSRVAE
-    from audiolab_tpu_torch.models.audiosr_vocoder import AudioSRVocoder
     from audiolab_tpu_torch.pipelines.processors.super_res import SuperResolution
     from audiolab_tpu_torch.pipelines.super_res import AudioSRCheckpointPipeline, ddim_timesteps
     from audiolab_tpu_torch.serve.api import create_app
     from audiolab_tpu_torch.serve.http import serve_background
     from audiolab_tpu_torch.train import super_res as SRT
     from audiolab_tpu_torch.train import wavetransfer as WT
-    from audiolab_tpu_torch.utils.fast_init import fast_init
 
     cuda = dev.type == "cuda"
     tag = "[diffusion]"
@@ -4674,10 +4736,7 @@ def phase_diffusion(dev, card: str, profile_dir: str | None = None) -> dict:
         SuperResolution.configure()
 
         # (c) AudioSR at the published widths
-        with torch.device(dev):
-            vae, unet, voc = AudioSRVAE(), AudioSRUNet(), AudioSRVocoder()
-        for i, m in enumerate((vae, unet, voc)):
-            fast_init(m.eval(), 70 + i)
+        vae, unet, voc = build_audiosr(dev)
         n_params = [sum(p.numel() for p in m.parameters()) / 1e6 for m in (vae, unet, voc)]
         pipe = AudioSRCheckpointPipeline(vae, unet, voc)
         chunk = torch.from_numpy(stereo[None, :, :491520].copy()).to(dev)
@@ -5614,7 +5673,7 @@ def write_safetensors(path: Path, sd: dict) -> int:
     header, blobs, off = {}, [], 0
     for k, v in sd.items():
         v = v.detach().contiguous().cpu()
-        raw = v.view(torch.uint8).numpy().tobytes() if v.numel() else b""
+        raw = v.reshape(-1).view(torch.uint8).numpy().tobytes() if v.numel() else b""
         header[k] = {"dtype": names[v.dtype], "shape": list(v.shape),
                      "data_offsets": [off, off + len(raw)]}
         blobs.append(raw)
@@ -5952,6 +6011,11 @@ RVC_WN = re.compile(r"^(flow\.flows\.\d+\.enc|enc_q\.enc)\.(in_layers\.\d+|res_s
                     r"|cond_layer)\.weight$|^dec\.(conv_post|ups\.\d+|resblocks\.\d+\.convs[12]"
                     r"\.\d+)\.weight$")
 HUBERT_WN = re.compile(r"^encoder\.pos_conv\.0\.weight$")
+# the wav2vec2 aligner's positional conv (HF's pos_conv_embed.conv) and every
+# convolution of AudioSR's vocoder
+W2V_WN = re.compile(r"^encoder\.encoder\.pos_conv\.0\.weight$")
+AUDIOSR_VOCODER_WN = re.compile(r"^(conv_pre|conv_post|ups\.\d+|resblocks\.\d+\.convs[12]\.\d+)"
+                                r"\.weight$")
 MDX23C_SCALES = re.compile(r"^((?:encoder_blocks\.\d+\.downscale)|(?:decoder_blocks\.\d+"
                            r"\.upscale))\.(\d+\.)")
 
@@ -6027,6 +6091,48 @@ def off_their_init(module, seed: int):
     return module
 
 
+def load_through_file(dev, work: Path, files: dict, card: str, label: str, name: str, obj, load,
+                      module, write=None, state_of=None, tag: str = "[loaders]"):
+    """Write ``obj`` to ``work / name`` (``torch.save``, or ``write(path,
+    obj)``), load it with ``load(path)``, and hold the loaded tensors
+    (``state_of(loaded)``, by default the state_dict of the loaded module or
+    of a tuple's first) against ``module``'s (a module or a state_dict): the
+    same keys, every tensor equal and on the card.  Records the file's
+    bytes, write and load seconds in ``files[label]`` and deletes the file
+    (one on the disk at a time).  Returns what ``load`` returned."""
+    import torch
+
+    path = work / name
+    t0 = time.perf_counter()
+    if write is None:
+        torch.save(obj, path)
+    else:
+        write(path, obj)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = load(str(path))
+    sync(dev)
+    load_s = time.perf_counter() - t0
+    size = path.stat().st_size
+    path.unlink()
+    if state_of is None:
+        own = (got[0] if isinstance(got, tuple) else got).state_dict()
+    else:
+        own = state_of(got)
+    mine = module.state_dict() if isinstance(module, torch.nn.Module) else module
+    expect(set(own) == set(mine), f"{tag} {label}: keys differ: "
+                                  f"{sorted(set(own) ^ set(mine))[:8]}")
+    unequal = [k for k in mine if not torch.equal(own[k], mine[k].to(own[k].device))]
+    off = [k for k in own if own[k].device.type != dev.type]
+    files[label] = dict(bytes=size, write_s=write_s, load_s=load_s, tensors=len(own))
+    log(f"{tag} {label}: {name} {size / 2**20:.1f} MiB, written in "
+        f"{write_s:.3f} s, loaded onto {dev.type} in {load_s:.3f} s; {len(own)} tensors, "
+        f"{len(unequal)} unequal, {len(off)} off {dev.type} | {card}")
+    expect(not unequal, f"{tag} {label}: tensors differ from the module's: {unequal[:8]}")
+    expect(not off, f"{tag} {label}: tensors off {dev.type}: {off[:8]}")
+    return got
+
+
 LOADERS_CLIP_S = 10.0     # the clip HTDemucs, MDX23C and the VR nets separate from their files
 FOLD_TOL = 1e-5           # of max|y|: folded against unfolded in fp64 (fp32-rounded folds)
 
@@ -6051,6 +6157,7 @@ def phase_loaders(dev, sep, vc, audio, card: str) -> dict:
     written from, on one input, within ``FOLD_TOL``.  Each file is deleted
     once it is loaded."""
     import copy
+    import functools
     import os
     import shutil
     import tempfile
@@ -6082,32 +6189,7 @@ def phase_loaders(dev, sep, vc, audio, card: str) -> dict:
     weights_dir = os.environ.get("AUDIOLAB_WEIGHTS_DIR")
     files: dict[str, dict] = {}
 
-    def through_file(label: str, name: str, obj, load, module):
-        """Write ``obj`` to ``name``, load it with ``load``, and hold the
-        loaded module's tensors against ``module``'s, on the card."""
-        path = work / name
-        t0 = time.perf_counter()
-        torch.save(obj, path)
-        write_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        got = load(str(path))
-        sync(dev)
-        load_s = time.perf_counter() - t0
-        size = path.stat().st_size
-        path.unlink()           # one file on the disk at a time (the RoFormers' are 1.6 GiB)
-        net = got[0] if isinstance(got, tuple) else got
-        own, mine = net.state_dict(), module.state_dict()
-        expect(set(own) == set(mine), f"loaders {label}: keys differ: "
-                                      f"{sorted(set(own) ^ set(mine))[:8]}")
-        unequal = [k for k in mine if not torch.equal(own[k], mine[k].to(own[k].device))]
-        off = [k for k in own if own[k].device.type != dev.type]
-        files[label] = dict(bytes=size, write_s=write_s, load_s=load_s, tensors=len(own))
-        log(f"[loaders] {label}: {name} {size / 2**20:.1f} MiB, written in "
-            f"{write_s:.3f} s, loaded onto {dev.type} in {load_s:.3f} s; {len(own)} tensors, "
-            f"{len(unequal)} unequal, {len(off)} off {dev.type} | {card}")
-        expect(not unequal, f"loaders {label}: tensors differ from the module's: {unequal[:8]}")
-        expect(not off, f"loaders {label}: tensors off {dev.type}: {off[:8]}")
-        return got
+    through_file = functools.partial(load_through_file, dev, work, files, card)
 
     def folded_like(module, sd: dict):
         """A copy of ``module`` holding ``sd``."""
@@ -6268,6 +6350,277 @@ def phase_loaders(dev, sep, vc, audio, card: str) -> dict:
     return dict(launches=launches, files=files, separated=separated, phase_s=phase_s)
 
 
+LISTEN_SPANS = (5.0, 10.0)       # the aligner's spans from its file, 12 words each
+LISTEN_DIARIZE_S = 60.0
+LISTEN_SCALE_FACTOR = 0.8532     # the AudioSR checkpoint's latent scale_factor
+MATCH_TOL = 1e-6                 # of max|y|: a loaded model against its twin in memory
+
+
+def phase_loaders_listen(dev, card: str) -> dict:
+    """The Super Resolution, transcription, diarization and alignment
+    checkpoint formats at full width, written here in the upstream
+    containers and names from the seeded modules of phases ``diffusion``
+    and ``transcribe`` (``build_audiosr``, ``build_whisper``, ``build_w2v``,
+    ``build_pyannet``, ``build_rtla``; the WeSpeaker ResNet of phase
+    ``chatterbox``), batch norms and LSTM biases drawn off their initial
+    values first (``off_their_init``), and read back by the port's loaders
+    onto the card: each file's tensors equal to its twin's (the module in
+    memory brought to what the loader should make of its file: weight-norm
+    pairs, batch norms and LSTM biases folded, Whisper's fp16), with its
+    bytes, write and load seconds.  (a) One whole AudioSR ``.ckpt`` (VAE,
+    UNet, vocoder with weight-norm pairs, ``scale_factor``): the guided DDIM
+    (DIFF_DDIM_STEPS steps) on one 10.24 s stereo chunk.  (b) Whisper's
+    ``.pt`` (``dims``, fp16 ``model_state_dict``) at large-v3's dimensions:
+    the TR_TOKENS-token decode of a 30 s window, then the uncached forward
+    over its tokens (32 fp32 K2).  (c) HF ``Wav2Vec2ForCTC``'s
+    ``pytorch_model.bin``: the aligner on the LISTEN_SPANS spans (12 K2
+    each).  (d) pyannote's segmentation file (Lightning's ``model.``) and
+    WeSpeaker's ``pytorch_model.bin`` (``resnet.``): NeuralDiarizer with
+    both loaded stages on LISTEN_DIARIZE_S of two speakers.  (e) RTLA's
+    ``.pt`` and its ``.safetensors`` + JSON pair: the posteriorgram of 30 s.
+    Each run from the files and its twin's run get counts reset just
+    before and read just after; launches must be equal and outputs equal
+    (within MATCH_TOL of max|y| for tensors, printed).  Returns the path's
+    launches: the runs from the files."""
+    import copy
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.models.diarize import NeuralDiarizer
+    from audiolab_tpu_torch.models.rtla import phoneme_features
+    from audiolab_tpu_torch.models.wav2vec2 import CTCWordAligner
+    from audiolab_tpu_torch.models.whisper import (
+        WhisperConfig,
+        WhisperModel,
+        log_mel_30s,
+        sinusoids,
+        transcribe_window,
+    )
+    from audiolab_tpu_torch.pipelines.super_res import AudioSRCheckpointPipeline
+    from audiolab_tpu_torch.utils import convert as C
+    from audiolab_tpu_torch.utils.weights import wav2vec2_to_hf
+
+    cuda = dev.type == "cuda"
+    tag = "[loaders_listen]"
+    t_phase = time.perf_counter()
+    draws = torch.Generator().manual_seed(221)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_loaders_listen_"))
+    files: dict[str, dict] = {}
+    runs: dict[str, dict] = {}
+    path = dict.fromkeys(KERNELS, 0)
+    through_file = functools.partial(load_through_file, dev, work, files, card, tag=tag)
+
+    def twin(module, sd: dict):
+        """A copy of ``module`` holding ``sd``."""
+        out = copy.deepcopy(module)
+        out.load_state_dict(sd)
+        return out
+
+    def both(label: str, from_file, in_memory, expect_k2: int = 0):
+        """Run ``from_file`` and ``in_memory``, counts reset just before and
+        read just after each; the launches must be equal (``expect_k2`` K2
+        and nothing else on the card) and the outputs equal."""
+        def run(fn):
+            reset_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(dev)
+            return out, time.perf_counter() - t0, counts()
+
+        a, secs, la = run(from_file)
+        b, secs_m, lb = run(in_memory)
+        if torch.is_tensor(a) or isinstance(a, np.ndarray):
+            a64, b64 = (torch.as_tensor(x).double().cpu() for x in (a, b))
+            same = torch.equal(a64, b64)
+            d, peak = float((a64 - b64).abs().max()), float(b64.abs().max())
+            finite = bool(torch.isfinite(a64).all())
+            err = f"max|diff| {d:.3e} (tolerance {MATCH_TOL * peak:.3e}: {MATCH_TOL:g} of max|y|)"
+            ok = finite and (same or d <= MATCH_TOL * peak)
+        else:
+            same = ok = a == b
+            d, err = 0.0 if same else float("inf"), "equal" if same else "differ"
+        runs[label] = dict(seconds=secs, seconds_twin=secs_m, launches=la, bit_equal=same,
+                           max_abs_diff=d)
+        for k in path:
+            path[k] += la[k]
+        log(f"{tag} {label}: from the files {secs:.3f} s, launches {la}; the twin in memory "
+            f"{secs_m:.3f} s, launches {lb}; bit-equal {same}, {err} | {card}")
+        want = {k: (expect_k2 if k == "K2" and cuda else 0) for k in KERNELS}
+        expect(la == lb == want, f"{tag} {label}: launches {la} / {lb}, expected {want}")
+        expect(ok, f"{tag} {label}: the run from the files differs from the twin's")
+        return a
+
+    try:
+        # (a) one whole AudioSR checkpoint
+        vae, unet, voc = build_audiosr(dev)
+        voc_pairs = weight_norm_pairs(cpu_state(voc), AUDIOSR_VOCODER_WN)
+        voc_mem = twin(voc, C.fold_state_dict(voc_pairs))
+        del voc
+        ckpt = {f"first_stage_model.{k}": v for k, v in cpu_state(vae).items()}
+        ckpt.update({f"first_stage_model.vocoder.{k}": v for k, v in voc_pairs.items()})
+        ckpt.update({f"model.diffusion_model.{k}": v for k, v in cpu_state(unet).items()})
+        ckpt["scale_factor"] = torch.tensor(LISTEN_SCALE_FACTOR)
+        del voc_pairs
+
+        def parts(got):
+            return {f"{n}.{k}": v for n, m in zip(("vae", "unet", "vocoder"), got[:3])
+                    for k, v in m.state_dict().items()}
+
+        got = through_file(
+            "AudioSR (VAE, UNet, vocoder, scale_factor)", "audiosr.ckpt", ckpt,
+            lambda p: (C.load_audiosr_vae_checkpoint(p, device=dev),
+                       C.load_audiosr_unet_checkpoint(p, device=dev),
+                       C.load_audiosr_vocoder_checkpoint(p, device=dev),
+                       C.load_audiosr_scale_factor(p)),
+            parts((vae, unet, voc_mem)), state_of=parts)
+        del ckpt
+        sf = float(np.float32(LISTEN_SCALE_FACTOR))
+        expect(got[3] == sf, f"{tag} AudioSR scale_factor {got[3]} != {sf}")
+        pipe_f = AudioSRCheckpointPipeline(*got[:3], scale_factor=got[3])
+        pipe_m = AudioSRCheckpointPipeline(vae, unet, voc_mem, scale_factor=sf)
+        chunk = torch.from_numpy(np.stack([harmonic_tone(48000, 491520, 196.0, 60),
+                                           harmonic_tone(48000, 491520, 247.0, 61)])[None]).to(dev)
+        both(f"AudioSR enhance_chunks (10.24 s stereo, {DIFF_DDIM_STEPS} DDIM steps)",
+             lambda: pipe_f.enhance_chunks(chunk, steps=DIFF_DDIM_STEPS, seed=1),
+             lambda: pipe_m.enhance_chunks(chunk, steps=DIFF_DDIM_STEPS, seed=1))
+        del pipe_f, pipe_m, got, vae, unet, voc_mem, chunk
+        torch.cuda.empty_cache()
+
+        # (b) Whisper's .pt at large-v3's dimensions, fp16 as openai ships it
+        whisper = build_whisper(dev)
+        with torch.no_grad():
+            for p in whisper.parameters():
+                p.copy_(p.half().float())
+        cfg = whisper.cfg
+        sd16 = {k: v.half() for k, v in cpu_state(whisper).items()}
+        sd16["encoder.positional_embedding"] = torch.from_numpy(
+            sinusoids(cfg.n_audio_ctx, cfg.dim)).half()
+        dims = {k: WHISPER_LARGE_V3[k] for k in ("n_mels", "n_audio_ctx", "vocab_size")}
+
+        def load_whisper(p):
+            with torch.device(dev):
+                empty = WhisperModel(WhisperConfig(**WHISPER_LARGE_V3))
+            sd = torch.load(p, map_location="cpu", weights_only=True)["model_state_dict"]
+            return C.load_whisper_state(empty, sd).eval()
+
+        whisper_f = through_file("Whisper large-v3 dimensions (fp16)", "large-v3.pt",
+                                 {"dims": dims, "model_state_dict": sd16}, load_whisper, whisper)
+        del sd16
+        mel = log_mel_30s(_two_speakers(30.0, 16000), cfg, dev)
+        toks = both(f"Whisper transcribe_window ({TR_TOKENS} tokens, one 30 s window)",
+                    lambda: transcribe_window(whisper_f, mel, TR_TOKENS, device=dev),
+                    lambda: transcribe_window(whisper, mel, TR_TOKENS, device=dev))
+        tokens_in = torch.cat([torch.full((1, 1), cfg.sot, device=dev), toks[:, :-1]], dim=1)
+        with torch.inference_mode():
+            both("Whisper uncached forward over SOT + 63 decoded tokens",
+                 lambda: whisper_f(mel, tokens_in), lambda: whisper(mel, tokens_in),
+                 expect_k2=cfg.n_text_layers)
+        del whisper, whisper_f, mel
+        torch.cuda.empty_cache()
+
+        # (c) HF Wav2Vec2ForCTC's pytorch_model.bin
+        w2v = build_w2v(dev)
+        pairs = weight_norm_pairs(cpu_state(w2v), W2V_WN, dim=2)
+        w2v_mem = twin(w2v, C.fold_state_dict(pairs, dim=2))
+        del w2v
+        hf = wav2vec2_to_hf(pairs)
+        hf["wav2vec2.masked_spec_embed"] = torch.rand(768, generator=draws)
+        aligner_f = through_file("wav2vec2-base-960h widths", "pytorch_model.bin", hf,
+                                 lambda p: C.load_wav2vec2_checkpoint(p, device=dev), w2v_mem,
+                                 state_of=lambda a: a.model.state_dict())
+        aligner_m = CTCWordAligner(w2v_mem, device=dev)
+        x = _two_speakers(max(LISTEN_SPANS) + 1.0, 16000)
+        for span in LISTEN_SPANS:
+            both(f"aligner align_words over {span:g} s (12 words)",
+                 lambda: aligner_f.align_words(x, 16000, 0.5, 0.5 + span, TR_WORDS),
+                 lambda: aligner_m.align_words(x, 16000, 0.5, 0.5 + span, TR_WORDS),
+                 expect_k2=12)
+            seg = x[8000: int((0.5 + span) * 16000)]
+            both(f"aligner log-probs over {span:g} s",
+                 lambda: aligner_f.log_probs(seg), lambda: aligner_m.log_probs(seg),
+                 expect_k2=12)
+        del aligner_f, aligner_m, w2v_mem, hf, pairs
+        torch.cuda.empty_cache()
+
+        # (d) the diarizer's two stages from their files
+        pn = off_their_init(build_pyannet(dev), 215)
+        with torch.no_grad():
+            # speaker 0 alone in every frame: regions for the WeSpeaker back end
+            pn.classifier.bias.copy_(torch.tensor([-4.0, 4.0, -4.0, -4.0, -4.0, -4.0, -4.0]))
+        seg_file = {f"model.{k}": v for k, v in cpu_state(pn).items()}
+        seg_file["model.sincnet.conv1d.0.filterbank.window_"] = torch.hann_window(125)
+        seg_file["model.sincnet.conv1d.0.filterbank.n_"] = torch.arange(125.0)
+        seg_want = cpu_state(pn)
+        C._fold_recurrent_biases(seg_want, lstm=True)
+        del pn
+        seg_f = through_file("PyanNet segmentation-3.0 widths", "segmentation.bin", seg_file,
+                             lambda p: C.load_pyannet_checkpoint(p, device=dev), seg_want,
+                             state_of=lambda sd: sd)
+        ws = off_their_init(build_wespeaker(dev), 216)
+        ws_file = {f"resnet.{k}": v for k, v in cpu_state(ws).items()}
+        ws_file["resnet.projection.weight"] = torch.rand(5994, 256, generator=draws)
+        ws_want = cpu_state(ws)
+        C._fold_batch_norms(ws_want)
+        ws_mem = twin(ws, ws_want)
+        del ws
+        ws_f = through_file("WeSpeaker ResNet34", "wespeaker.bin", ws_file,
+                            lambda p: C.load_wespeaker_checkpoint(p, device=dev), ws_mem)
+        diar_f = NeuralDiarizer(pyannet_params=seg_f, wespeaker=ws_f, device=dev)
+        diar_m = NeuralDiarizer(pyannet_params={k: v.to(dev) for k, v in seg_want.items()},
+                                wespeaker=ws_mem, device=dev)
+        two = _two_speakers(LISTEN_DIARIZE_S, 16000)
+        turns = both(f"NeuralDiarizer with both loaded stages ({LISTEN_DIARIZE_S:g} s)",
+                     lambda: diar_f.diarize(two, 16000), lambda: diar_m.diarize(two, 16000))
+        expect(len(turns) > 0, f"{tag} the diarizer found no turn")
+        log(f"{tag} the diarizer: {len(turns)} turns, speakers "
+            f"{sorted({t[2] for t in turns})}")
+        del diar_f, diar_m, seg_f, ws_f, ws_mem
+
+        # (e) RTLA's .pt and its .safetensors + JSON pair
+        rtla = off_their_init(build_rtla(dev), 217)
+        rtla_want = cpu_state(rtla)
+        C._fold_batch_norms(rtla_want)
+        C._fold_recurrent_biases(rtla_want, lstm=True)
+        rtla_mem = twin(rtla, rtla_want)
+        c = rtla.cfg
+        config = {"n_mels": c.n_mels, "num_lbl": c.num_lbl,
+                  "model_complexity": c.model_complexity}
+
+        def write_pair(p, sd):
+            write_safetensors(p, sd)
+            Path(p).with_suffix(".json").write_text(json.dumps({"config": config}))
+
+        rtla_pt = through_file("RTLA CRNN (.pt)", "model.pt",
+                               {"model_state_dict": cpu_state(rtla), "config": config},
+                               lambda p: C.load_rtla_crnn_checkpoint(p, device=dev), rtla_mem)
+        rtla_st = through_file(
+            "RTLA CRNN (.safetensors + JSON)", "pretrained-model.safetensors", cpu_state(rtla),
+            lambda p: C.load_rtla_crnn_checkpoint(p, str(Path(p).with_suffix(".json")),
+                                                  device=dev), rtla_mem, write=write_pair)
+        expect(rtla_pt.cfg == rtla_st.cfg == c, f"{tag} RTLA config {rtla_pt.cfg}")
+        master = gliding_notes(np.full(int(ALIGN_S / 0.5), 0.5), 0)
+        for label, got in (("(.pt)", rtla_pt), ("(.safetensors)", rtla_st)):
+            both(f"RTLA posteriorgram {label} of {ALIGN_S:g} s",
+                 lambda g=got: phoneme_features(master, 16000, g, device=dev),
+                 lambda: phoneme_features(master, 16000, rtla_mem, device=dev))
+        del rtla, rtla_mem, rtla_pt, rtla_st
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"{tag} {len(files)} files, {sum(f['bytes'] for f in files.values()) / 2**30:.2f} "
+        f"GiB written in {sum(f['write_s'] for f in files.values()):.1f} s and loaded in "
+        f"{sum(f['load_s'] for f in files.values()):.1f} s; the path's launches {path}; "
+        f"phase {phase_s:.1f} s | {card}")
+    expect(path["K2"] > 0 or not cuda, f"{tag} K2 was not launched on the path")
+    return dict(launches=path, files=files, runs=runs, phase_s=phase_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -6310,7 +6663,7 @@ def main() -> int:
 
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
-    diffused = composed = adapted = sung = loaded = None
+    diffused = composed = adapted = sung = loaded = listened = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "loaders", "long"} & set(phases)
     if need_chain:
@@ -6414,6 +6767,12 @@ def main() -> int:
         # the served request, counts reset just before each and read just
         # after (YuE launches none of K1-K7)
         sung = phase_yue(dev, card, profile_dir=args.profile)["launches"]
+    if "loaders_listen" in phases:
+        mark("loaders_listen")
+        # this slice's path: each model loaded from its file, counts reset just
+        # before each run and read just after (Whisper's uncached forward and
+        # the aligner's spans launch K2; AudioSR, the diarizer and RTLA none)
+        listened = phase_loaders_listen(dev, card)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -6432,6 +6791,7 @@ def main() -> int:
            "lora_launches": None if adapted is None else adapted[r["kernel"]],
            "yue_launches": None if sung is None else sung[r["kernel"]],
            "loaders_launches": None if loaded is None else loaded[r["kernel"]],
+           "loaders_listen_launches": None if listened is None else listened[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),

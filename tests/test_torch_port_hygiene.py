@@ -211,14 +211,18 @@ def test_new_entry_points_default_to_the_card(no_cuda, tmp_path):
 
 LOADERS = ("load_roformer_checkpoint", "load_rvc_checkpoint", "load_rmvpe_checkpoint",
            "load_crepe_checkpoint", "load_htdemucs_checkpoint", "load_mdx23c_checkpoint",
-           "load_vr_checkpoint")
+           "load_vr_checkpoint", "load_audiosr_vocoder_checkpoint", "load_audiosr_vae_checkpoint",
+           "load_audiosr_unet_checkpoint", "load_wav2vec2_checkpoint", "load_pyannet_checkpoint",
+           "load_wespeaker_checkpoint", "load_rtla_crnn_checkpoint")
 
 
 @pytest.mark.parametrize("name", LOADERS)
 def test_checkpoint_loaders_default_to_the_card(no_cuda, tmp_path, name):
-    """Each loader of the chain's formats builds on the card unless told
-    otherwise: without one it raises before it reads the file (there is
-    none here), and falls back neither to the CPU nor to random weights."""
+    """Each loader of a checkpoint file (the chain's formats, and those of
+    Super Resolution, transcription, diarization and alignment) builds on
+    the card unless told otherwise: without one it raises before it reads
+    the file (there is none here), and falls back neither to the CPU nor to
+    random weights."""
     from audiolab_tpu_torch.models.separation.roformer import RoformerConfig
     from audiolab_tpu_torch.utils import convert
 

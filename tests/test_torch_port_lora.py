@@ -20,10 +20,26 @@
   between the packages in fp32, and in bf16 an element whose gradient is at
   rounding level moves a whole step apart, which is why bf16 holds the
   function and not the factors.
+- The first step's factor gradients of both packages through the loss both
+  trainers compute (the flow-matching MSE, with the SSL loss or without), at
+  the trainer's start (b = 0, where a's gradient is 0 in both) and at one
+  with b filled: 1e-4 of each tensor's max|g|, a quantity Adam's
+  normalisation cannot amplify.
+
+The JAX ``lora_init`` seeds each factor with ``hash()`` of its path
+(``audiolab_tpu/models/acestep.py:419``), which changes with the process's
+hash seed, so the JAX trainer's start (and with it Adam's treatment of
+gradients near its eps) would differ between runs.  Every test here starts
+the JAX trainer from :func:`crc_lora_init` instead, patched over the name
+``audiolab_tpu.train.acestep_lora`` imported, and passes the same factors to
+the port.  The rule: the JAX formula (a = N(0, 1) * 0.01 for each target
+kernel, b = 0), each factor seeded with ``fold_in(PRNGKey(0), crc32(path) %
+2**31)``, ``path`` the ``"/"``-joined path the ``.npz`` adapters use.
 """
 
 import copy
 import functools
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -173,11 +189,40 @@ def pipelines(dtype: str = "float32"):
     return jp, TP.ACEStepPipeline(tm, tv, device="cpu", draws=JaxDraws())
 
 
+def crc_lora_init(params, rng, rank: int = 8, targets=("wq", "wk", "wv", "wo")) -> dict:
+    """The JAX ``lora_init`` with each factor seeded by ``crc32`` of its
+    path's text in place of ``hash()`` of the path: the same walk, shapes
+    and formula, and the same start in every process."""
+    flat = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            p = path + (k,)
+            if not isinstance(v, dict):
+                continue
+            if k in targets and "kernel" in v:
+                key = jax.random.fold_in(rng, zlib.crc32("/".join(p).encode()) % (2**31))
+                din, dout = v["kernel"].shape
+                flat[p] = {"a": jax.random.normal(key, (din, rank)) * 0.01,
+                           "b": jnp.zeros((rank, dout))}
+            else:
+                walk(v, p)
+
+    walk(params, ())
+    return flat
+
+
+@pytest.fixture(autouse=True)
+def _jax_start_by_crc(monkeypatch):
+    """The JAX trainer starts from :func:`crc_lora_init`."""
+    monkeypatch.setattr(JL, "lora_init", crc_lora_init)
+
+
 def _jax_lora(jp, rank=4):
-    """The factors the JAX ``train_lora`` starts from (``lora_init`` seeds by
-    ``hash()`` of the path, fixed within this process), b filled so that a
-    merge is not the identity."""
-    lora = JA.lora_init(jp.base_params["dit"], jax.random.PRNGKey(0), rank)
+    """The factors the JAX ``train_lora`` starts from (:func:`crc_lora_init`
+    at ``PRNGKey(0)``), and a copy with b filled so that a merge is not the
+    identity."""
+    lora = crc_lora_init(jp.base_params["dit"], jax.random.PRNGKey(0), rank)
     rng = np.random.default_rng(24)
     return lora, {path: {"a": ab["a"], "b": jnp.asarray(rng.standard_normal(ab["b"].shape)
                                                          * 0.05, jnp.float32)}
@@ -187,6 +232,13 @@ def _jax_lora(jp, rank=4):
 def test_lora_init_paths_and_shapes_are_the_jax_ones():
     jp, tp = pipelines()
     jl, _ = _jax_lora(jp)
+    hashed = JA.lora_init(jp.base_params["dit"], jax.random.PRNGKey(0), 4)
+    assert set(hashed) == set(jl)
+    for path, ab in hashed.items():
+        for n in ("a", "b"):
+            assert ab[n].shape == jl[path][n].shape
+        assert not np.asarray(jl[path]["b"]).any()
+        assert 0.005 < float(np.std(jl[path]["a"])) < 0.02
     tl = TA.lora_init(tp.model.dit, 4, seed=3)
     assert set(tl) == set(jl) and len(tl) == 4 * tp.cfg.dit.n_layers
     for path, ab in tl.items():
@@ -310,6 +362,106 @@ def test_train_lora_matches_jax(dtype, ssl):
     assert all(not x.requires_grad for x in tp.model.parameters() if x.grad is not None)
     assert all(x.grad is None for x in tp.model.parameters())
 
+
+
+def _first_batch(items, seg: int, batch: int, ssl_frames: int):
+    """The first step's batch of one package's (latent, context, SSL
+    features) items, by both trainers' ``default_rng(0)`` picks."""
+    rng = np.random.default_rng(0)
+    zs, ctxs, ssl = [], [], []
+    for _ in range(batch):
+        z, ctx, feats = items[rng.integers(len(items))]
+        t = z.shape[1]
+        s = rng.integers(0, t - seg + 1) if t >= seg else 0
+        z = z[0, s: s + seg]                                # zero-padded to seg frames
+        zs.append(z if z.shape[0] == seg else (
+            jnp.pad(z, ((0, seg - z.shape[0]), (0, 0))) if isinstance(z, jnp.ndarray)
+            else torch.nn.functional.pad(z, (0, 0, 0, seg - z.shape[0]))))
+        ctxs.append(ctx[0])
+        s0 = int(round(s / t * feats.shape[0]))
+        span = np.asarray(feats[s0: s0 + ssl_frames])
+        ssl.append(np.pad(span, ((0, ssl_frames - span.shape[0]), (0, 0))))
+    return zs, ctxs, np.stack(ssl)
+
+
+@pytest.mark.parametrize("ssl", [False, True])
+def test_lora_first_step_gradients_match_jax(ssl):
+    """The first training step's gradients of the factors (and, with the SSL
+    loss, of the projector) in fp32: the JAX trainer's loss (the
+    flow-matching MSE of ``flow_match_loss``'s draws, plus ``ssl_coeff``
+    times ``ssl_projection_loss`` of the hidden states after block
+    ``ssl_depth``) differentiated by ``jax.grad``, against the port
+    trainer's ``flow_match_loss`` and ``ssl_projection_loss`` through
+    ``LoRAModel``, on each package's own latents and contexts, both at the
+    trainer's start (b = 0: a's gradient is 0 in both) and with b filled."""
+    from audiolab_tpu.models.stable_audio import tokenize_prompt as j_prompt
+    from audiolab_tpu_torch.models.stable_audio import tokenize_prompt as t_prompt
+
+    jp, tp = pipelines()
+    data = _dataset(jp.cfg.sr)
+    seg, batch, coeff, depth = 8, 2, 0.5, 0
+    feats = [ssl_features(audio) for audio, _, _ in data]
+    ssl_frames = max(4, min(f.shape[0] for f in feats))
+    j_items, t_items = [], []
+    for (audio, prompt, lyrics), f in zip(data, feats):
+        tag, lyr = j_prompt(prompt, 64)[None], JA.tokenize_lyrics(lyrics, 128)[None]
+        j_items.append((jp._latents_of_audio(audio), jp.model.apply(
+            {"params": jp.base_params}, jnp.asarray(tag), jnp.asarray(lyr),
+            method=JA.ACEStepModel.encode_cond), f))
+        with torch.no_grad():
+            tag, lyr = t_prompt(prompt, 64)[None], TA.tokenize_lyrics(lyrics, 128)[None]
+            t_items.append((tp._latents_of_audio(audio).float(), tp.model.encode_cond(
+                torch.from_numpy(tag), torch.from_numpy(lyr)).float(), f))
+    jz, jctx, tgt = _first_batch(j_items, seg, batch, ssl_frames)
+    tz, tctx, _ = _first_batch(t_items, seg, batch, ssl_frames)
+    jz, jctx, tz, tctx = jnp.stack(jz), jnp.stack(jctx), torch.stack(tz), torch.stack(tctx)
+    t_draw, eps = _jax_draws(batch, seg, jp.cfg.dit.in_dim)(0)
+    module = jp.model.module
+
+    def jax_loss(state):
+        merged = dict(jp.base_params)
+        merged["dit"] = JA.lora_apply(jp.base_params["dit"], state["lora"], 1.0)
+        if not ssl:
+            return JL.flow_match_loss(module, merged, jz, jctx, jax.random.PRNGKey(0))
+        k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+        t = jax.random.uniform(k1, (batch,))
+        e = jax.random.normal(k2, jz.shape)
+        z_t = (1.0 - t[:, None, None]) * jz + t[:, None, None] * e
+        v, hidden = module.apply({"params": merged}, z_t, t, jctx, depth,
+                                 method=JA.ACEStepModel.velocity_hidden)
+        return (jnp.mean((v - (e - jz)) ** 2)
+                + coeff * JL.ssl_projection_loss(hidden, state["proj"], jnp.asarray(tgt)))
+
+    proj = {"kernel": np.asarray(jax.random.normal(jax.random.PRNGKey(7), (jp.cfg.dit.dim, 12))
+                                 * 0.02), "bias": np.zeros(12, np.float32)}
+    grad = jax.jit(jax.grad(jax_loss))
+    for start in _jax_lora(jp):
+        state = {"lora": start, "proj": proj} if ssl else {"lora": start}
+        want = grad(state)
+        factors = {p: {n: _t(ab[n]).requires_grad_(True) for n in ("a", "b")}
+                   for p, ab in start.items()}
+        tproj = {n: _t(x).requires_grad_(True) for n, x in proj.items()}
+        adapted = TA.LoRAModel(tp.model, factors, 1.0)
+        if ssl:
+            loss, hidden = TL.flow_match_loss(adapted, tz, tctx, _t(t_draw), _t(eps), depth)
+            loss = loss + coeff * TL.ssl_projection_loss(hidden, tproj, _t(tgt))
+        else:
+            loss = TL.flow_match_loss(adapted, tz, tctx, _t(t_draw), _t(eps))
+        loss.backward()
+        filled = bool(np.asarray(next(iter(start.values()))["b"]).any())
+        for p, ab in want["lora"].items():
+            for n in ("a", "b"):
+                g = factors[p][n].grad
+                assert g.dtype == torch.float32
+                if n == "a" and not filled:
+                    assert not g.any() and not np.asarray(ab[n]).any(), p
+                else:
+                    assert float(g.abs().max()) > 0, (p, n)
+                close(g.numpy(), ab[n], 1e-4, f"{'filled' if filled else 'start'} {p} {n}")
+        if ssl:
+            for n in ("kernel", "bias"):
+                close(tproj[n].grad.numpy(), want["proj"][n], 1e-4, f"projector {n}")
+    assert all(x.grad is None for x in tp.model.parameters())
 
 def test_interp_time_and_ssl_loss_match_jax():
     x = RNG.standard_normal((2, 7, 5)).astype(np.float32)

@@ -36,6 +36,11 @@ published layout differs, and ``load_state_dict(strict=True)``:
   ``load_wespeaker_checkpoint`` and ``load_rtla_crnn_checkpoint``, folding
   weight norm, LSTM biases and batch norms (an affine-free one included)
   as the JAX converters do.
+- The speech engines' formats: ``load_dac_checkpoint`` (descript-audio-codec's
+  ``weights.pth``, decode path), ``load_dia_checkpoint`` (nari-labs Dia),
+  and XTTS-v2's ``load_xtts_{gpt,conditioner,perceiver,hifigan,speaker}_checkpoint``
+  (one whole ``model.pth`` holds all five) and ``load_xtts_dvae_checkpoint``
+  (``dvae.pth``).
 
 Every loader of a file builds its module on ``device`` (default the card;
 raises without one) and, ``load_hubert_state`` aside, loads strictly: a missing key or a wrong shape raises and
@@ -710,3 +715,132 @@ def load_wespeaker_checkpoint(path: str, cfg=None, device: str | torch.device = 
     with dev:
         model = WeSpeakerResNet(cfg)
     return _load_strict(model, sd, "WeSpeaker checkpoint").eval()
+
+
+# -------------------------------------------------------------------- DAC
+
+def load_dac_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """descript-audio-codec's ``weights.pth`` (the tensors under
+    ``state_dict``, or at the top level) -> (``models/codecs.DACDecoder`` of
+    ``cfg`` on ``device``, ``cfg``); the default config is
+    ``DACConfig(decoder_dim=1536)``, the 44.1 kHz model.  Every weight-norm
+    pair (the convolutions, the transposed up-convolutions, each quantizer's
+    1x1 ``out_proj``) is folded over dim 0; snake alphas load as (1, ch, 1).
+    The encoder and the quantizers' ``in_proj``, which the decode path does
+    not use, are dropped, as the JAX loader's decode-only mapping drops
+    them."""
+    from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
+
+    dev = resolve_device(device)
+    ckpt = torch_load_weights(path)
+    sd = fold_state_dict(_floats(ckpt.get("state_dict", ckpt)))
+    cfg = cfg or DACConfig(decoder_dim=1536)
+    with dev:
+        model = DACDecoder(cfg)
+    return _load_strict(model, sd, "DAC checkpoint").eval(), cfg
+
+
+# -------------------------------------------------------------------- Dia
+
+def load_dia_checkpoint(path: str, cfg, device: str | torch.device = "cuda"):
+    """nari-labs Dia's ``.pth`` or ``.safetensors`` -> ``models/dia.DiaModel``
+    of ``cfg`` on ``device``.  The module keeps the file's names and
+    DenseGeneral layouts (q/k/v (in, heads, hd), with ``kv_heads`` on the
+    decoder's k and v; o (heads, hd, out); ``mlp.wi_fused`` (dim, 2, 4 dim);
+    ``decoder.logits_dense`` (dim, n_q, V)) and its per-codebook
+    ``decoder.embeddings.Q`` tables, which the JAX converter concatenates
+    into one offset table.
+
+    Both packages derive the encoder's head dim as ``dim_enc //
+    n_heads_enc``, so the published Dia-1.6B encoder (16 heads x 128 over a
+    1024 width) loads into neither: its q/k/v/o shapes are refused."""
+    from audiolab_tpu_torch.models.dia import DiaModel
+
+    dev = resolve_device(device)
+    sd = _floats(torch_load_weights(path))
+    with dev:
+        model = DiaModel(cfg)
+    return _load_strict(model, sd, "Dia checkpoint").eval()
+
+
+# ---------------------------------------------------------------- XTTS-v2
+#
+# Each loader takes the file's top level as the state_dict, as the JAX
+# loaders do: a file that nests the weights (Coqui's trainer saves them
+# under ``model``) is refused for the keys it lacks.
+
+def _xtts_part(path: str, prefixes: tuple[str, ...], make, device, what: str, fold=False):
+    dev = resolve_device(device)
+    sd = _strip(_floats(torch_load_weights(path)), prefixes)
+    if fold:
+        sd = fold_state_dict(sd)
+    with dev:
+        model = make()
+    return _load_strict(model, sd, what).eval()
+
+
+def load_xtts_gpt_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """XTTS-v2's ``model.pth`` -> ``models/xtts.XttsGPT2(**kw)`` (default the
+    published 30 x 1024 x 16 heads) on ``device``: ``gpt.`` stripped once,
+    so the inner GPT-2 is at ``gpt.h.N``; transformers' Conv1D weights are
+    (in, out) as stored."""
+    from audiolab_tpu_torch.models.xtts import XttsGPT2
+
+    return _xtts_part(path, ("gpt.",), lambda: XttsGPT2(**kw), device,
+                      "XTTS-v2 GPT checkpoint")
+
+
+def load_xtts_conditioner_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """XTTS-v2's ``model.pth`` -> ``models/xtts.XttsConditioningEncoder(**kw)``
+    on ``device`` (``gpt.conditioning_encoder.`` stripped)."""
+    from audiolab_tpu_torch.models.xtts import XttsConditioningEncoder
+
+    return _xtts_part(path, ("gpt.conditioning_encoder.", "conditioning_encoder."),
+                      lambda: XttsConditioningEncoder(**kw), device,
+                      "XTTS-v2 conditioning encoder checkpoint")
+
+
+def load_xtts_perceiver_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """XTTS-v2's ``model.pth`` -> ``models/xtts.XttsPerceiverResampler(**kw)``
+    on ``device`` (``gpt.conditioning_perceiver.`` stripped)."""
+    from audiolab_tpu_torch.models.xtts import XttsPerceiverResampler
+
+    return _xtts_part(path, ("gpt.conditioning_perceiver.", "conditioning_perceiver."),
+                      lambda: XttsPerceiverResampler(**kw), device,
+                      "XTTS-v2 perceiver checkpoint")
+
+
+def load_xtts_hifigan_checkpoint(path: str, device: str | torch.device = "cuda"):
+    """XTTS-v2's ``model.pth`` -> ``models/xtts.XttsHifiganDecoder()`` at the
+    published geometry (1024-d latents, 512-d d-vector, 1024x upsampling) on
+    ``device``: ``hifigan_decoder.waveform_decoder.`` stripped, the
+    weight-norm pairs of the up-convolutions and the residual blocks
+    (``weight_g`` / ``weight_v`` or torch 2's ``parametrizations``) folded
+    over dim 0."""
+    from audiolab_tpu_torch.models.xtts import XttsHifiganDecoder
+
+    return _xtts_part(path, ("hifigan_decoder.waveform_decoder.", "waveform_decoder."),
+                      XttsHifiganDecoder, device, "XTTS-v2 HiFi decoder checkpoint",
+                      fold=True)
+
+
+def load_xtts_speaker_checkpoint(path: str, device: str | torch.device = "cuda"):
+    """XTTS-v2's ``model.pth`` -> ``models/xtts.XttsSpeakerEncoder()`` at the
+    published geometry (H/ASP ResNet34-SE into 512) on ``device``
+    (``hifigan_decoder.speaker_encoder.`` stripped).  The batch norms keep
+    their running statistics, as the JAX loader's ``batch_stats`` do; the
+    mel front end's buffers are dropped."""
+    from audiolab_tpu_torch.models.xtts import XttsSpeakerEncoder
+
+    return _xtts_part(path, ("hifigan_decoder.speaker_encoder.", "speaker_encoder."),
+                      XttsSpeakerEncoder, device, "XTTS-v2 speaker encoder checkpoint")
+
+
+def load_xtts_dvae_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """XTTS-v2's ``dvae.pth`` (or the ``dvae.`` part of a file) ->
+    ``models/xtts.XttsDVAE(**kw)`` on ``device``; ``codebook.embed`` (an EMA
+    buffer upstream) is the codebook, its other EMA buffers are dropped."""
+    from audiolab_tpu_torch.models.xtts import XttsDVAE
+
+    return _xtts_part(path, ("dvae.",), lambda: XttsDVAE(**kw), device,
+                      "XTTS-v2 DVAE checkpoint")

@@ -4,7 +4,8 @@ drives the separate -> RVC chain, RVC training, Zonos TTS, the speech
 engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription,
 multi-take alignment, WaveTransfer, Super Resolution's learned enhancers and
 music generation (Stable Audio, ACE-Step, YuE) at full width, loads the
-chain's checkpoint formats, and checks the output.
+checkpoint formats of the chain, of the listening models and of the speech
+engines, and checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -41,6 +42,11 @@ chain's checkpoint formats, and checks the output.
     python3 chip_smoke.py --phases card,loaders    # the chain's checkpoint formats written
                                                    # in the upstream layouts and loaded
                                                    # onto the card, the chain from them
+    python3 chip_smoke.py --phases card,loaders_listen  # Super Resolution, transcription,
+                                                   # diarization and alignment from files
+    python3 chip_smoke.py --phases card,loaders_speech  # XTTS-v2's model.pth and dvae.pth,
+                                                   # Dia and its DAC from files, each
+                                                   # engine run against its twin
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
                                                    # a Dia call, an XTTS-v2 synthesize,
@@ -279,6 +285,19 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              (48 K1, all Hopper, 12 K2) against the chain in memory (1e-6 of
              max|y|); HTDemucs, MDX23C and the VR nets from their files on 10 s
              against theirs
+  loaders_speech  the speech engines' formats at full width, written from the
+             seeded modules of phase engines in the upstream containers and
+             names (XTTS-v2's model.pth with its five parts under Coqui's
+             prefixes, the HiFi decoder's weight-norm pairs with their gains
+             drawn off, the speaker encoder's batch norms off their initial
+             values; dvae.pth; Dia at DiaConfig() and at Dia-1.6B's decoder
+             geometry as .safetensors; the DAC's weights.pth with its encoder)
+             and read by the port's loaders onto the card: every tensor equal
+             to its twin's, each file's MiB, write and load seconds;
+             XttsCheckpointEngine's conditioning and 200 synthesize steps, the
+             DVAE, DiaTTSEngine on the 27-word line (12 K2) and Dia-1.6B's
+             teacher-forced forward (18 K2) from the files, each bit-equal to
+             its twin's with equal launches
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -300,7 +319,8 @@ import numpy as np
 
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
-          "transcribe", "diffusion", "music", "lora", "yue", "loaders", "loaders_listen")
+          "transcribe", "diffusion", "music", "lora", "yue", "loaders", "loaders_listen",
+          "loaders_speech")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -2674,6 +2694,50 @@ ZONOS_EMB_FRAMES = 200
 LM_TOKENS = 2048
 
 
+def build_dia(dev, seed: int = 0, **cfg_kw):
+    """Dia at ``DiaConfig(**cfg_kw)`` on ``dev``, weights by bench.py's rules."""
+    import torch
+
+    from audiolab_tpu_torch.models.dia import DiaConfig, DiaModel
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return fast_init(DiaModel(DiaConfig(**cfg_kw)), seed).eval()
+
+
+def build_dac(dev, seed: int = 1):
+    """The 44.1 kHz DAC decoder (decoder_dim 1536) Dia and Zonos decode
+    through, on ``dev``."""
+    import torch
+
+    from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return fast_init(DACDecoder(DACConfig(decoder_dim=1536)), seed).eval()
+
+
+def build_xtts_v2(dev, seed: int = 10):
+    """XTTS-v2's five weighted modules at the published widths on ``dev``, in
+    ``XttsCheckpointEngine``'s order (GPT-2, conditioning encoder, perceiver,
+    speaker encoder, HiFi decoder), seeded ``seed`` to ``seed + 4``."""
+    import torch
+
+    from audiolab_tpu_torch.models.xtts import (
+        XttsConditioningEncoder,
+        XttsGPT2,
+        XttsHifiganDecoder,
+        XttsPerceiverResampler,
+        XttsSpeakerEncoder,
+    )
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return [fast_init(m, seed + i).eval() for i, m in enumerate((
+            XttsGPT2(), XttsConditioningEncoder(), XttsPerceiverResampler(),
+            XttsSpeakerEncoder(), XttsHifiganDecoder()))]
+
+
 def _peak_reset(cuda: bool) -> None:
     import torch
 
@@ -2764,7 +2828,6 @@ def phase_engines(dev, card: str, profile_dir: str | None = None) -> dict:
 
     from audiolab_tpu_torch.core.audio_io import read_wav
     from audiolab_tpu_torch.kernels import attention as A
-    from audiolab_tpu_torch.models.codecs import DACConfig, DACDecoder
     from audiolab_tpu_torch.models.dia import DiaConfig, DiaModel, tokenize_dialogue
     from audiolab_tpu_torch.models.dia import generate as dia_generate
     from audiolab_tpu_torch.models.lm import LMConfig, TransformerLM, gumbel_draws
@@ -2772,11 +2835,8 @@ def phase_engines(dev, card: str, profile_dir: str | None = None) -> dict:
     from audiolab_tpu_torch.models.xtts import (
         XTTS,
         XTTSConfig,
-        XttsConditioningEncoder,
         XttsGPT2,
         XttsHifiganDecoder,
-        XttsPerceiverResampler,
-        XttsSpeakerEncoder,
         xtts_gpt2_generate,
     )
     from audiolab_tpu_torch.models.zonos import (
@@ -2807,9 +2867,7 @@ def phase_engines(dev, card: str, profile_dir: str | None = None) -> dict:
 
     # (a) Dia at DiaConfig() behind DiaTTSEngine
     t0 = time.perf_counter()
-    with torch.device(dev):
-        dia = fast_init(DiaModel(DiaConfig()), 0)
-        dac = fast_init(DACDecoder(DACConfig(decoder_dim=1536)), 1)
+    dia, dac = build_dia(dev), build_dac(dev)
     eng = DiaTTSEngine(dia, dac, device=dev)
     sync(dev)
     c = dia.cfg
@@ -2889,8 +2947,7 @@ def phase_engines(dev, card: str, profile_dir: str | None = None) -> dict:
             del eng, dia
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            with torch.device(dev):
-                dia = fast_init(DiaModel(DiaConfig(**cfg_kw)), 2)
+            dia = build_dia(dev, 2, **cfg_kw)
             sync(dev)
             log(f"[engines] (b) {name}: {n_params(dia):.1f} M parameters "
                 f"({4 * n_params(dia) / 1e3:.2f} GB fp32), built in "
@@ -2968,10 +3025,7 @@ def phase_engines(dev, card: str, profile_dir: str | None = None) -> dict:
 
     # (d) XTTS-v2 at the published widths
     t0 = time.perf_counter()
-    with torch.device(dev):
-        mods = [fast_init(m, 10 + i) for i, m in enumerate((
-            XttsGPT2(), XttsConditioningEncoder(), XttsPerceiverResampler(),
-            XttsSpeakerEncoder(), XttsHifiganDecoder()))]
+    mods = build_xtts_v2(dev)
     ck = XttsCheckpointEngine(*mods, device=dev)
     sync(dev)
     log(f"[engines] (d) XTTS-v2: GPT-2 {len(ck.gpt.gpt.h)} x {ck.gpt.dim} x {ck.gpt.heads} "
@@ -3137,8 +3191,7 @@ def phase_engines(dev, card: str, profile_dir: str | None = None) -> dict:
     torch.cuda.empty_cache()
 
     # (g) the served routes, then main --demo-backends
-    with torch.device(dev):
-        dia = fast_init(DiaModel(DiaConfig()), 0)
+    dia = build_dia(dev)
     eng = DiaTTSEngine(dia, dac, device=dev)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_engines_"))
     saved = dict(tts_api._BACKENDS)
@@ -6016,6 +6069,12 @@ HUBERT_WN = re.compile(r"^encoder\.pos_conv\.0\.weight$")
 W2V_WN = re.compile(r"^encoder\.encoder\.pos_conv\.0\.weight$")
 AUDIOSR_VOCODER_WN = re.compile(r"^(conv_pre|conv_post|ups\.\d+|resblocks\.\d+\.convs[12]\.\d+)"
                                 r"\.weight$")
+# descript-audio-codec's decoder: every convolution, transposed convolution
+# and quantizer out_proj; XTTS-v2's HiFi decoder: the up-convolutions and the
+# residual blocks' convolutions (conv_pre and conv_post carry none)
+DAC_WN = re.compile(r"^(decoder\.model\.\d+(\.block\.\d+(\.block\.\d+)?)?"
+                    r"|quantizer\.quantizers\.\d+\.out_proj)\.weight$")
+XTTS_HIFI_WN = re.compile(r"^(ups\.\d+|resblocks\.\d+\.convs[12]\.\d+)\.weight$")
 MDX23C_SCALES = re.compile(r"^((?:encoder_blocks\.\d+\.downscale)|(?:decoder_blocks\.\d+"
                            r"\.upscale))\.(\d+\.)")
 
@@ -6061,6 +6120,54 @@ def mdx23c_upstream_names(sd: dict) -> dict:
     """The port's MDX23C state_dict under ZFTurbo's tfc_tdf_v3 names, whose
     down/upscale Sequential sits under ``.conv``."""
     return {MDX23C_SCALES.sub(r"\1.conv.\2", k): v for k, v in sd.items()}
+
+
+def gains_off(sd: dict, seed: int) -> dict:
+    """``sd`` with every weight-norm gain (``weight_g``) moved off its
+    weight's norm by a factor in [1, 1.2) drawn from ``seed``, so that a fold
+    over the wrong dim gives other weights."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return {k: v * (1.0 + 0.2 * torch.rand(v.shape, generator=g)).to(v.dtype)
+            if k.endswith("weight_g") else v for k, v in sd.items()}
+
+
+def dac_encoder_state(seed: int, n_q: int = 9, latent: int = 1024, codebook_dim: int = 8) -> dict:
+    """descript-audio-codec's 44.1 kHz encoder (d_model 64, strides 2, 4, 8,
+    8) and each quantizer's ``in_proj`` under their names, every convolution
+    a weight-norm pair, seeded values: what ``weights.pth`` holds beside the
+    decode path."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd: dict = {}
+
+    def wn(key, cout, cin, k):
+        sd[f"{key}.weight_g"] = torch.rand(cout, 1, 1, generator=g)
+        sd[f"{key}.weight_v"] = 0.05 * torch.randn(cout, cin, k, generator=g)
+        sd[f"{key}.bias"] = 0.01 * torch.randn(cout, generator=g)
+
+    def snake(key, ch):
+        sd[f"{key}.alpha"] = torch.rand(1, ch, 1, generator=g)
+
+    wn("encoder.block.0", 64, 1, 7)
+    d = 64
+    for i, stride in enumerate((2, 4, 8, 8)):
+        blk = f"encoder.block.{1 + i}.block"
+        for j in range(3):
+            snake(f"{blk}.{j}.block.0", d)
+            wn(f"{blk}.{j}.block.1", d, d, 7)
+            snake(f"{blk}.{j}.block.2", d)
+            wn(f"{blk}.{j}.block.3", d, d, 1)
+        snake(f"{blk}.3", d)
+        wn(f"{blk}.4", 2 * d, d, 2 * stride)
+        d *= 2
+    snake("encoder.block.5", d)
+    wn("encoder.block.6", latent, d, 3)
+    for i in range(n_q):
+        wn(f"quantizer.quantizers.{i}.in_proj", codebook_dim, latent, 1)
+    return sd
 
 
 def off_their_init(module, seed: int):
@@ -6356,6 +6463,59 @@ LISTEN_SCALE_FACTOR = 0.8532     # the AudioSR checkpoint's latent scale_factor
 MATCH_TOL = 1e-6                 # of max|y|: a loaded model against its twin in memory
 
 
+def twin(module, sd: dict):
+    """A copy of ``module`` holding ``sd``: the twin in memory of a module
+    loaded from its file."""
+    import copy
+
+    out = copy.deepcopy(module)
+    out.load_state_dict(sd)
+    return out
+
+
+def twin_run(dev, card: str, tag: str, runs: dict, path: dict, label: str, from_file,
+             in_memory, expect_k2: int = 0, exact: bool = False):
+    """Run ``from_file`` and ``in_memory`` (a model loaded from its file and
+    its twin in memory), counts reset just before and read just after each;
+    the launches must be equal (``expect_k2`` K2 and nothing else on the
+    card) and the outputs equal: bit for bit with ``exact``, else within
+    MATCH_TOL of max|y| for tensors.  Records the run in ``runs[label]``,
+    adds the file's launches to ``path`` and returns its output."""
+    import torch
+
+    def run(fn):
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, time.perf_counter() - t0, counts()
+
+    a, secs, la = run(from_file)
+    b, secs_m, lb = run(in_memory)
+    if torch.is_tensor(a) or isinstance(a, np.ndarray):
+        a64, b64 = (torch.as_tensor(x).double().cpu() for x in (a, b))
+        same = torch.equal(a64, b64)
+        d, peak = float((a64 - b64).abs().max()), float(b64.abs().max())
+        finite = bool(torch.isfinite(a64).all())
+        err = f"max|diff| {d:.3e} (tolerance {MATCH_TOL * peak:.3e}: {MATCH_TOL:g} of max|y|)"
+        ok = finite and (same or (not exact and d <= MATCH_TOL * peak))
+    else:
+        same = ok = a == b
+        d, err = 0.0 if same else float("inf"), "equal" if same else "differ"
+    runs[label] = dict(seconds=secs, seconds_twin=secs_m, launches=la, bit_equal=same,
+                       max_abs_diff=d)
+    for k in path:
+        path[k] += la[k]
+    log(f"{tag} {label}: from the files {secs:.3f} s, launches {la}; the twin in memory "
+        f"{secs_m:.3f} s, launches {lb}; bit-equal {same}, {err} | {card}")
+    want = {k: (expect_k2 if k == "K2" and dev.type == "cuda" else 0) for k in KERNELS}
+    expect(la == lb == want, f"{tag} {label}: launches {la} / {lb}, expected {want}")
+    expect(ok, f"{tag} {label}: the run from the files differs from the twin's"
+               + (" (bit equality asked)" if exact else ""))
+    return a
+
+
 def phase_loaders_listen(dev, card: str) -> dict:
     """The Super Resolution, transcription, diarization and alignment
     checkpoint formats at full width, written here in the upstream
@@ -6382,7 +6542,6 @@ def phase_loaders_listen(dev, card: str) -> dict:
     before and read just after; launches must be equal and outputs equal
     (within MATCH_TOL of max|y| for tensors, printed).  Returns the path's
     launches: the runs from the files."""
-    import copy
     import functools
     import shutil
     import tempfile
@@ -6413,46 +6572,7 @@ def phase_loaders_listen(dev, card: str) -> dict:
     path = dict.fromkeys(KERNELS, 0)
     through_file = functools.partial(load_through_file, dev, work, files, card, tag=tag)
 
-    def twin(module, sd: dict):
-        """A copy of ``module`` holding ``sd``."""
-        out = copy.deepcopy(module)
-        out.load_state_dict(sd)
-        return out
-
-    def both(label: str, from_file, in_memory, expect_k2: int = 0):
-        """Run ``from_file`` and ``in_memory``, counts reset just before and
-        read just after each; the launches must be equal (``expect_k2`` K2
-        and nothing else on the card) and the outputs equal."""
-        def run(fn):
-            reset_counts()
-            sync(dev)
-            t0 = time.perf_counter()
-            out = fn()
-            sync(dev)
-            return out, time.perf_counter() - t0, counts()
-
-        a, secs, la = run(from_file)
-        b, secs_m, lb = run(in_memory)
-        if torch.is_tensor(a) or isinstance(a, np.ndarray):
-            a64, b64 = (torch.as_tensor(x).double().cpu() for x in (a, b))
-            same = torch.equal(a64, b64)
-            d, peak = float((a64 - b64).abs().max()), float(b64.abs().max())
-            finite = bool(torch.isfinite(a64).all())
-            err = f"max|diff| {d:.3e} (tolerance {MATCH_TOL * peak:.3e}: {MATCH_TOL:g} of max|y|)"
-            ok = finite and (same or d <= MATCH_TOL * peak)
-        else:
-            same = ok = a == b
-            d, err = 0.0 if same else float("inf"), "equal" if same else "differ"
-        runs[label] = dict(seconds=secs, seconds_twin=secs_m, launches=la, bit_equal=same,
-                           max_abs_diff=d)
-        for k in path:
-            path[k] += la[k]
-        log(f"{tag} {label}: from the files {secs:.3f} s, launches {la}; the twin in memory "
-            f"{secs_m:.3f} s, launches {lb}; bit-equal {same}, {err} | {card}")
-        want = {k: (expect_k2 if k == "K2" and cuda else 0) for k in KERNELS}
-        expect(la == lb == want, f"{tag} {label}: launches {la} / {lb}, expected {want}")
-        expect(ok, f"{tag} {label}: the run from the files differs from the twin's")
-        return a
+    both = functools.partial(twin_run, dev, card, tag, runs, path)
 
     try:
         # (a) one whole AudioSR checkpoint
@@ -6621,6 +6741,178 @@ def phase_loaders_listen(dev, card: str) -> dict:
     return dict(launches=path, files=files, runs=runs, phase_s=phase_s)
 
 
+SPEECH_DVAE_FRAMES = 400       # mel frames of the DVAE's encode -> decode on the card
+
+
+def phase_loaders_speech(dev, card: str) -> dict:
+    """The speech engines' checkpoint formats at full width, written here in
+    the upstream containers and names from the seeded modules of phase
+    ``engines`` (``build_xtts_v2``, ``build_dia``, ``build_dac``), and read
+    back by the port's loaders onto the card: each file's tensors equal to
+    its twin's (the module in memory brought to what the loader should make
+    of its file: the weight-norm pairs folded), with its bytes, write and
+    load seconds.  (a) XTTS-v2: one ``model.pth`` with the five parts under
+    Coqui's prefixes (the HiFi decoder's pairs with the gains drawn off, the
+    speaker encoder's batch norms drawn off their initial values, a mel front
+    end's buffer), each of the five loaders reading the whole file, and
+    ``dvae.pth`` at ``XttsDVAE()`` with its EMA buffers; XttsCheckpointEngine
+    from the loaded modules runs ``conditioning`` on a 6 s reference and
+    XTTS_STEPS ``synthesize`` steps, the DVAE encodes and decodes
+    SPEECH_DVAE_FRAMES mel frames.  (b) Dia at ``DiaConfig()`` as
+    ``.safetensors`` and the DAC at decoder_dim 1536 as ``weights.pth``
+    (``state_dict`` with weight-norm pairs, the encoder and ``in_proj``
+    beside it): DiaTTSEngine from both on phase ``engines``' 27-word line
+    (12 fp32 K2).  (c) Dia at Dia-1.6B's decoder geometry (DIA16) as
+    ``.safetensors``: one teacher-forced forward over BOS + a 5 s prompt
+    (18 fp32 K2).  Each run from the files and its twin's run get counts
+    reset just before and read just after; launches must be equal and every
+    output bit-equal.  Returns the path's launches: the runs from the
+    files."""
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.models.dia import DiaConfig, tokenize_dialogue
+    from audiolab_tpu_torch.models.xtts import XttsDVAE
+    from audiolab_tpu_torch.models.zonos import delay_pattern
+    from audiolab_tpu_torch.pipelines.tts import DiaTTSEngine, XttsCheckpointEngine
+    from audiolab_tpu_torch.utils import convert as C
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    tag = "[loaders_speech]"
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_loaders_speech_"))
+    files: dict[str, dict] = {}
+    runs: dict[str, dict] = {}
+    path = dict.fromkeys(KERNELS, 0)
+    through_file = functools.partial(load_through_file, dev, work, files, card, tag=tag)
+    both = functools.partial(twin_run, dev, card, tag, runs, path, exact=True)
+
+    def named(prefixes, modules):
+        return {f"{pre}{k}": v for pre, m in zip(prefixes, modules)
+                for k, v in m.state_dict().items()}
+
+    try:
+        # (a) XTTS-v2's model.pth and dvae.pth
+        gpt, cond, perc, spk, hifi = build_xtts_v2(dev)
+        off_their_init(spk, 221)
+        hifi_pairs = gains_off(weight_norm_pairs(cpu_state(hifi), XTTS_HIFI_WN), 222)
+        hifi_mem = twin(hifi, C.fold_state_dict(hifi_pairs))
+        del hifi
+        prefixes = ("gpt.", "gpt.conditioning_encoder.", "gpt.conditioning_perceiver.",
+                    "hifigan_decoder.speaker_encoder.")
+        ckpt = {k: v.detach().cpu() for k, v in named(prefixes, (gpt, cond, perc, spk)).items()}
+        ckpt.update({f"hifigan_decoder.waveform_decoder.{k}": v for k, v in hifi_pairs.items()})
+        ckpt["torch_mel_spectrogram_style_encoder.mel_stft.mel_basis"] = torch.rand(
+            80, 513, generator=torch.Generator().manual_seed(223))
+        del hifi_pairs
+        parts = ("gpt.", "cond.", "perc.", "spk.", "hifi.")
+        loaded = through_file(
+            "XTTS-v2 model.pth (GPT-2, conditioning encoder, perceiver, speaker encoder, "
+            "HiFi decoder)", "model.pth", ckpt,
+            lambda p: (C.load_xtts_gpt_checkpoint(p, device=dev),
+                       C.load_xtts_conditioner_checkpoint(p, device=dev),
+                       C.load_xtts_perceiver_checkpoint(p, device=dev),
+                       C.load_xtts_speaker_checkpoint(p, device=dev),
+                       C.load_xtts_hifigan_checkpoint(p, device=dev)),
+            named(parts, (gpt, cond, perc, spk, hifi_mem)), state_of=lambda got: named(parts, got))
+        del ckpt
+        with torch.device(dev):
+            dvae = fast_init(XttsDVAE(), 15).eval()
+        dvae_file = cpu_state(dvae)
+        g = torch.Generator().manual_seed(224)
+        cdim, n_tok = dvae.codebook.embed.shape
+        dvae_file["codebook.cluster_size"] = torch.rand(n_tok, generator=g)
+        dvae_file["codebook.embed_avg"] = torch.rand(cdim, n_tok, generator=g)
+        dvae_f = through_file("XTTS-v2 dvae.pth", "dvae.pth", dvae_file,
+                              lambda p: C.load_xtts_dvae_checkpoint(p, device=dev), dvae)
+        del dvae_file
+        ck_f = XttsCheckpointEngine(*loaded, device=dev)
+        ck_m = XttsCheckpointEngine(gpt, cond, perc, spk, hifi_mem, device=dev)
+        ref24 = _tone(XTTS_REF_S, 24000)
+        voices: dict = {}
+
+        def conditioning(name, eng):
+            def run():
+                voices[name] = eng.conditioning(ref24, 24000)
+                return torch.cat([t.flatten() for t in voices[name]])
+            return run
+
+        both(f"XTTS-v2 conditioning on {XTTS_REF_S:g} s (perceiver latents and d-vector)",
+             conditioning("file", ck_f), conditioning("memory", ck_m))
+        both(f"XTTS-v2 synthesize ({XTTS_STEPS} steps, the HiFi decoder)",
+             lambda: ck_f.synthesize(XTTS_TEXT, cond=voices["file"][0],
+                                     d_vector=voices["file"][1], max_steps=XTTS_STEPS, seed=0)[0],
+             lambda: ck_m.synthesize(XTTS_TEXT, cond=voices["memory"][0],
+                                     d_vector=voices["memory"][1], max_steps=XTTS_STEPS,
+                                     seed=0)[0])
+        mel = torch.randn(1, SPEECH_DVAE_FRAMES, 80, generator=torch.Generator().manual_seed(225))
+        mel = mel.to(dev)
+        with torch.inference_mode():
+            both(f"XTTS-v2 DVAE encode -> decode ({SPEECH_DVAE_FRAMES} mel frames)",
+                 lambda: dvae_f.decode(dvae_f.encode(mel)), lambda: dvae.decode(dvae.encode(mel)))
+        del ck_f, ck_m, loaded, gpt, cond, perc, spk, hifi_mem, dvae, dvae_f, voices, mel
+        torch.cuda.empty_cache()
+
+        # (b) Dia at DiaConfig() (.safetensors) and the DAC's weights.pth
+        dia, dac = build_dia(dev), build_dac(dev)
+        dac_pairs = gains_off(weight_norm_pairs(cpu_state(dac), DAC_WN), 226)
+        dac_mem = twin(dac, C.fold_state_dict(dac_pairs))
+        del dac
+        dac_file = {"state_dict": {**dac_pairs, **dac_encoder_state(227)},
+                    "metadata": {"kwargs": {"sample_rate": 44100, "decoder_dim": 1536}}}
+        dia_f = through_file("Dia DiaConfig() (.safetensors)", "model.safetensors",
+                             cpu_state(dia),
+                             lambda p: C.load_dia_checkpoint(p, DiaConfig(), device=dev), dia,
+                             write=write_safetensors)
+        dac_f, dac_cfg = through_file("DAC 44.1 kHz weights.pth (decoder_dim 1536)",
+                                      "weights.pth", dac_file,
+                                      lambda p: C.load_dac_checkpoint(p, device=dev), dac_mem)
+        expect(dac_cfg == dac_mem.cfg, f"{tag} DAC config {dac_cfg} != {dac_mem.cfg}")
+        del dac_file, dac_pairs
+        eng_f = DiaTTSEngine(dia_f, dac_f, device=dev)
+        eng_m = DiaTTSEngine(dia, dac_mem, device=dev)
+        both(f"DiaTTSEngine with the DAC ({len(DIA_TEXT.split())} words, "
+             f"{eng_f.frames(DIA_TEXT)} frames, CFG batch 2)",
+             lambda: eng_f.generate(DIA_TEXT, seed=0)[0],
+             lambda: eng_m.generate(DIA_TEXT, seed=0)[0], expect_k2=dia.cfg.n_layers_dec)
+        del eng_f, eng_m, dia, dia_f, dac_f, dac_mem
+        torch.cuda.empty_cache()
+
+        # (c) Dia-1.6B's decoder geometry (.safetensors): one teacher-forced forward
+        dia = build_dia(dev, 2, **DIA16)
+        dia_f = through_file("Dia-1.6B decoder geometry (.safetensors)", "model.safetensors",
+                             cpu_state(dia),
+                             lambda p: C.load_dia_checkpoint(p, DiaConfig(**DIA16), device=dev),
+                             dia, write=write_safetensors)
+        c = dia.cfg
+        gp = torch.Generator(device=dev).manual_seed(11)
+        prompt = torch.randint(0, 1024, (1, c.n_codebooks, DIA_PROMPT_FRAMES), generator=gp,
+                               device=dev)
+        bos = torch.full((1, c.n_codebooks, 1), c.bos_id, dtype=torch.long, device=dev)
+        seq = torch.cat([bos, delay_pattern(prompt, c.masked_id)], dim=2)
+        text = torch.as_tensor(tokenize_dialogue(DIA_TEXT)[None], dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            both(f"Dia-1.6B teacher-forced forward over {seq.shape[2]} positions",
+                 lambda: dia_f(text, seq, text != 0), lambda: dia(text, seq, text != 0),
+                 expect_k2=c.n_layers_dec)
+        del dia, dia_f
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"{tag} {len(files)} files, {sum(f['bytes'] for f in files.values()) / 2**30:.2f} "
+        f"GiB written in {sum(f['write_s'] for f in files.values()):.1f} s and loaded in "
+        f"{sum(f['load_s'] for f in files.values()):.1f} s; the path's launches {path}; "
+        f"phase {phase_s:.1f} s | {card}")
+    expect(path["K2"] > 0 or not cuda, f"{tag} K2 was not launched on the path")
+    return dict(launches=path, files=files, runs=runs, phase_s=phase_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -6663,7 +6955,7 @@ def main() -> int:
 
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
-    diffused = composed = adapted = sung = loaded = listened = None
+    diffused = composed = adapted = sung = loaded = listened = spoken_files = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "loaders", "long"} & set(phases)
     if need_chain:
@@ -6773,6 +7065,12 @@ def main() -> int:
         # before each run and read just after (Whisper's uncached forward and
         # the aligner's spans launch K2; AudioSR, the diarizer and RTLA none)
         listened = phase_loaders_listen(dev, card)["launches"]
+    if "loaders_speech" in phases:
+        mark("loaders_speech")
+        # this slice's path: each engine loaded from its files, counts reset
+        # just before each run and read just after (Dia's call and the
+        # Dia-1.6B forward launch K2; XTTS-v2 and the DVAE none)
+        spoken_files = phase_loaders_speech(dev, card)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -6792,6 +7090,7 @@ def main() -> int:
            "yue_launches": None if sung is None else sung[r["kernel"]],
            "loaders_launches": None if loaded is None else loaded[r["kernel"]],
            "loaders_listen_launches": None if listened is None else listened[r["kernel"]],
+           "loaders_speech_launches": None if spoken_files is None else spoken_files[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),

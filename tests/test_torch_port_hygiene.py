@@ -213,7 +213,10 @@ LOADERS = ("load_roformer_checkpoint", "load_rvc_checkpoint", "load_rmvpe_checkp
            "load_crepe_checkpoint", "load_htdemucs_checkpoint", "load_mdx23c_checkpoint",
            "load_vr_checkpoint", "load_audiosr_vocoder_checkpoint", "load_audiosr_vae_checkpoint",
            "load_audiosr_unet_checkpoint", "load_wav2vec2_checkpoint", "load_pyannet_checkpoint",
-           "load_wespeaker_checkpoint", "load_rtla_crnn_checkpoint")
+           "load_wespeaker_checkpoint", "load_rtla_crnn_checkpoint", "load_dac_checkpoint",
+           "load_dia_checkpoint", "load_xtts_gpt_checkpoint", "load_xtts_conditioner_checkpoint",
+           "load_xtts_perceiver_checkpoint", "load_xtts_hifigan_checkpoint",
+           "load_xtts_speaker_checkpoint", "load_xtts_dvae_checkpoint")
 
 
 @pytest.mark.parametrize("name", LOADERS)
@@ -223,10 +226,12 @@ def test_checkpoint_loaders_default_to_the_card(no_cuda, tmp_path, name):
     the card unless told otherwise: without one it raises before it reads
     the file (there is none here), and falls back neither to the CPU nor to
     random weights."""
+    from audiolab_tpu_torch.models.dia import DiaConfig
     from audiolab_tpu_torch.models.separation.roformer import RoformerConfig
     from audiolab_tpu_torch.utils import convert
 
-    args = (RoformerConfig(),) if name == "load_roformer_checkpoint" else ()
+    args = {"load_roformer_checkpoint": (RoformerConfig(),),
+            "load_dia_checkpoint": (DiaConfig(),)}.get(name, ())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(convert, name)(str(tmp_path / "absent.pth"), *args)
     with pytest.raises(FileNotFoundError):

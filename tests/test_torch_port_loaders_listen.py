@@ -53,7 +53,7 @@ from audiolab_tpu_torch.models import whisper as TW
 from audiolab_tpu_torch.models.diarize import DiarizeConfig, NeuralDiarizer
 from audiolab_tpu_torch.utils import convert as TV
 from audiolab_tpu_torch.utils import weights as W
-from chip_smoke import cpu_state, weight_norm_pairs, write_safetensors
+from chip_smoke import cpu_state, gains_off, weight_norm_pairs, write_safetensors
 from tests import torch_port_tiny as tiny
 from tests.test_torch_port_loaders import _states_equal
 from tests.torch_port_tiny import one_torch_thread  # noqa: F401 (autouse)
@@ -74,14 +74,6 @@ def _close(got, want, rel):
     got, want = np.asarray(got), np.asarray(want)
     assert got.shape == want.shape, (got.shape, want.shape)
     np.testing.assert_allclose(got, want, atol=rel * np.abs(want).max(), rtol=0)
-
-
-def _gains_off(sd: dict, seed: int) -> dict:
-    """``sd`` with every weight-norm gain moved off its weight's norm, so
-    that the fold changes the weight."""
-    g = torch.Generator().manual_seed(seed)
-    return {k: v * (1.0 + 0.2 * torch.rand(v.shape, generator=g)) if k.endswith("weight_g")
-            else v for k, v in sd.items()}
 
 
 def _parametrized(sd: dict) -> dict:
@@ -116,7 +108,7 @@ def _vocoder_upstream(form: str = "pair") -> dict:
     sd = _audiosr_parts()["vocoder"]
     if form == "plain":
         return dict(sd)
-    sd = _gains_off(weight_norm_pairs(sd, VOCODER_WN, dim=0), 83)
+    sd = gains_off(weight_norm_pairs(sd, VOCODER_WN, dim=0), 83)
     return _parametrized(sd) if form == "parametrizations" else sd
 
 
@@ -280,7 +272,7 @@ def _w2v_port_state() -> dict:
 def _w2v_hf(form: str) -> dict:
     """HF Wav2Vec2ForCTC's names, the positional convolution's weight norm
     over dim 2 in ``form``, and HF's ``masked_spec_embed``."""
-    sd = _gains_off(weight_norm_pairs(W.wav2vec2_to_hf(_w2v_port_state()), W2V_WN, dim=2), 86)
+    sd = gains_off(weight_norm_pairs(W.wav2vec2_to_hf(_w2v_port_state()), W2V_WN, dim=2), 86)
     sd["wav2vec2.masked_spec_embed"] = torch.rand(W2V_ENC["dim"])
     return _parametrized(sd) if form == "parametrizations" else sd
 

@@ -628,16 +628,16 @@ def chatterbox_punc_norm(text: str) -> str:
 
 
 class ChatterboxTokenizer:
-    """chatterbox EnTokenizer: the HF ``tokenizers`` BPE of the checkpoint's
-    tokenizer.json (imported when one is loaded), spaces mapped to [SPACE]."""
+    """chatterbox EnTokenizer: the checkpoint's tokenizer.json through
+    :class:`BpeTokenizer` (the port needs no ``tokenizers`` package), spaces
+    mapped to [SPACE].  A file whose model is not BPE, or whose
+    pre-tokenizer is not ``Whitespace``, raises ``ValueError``."""
 
     def __init__(self, vocab_file: str):
-        from tokenizers import Tokenizer
-
-        self.tokenizer = Tokenizer.from_file(vocab_file)
+        self.tokenizer = BpeTokenizer(vocab_file)
 
     def encode(self, text: str) -> list[int]:
-        return self.tokenizer.encode(text.replace(" ", "[SPACE]")).ids
+        return self.tokenizer.encode(text.replace(" ", "[SPACE]"))
 
 
 class ChatterboxCheckpointEngine:

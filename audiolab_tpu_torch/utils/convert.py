@@ -41,9 +41,19 @@ published layout differs, and ``load_state_dict(strict=True)``:
   and XTTS-v2's ``load_xtts_{gpt,conditioner,perceiver,hifigan,speaker}_checkpoint``
   (one whole ``model.pth`` holds all five) and ``load_xtts_dvae_checkpoint``
   (``dvae.pth``).
+- The rest of the speech and cloning engines: Zonos's ``load_zonos_state``
+  and ``load_zonos_prefix_state`` (one ``model.safetensors`` holds both)
+  with ``zonos_prefix_specs_from_config``, OpenVoice's
+  ``load_openvoice_checkpoint``, and Chatterbox's ``load_chatterbox_t3_state``,
+  ``load_voice_encoder_state``, ``load_s3gen_state``, ``load_campplus_state``
+  and ``load_s3tokenizer_state`` (one ``s3gen.safetensors`` holds the last
+  three), which ``load_chatterbox_pipeline`` assembles from the published
+  directory.  A ``load_*_state`` loads a state_dict into the module it is
+  given, in place on its device, as ``load_whisper_state`` does.
 
 Every loader of a file builds its module on ``device`` (default the card;
-raises without one) and, ``load_hubert_state`` aside, loads strictly: a missing key or a wrong shape raises and
+raises without one) and, ``load_hubert_state`` and ``load_zonos_state``
+aside, loads strictly: a missing key or a wrong shape raises and
 names the key.  The checkpoint's other tensors are dropped, as the JAX
 loaders read only the keys their templates map.
 """
@@ -844,3 +854,243 @@ def load_xtts_dvae_checkpoint(path: str, device: str | torch.device = "cuda", **
 
     return _xtts_part(path, ("dvae.",), lambda: XttsDVAE(**kw), device,
                       "XTTS-v2 DVAE checkpoint")
+
+
+# ------------------------------------------------------------------ Zonos
+
+# the names convert_zonos maps: the backbone (with ``backbone.norm_f``), the
+# per-codebook embeddings and heads
+_ZONOS_MAPPED = ("backbone.", "embeddings.", "heads.")
+
+
+def load_zonos_state(model: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """Zyphra Zonos's state_dict (``model.safetensors``, the hybrid's names)
+    into ``models/zonos.ZonosModel``, the counterpart of ``convert_zonos``:
+    the backbone, ``embeddings.q``, ``heads.q`` and ``backbone.norm_f``, in
+    place.  Each of them must be in the file: a missing one raises with its
+    key, and so does a wrong shape (which the JAX converter's non-strict
+    fill passes through: ROADMAP queue 3).  The branches the JAX converter
+    leaves unmapped (``text_emb``, ``spk_proj``, ``emotion``, ``rate``,
+    ``pitch``) keep the module's values.  A Mamba1 layer raises, as in the
+    JAX converter: upstream hybrid checkpoints need ``ZonosConfig(mixer=
+    "mamba2")``."""
+    from audiolab_tpu_torch.models.zonos import MambaBlock
+
+    for i, layer in enumerate(model.backbone.layers):
+        if isinstance(layer.mixer, MambaBlock):
+            raise ValueError(f"layer {i} is a Mamba1-style block; upstream hybrid "
+                             "checkpoints need ZonosConfig(mixer='mamba2')")
+    sd = {k: v for k, v in model.state_dict().items() if not k.startswith(_ZONOS_MAPPED)}
+    sd.update((k, v) for k, v in _floats(state_dict).items() if k.startswith(_ZONOS_MAPPED))
+    return _load_strict(model, sd, "Zonos state_dict")
+
+
+def load_zonos_prefix_state(bank: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """The checkpoint's prefix conditioner (``model.prefix_conditioner.`` or
+    ``prefix_conditioner.`` stripped) into ``models/zonos.
+    ZonosPrefixConditioner`` in place, the counterpart of
+    ``convert_zonos_prefix``: the bank's specs and projection are the
+    module's (``zonos_prefix_specs_from_config`` reads them from
+    ``config.json``); its own ``project`` and ``norm`` are the names left
+    after the prefix, as the JAX mapping's stripped leading dot gives them."""
+    sd = _strip(_floats(state_dict), ("model.prefix_conditioner.", "prefix_conditioner."))
+    return _load_strict(bank, sd, "Zonos prefix conditioner state_dict")
+
+
+def zonos_prefix_specs_from_config(conditioners: list) -> tuple:
+    """``config.json``'s ``prefix_conditioner.conditioners`` list -> the
+    ``models/zonos.CondSpec`` tuple ``ZonosPrefixConditioner`` takes, with
+    the JAX package's defaults."""
+    from audiolab_tpu_torch.models.zonos import CondSpec
+
+    return tuple(
+        CondSpec(type=d["type"], name=d["name"], cond_dim=d.get("cond_dim"),
+                 projection=d.get("projection", "none"),
+                 uncond_type=d.get("uncond_type", "none"),
+                 input_dim=d.get("input_dim", 1),
+                 min_val=float(d.get("min_val", 0.0)),
+                 max_val=float(d.get("max_val", 1.0)))
+        for d in conditioners)
+
+
+# --------------------------------------------------------------- OpenVoice
+
+def load_openvoice_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """OpenVoice's ``converter.pth`` (the tensors under ``model``, or at the
+    top level; ``model.`` stripped) -> ``models/openvoice.ToneColorConverter``
+    of ``cfg`` (default ``ToneColorConfig()``) on ``device``.  Every
+    weight-norm pair is folded over dim 0 (the reference encoder's six
+    Conv2d, the WaveNet layers, HiFiGAN's residual convolutions and
+    ``conv_post``, and the transposed up-convolutions over their input
+    channels); the reference GRU's r and z hidden biases are folded into
+    its input ones, as the JAX converter folds them."""
+    from audiolab_tpu_torch.models.openvoice import ToneColorConfig, ToneColorConverter
+
+    dev = resolve_device(device)
+    ckpt = torch_load_weights(path)
+    sd = fold_state_dict(_strip(_floats(ckpt.get("model", ckpt)), ("model.",)))
+    _fold_recurrent_biases(sd, lstm=False)
+    with dev:
+        model = ToneColorConverter(cfg or ToneColorConfig())
+    return _load_strict(model, sd, "OpenVoice converter checkpoint").eval()
+
+
+# -------------------------------------------------------------- Chatterbox
+
+def load_chatterbox_t3_state(t3: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """``t3_cfg.safetensors`` into ``models/chatterbox_t3.T3`` in place, the
+    counterpart of ``convert_chatterbox_t3``: the module keeps the file's
+    names (its ``tfmr`` hooks map ``tfmr.layers.N`` onto the LLaMA stack)."""
+    return _load_strict(t3, _floats(state_dict), "Chatterbox T3 state_dict")
+
+
+def load_voice_encoder_state(ve: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """``ve.safetensors`` (the LSTM in torch's layout, ``proj``) into
+    ``models/chatterbox_t3.VoiceEncoder`` in place, the counterpart of
+    ``convert_voice_encoder``."""
+    return _load_strict(ve, _floats(state_dict), "voice encoder state_dict")
+
+
+def load_s3gen_state(s3gen: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """``s3gen.safetensors``'s ``flow.*`` and ``mel2wav.*`` into
+    ``models/chatterbox_s3gen.S3Token2Wav`` in place, the counterpart of
+    ``convert_s3gen``: HiFT's weight-norm pairs (its convolutions, and its
+    transposed up-convolutions over their input channels) folded over dim
+    0; the bundled ``tokenizer.*`` and ``speaker_encoder.*`` dropped.  The
+    flow's fixed noise ``rand_noise`` is a buffer, not a weight, and stays
+    as the module made it."""
+    sd = {k: v for k, v in _floats(state_dict).items() if k.startswith(("flow.", "mel2wav."))}
+    return _load_strict(s3gen, fold_state_dict(sd), "S3Gen state_dict")
+
+
+def _under(state_dict: dict, prefix: str) -> dict:
+    """The entries of ``state_dict`` under ``prefix``, without it."""
+    return {k[len(prefix):]: v for k, v in _floats(state_dict).items() if k.startswith(prefix)}
+
+
+def load_campplus_state(model: torch.nn.Module, state_dict: dict, prefix: str = ""):
+    """3D-Speaker's CAMPPlus (``s3gen.safetensors`` bundles it under
+    ``speaker_encoder.``: pass that as ``prefix``) into
+    ``models/campplus.CAMPPlus`` in place, the counterpart of
+    ``convert_campplus``: the batch norms keep their running statistics
+    (the JAX BNInfer holds them unfolded), the affine-free
+    ``xvector.dense.nonlinear.batchnorm`` included."""
+    return _load_strict(model, _under(state_dict, prefix), "CAMPPlus state_dict")
+
+
+# the FSQ projection's spellings, in the order the JAX converter tries them
+_S3TOK_FSQ = ("quantizer.vq", "quantizer._codebook", "quantizer")
+
+
+def load_s3tokenizer_state(model: torch.nn.Module, state_dict: dict, prefix: str = ""):
+    """The s3tokenizer package's S3TokenizerV2 (``s3gen.safetensors``
+    bundles it under ``tokenizer.``: pass that as ``prefix``) into
+    ``models/s3tokenizer.S3TokenizerV2`` in place, the counterpart of
+    ``convert_s3tokenizer``: the FSQ projection is read from the first of
+    ``quantizer.vq``, ``quantizer._codebook`` and ``quantizer`` that holds
+    a ``project_down``."""
+    sd = _under(state_dict, prefix)
+    fsq = next((c for c in _S3TOK_FSQ if f"{c}.project_down.weight" in sd), _S3TOK_FSQ[0])
+    old = f"{fsq}.project_down."
+    sd = {("quantizer.vq.project_down." + k[len(old):] if k.startswith(old) else k): v
+          for k, v in sd.items()}
+    return _load_strict(model, sd, "S3 tokenizer state_dict")
+
+
+_S3TOK_BLOCK = re.compile(r"tokenizer\.encoder\.blocks\.(\d+)\.")
+
+
+def _chatterbox_builtin(conds: dict, mel_dim: int) -> dict:
+    """``conds.pt`` (the builtin voice: ``t3`` and ``gen`` dicts) flattened
+    one level -> the engine's ``builtin`` dict (speaker_emb, prompt_tokens,
+    ref_tokens, ref_mel, ref_xvector), each entry found under its nested or
+    its bare name, as the JAX loader finds it."""
+    flat: dict = {}
+    for k, v in (conds.items() if isinstance(conds, dict) else []):
+        if isinstance(v, dict):
+            flat.update((f"{k}.{kk}", vv) for kk, vv in v.items())
+        else:
+            flat[k] = v
+
+    def pick(*keys):
+        for k in keys:
+            if k in flat:
+                v = flat[k]
+                return np.asarray(v.float().numpy() if hasattr(v, "numpy") else v)
+        return None
+
+    builtin = {}
+    rows = (("speaker_emb", ("t3.speaker_emb", "speaker_emb"), lambda a: a.reshape(-1)),
+            ("prompt_tokens", ("t3.cond_prompt_speech_tokens", "cond_prompt_speech_tokens"),
+             lambda a: a.reshape(1, -1).astype(np.int32)),
+            ("ref_tokens", ("gen.prompt_token", "prompt_token"),
+             lambda a: a.reshape(1, -1).astype(np.int32)),
+            ("ref_mel", ("gen.prompt_feat", "prompt_feat"), lambda a: a.reshape(1, -1, mel_dim)),
+            ("ref_xvector", ("gen.embedding", "embedding"), lambda a: a.reshape(-1)))
+    for name, keys, shape in rows:
+        v = pick(*keys)
+        if v is not None:
+            builtin[name] = shape(v)
+    return builtin
+
+
+def load_chatterbox_pipeline(checkpoint_dir: str, device: str | torch.device = "cuda"):
+    """resemble-ai Chatterbox's published directory -> the port's
+    ``pipelines/tts.ChatterboxCheckpointEngine`` on ``device``, the
+    counterpart of the JAX ``load_chatterbox_pipeline``: T3 at
+    ``T3CkptConfig()`` (``max_seq_len`` 4096) from ``t3_cfg.safetensors``,
+    the voice encoder at its defaults from ``ve.safetensors``, and from
+    ``s3gen.safetensors`` S3Gen at ``FlowConfig()`` / ``HiFTConfig()``,
+    CAMPPlus at ``CAMPPlusConfig()`` when ``speaker_encoder.*`` is there,
+    and the S3 tokenizer when ``tokenizer.encoder.*`` is there (its
+    ``n_layer``, ``n_mels`` and ``n_state`` read from the file).  The
+    optional ``tokenizer.json`` goes through ``ChatterboxTokenizer``, the
+    optional ``conds.pt`` (read with ``weights_only=True``) gives the
+    builtin voice.  A missing one of the three weight files raises
+    ``FileNotFoundError`` naming it."""
+    from audiolab_tpu_torch.models.campplus import CAMPPlus, CAMPPlusConfig
+    from audiolab_tpu_torch.models.chatterbox_s3gen import FlowConfig, HiFTConfig, S3Token2Wav
+    from audiolab_tpu_torch.models.chatterbox_t3 import T3, T3CkptConfig, VoiceEncoder
+    from audiolab_tpu_torch.models.s3tokenizer import S3TokenizerConfig, S3TokenizerV2
+    from audiolab_tpu_torch.pipelines.tts import ChatterboxCheckpointEngine, ChatterboxTokenizer
+
+    dev = resolve_device(device)
+
+    def path(name):
+        p = os.path.join(checkpoint_dir, name)
+        if not os.path.exists(p):
+            raise FileNotFoundError(f"{name} not found in {checkpoint_dir}")
+        return p
+
+    t3_path, ve_path, s3gen_path = map(path, ("t3_cfg.safetensors", "ve.safetensors",
+                                              "s3gen.safetensors"))
+    with dev:
+        t3 = T3(T3CkptConfig(), max_seq_len=4096)
+    load_chatterbox_t3_state(t3, torch_load_weights(t3_path))
+    with dev:
+        ve = VoiceEncoder()
+    load_voice_encoder_state(ve, torch_load_weights(ve_path))
+    sd = torch_load_weights(s3gen_path)
+    with dev:
+        s3gen = S3Token2Wav(FlowConfig(), HiFTConfig())
+    load_s3gen_state(s3gen, sd)
+    campplus = s3tok = None
+    if any(k.startswith("speaker_encoder.") for k in sd):
+        with dev:
+            campplus = CAMPPlus(CAMPPlusConfig())
+        load_campplus_state(campplus, sd, prefix="speaker_encoder.")
+    if any(k.startswith("tokenizer.encoder.") for k in sd):
+        n_layer = 1 + max(int(m.group(1)) for k in sd if (m := _S3TOK_BLOCK.match(k)))
+        n_state, n_mels = sd["tokenizer.encoder.conv1.weight"].shape[:2]
+        with dev:
+            s3tok = S3TokenizerV2(S3TokenizerConfig(n_mels=n_mels, n_state=n_state,
+                                                    n_layer=n_layer))
+        load_s3tokenizer_state(s3tok, sd, prefix="tokenizer.")
+    del sd
+    tok_path = os.path.join(checkpoint_dir, "tokenizer.json")
+    tokenizer = ChatterboxTokenizer(tok_path).encode if os.path.exists(tok_path) else None
+    conds_path = os.path.join(checkpoint_dir, "conds.pt")
+    builtin = (_chatterbox_builtin(torch_load_weights(conds_path), s3gen.flow_cfg.mel_dim)
+               if os.path.exists(conds_path) else {})
+    return ChatterboxCheckpointEngine(t3, s3gen, ve=ve, tokenizer=tokenizer, builtin=builtin,
+                                      campplus=campplus, s3tok=s3tok, device=dev)

@@ -47,6 +47,9 @@ engines, and checks the output.
     python3 chip_smoke.py --phases card,loaders_speech  # XTTS-v2's model.pth and dvae.pth,
                                                    # Dia and its DAC from files, each
                                                    # engine run against its twin
+    python3 chip_smoke.py --phases card,loaders_voice  # Zonos with its prefix bank,
+                                                   # OpenVoice and a Chatterbox directory
+                                                   # from files, each against its twin
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
                                                    # a Dia call, an XTTS-v2 synthesize,
@@ -298,6 +301,21 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              DVAE, DiaTTSEngine on the 27-word line (12 K2) and Dia-1.6B's
              teacher-forced forward (18 K2) from the files, each bit-equal to
              its twin's with equal launches
+  loaders_voice  the rest of the speech and cloning formats at full width:
+             Zonos at ZonosConfig(mixer="mamba2") with the published prefix
+             bank (mlp projection, its specs read back from a written
+             config.json) in one model.safetensors, OpenVoice's converter.pth
+             at ToneColorConfig() (weight-norm gains and GRU biases drawn off),
+             and a Chatterbox directory (t3_cfg, ve and s3gen .safetensors with
+             CAMPPlus and the S3 tokenizer bundled, tokenizer.json, conds.pt)
+             read by load_chatterbox_pipeline: every tensor equal to its
+             twin's, each file's MiB, write and load (or read) seconds;
+             generate_embedded (2 K2) and ZonosTTS.synthesize (2 K2), the
+             OpenVoice conversion, Chatterbox's synthesize from the builtin
+             voice and cloned from 6 s (on cuDNN's deterministic algorithms,
+             beside the twin's run-to-run spread under the default ones) and
+             T3's teacher-forced forward (30 K2) from the files, each
+             bit-equal to its twin's with equal launches
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -308,6 +326,7 @@ initialisers drawn from a seed); widths are the published ones.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -320,7 +339,7 @@ import numpy as np
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
           "transcribe", "diffusion", "music", "lora", "yue", "loaders", "loaders_listen",
-          "loaders_speech")
+          "loaders_speech", "loaders_voice")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -3337,6 +3356,27 @@ def _two_speakers(seconds: float, sr: int) -> np.ndarray:
     return out + 0.003 * np.random.default_rng(9).standard_normal(n).astype(np.float32)
 
 
+def build_chatterbox(dev):
+    """Chatterbox's modules at their published widths, made on the device and
+    filled by bench.py's rules (utils/fast_init.py) from seeds 0-4: (T3 at
+    T3CkptConfig(), S3Token2Wav at FlowConfig() / HiFTConfig(), the voice
+    encoder, CAMPPlus and the S3 tokenizer at their defaults)."""
+    import torch
+
+    from audiolab_tpu_torch.models.campplus import CAMPPlus, CAMPPlusConfig
+    from audiolab_tpu_torch.models.chatterbox_s3gen import FlowConfig, HiFTConfig, S3Token2Wav
+    from audiolab_tpu_torch.models.chatterbox_t3 import T3, T3CkptConfig, VoiceEncoder
+    from audiolab_tpu_torch.models.s3tokenizer import S3TokenizerConfig, S3TokenizerV2
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    with torch.device(dev):
+        return (fast_init(T3(T3CkptConfig()), 0),
+                fast_init(S3Token2Wav(FlowConfig(), HiFTConfig()), 1),
+                fast_init(VoiceEncoder(), 2),
+                fast_init(CAMPPlus(CAMPPlusConfig()), 3),
+                fast_init(S3TokenizerV2(S3TokenizerConfig()), 4))
+
+
 def phase_chatterbox(dev, card: str, profile_dir: str | None = None) -> dict:
     """Chatterbox at its published widths on the card, weights by bench.py's
     rules (utils/fast_init.py): T3 at T3CkptConfig() (30 x 1024, 16 heads,
@@ -3369,27 +3409,12 @@ def phase_chatterbox(dev, card: str, profile_dir: str | None = None) -> dict:
     from audiolab_tpu_torch.core.audio_io import read_wav
     from audiolab_tpu_torch.kernels import attention as A
     from audiolab_tpu_torch.kernels.kaldi import kaldi_fbank
-    from audiolab_tpu_torch.models.campplus import CAMPPlus, CAMPPlusConfig
-    from audiolab_tpu_torch.models.chatterbox_s3gen import (
-        FlowConfig,
-        HiFTConfig,
-        HiFTGenerator,
-        S3Token2Wav,
-    )
-    from audiolab_tpu_torch.models.chatterbox_t3 import (
-        T3,
-        T3CkptConfig,
-        VoiceEncoder,
-        t3_cached_logits,
-        t3_generate,
-    )
+    from audiolab_tpu_torch.models.campplus import CAMPPlus
+    from audiolab_tpu_torch.models.chatterbox_s3gen import HiFTGenerator, S3Token2Wav
+    from audiolab_tpu_torch.models.chatterbox_t3 import T3, t3_cached_logits, t3_generate
     from audiolab_tpu_torch.models.diarize import DiarizeConfig, NeuralDiarizer
     from audiolab_tpu_torch.models.lm import gumbel_draws
-    from audiolab_tpu_torch.models.s3tokenizer import (
-        S3TokenizerConfig,
-        S3TokenizerV2,
-        s3_log_mel,
-    )
+    from audiolab_tpu_torch.models.s3tokenizer import S3TokenizerV2, s3_log_mel
     from audiolab_tpu_torch.models.wespeaker import WeSpeakerResNet
     from audiolab_tpu_torch.pipelines.tts import (
         ChatterboxCheckpointEngine,
@@ -3400,7 +3425,6 @@ def phase_chatterbox(dev, card: str, profile_dir: str | None = None) -> dict:
     from audiolab_tpu_torch.serve import tts_api
     from audiolab_tpu_torch.serve.api import create_app
     from audiolab_tpu_torch.serve.http import serve_background
-    from audiolab_tpu_torch.utils.fast_init import fast_init
 
     cuda = dev.type == "cuda"
     cpu = torch.device("cpu")
@@ -3416,12 +3440,7 @@ def phase_chatterbox(dev, card: str, profile_dir: str | None = None) -> dict:
         return c.eval()
 
     t0 = time.perf_counter()
-    with torch.device(dev):
-        t3 = fast_init(T3(T3CkptConfig()), 0)
-        s3gen = fast_init(S3Token2Wav(FlowConfig(), HiFTConfig()), 1)
-        ve = fast_init(VoiceEncoder(), 2)
-        cp = fast_init(CAMPPlus(CAMPPlusConfig()), 3)
-        st = fast_init(S3TokenizerV2(S3TokenizerConfig()), 4)
+    t3, s3gen, ve, cp, st = build_chatterbox(dev)
     eng = ChatterboxCheckpointEngine(t3, s3gen, ve=ve, campplus=cp, s3tok=st, device=dev)
     sync(dev)
     c = t3.cfg
@@ -6171,8 +6190,9 @@ def dac_encoder_state(seed: int, n_q: int = 9, latent: int = 1024, codebook_dim:
 
 
 def off_their_init(module, seed: int):
-    """``module`` in place with every batch norm's gain, bias and running
-    statistics and every GRU / LSTM bias drawn from ``seed`` (fast_init
+    """``module`` in place with every batch norm's gain and bias (where it has
+    an affine) and running statistics and every GRU / LSTM bias drawn from
+    ``seed`` (fast_init
     leaves them at 1, 0, 0, 1 and 0, where a loader's fold of them is the
     identity or cannot tell a sum from a copy)."""
     import torch
@@ -6187,8 +6207,9 @@ def off_their_init(module, seed: int):
         for m in module.modules():
             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
                 c = m.num_features
-                m.weight.copy_(draw(c, 0.2, 1.0))
-                m.bias.copy_(draw(c, 0.1))
+                if m.affine:
+                    m.weight.copy_(draw(c, 0.2, 1.0))
+                    m.bias.copy_(draw(c, 0.1))
                 m.running_mean.copy_(draw(c, 0.1))
                 m.running_var.copy_(draw(c, 1.0, 0.5, uniform=True))
             elif isinstance(m, (torch.nn.GRU, torch.nn.LSTM)):
@@ -6196,6 +6217,18 @@ def off_their_init(module, seed: int):
                     if name.startswith("bias"):
                         b.copy_(draw(b.shape, 0.1))
     return module
+
+
+def tensors_against(dev, tag: str, label: str, own: dict, mine: dict) -> tuple[list, list]:
+    """The keys whose loaded tensor (``own``) differs from its twin's
+    (``mine``), and those whose loaded tensor is off ``dev``; fails if the
+    two hold other keys."""
+    import torch
+
+    expect(set(own) == set(mine), f"{tag} {label}: keys differ: "
+                                  f"{sorted(set(own) ^ set(mine))[:8]}")
+    unequal = [k for k in mine if not torch.equal(own[k], mine[k].to(own[k].device))]
+    return unequal, [k for k in own if own[k].device.type != dev.type]
 
 
 def load_through_file(dev, work: Path, files: dict, card: str, label: str, name: str, obj, load,
@@ -6227,10 +6260,7 @@ def load_through_file(dev, work: Path, files: dict, card: str, label: str, name:
     else:
         own = state_of(got)
     mine = module.state_dict() if isinstance(module, torch.nn.Module) else module
-    expect(set(own) == set(mine), f"{tag} {label}: keys differ: "
-                                  f"{sorted(set(own) ^ set(mine))[:8]}")
-    unequal = [k for k in mine if not torch.equal(own[k], mine[k].to(own[k].device))]
-    off = [k for k in own if own[k].device.type != dev.type]
+    unequal, off = tensors_against(dev, tag, label, own, mine)
     files[label] = dict(bytes=size, write_s=write_s, load_s=load_s, tensors=len(own))
     log(f"{tag} {label}: {name} {size / 2**20:.1f} MiB, written in "
         f"{write_s:.3f} s, loaded onto {dev.type} in {load_s:.3f} s; {len(own)} tensors, "
@@ -6913,6 +6943,399 @@ def phase_loaders_speech(dev, card: str) -> dict:
     return dict(launches=path, files=files, runs=runs, phase_s=phase_s)
 
 
+# OpenVoice's converter: the reference encoder's six Conv2d beside RVC_WN's
+# WaveNet layers and HiFiGAN convolutions; S3Gen's HiFT: the f0 predictor's
+# convolutions, conv_pre, conv_post, the up-convolutions and both residual
+# stacks (source_downs carries none)
+OPENVOICE_WN = re.compile(r"^ref_enc\.convs\.\d+\.weight$|" + RVC_WN.pattern)
+HIFT_WN = re.compile(r"^mel2wav\.(f0_predictor\.condnet\.\d+|conv_pre|conv_post|ups\.\d+"
+                     r"|(source_)?resblocks\.\d+\.convs[12]\.\d+)\.weight$")
+
+
+def zonos_config_conditioners(specs) -> list[dict]:
+    """A Zonos ``config.json``'s ``prefix_conditioner.conditioners`` list for
+    ``specs`` (``models/zonos.CondSpec``): each entry's type and name, and
+    the fields that differ from their defaults, as the published file
+    writes them."""
+    import dataclasses
+
+    out = []
+    for s in specs:
+        d = {"type": s.type, "name": s.name}
+        for f in dataclasses.fields(s):
+            v = getattr(s, f.name)
+            if f.name not in d and v != f.default:
+                d[f.name] = v
+        out.append(d)
+    return out
+
+
+def bpe_tokenizer_json(text: str, merges=(), added=("[STOP]", "[UNK]", "[SPACE]")) -> dict:
+    """A ``tokenizers`` JSON of the layout ``BpeTokenizer`` reads: ``added``
+    as special tokens first (ids 0, 1, ...), then each character of
+    ``text`` but the space, then the product of each merge, the
+    ``Whitespace`` pre-tokenizer and ``[UNK]`` for what the vocab lacks."""
+    vocab = {t: i for i, t in enumerate(added)}
+    for ch in sorted(set(text) - {" "}):
+        vocab.setdefault(ch, len(vocab))
+    for m in merges:
+        vocab.setdefault(m.replace(" ", ""), len(vocab))
+    return {"version": "1.0",
+            "added_tokens": [{"id": vocab[t], "content": t, "single_word": False,
+                              "lstrip": False, "rstrip": False, "normalized": False,
+                              "special": True} for t in added],
+            "normalizer": None, "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None,
+            "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "[UNK]",
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "vocab": vocab, "merges": list(merges)}}
+
+
+def chatterbox_conds(speaker_emb, prompt_tokens, ref_tokens, ref_mel, ref_xvector) -> dict:
+    """A ``conds.pt`` as chatterbox's ``Conditionals.save`` writes it: the
+    T3 conditionals and the S3Gen reference dict, each a dict of tensors
+    (the unused ones None)."""
+    import torch
+
+    t = torch.as_tensor
+    return {"t3": {"speaker_emb": t(speaker_emb).reshape(1, -1).float(), "clap_emb": None,
+                   "cond_prompt_speech_tokens": t(prompt_tokens).reshape(1, -1).long(),
+                   "cond_prompt_speech_emb": None, "emotion_adv": torch.full((1, 1, 1), 0.5)},
+            "gen": {"prompt_token": t(ref_tokens).reshape(1, -1).long(),
+                    "prompt_token_len": torch.tensor([int(np.asarray(ref_tokens).size)]),
+                    "prompt_feat": t(ref_mel).float(), "prompt_feat_len": None,
+                    "embedding": t(ref_xvector).reshape(1, -1).float()}}
+
+
+def write_chatterbox_dir(root: Path, t3: dict, ve: dict, s3gen: dict, campplus: dict | None = None,
+                         s3tok: dict | None = None, tokenizer: dict | None = None,
+                         conds: dict | None = None) -> dict:
+    """resemble-ai Chatterbox's published directory in ``root``:
+    ``t3_cfg.safetensors``, ``ve.safetensors``, ``s3gen.safetensors``
+    (``flow.*`` and ``mel2wav.*``, with CAMPPlus under ``speaker_encoder.``
+    and the S3 tokenizer under ``tokenizer.`` where given), and the optional
+    ``tokenizer.json`` and ``conds.pt``.  Returns each file's bytes and
+    write seconds."""
+    import torch
+
+    bundle = dict(s3gen)
+    for prefix, part in (("speaker_encoder.", campplus), ("tokenizer.", s3tok)):
+        bundle.update({f"{prefix}{k}": v for k, v in (part or {}).items()})
+    files = {"t3_cfg.safetensors": t3, "ve.safetensors": ve, "s3gen.safetensors": bundle}
+    if tokenizer is not None:
+        files["tokenizer.json"] = tokenizer
+    if conds is not None:
+        files["conds.pt"] = conds
+    out = {}
+    for name, obj in files.items():
+        p = root / name
+        t0 = time.perf_counter()
+        if name.endswith(".safetensors"):
+            write_safetensors(p, obj)
+        elif name.endswith(".json"):
+            p.write_text(json.dumps(obj))
+        else:
+            torch.save(obj, p)
+        out[name] = dict(bytes=p.stat().st_size, write_s=time.perf_counter() - t0)
+    return out
+
+
+VOICE_OV_S = 10.0              # seconds of source audio OpenVoice converts from its file
+VOICE_MERGES = ("t h", "e r", "i n", "th e", "o n", "a n")   # tokenizer.json's merges
+ZONOS_OWN = ("text_emb.", "spk_proj.", "emotion.", "rate.", "pitch.")   # not in Zyphra's file
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block (the process's flag
+    restored after it)."""
+    import torch
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def phase_loaders_voice(dev, card: str) -> dict:
+    """The rest of the speech and cloning engines' checkpoint formats at full
+    width, written here in the upstream layouts from seeded modules and read
+    back by the port's loaders onto the card: each file's tensors equal to
+    its twin's (the module in memory brought to what the loader should make
+    of its file: weight-norm pairs and the GRU's r and z biases folded), with
+    its bytes, write and load seconds.  (a) Zonos at ZonosConfig(mixer=
+    "mamba2") (``build_tts``) as one ``model.safetensors``: the backbone,
+    embeddings and heads under Zyphra's names beside a ``prefix_conditioner``
+    bank, the published conditioner list with the ``mlp`` projection, whose
+    specs are read back from a written ``config.json`` by
+    ``zonos_prefix_specs_from_config``; the loaded model's own conditioning
+    branches are the twin's (Zyphra's file has none), its mapped tensors NaN
+    until loaded.  ``generate_embedded`` from the loaded bank's prefix pair
+    (ZONOS_EMB_FRAMES frames, 2 fp32 K2) and ``ZonosTTS.synthesize`` with
+    the DAC (2 fp32 K2).  (b) OpenVoice's ``converter.pth`` at
+    ToneColorConfig() (``build_openvoice``), under ``model``, every
+    weight-norm gain drawn off its weight's norm and the GRU's biases off
+    their init: ``OpenVoiceCloner.convert`` of VOICE_OV_S s.  (c) A
+    Chatterbox directory at the published widths (``build_chatterbox``; the
+    voice encoder's LSTM biases and CAMPPlus's batch norms drawn off their
+    init, HiFT's pairs with the gains off): ``t3_cfg.safetensors``,
+    ``ve.safetensors``, ``s3gen.safetensors`` bundling ``flow.*``,
+    ``mel2wav.*``, ``speaker_encoder.*`` and ``tokenizer.*``, a small
+    ``tokenizer.json`` and a ``conds.pt`` made from the twin's conditioning
+    on a CB_REF_S s reference, read by ``load_chatterbox_pipeline`` (each
+    file's read seconds timed around the reader): ``synthesize`` from the
+    builtin voice with the text through the loaded tokenizer, conditioning
+    plus ``synthesize`` on the reference (both on cuDNN's deterministic
+    algorithms: under its default ones HiFT's output differs run to run, and
+    the twin's two runs under them print that spread), and T3's
+    teacher-forced forward (30 fp32 K2).  Each run from the files and its twin's run get counts
+    reset just before and read just after; launches must be equal and every
+    output bit-equal.  Returns the path's launches: the runs from the
+    files."""
+    import copy
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.models.phonemize import phonemize_ipa
+    from audiolab_tpu_torch.models.zonos import (
+        DEFAULT_ZONOS_CONDITIONERS,
+        ZonosPrefixConditioner,
+        generate_embedded,
+        tokenize_phonemes_np,
+    )
+    from audiolab_tpu_torch.pipelines.cloning import OpenVoiceCloner
+    from audiolab_tpu_torch.pipelines.tts import (
+        ChatterboxCheckpointEngine,
+        ChatterboxTokenizer,
+        ZonosTTS,
+        chatterbox_punc_norm,
+    )
+    from audiolab_tpu_torch.utils import convert as C
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    tag = "[loaders_voice]"
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_loaders_voice_"))
+    files: dict[str, dict] = {}
+    runs: dict[str, dict] = {}
+    path = dict.fromkeys(KERNELS, 0)
+    through_file = functools.partial(load_through_file, dev, work, files, card, tag=tag)
+    both = functools.partial(twin_run, dev, card, tag, runs, path, exact=True)
+
+    def named(prefixes, modules):
+        return {f"{pre}{k}": v for pre, m in zip(prefixes, modules)
+                for k, v in m.state_dict().items()}
+
+    def blank(module, keep=()):
+        """A copy of ``module`` with every float tensor of its state NaN but
+        those under ``keep``: what its loader must fill."""
+        out = copy.deepcopy(module)
+        with torch.no_grad():
+            for k, t in out.state_dict().items():
+                if t.is_floating_point() and not k.startswith(keep):
+                    t.fill_(float("nan"))
+        return out
+
+    try:
+        # (a) Zonos's model.safetensors: the backbone and the prefix bank
+        tts = build_tts(dev, "mamba2")
+        model = tts.model
+        with torch.device(dev):
+            bank = fast_init(ZonosPrefixConditioner(model.cfg.dim, DEFAULT_ZONOS_CONDITIONERS,
+                                                    "mlp"), 5)
+        (work / "config.json").write_text(json.dumps({"prefix_conditioner": {
+            "conditioners": zonos_config_conditioners(DEFAULT_ZONOS_CONDITIONERS),
+            "projection": "mlp"}}))
+        pc = json.loads((work / "config.json").read_text())["prefix_conditioner"]
+        specs = C.zonos_prefix_specs_from_config(pc["conditioners"])
+        expect(specs == DEFAULT_ZONOS_CONDITIONERS,
+               f"{tag} the conditioner specs read back from config.json differ: {specs}")
+        ckpt = {k: v for k, v in cpu_state(model).items() if not k.startswith(ZONOS_OWN)}
+        ckpt.update((f"prefix_conditioner.{k}", v) for k, v in cpu_state(bank).items())
+        model_f = blank(model, keep=ZONOS_OWN)
+        with torch.device(dev):
+            bank_f = ZonosPrefixConditioner(model.cfg.dim, specs, pc["projection"])
+
+        def load_zonos(p):
+            sd = C.torch_load_weights(p)
+            return C.load_zonos_state(model_f, sd), C.load_zonos_prefix_state(bank_f, sd)
+
+        parts = ("model.", "bank.")
+        through_file("Zonos ZonosConfig(mixer='mamba2') with its mlp prefix bank "
+                     "(.safetensors)", "model.safetensors", ckpt, load_zonos,
+                     named(parts, (model, bank)), write=write_safetensors,
+                     state_of=lambda got: named(parts, got))
+        del ckpt
+        phon = torch.as_tensor(tokenize_phonemes_np([phonemize_ipa(TTS_TEXT)]), device=dev)
+        gz = torch.Generator(device=dev).manual_seed(6)
+        cond = dict(espeak=phon, speaker=torch.randn((1, 1, 128), generator=gz, device=dev),
+                    emotion=torch.full((1, 1, 8), 0.1, device=dev),
+                    fmax=torch.full((1, 1, 1), 22050.0, device=dev),
+                    pitch_std=torch.full((1, 1, 1), 20.0, device=dev),
+                    speaking_rate=torch.full((1, 1, 1), 15.0, device=dev),
+                    language_id=torch.full((1, 1, 1), 24.0, device=dev))
+
+        def embedded(m, b):
+            def run():
+                with torch.inference_mode():
+                    x2 = torch.cat([b(cond), b({"espeak": phon})])
+                return generate_embedded(m, x2, max_frames=ZONOS_EMB_FRAMES, seed=0, device=dev)
+            return run
+
+        both(f"Zonos generate_embedded from the loaded bank's prefix pair (phonemes "
+             f"{phon.shape[1]}, {ZONOS_EMB_FRAMES} frames)", embedded(model_f, bank_f),
+             embedded(model, bank), expect_k2=2)
+        tts_f = ZonosTTS(model_f, tts.dac, tts.spk_enc, device=dev)
+        both("ZonosTTS synthesize with the DAC (three sentences, CFG batch 6)",
+             lambda: tts_f.synthesize(TTS_TEXT, seed=0)[0],
+             lambda: tts.synthesize(TTS_TEXT, seed=0)[0], expect_k2=2)
+        del tts, tts_f, model, model_f, bank, bank_f
+        torch.cuda.empty_cache()
+
+        # (b) OpenVoice's converter.pth
+        ov = off_their_init(build_openvoice(dev).model, 231)
+        pairs = gains_off(weight_norm_pairs(cpu_state(ov), OPENVOICE_WN), 232)
+        want = C.fold_state_dict(pairs)
+        C._fold_recurrent_biases(want, lstm=False)
+        ov_mem = twin(ov, want)
+        del ov, want
+        ov_f = through_file("OpenVoice converter.pth (ToneColorConfig(), under model)",
+                            "converter.pth", {"model": pairs},
+                            lambda p: C.load_openvoice_checkpoint(p, device=dev), ov_mem)
+        del pairs
+        sr = ov_mem.cfg.sr
+        src = _tone(VOICE_OV_S, sr)
+        ref = _tone(CB_REF_S, CB_REF_SR)[::-1].copy()
+        cl_f, cl_m = OpenVoiceCloner(ov_f, device=dev), OpenVoiceCloner(ov_mem, device=dev)
+        both(f"OpenVoiceCloner convert ({VOICE_OV_S:g} s at {sr} Hz, a {CB_REF_S:g} s "
+             f"reference)", lambda: cl_f.convert(src, sr, ref, CB_REF_SR)[0],
+             lambda: cl_m.convert(src, sr, ref, CB_REF_SR)[0])
+        del cl_f, cl_m, ov_f, ov_mem
+        torch.cuda.empty_cache()
+
+        # (c) the Chatterbox directory through load_chatterbox_pipeline
+        t3, s3gen, ve, cp, st = build_chatterbox(dev)
+        off_their_init(ve, 233)
+        off_their_init(cp, 234)
+        s3_pairs = gains_off(weight_norm_pairs(cpu_state(s3gen), HIFT_WN), 235)
+        s3gen_mem = twin(s3gen, C.fold_state_dict(s3_pairs))
+        del s3gen
+        ref = _tone(CB_REF_S, CB_REF_SR) * (1 + 0.3 * np.sin(
+            2 * np.pi * 3 * np.arange(int(CB_REF_S * CB_REF_SR)) / CB_REF_SR)).astype(np.float32)
+        spk, rd = ChatterboxCheckpointEngine(t3, s3gen_mem, ve=ve, campplus=cp, s3tok=st,
+                                             device=dev).conditioning(ref, CB_REF_SR)
+        c = t3.cfg
+        prompt = rd["ref_tokens"][:, :c.speech_cond_prompt_len]
+        builtin = dict(speaker_emb=spk.reshape(-1), prompt_tokens=prompt.astype(np.int32),
+                       ref_tokens=rd["ref_tokens"].astype(np.int32), ref_mel=rd["ref_mel"],
+                       ref_xvector=rd["ref_xvector"].reshape(-1))
+        d = work / "chatterbox"
+        d.mkdir()
+        written = write_chatterbox_dir(
+            d, cpu_state(t3), cpu_state(ve), s3_pairs, cpu_state(cp), cpu_state(st),
+            bpe_tokenizer_json(chatterbox_punc_norm(CB_TEXT), VOICE_MERGES),
+            chatterbox_conds(spk, prompt, rd["ref_tokens"], rd["ref_mel"], rd["ref_xvector"]))
+        del s3_pairs
+        tok = ChatterboxTokenizer(str(d / "tokenizer.json"))
+        reads: dict[str, float] = {}
+        reader = C.torch_load_weights
+
+        def timed_read(p):
+            t0 = time.perf_counter()
+            out = reader(p)
+            reads[Path(p).name] = time.perf_counter() - t0
+            return out
+
+        C.torch_load_weights = timed_read
+        try:
+            t0 = time.perf_counter()
+            eng_f = C.load_chatterbox_pipeline(str(d), device=dev)
+            sync(dev)
+            load_s = time.perf_counter() - t0
+        finally:
+            C.torch_load_weights = reader
+        shutil.rmtree(d)
+        label = "Chatterbox directory (t3_cfg, ve, s3gen with CAMPPlus and the S3 tokenizer)"
+        mods = ("t3.", "ve.", "s3gen.", "campplus.", "s3tok.")
+        own = named(mods, (eng_f.t3, eng_f.ve, eng_f.s3gen, eng_f.campplus, eng_f.s3tok))
+        unequal, off = tensors_against(dev, tag, label, own,
+                                       named(mods, (t3, ve, s3gen_mem, cp, st)))
+        for name, f in written.items():
+            f["read_s"] = reads.get(name, 0.0)
+            log(f"{tag} Chatterbox {name}: {f['bytes'] / 2**20:.1f} MiB, written in "
+                f"{f['write_s']:.3f} s, read in {f['read_s']:.3f} s | {card}")
+        files[label] = dict(bytes=sum(f["bytes"] for f in written.values()),
+                            write_s=sum(f["write_s"] for f in written.values()),
+                            load_s=load_s, tensors=len(own), files=written)
+        log(f"{tag} {label}: {files[label]['bytes'] / 2**20:.1f} MiB, written in "
+            f"{files[label]['write_s']:.3f} s, load_chatterbox_pipeline onto {dev.type} in "
+            f"{load_s:.3f} s; {len(own)} tensors, {len(unequal)} unequal, {len(off)} off "
+            f"{dev.type} | {card}")
+        expect(not unequal, f"{tag} {label}: tensors differ from the twins': {unequal[:8]}")
+        expect(not off, f"{tag} {label}: tensors off {dev.type}: {off[:8]}")
+        expect(set(eng_f.builtin) == set(builtin) and all(
+            np.array_equal(eng_f.builtin[k], v) and eng_f.builtin[k].dtype == v.dtype
+            for k, v in builtin.items()), f"{tag} conds.pt's builtin voice differs")
+        norm = chatterbox_punc_norm(CB_TEXT)
+        ids = list(eng_f.tokenize(norm))
+        expect(ids == tok.encode(norm) and len(ids) < len(norm.encode()),
+               f"{tag} the engine's text ids are not tokenizer.json's: {ids[:16]}")
+        eng_m = ChatterboxCheckpointEngine(t3, s3gen_mem, ve=ve, tokenizer=tok.encode,
+                                           builtin=builtin, campplus=cp, s3tok=st, device=dev)
+        # cuDNN's default algorithms for HiFT's convolutions differ run to
+        # run: the twin twice shows the spread, and the comparisons run on
+        # cuDNN's deterministic algorithms
+        twice = [eng_m.synthesize(CB_TEXT, max_tokens=CB_TOKENS, seed=3)[0] for _ in range(2)]
+        spread = float(np.abs(twice[0].astype(np.float64) - twice[1]).max())
+        runs["Chatterbox builtin synthesize, the twin twice"] = dict(
+            max_abs_diff=spread, peak=float(np.abs(twice[0]).max()))
+        log(f"{tag} Chatterbox synthesize from the builtin voice, the twin twice under "
+            f"cuDNN's default algorithms: max|diff| {spread:.3e} of max|y| "
+            f"{float(np.abs(twice[0]).max()):.4g} | {card}")
+        with cudnn_deterministic():
+            both(f"Chatterbox synthesize from conds.pt's builtin voice ({len(ids)} text ids, "
+                 f"max_tokens {CB_TOKENS}; cuDNN deterministic)",
+                 lambda: eng_f.synthesize(CB_TEXT, max_tokens=CB_TOKENS, seed=3)[0],
+                 lambda: eng_m.synthesize(CB_TEXT, max_tokens=CB_TOKENS, seed=3)[0])
+            both(f"Chatterbox conditioning on {CB_REF_S:g} s and synthesize (max_tokens "
+                 f"{CB_TOKENS}; cuDNN deterministic)",
+                 lambda: eng_f.synthesize(CB_TEXT, ref_wav=ref, ref_sr=CB_REF_SR,
+                                          max_tokens=CB_TOKENS, seed=0)[0],
+                 lambda: eng_m.synthesize(CB_TEXT, ref_wav=ref, ref_sr=CB_REF_SR,
+                                          max_tokens=CB_TOKENS, seed=0)[0])
+        text = torch.as_tensor([[c.start_text_token] + ids + [c.stop_text_token]], device=dev)
+        gs = torch.Generator(device=dev).manual_seed(12)
+        speech = torch.randint(0, eng_f.s3gen.flow_cfg.token_vocab, (1, 1 + CB_TOKENS),
+                               generator=gs, device=dev)
+        speech[:, 0] = c.start_speech_token
+        spk_t = torch.as_tensor(spk, device=dev)[None]
+        prompt_t = torch.as_tensor(prompt, dtype=torch.long, device=dev)
+        emo = torch.full((1,), 0.5, device=dev)
+        with torch.inference_mode():
+            both(f"T3 teacher-forced forward ({text.shape[1]} text, {prompt.shape[1]} prompt, "
+                 f"{speech.shape[1]} speech tokens)",
+                 lambda: eng_f.t3(text, speech, spk_t, prompt_t, emo)[1],
+                 lambda: t3(text, speech, spk_t, prompt_t, emo)[1], expect_k2=c.n_layers)
+        del eng_f, eng_m, t3, s3gen_mem, ve, cp, st
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"{tag} {len(files)} files, {sum(f['bytes'] for f in files.values()) / 2**30:.2f} "
+        f"GiB written in {sum(f['write_s'] for f in files.values()):.1f} s and loaded in "
+        f"{sum(f['load_s'] for f in files.values()):.1f} s; the path's launches {path}; "
+        f"phase {phase_s:.1f} s | {card}")
+    expect(path["K2"] > 0 or not cuda, f"{tag} K2 was not launched on the path")
+    return dict(launches=path, files=files, runs=runs, phase_s=phase_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -6956,6 +7379,7 @@ def main() -> int:
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
     diffused = composed = adapted = sung = loaded = listened = spoken_files = None
+    voiced_files = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "loaders", "long"} & set(phases)
     if need_chain:
@@ -7071,6 +7495,12 @@ def main() -> int:
         # just before each run and read just after (Dia's call and the
         # Dia-1.6B forward launch K2; XTTS-v2 and the DVAE none)
         spoken_files = phase_loaders_speech(dev, card)["launches"]
+    if "loaders_voice" in phases:
+        mark("loaders_voice")
+        # this slice's path: each engine loaded from its files, counts reset
+        # just before each run and read just after (Zonos's two calls and
+        # T3's forward launch K2; OpenVoice and Chatterbox's synthesize none)
+        voiced_files = phase_loaders_voice(dev, card)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -7091,6 +7521,7 @@ def main() -> int:
            "loaders_launches": None if loaded is None else loaded[r["kernel"]],
            "loaders_listen_launches": None if listened is None else listened[r["kernel"]],
            "loaders_speech_launches": None if spoken_files is None else spoken_files[r["kernel"]],
+           "loaders_voice_launches": None if voiced_files is None else voiced_files[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),

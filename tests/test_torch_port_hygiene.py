@@ -216,13 +216,15 @@ LOADERS = ("load_roformer_checkpoint", "load_rvc_checkpoint", "load_rmvpe_checkp
            "load_wespeaker_checkpoint", "load_rtla_crnn_checkpoint", "load_dac_checkpoint",
            "load_dia_checkpoint", "load_xtts_gpt_checkpoint", "load_xtts_conditioner_checkpoint",
            "load_xtts_perceiver_checkpoint", "load_xtts_hifigan_checkpoint",
-           "load_xtts_speaker_checkpoint", "load_xtts_dvae_checkpoint")
+           "load_xtts_speaker_checkpoint", "load_xtts_dvae_checkpoint",
+           "load_openvoice_checkpoint", "load_chatterbox_pipeline")
 
 
 @pytest.mark.parametrize("name", LOADERS)
 def test_checkpoint_loaders_default_to_the_card(no_cuda, tmp_path, name):
-    """Each loader of a checkpoint file (the chain's formats, and those of
-    Super Resolution, transcription, diarization and alignment) builds on
+    """Each loader of a checkpoint file or directory (the chain's formats,
+    those of Super Resolution, transcription, diarization and alignment, and
+    the speech and cloning engines') builds on
     the card unless told otherwise: without one it raises before it reads
     the file (there is none here), and falls back neither to the CPU nor to
     random weights."""

@@ -61,7 +61,8 @@ def denormalize_mel(mel: torch.Tensor) -> torch.Tensor:
 def dcae_codec_fns(model):
     """An :class:`AutoencoderDC` -> MusicDCAE's ``encoder_fn``/``decoder_fn``:
     normalised mels (b, ch, T, 128) to latents (b, 8, 16, t) and back.  The
-    DCAE's image is (b, ch, 128 bins, T), upstream's NCHW orientation."""
+    DCAE's image is (b, ch, 128 bins, T), upstream's NCHW orientation.  Each
+    function holds the model as ``.model``."""
 
     @torch.inference_mode()
     def encoder_fn(mel):
@@ -71,6 +72,7 @@ def dcae_codec_fns(model):
     def decoder_fn(z):
         return model.decode(z).transpose(2, 3)
 
+    encoder_fn.model = decoder_fn.model = model
     return encoder_fn, decoder_fn
 
 

@@ -50,6 +50,17 @@ published layout differs, and ``load_state_dict(strict=True)``:
   three), which ``load_chatterbox_pipeline`` assembles from the published
   directory.  A ``load_*_state`` loads a state_dict into the module it is
   given, in place on its device, as ``load_whisper_state`` does.
+- The music models' formats: stable-audio-open's ``load_sao_dit_checkpoint``,
+  ``load_oobleck_state``, ``load_sao_number_state`` (one
+  ``model.safetensors`` holds the DiT, the decoder and both seconds
+  embedders) and ``load_t5_encoder``, which ``load_stable_audio_pipeline``
+  assembles; the checkpoint-layout ACE-Step's
+  ``load_acestep_{dit,lyric}_checkpoint`` (one transformer file holds both),
+  ``load_dcae_checkpoint``, ``load_adamos_state`` and UMT5 through
+  ``load_t5_encoder``, which ``load_acestep_pipeline`` assembles from the
+  published directory; CLAP's ``load_clap_{text,audio}_checkpoint`` (one
+  laion_clap file holds both branches) and ``load_vocos_checkpoint``.  The
+  Oobleck decoder's and ADaMoS's weight-norm pairs are folded over dim 0.
 
 Every loader of a file builds its module on ``device`` (default the card;
 raises without one) and, ``load_hubert_state`` and ``load_zonos_state``
@@ -1094,3 +1105,323 @@ def load_chatterbox_pipeline(checkpoint_dir: str, device: str | torch.device = "
                if os.path.exists(conds_path) else {})
     return ChatterboxCheckpointEngine(t3, s3gen, ve=ve, tokenizer=tokenizer, builtin=builtin,
                                       campplus=campplus, s3tok=s3tok, device=dev)
+
+
+# ------------------------------------------------------------ Stable Audio
+#
+# stable-audio-open's ``model.safetensors`` holds the DiT, the Oobleck VAE
+# and the seconds conditioners under one root; each loader takes its own
+# prefix and drops the others' tensors.  T5-base comes from its own file.
+
+def _own(sd: dict, model: torch.nn.Module) -> dict:
+    """The entries of ``sd`` under one of ``model``'s top-level names (a
+    weight-norm pair under the name of the weight it folds into), in fp32:
+    a shared file's other parts are neither converted nor folded."""
+    tops = {k.split(".")[0] for k in model.state_dict()}
+    return _floats({k: v for k, v in sd.items() if k.split(".")[0] in tops})
+
+
+def load_t5_encoder(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """transformers' T5 / UMT5 ``.safetensors`` or ``.bin`` ->
+    ``models/t5.T5Encoder`` of ``cfg`` (default ``T5Config()``, t5-base;
+    ``umt5_base()`` for UMT5's gated FFN and per-layer relative bias) on
+    ``device``, the counterpart of the JAX ``load_t5_encoder``: the embedding
+    is ``encoder.embed_tokens.weight`` where the file has no
+    ``shared.weight``; the decoder and ``lm_head`` are dropped."""
+    from audiolab_tpu_torch.models.t5 import T5Config, T5Encoder
+
+    dev = resolve_device(device)
+    sd = torch_load_weights(path)
+    if "shared.weight" not in sd and "encoder.embed_tokens.weight" in sd:
+        sd["shared.weight"] = sd["encoder.embed_tokens.weight"]
+    with dev:
+        model = T5Encoder(cfg or T5Config())
+    return _load_strict(model, _own(sd, model), "T5 checkpoint").eval()
+
+
+def load_sao_number_state(embedder: torch.nn.Module, state_dict: dict,
+                          which: str) -> torch.nn.Module:
+    """A seconds conditioner (``which``: ``seconds_start`` or
+    ``seconds_total``) of stable-audio-open's ``model.safetensors``
+    (``conditioner.conditioners.{which}.embedder.``, or a bare ``embedder.``
+    where the file has no such key) into ``models/stable_audio.
+    NumberEmbedder`` in place, the counterpart of ``convert_sao_number``."""
+    prefix = f"conditioner.conditioners.{which}.embedder"
+    if not any(k.startswith(prefix) for k in state_dict):
+        prefix = "embedder"
+    sd = {k[len(prefix) + 1:]: v for k, v in state_dict.items() if k.startswith(prefix + ".")}
+    return _load_strict(embedder, _floats(sd), f"stable-audio {which} embedder state_dict")
+
+
+def load_oobleck_state(decoder: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """stable-audio-open's Oobleck decoder (``pretransform.model.decoder.``,
+    ``decoder.`` or ``model.`` stripped) into ``models/stable_audio_dit.
+    OobleckDecoder`` in place, the counterpart of ``convert_oobleck``: every
+    weight-norm pair folded over dim 0 (the transposed up-convolutions over
+    their input channels); the encoder's tensors dropped."""
+    sd = _strip(state_dict, ("pretransform.model.decoder.", "decoder.", "model."))
+    return _load_strict(decoder, fold_state_dict(_own(sd, decoder)),
+                        "stable-audio Oobleck decoder state_dict")
+
+
+def load_sao_dit_state(dit: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """stable-audio-open's DiT (``model.model.`` or ``model.`` stripped) into
+    ``models/stable_audio_dit.StableAudioDiT`` in place."""
+    sd = _strip(state_dict, ("model.model.", "model."))
+    return _load_strict(dit, _own(sd, dit), "stable-audio DiT state_dict")
+
+
+def load_sao_dit_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """stable-audio-open's ``model.safetensors`` -> ``models/stable_audio_dit.
+    StableAudioDiT`` of ``cfg`` (default ``SAODiTConfig()``) on ``device``;
+    the norms' ``beta`` buffers (zeros upstream) load as stored."""
+    from audiolab_tpu_torch.models.stable_audio_dit import SAODiTConfig, StableAudioDiT
+
+    dev = resolve_device(device)
+    sd = torch_load_weights(path)
+    with dev:
+        dit = StableAudioDiT(cfg or SAODiTConfig())
+    return load_sao_dit_state(dit, sd).eval()
+
+
+def load_stable_audio_pipeline(model_path: str, t5_path: str, spm_model_path: str,
+                               device: str | torch.device = "cuda"):
+    """stable-audio-open-1.0 on ``device`` in one call, the counterpart of the
+    JAX ``load_stable_audio_pipeline``: ``model_path`` (read once) holds the
+    DiT at ``SAODiTConfig()``, the Oobleck decoder at ``OobleckConfig()`` and
+    the two seconds embedders; ``t5_path`` holds T5-base at ``T5Config()``
+    (the checkpoint does not embed it); ``spm_model_path`` is T5's
+    SentencePiece model.  Returns ``pipelines/music.
+    StableAudioCheckpointPipeline``."""
+    from audiolab_tpu_torch.models.stable_audio import NumberEmbedder
+    from audiolab_tpu_torch.models.stable_audio_dit import (
+        OobleckConfig,
+        OobleckDecoder,
+        SAODiTConfig,
+        StableAudioDiT,
+    )
+    from audiolab_tpu_torch.models.t5 import T5Config
+    from audiolab_tpu_torch.pipelines.music import StableAudioCheckpointPipeline
+
+    dev = resolve_device(device)
+    for p in (model_path, t5_path, spm_model_path):
+        if not os.path.exists(p):
+            raise FileNotFoundError(p)
+    sd = torch_load_weights(model_path)
+    t5_cfg = T5Config()
+    with dev:
+        dit = StableAudioDiT(SAODiTConfig())
+        dec = OobleckDecoder(OobleckConfig())
+        ss, st = NumberEmbedder(features=t5_cfg.dim), NumberEmbedder(features=t5_cfg.dim)
+    load_sao_dit_state(dit, sd)
+    load_oobleck_state(dec, sd)
+    load_sao_number_state(ss, sd, "seconds_start")
+    load_sao_number_state(st, sd, "seconds_total")
+    del sd
+    t5 = load_t5_encoder(t5_path, t5_cfg, device=dev)
+    return StableAudioCheckpointPipeline(dit, dec, t5, ss, st, spm_model_path, device=dev)
+
+
+# ------------------------------------------------ ACE-Step (checkpoint layout)
+
+def load_acestep_dit_state(dit: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """ACE-Step's transformer (``model.`` stripped) into ``models/acestep_dit.
+    ACEStepDiT`` in place, ``lyric_embs`` included; the lyric encoder's
+    tensors are left to :func:`load_acestep_lyric_state`.  ``proj_in``'s
+    first layer stays the file's Conv2d (the JAX mapping flattens it into a
+    Dense)."""
+    return _load_strict(dit, _own(_strip(state_dict, ("model.",)), dit),
+                        "ACE-Step transformer state_dict")
+
+
+def load_acestep_dit_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """ACE-Step's ``ace_step_transformer`` weights -> ``models/acestep_dit.
+    ACEStepDiT`` of ``cfg`` (default ``ACEStepDiTConfig()``) on ``device``."""
+    from audiolab_tpu_torch.models.acestep_dit import ACEStepDiT, ACEStepDiTConfig
+
+    dev = resolve_device(device)
+    sd = torch_load_weights(path)
+    with dev:
+        dit = ACEStepDiT(cfg or ACEStepDiTConfig())
+    return load_acestep_dit_state(dit, sd).eval()
+
+
+def load_acestep_lyric_state(enc: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """The lyric conformer (``model.lyric_encoder.`` or ``lyric_encoder.``
+    stripped, so a whole transformer file or bare keys) into
+    ``models/acestep_dit.LyricConformerEncoder`` in place."""
+    sd = _strip(state_dict, ("model.lyric_encoder.", "lyric_encoder."))
+    return _load_strict(enc, _own(sd, enc), "ACE-Step lyric encoder state_dict")
+
+
+def load_acestep_lyric_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """ACE-Step's ``ace_step_transformer`` weights -> ``models/acestep_dit.
+    LyricConformerEncoder(**kw)`` (default the published widths) on
+    ``device``."""
+    from audiolab_tpu_torch.models.acestep_dit import LyricConformerEncoder
+
+    dev = resolve_device(device)
+    sd = torch_load_weights(path)
+    with dev:
+        enc = LyricConformerEncoder(**kw)
+    return load_acestep_lyric_state(enc, sd).eval()
+
+
+_DCAE_WEIGHTS = ("diffusion_pytorch_model.safetensors", "diffusion_pytorch_model.bin",
+                 "model.safetensors")
+
+
+def load_dcae_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """diffusers' ``AutoencoderDC`` (ACE-Step's ``music_dcae_f8c8``) -> (
+    ``models/dcae.AutoencoderDC`` on ``device``, its config).  ``path`` is
+    the directory (its ``config.json`` and the first of
+    ``diffusion_pytorch_model.safetensors``, ``diffusion_pytorch_model.bin``
+    and ``model.safetensors``) or a weights file; only ``encoder.*`` and
+    ``decoder.*`` are read.  Without ``cfg`` the directory's ``config.json``
+    gives it; a directory without one, and a weights file, take
+    ``DCAEConfig()`` (given a weights file, the JAX loader opens it as JSON
+    and raises: ROADMAP queue 3)."""
+    from audiolab_tpu_torch.models.dcae import AutoencoderDC, DCAEConfig, config_from_json
+
+    dev = resolve_device(device)
+    wfile = path
+    if os.path.isdir(path):
+        wfile = next((os.path.join(path, n) for n in _DCAE_WEIGHTS
+                      if os.path.exists(os.path.join(path, n))), None)
+        if wfile is None:
+            raise FileNotFoundError(f"none of {_DCAE_WEIGHTS} in {path}")
+        if cfg is None and os.path.exists(os.path.join(path, "config.json")):
+            cfg = config_from_json(path)
+    elif not os.path.exists(path):
+        raise FileNotFoundError(path)
+    cfg = cfg or DCAEConfig()
+    sd = torch_load_weights(wfile)
+    with dev:
+        model = AutoencoderDC(cfg)
+    return _load_strict(model, _own(sd, model), "DCAE checkpoint").eval(), cfg
+
+
+def load_adamos_state(vocoder: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """ACE-Step's ``music_vocoder`` (``vocoder.`` or ``model.`` stripped) into
+    ``models/adamos_vocoder.AdamosVocoder`` in place, the counterpart of
+    ``convert_adamos``: the head's weight-norm pairs (``conv_pre``, the
+    resblocks, ``conv_post``, and the transposed ``ups`` over their input
+    channels) folded over dim 0."""
+    sd = _strip(state_dict, ("vocoder.", "model."))
+    return _load_strict(vocoder, fold_state_dict(_own(sd, vocoder)), "ADaMoS state_dict")
+
+
+_ACESTEP_WEIGHTS = ("diffusion_pytorch_model.safetensors", "model.safetensors",
+                    "pytorch_model.bin", "diffusion_pytorch_model.bin")
+
+
+def load_acestep_pipeline(checkpoint_dir: str, device: str | torch.device = "cuda"):
+    """ACE-Step's published directory (``ace_step_transformer/``,
+    ``music_dcae_f8c8/``, ``music_vocoder/``, ``umt5-base/``) on ``device``,
+    the counterpart of the JAX ``load_acestep_pipeline``: the transformer at
+    ``ACEStepDiTConfig()`` and the lyric conformer at its defaults from one
+    read of the transformer file, ``MusicDCAE`` over the DCAE (its
+    ``config.json``) and ADaMoS at ``AdamosConfig()``, and
+    ``ACEStepTextEncoder`` over UMT5 at ``umt5_base()`` with ``spiece.model``
+    or ``tokenizer.model``.  A missing part raises ``FileNotFoundError``
+    naming its sub-directory.  Returns ``pipelines/acestep.
+    CheckpointACEStep``."""
+    from audiolab_tpu_torch.models.acestep_dit import (
+        ACEStepDiT,
+        ACEStepDiTConfig,
+        LyricConformerEncoder,
+    )
+    from audiolab_tpu_torch.models.adamos_vocoder import AdamosConfig, AdamosVocoder
+    from audiolab_tpu_torch.models.music_dcae import MusicDCAE, dcae_codec_fns
+    from audiolab_tpu_torch.models.t5 import umt5_base
+    from audiolab_tpu_torch.pipelines.acestep import ACEStepTextEncoder, CheckpointACEStep
+
+    dev = resolve_device(device)
+
+    def find(d, names):
+        for n in names:
+            p = os.path.join(checkpoint_dir, d, n)
+            if os.path.exists(p):
+                return p
+        raise FileNotFoundError(f"{d}: none of {names} in {checkpoint_dir}")
+
+    dit_path = find("ace_step_transformer", _ACESTEP_WEIGHTS)
+    dcae_dir = os.path.join(checkpoint_dir, "music_dcae_f8c8")
+    if not os.path.isdir(dcae_dir):
+        raise FileNotFoundError(f"music_dcae_f8c8 not found in {checkpoint_dir}")
+    voc_path = find("music_vocoder", _ACESTEP_WEIGHTS)
+    t5_path = find("umt5-base", _ACESTEP_WEIGHTS)
+    spm_path = find("umt5-base", ("spiece.model", "tokenizer.model"))
+    sd = torch_load_weights(dit_path)
+    with dev:
+        dit = ACEStepDiT(ACEStepDiTConfig())
+        lyr = LyricConformerEncoder()
+    load_acestep_dit_state(dit, sd)
+    load_acestep_lyric_state(lyr, sd)
+    del sd
+    dcae, _cfg = load_dcae_checkpoint(dcae_dir, device=dev)
+    with dev:
+        voc = AdamosVocoder(AdamosConfig())
+    load_adamos_state(voc, torch_load_weights(voc_path))
+    codec = MusicDCAE(*dcae_codec_fns(dcae), voc.eval())
+    text_enc = ACEStepTextEncoder(load_t5_encoder(t5_path, umt5_base(), device=dev), spm_path,
+                                  device=dev)
+    return CheckpointACEStep(dit.eval(), lyr.eval(), decode_fn=codec.decode,
+                             text_encoder=text_enc, device=dev)
+
+
+# ------------------------------------------------------------ CLAP, Vocos
+#
+# A laion_clap checkpoint holds both branches; each loader takes the file's
+# top level as the state_dict, as the JAX loaders do, and drops the other
+# branch and what its mapping does not read (``logit_scale_*``, the text
+# embeddings' ``position_ids``, the audio side's extractors, ``bn0`` and the
+# TSCAM head).
+
+def load_clap_text_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """A laion_clap checkpoint (``module.`` or ``model.`` stripped) ->
+    ``models/clap.ClapTextBranch(**kw)`` (default the RoBERTa-base branch)
+    on ``device``."""
+    from audiolab_tpu_torch.models.clap import ClapTextBranch
+
+    dev = resolve_device(device)
+    sd = _strip(torch_load_weights(path), ("module.", "model."))
+    with dev:
+        model = ClapTextBranch(**kw)
+    return _load_strict(model, _own(sd, model), "CLAP text checkpoint").eval()
+
+
+def load_clap_audio_checkpoint(path: str, device: str | torch.device = "cuda", **kw):
+    """A laion_clap checkpoint (``module.`` or ``model.`` stripped) ->
+    ``models/clap.ClapAudioBranch(**kw)`` (default HTSAT-tiny) on
+    ``device``."""
+    from audiolab_tpu_torch.models.clap import ClapAudioBranch
+
+    dev = resolve_device(device)
+    sd = _strip(torch_load_weights(path), ("module.", "model."))
+    with dev:
+        model = ClapAudioBranch(**kw)
+    return _load_strict(model, _own(sd, model), "CLAP audio checkpoint").eval()
+
+
+def load_vocos_checkpoint(path: str, cfg=None, device: str | torch.device = "cuda"):
+    """charactr/vocos' ``pytorch_model.bin`` or ``.safetensors`` -> (
+    ``models/codecs.Vocos`` on ``device``, its config).  Without ``cfg`` the
+    file's shapes give it, as the JAX loader reads them: ``dim`` from
+    ``backbone.embed``, ``n_layers`` from the ConvNeXt blocks, ``n_fft`` as
+    ``head.out``'s rows less 2 and ``hop = n_fft // 4``.  The input width is
+    ``backbone.embed``'s in both cases (the JAX loader takes ``cfg.dim``
+    when given a ``cfg``, and refuses a file whose input width differs:
+    ROADMAP queue 3)."""
+    from audiolab_tpu_torch.models.codecs import Vocos, VocosConfig
+
+    dev = resolve_device(device)
+    sd = _floats(torch_load_weights(path))
+    dim, in_dim = sd["backbone.embed.weight"].shape[:2]
+    if cfg is None:
+        n_layers = len({k.split(".")[2] for k in sd if k.startswith("backbone.convnext.")})
+        n_fft = sd["head.out.weight"].shape[0] - 2
+        cfg = VocosConfig(dim=dim, n_layers=n_layers, n_fft=n_fft, hop=n_fft // 4)
+    with dev:
+        model = Vocos(cfg, in_dim=in_dim)
+    return _load_strict(model, sd, "Vocos checkpoint").eval(), cfg

@@ -4,8 +4,8 @@ drives the separate -> RVC chain, RVC training, Zonos TTS, the speech
 engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription,
 multi-take alignment, WaveTransfer, Super Resolution's learned enhancers and
 music generation (Stable Audio, ACE-Step, YuE) at full width, loads the
-checkpoint formats of the chain, of the listening models and of the speech
-engines, and checks the output.
+checkpoint formats of the chain, of the listening models, of the speech
+engines and of the music models, and checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -49,6 +49,9 @@ engines, and checks the output.
                                                    # engine run against its twin
     python3 chip_smoke.py --phases card,loaders_voice  # Zonos with its prefix bank,
                                                    # OpenVoice and a Chatterbox directory
+                                                   # from files, each against its twin
+    python3 chip_smoke.py --phases card,loaders_music  # stable-audio-open, the checkpoint
+                                                   # ACE-Step's directory, CLAP and Vocos
                                                    # from files, each against its twin
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
@@ -316,6 +319,20 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              beside the twin's run-to-run spread under the default ones) and
              T3's teacher-forced forward (30 K2) from the files, each
              bit-equal to its twin's with equal launches
+  loaders_music  the music models' formats at the published widths, each
+             weight-norm gain drawn off: stable-audio-open's model.safetensors
+             (the DiT, the Oobleck decoder's pairs, both seconds embedders)
+             with T5-base's file, read by load_stable_audio_pipeline; ACE-Step's
+             directory (the transformer with its lyric encoder, the DCAE with
+             its config.json, ADaMoS's pairs, UMT5-base), read by
+             load_acestep_pipeline; one laion_clap file read by both CLAP
+             loaders; Vocos's pytorch_model.bin, its configuration read from
+             it: every tensor equal to its twin's, each file's MiB, write and
+             read seconds; stable-audio-open's generate on 47 s (192 K2), the
+             ACE-Step generate on 30 s, CLAP's embeddings and a Vocos decode
+             from the files, each bit-equal to its twin's with equal launches
+             (on cuDNN's deterministic algorithms where the twin does not
+             repeat on the default ones, with the spread printed)
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -339,7 +356,7 @@ import numpy as np
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
           "transcribe", "diffusion", "music", "lora", "yue", "loaders", "loaders_listen",
-          "loaders_speech", "loaders_voice")
+          "loaders_speech", "loaders_voice", "loaders_music")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -7040,6 +7057,121 @@ def write_chatterbox_dir(root: Path, t3: dict, ve: dict, s3gen: dict, campplus: 
     return out
 
 
+# stable_audio_tools' Oobleck decoder: every convolution (WNConv1d and
+# WNConvTranspose1d); ACE-Step's music_vocoder: the head's conv_pre, up-
+# convolutions, residual convolutions and conv_post
+OOBLECK_WN = re.compile(r"^layers\.(\d+\.layers\.)*\d+\.weight$")
+ADAMOS_WN = re.compile(r"^head\.(conv_pre|conv_post|ups\.\d+|resblocks\.\d+\.convs[12]\.\d+)"
+                       r"\.weight$")
+
+
+def stable_audio_state(dit: dict, decoder: dict, seconds_start: dict, seconds_total: dict,
+                       encoder: dict | None = None) -> dict:
+    """stable-audio-open's ``model.safetensors`` from the parts' state_dicts:
+    the DiT under ``model.model.``, the Oobleck decoder (and the encoder,
+    where given) under ``pretransform.model.``, each seconds embedder under
+    ``conditioner.conditioners.{seconds_start,seconds_total}.embedder.``."""
+    out = {f"model.model.{k}": v for k, v in dit.items()}
+    out.update((f"pretransform.model.decoder.{k}", v) for k, v in decoder.items())
+    out.update((f"pretransform.model.encoder.{k}", v) for k, v in (encoder or {}).items())
+    for which, part in (("seconds_start", seconds_start), ("seconds_total", seconds_total)):
+        out.update((f"conditioner.conditioners.{which}.embedder.{k}", v) for k, v in part.items())
+    return out
+
+
+def t5_file_state(t5: dict, shared: bool = True, embed_tokens: bool = False,
+                  decoder: dict | None = None) -> dict:
+    """transformers' T5 / UMT5 checkpoint of an encoder state_dict ``t5``:
+    the embedding as ``shared.weight`` (a ``.safetensors`` stores a tied
+    weight once), as ``encoder.embed_tokens.weight`` too (a ``.bin``) or in
+    its place, and a T5ForConditionalGeneration's ``decoder.*`` and
+    ``lm_head`` where given."""
+    out = {k: v for k, v in t5.items() if shared or k != "shared.weight"}
+    if embed_tokens or not shared:
+        out["encoder.embed_tokens.weight"] = t5["shared.weight"]
+    out.update(decoder or {})
+    return out
+
+
+def write_acestep_dir(root: Path, transformer: dict, dcae: dict, dcae_cfg, vocoder: dict,
+                      umt5: dict, spm_model: bytes) -> dict:
+    """ACE-Step's published directory in ``root``: ``ace_step_transformer/``
+    (the transformer with its ``lyric_encoder.*``), ``music_dcae_f8c8/``
+    (diffusers' ``config.json`` of ``dcae_cfg``, a ``models/dcae.DCAEConfig``,
+    and the DCAE), ``music_vocoder/`` (ADaMoS), each as
+    ``diffusion_pytorch_model.safetensors``, and ``umt5-base/``
+    (``model.safetensors`` and ``spiece.model``).  Returns each file's bytes
+    and write seconds."""
+    import dataclasses
+
+    config = {"_class_name": "AutoencoderDC", **dataclasses.asdict(dcae_cfg)}
+    files = {"ace_step_transformer/diffusion_pytorch_model.safetensors": transformer,
+             "music_dcae_f8c8/config.json": config,
+             "music_dcae_f8c8/diffusion_pytorch_model.safetensors": dcae,
+             "music_vocoder/diffusion_pytorch_model.safetensors": vocoder,
+             "umt5-base/model.safetensors": umt5, "umt5-base/spiece.model": spm_model}
+    out = {}
+    for name, obj in files.items():
+        p = root / name
+        p.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        if name.endswith(".safetensors"):
+            write_safetensors(p, obj)
+        elif name.endswith(".json"):
+            p.write_text(json.dumps(obj))
+        else:
+            p.write_bytes(obj)
+        out[name] = dict(bytes=p.stat().st_size, write_s=time.perf_counter() - t0)
+    return out
+
+
+def laion_clap_state(text: dict, audio: dict, seed: int, n_mels: int = 64, n_fft: int = 1024,
+                     classes: int = 527) -> dict:
+    """A laion_clap checkpoint of the two branches' state_dicts, ``module.``
+    on every key, beside what neither package's loader reads (seeded
+    values): ``logit_scale_a`` / ``logit_scale_t``, the text embeddings'
+    ``position_ids``, HTSAT's STFT and log-mel extractors, its ``bn0`` over
+    the mel bins and its TSCAM head."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    dim = audio["audio_branch.norm.weight"].shape[0]
+    bins = n_fft // 2 + 1
+    extra = {"logit_scale_a": torch.tensor(2.6592), "logit_scale_t": torch.tensor(2.6592),
+             "text_branch.embeddings.position_ids": torch.arange(
+                 text["text_branch.embeddings.position_embeddings.weight"].shape[0])[None],
+             "audio_branch.spectrogram_extractor.stft.conv_real.weight":
+                 torch.randn(bins, 1, n_fft, generator=g),
+             "audio_branch.spectrogram_extractor.stft.conv_imag.weight":
+                 torch.randn(bins, 1, n_fft, generator=g),
+             "audio_branch.logmel_extractor.melW": torch.rand(bins, n_mels, generator=g),
+             "audio_branch.bn0.weight": 1 + 0.1 * torch.randn(n_mels, generator=g),
+             "audio_branch.bn0.bias": 0.1 * torch.randn(n_mels, generator=g),
+             "audio_branch.bn0.running_mean": torch.randn(n_mels, generator=g),
+             "audio_branch.bn0.running_var": 0.5 + torch.rand(n_mels, generator=g),
+             "audio_branch.bn0.num_batches_tracked": torch.tensor(1000),
+             "audio_branch.tscam_conv.weight": 0.01 * torch.randn(classes, dim, 2, 3, generator=g),
+             "audio_branch.tscam_conv.bias": torch.zeros(classes),
+             "audio_branch.head.weight": 0.01 * torch.randn(classes, dim, generator=g),
+             "audio_branch.head.bias": torch.zeros(classes)}
+    return {f"module.{k}": v for part in (text, audio, extra) for k, v in part.items()}
+
+
+def vocos_file_state(vocos: dict, n_mels: int, seed: int) -> dict:
+    """charactr/vocos' ``pytorch_model.bin`` of a state_dict ``vocos``, with
+    the feature extractor's and the iSTFT head's buffers (window, mel
+    filterbank) that neither package's loader reads."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    n_fft = vocos["head.out.weight"].shape[0] - 2
+    return {**vocos,
+            "feature_extractor.mel_spec.spectrogram.window": torch.hann_window(n_fft),
+            "feature_extractor.mel_spec.mel_scale.fb": torch.rand(n_fft // 2 + 1, n_mels,
+                                                                  generator=g),
+            "head.istft.window": torch.hann_window(n_fft)}
+
+
 VOICE_OV_S = 10.0              # seconds of source audio OpenVoice converts from its file
 VOICE_MERGES = ("t h", "e r", "i n", "th e", "o n", "a n")   # tokenizer.json's merges
 ZONOS_OWN = ("text_emb.", "spk_proj.", "emotion.", "rate.", "pitch.")   # not in Zyphra's file
@@ -7336,6 +7468,313 @@ def phase_loaders_voice(dev, card: str) -> dict:
     return dict(launches=path, files=files, runs=runs, phase_s=phase_s)
 
 
+VOCOS_MELS = 100               # charactr/vocos-mel-24khz's mel bins
+MUSIC_VOCOS_FRAMES = 938       # 10 s of its frames (hop 256 at 24 kHz)
+
+
+def phase_loaders_music(dev, card: str) -> dict:
+    """The music models' checkpoint formats at the published widths, written
+    here in the upstream layouts from fast_init modules (every weight-norm
+    gain drawn off its weight's norm) and read back by the port's loaders
+    onto the card: each file's tensors equal to its twin's (the module in
+    memory brought to what the loader should make of its files: the Oobleck
+    decoder's and ADaMoS's weight-norm pairs folded), with its bytes, write
+    and read seconds.  (a) stable-audio-open (``random_stable_audio_checkpoint``:
+    SAODiTConfig(), the Oobleck decoder, both seconds embedders, T5-base) as
+    ``model.safetensors``, ``t5.safetensors`` and the SentencePiece model of
+    ``music_spm_model``, read by ``load_stable_audio_pipeline``: ``generate``
+    on MUSIC_SAO_S s at MUSIC_SAO_STEPS DPM++ 3M SDE steps, one fp32 K2 a
+    layer a guided step.  (b) ACE-Step's published directory at the JAX
+    widths (ACEStepDiTConfig() with the lyric conformer, DCAEConfig() with
+    its ``config.json``, AdamosConfig(), UMT5-base with a SentencePiece
+    model), read by ``load_acestep_pipeline``: ``generate`` on CKPT_S s at
+    CKPT_STEPS steps from the prompt and MUSIC_LYRICS through the loaded text
+    encoder (no kernel: linear self-attention, plain cross-attention).  (c)
+    One laion_clap file (both branches at their defaults beside the logit
+    scales, ``position_ids``, HTSAT's extractors, ``bn0`` and TSCAM head),
+    read by ``load_clap_text_checkpoint`` and ``load_clap_audio_checkpoint``:
+    the embeddings of two prompts and of a CLAP_S s clip.  (d) charactr/vocos'
+    ``pytorch_model.bin`` at VocosConfig() over VOCOS_MELS mel bins, its
+    configuration read from the file by ``load_vocos_checkpoint``: a decode
+    of MUSIC_VOCOS_FRAMES frames.  Each family is written, loaded, compared
+    and deleted before the next.  Where the twin's output differs run to run
+    under cuDNN's default algorithms (two runs, the spread printed), the run
+    from the files and the twin's are compared on the deterministic ones.
+    Each run from the files and its twin's run get counts reset just before
+    and read just after; launches must be equal and every output bit-equal.
+    Returns the path's launches: the runs from the files."""
+    import copy
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from audiolab_tpu_torch.models.acestep import tokenize_lyrics
+    from audiolab_tpu_torch.models.acestep_dit import (
+        ACEStepDiT,
+        ACEStepDiTConfig,
+        LyricConformerEncoder,
+    )
+    from audiolab_tpu_torch.models.adamos_vocoder import AdamosConfig, AdamosVocoder
+    from audiolab_tpu_torch.models.clap import (
+        ClapAudioBranch,
+        ClapAudioConfig,
+        ClapTextBranch,
+        ClapTextConfig,
+        clap_mel_image,
+    )
+    from audiolab_tpu_torch.models.codecs import Vocos, VocosConfig
+    from audiolab_tpu_torch.models.dcae import AutoencoderDC, DCAEConfig, spatial_compression
+    from audiolab_tpu_torch.models.music_dcae import MusicDCAE, dcae_codec_fns
+    from audiolab_tpu_torch.models.t5 import T5Encoder, umt5_base
+    from audiolab_tpu_torch.pipelines.acestep import (
+        ACEStepTextEncoder,
+        CheckpointACEStep,
+        checkpoint_pcfg,
+    )
+    from audiolab_tpu_torch.pipelines.music import (
+        StableAudioCheckpointPipeline,
+        random_stable_audio_checkpoint,
+    )
+    from audiolab_tpu_torch.utils import convert as C
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    cuda = dev.type == "cuda"
+    tag = "[loaders_music]"
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_loaders_music_"))
+    files: dict[str, dict] = {}
+    runs: dict[str, dict] = {}
+    path = dict.fromkeys(KERNELS, 0)
+    through_file = functools.partial(load_through_file, dev, work, files, card, tag=tag)
+    both = functools.partial(twin_run, dev, card, tag, runs, path, exact=True)
+
+    def named(prefixes, modules):
+        return {f"{pre}{k}": v for pre, m in zip(prefixes, modules)
+                for k, v in m.state_dict().items()}
+
+    def inference(fn):
+        def run():
+            with torch.inference_mode():
+                return fn()
+        return run
+
+    def as64(x):
+        return (x.detach().double().cpu() if torch.is_tensor(x)
+                else torch.from_numpy(np.asarray(x, np.float64)))
+
+    def compared(label, from_file, in_memory, expect_k2=0):
+        """``both`` on cuDNN's default algorithms where the twin repeats bit
+        for bit on them (two runs, the spread recorded), else on the
+        deterministic ones."""
+        a, b = as64(in_memory()), as64(in_memory())
+        spread, peak = float((a - b).abs().max()), float(b.abs().max())
+        runs[f"{label}, the twin twice"] = dict(max_abs_diff=spread, peak=peak)
+        log(f"{tag} {label}, the twin twice under cuDNN's default algorithms: max|diff| "
+            f"{spread:.3e} of max|y| {peak:.4g} | {card}")
+        if spread == 0.0:
+            return both(label, from_file, in_memory, expect_k2=expect_k2)
+        with cudnn_deterministic():
+            return both(f"{label}; cuDNN deterministic", from_file, in_memory,
+                        expect_k2=expect_k2)
+
+    def timed_load(load, root: Path):
+        """``load()`` with each ``torch_load_weights`` read timed: (what it
+        returned, its seconds, {file under ``root``: read seconds})."""
+        reads: dict[str, float] = {}
+        reader = C.torch_load_weights
+
+        def timed_read(p):
+            t0 = time.perf_counter()
+            out = reader(p)
+            name = str(Path(p).relative_to(root))
+            reads[name] = reads.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        C.torch_load_weights = timed_read
+        try:
+            t0 = time.perf_counter()
+            got = load()
+            sync(dev)
+            return got, time.perf_counter() - t0, reads
+        finally:
+            C.torch_load_weights = reader
+
+    def write_timed(p: Path, obj) -> dict:
+        t0 = time.perf_counter()
+        if p.suffix == ".safetensors":
+            write_safetensors(p, obj)
+        else:
+            torch.save(obj, p)
+        return dict(bytes=p.stat().st_size, write_s=time.perf_counter() - t0)
+
+    def loaded(label, written, load_s, reads, own, mine):
+        """Record and print a multi-file load; every tensor equal to its
+        twin's and on the card."""
+        unequal, off = tensors_against(dev, tag, label, own, mine)
+        for name, f in written.items():
+            f["read_s"] = reads.get(name, 0.0)
+            log(f"{tag} {label}: {name} {f['bytes'] / 2**20:.1f} MiB, written in "
+                f"{f['write_s']:.3f} s, read in {f['read_s']:.3f} s | {card}")
+        files[label] = dict(bytes=sum(f["bytes"] for f in written.values()),
+                            write_s=sum(f["write_s"] for f in written.values()),
+                            load_s=load_s, tensors=len(own), files=written)
+        log(f"{tag} {label}: {files[label]['bytes'] / 2**20:.1f} MiB, written in "
+            f"{files[label]['write_s']:.3f} s, loaded onto {dev.type} in {load_s:.3f} s; "
+            f"{len(own)} tensors, {len(unequal)} unequal, {len(off)} off {dev.type} | {card}")
+        expect(not unequal, f"{tag} {label}: tensors differ from the twins': {unequal[:8]}")
+        expect(not off, f"{tag} {label}: tensors off {dev.type}: {off[:8]}")
+
+    try:
+        # (a) stable-audio-open: model.safetensors, T5-base, the SentencePiece model
+        spm = music_spm_model(work / "spiece.model")
+        sao = random_stable_audio_checkpoint(spm, device=dev)
+        dec_pairs = gains_off(weight_norm_pairs(cpu_state(sao.decoder), OOBLECK_WN), 241)
+        mem = StableAudioCheckpointPipeline(sao.dit, twin(sao.decoder, C.fold_state_dict(
+            dec_pairs)), sao.t5, sao.ss, sao.st, spm, device=dev)
+        del sao
+        ckpt = stable_audio_state(cpu_state(mem.dit), dec_pairs, cpu_state(mem.ss),
+                                  cpu_state(mem.st))
+        written = {"model.safetensors": write_timed(work / "model.safetensors", ckpt)}
+        del ckpt, dec_pairs
+        written["t5.safetensors"] = write_timed(work / "t5.safetensors",
+                                                t5_file_state(cpu_state(mem.t5)))
+        sao_f, load_s, reads = timed_load(lambda: C.load_stable_audio_pipeline(
+            str(work / "model.safetensors"), str(work / "t5.safetensors"), spm, device=dev),
+            work)
+        for name in written:
+            (work / name).unlink()
+        parts = ("dit.", "decoder.", "t5.", "seconds_start.", "seconds_total.")
+        loaded("stable-audio-open (model.safetensors, T5-base)", written, load_s, reads,
+               named(parts, (sao_f.dit, sao_f.decoder, sao_f.t5, sao_f.ss, sao_f.st)),
+               named(parts, (mem.dit, mem.decoder, mem.t5, mem.ss, mem.st)))
+        kw = dict(seconds_total=MUSIC_SAO_S, steps=MUSIC_SAO_STEPS, cfg_scale=7.0, seed=0)
+        y = compared(f"stable-audio-open generate {MUSIC_SAO_S:g} s, {MUSIC_SAO_STEPS} DPM++ 3M "
+                     f"SDE steps", lambda: sao_f.generate(MUSIC_PROMPT, **kw)[0],
+                     lambda: mem.generate(MUSIC_PROMPT, **kw)[0],
+                     expect_k2=MUSIC_SAO_STEPS * sao_f.dit_cfg.depth)
+        t_lat = sao_f.latent_frames(MUSIC_SAO_S)
+        expect(y.shape == (2, t_lat * 2048) and np.isfinite(y).all(),
+               f"{tag} (a) output {y.shape}, finite {np.isfinite(y).all()}")
+        del sao_f, mem, y
+        torch.cuda.empty_cache() if cuda else None
+
+        # (b) the checkpoint-layout ACE-Step's published directory
+        with torch.device(dev):
+            dit = fast_init(ACEStepDiT(ACEStepDiTConfig()), 242)
+            lyr = fast_init(LyricConformerEncoder(), 243)
+            t5 = fast_init(T5Encoder(umt5_base()), 244)
+            dcae = fast_init(AutoencoderDC(DCAEConfig()), 245).eval()
+            voc = fast_init(AdamosVocoder(AdamosConfig()), 246).eval()
+        voc_pairs = gains_off(weight_norm_pairs(cpu_state(voc), ADAMOS_WN), 247)
+        voc_mem = twin(voc, C.fold_state_dict(voc_pairs))
+        del voc
+        umt5_spm = music_spm_model(work / "umt5.model")
+        transformer = cpu_state(dit)
+        transformer.update((f"lyric_encoder.{k}", v) for k, v in cpu_state(lyr).items())
+        d = work / "acestep"
+        written = write_acestep_dir(d, transformer, cpu_state(dcae), DCAEConfig(), voc_pairs,
+                                    t5_file_state(cpu_state(t5)), Path(umt5_spm).read_bytes())
+        del transformer, voc_pairs
+        ace_f, load_s, reads = timed_load(lambda: C.load_acestep_pipeline(str(d), device=dev), d)
+        shutil.rmtree(d)
+        pcfg = checkpoint_pcfg()
+        pcfg.steps = CKPT_STEPS
+        ace_f.pcfg = copy.copy(pcfg)
+        ace_m = CheckpointACEStep(dit, lyr, pcfg=pcfg, decode_fn=MusicDCAE(
+            *dcae_codec_fns(dcae), voc_mem).decode, text_encoder=ACEStepTextEncoder(
+                t5, umt5_spm, device=dev), device=dev)
+        parts = ("dit.", "lyric_encoder.", "umt5.", "dcae.", "vocoder.")
+        codec = ace_f.decode_fn.__self__
+        loaded("ACE-Step directory (transformer with the lyric encoder, DCAE, ADaMoS, UMT5)",
+               written, load_s, reads,
+               named(parts, (ace_f.model, ace_f.lyric_enc, ace_f.text_encoder.model,
+                             codec.decoder_fn.model, codec.vocoder)),
+               named(parts, (dit, lyr, t5, dcae, voc_mem)))
+        ids = tokenize_lyrics(MUSIC_LYRICS, 128)
+        ltoks = torch.from_numpy(ids[:int(np.count_nonzero(ids))].astype(np.int64))[None].to(dev)
+        lmask = torch.ones_like(ltoks)
+        speaker = torch.zeros(1, dit.cfg.speaker_embedding_dim, device=dev)
+
+        def ace_generate(eng):
+            def run():
+                hidden, mask = eng.text_embeddings([MUSIC_PROMPT])
+                null = eng.text_encoder.null_embeddings([MUSIC_PROMPT])
+                return eng.generate(hidden, mask, speaker, ltoks, lmask, duration=CKPT_S,
+                                    seed=0, text_hidden_null=null)
+            return run
+
+        y = compared(f"checkpoint ACE-Step generate {CKPT_S:g} s, {CKPT_STEPS} steps (the prompt "
+                     f"through UMT5, {ltoks.shape[1]} lyric tokens)", ace_generate(ace_f),
+                     ace_generate(ace_m))
+        frames = int(round(CKPT_S * ace_f.latent_rate))
+        hop = spatial_compression(dcae.cfg) * int(np.prod(voc_mem.cfg.upsample_rates))
+        expect(y.shape == (1, 2, frames * hop) and np.isfinite(y).all(),
+               f"{tag} (b) output {y.shape}, finite {np.isfinite(y).all()}")
+        del ace_f, ace_m, codec, dit, lyr, t5, dcae, voc_mem, y
+        torch.cuda.empty_cache() if cuda else None
+
+        # (c) one laion_clap file, both branches
+        with torch.device(dev):
+            text_b = fast_init(ClapTextBranch(ClapTextConfig()), 248).eval()
+            audio_b = fast_init(ClapAudioBranch(ClapAudioConfig()), 249).eval()
+        name = "630k-audioset-best.pt"
+        written = {name: write_timed(work / name, laion_clap_state(
+            cpu_state(text_b), cpu_state(audio_b), 250))}
+        p = str(work / name)
+        (text_f, audio_f), load_s, reads = timed_load(lambda: (
+            C.load_clap_text_checkpoint(p, device=dev, cfg=ClapTextConfig()),
+            C.load_clap_audio_checkpoint(p, device=dev, cfg=ClapAudioConfig())), work)
+        (work / name).unlink()
+        parts = ("text.", "audio.")
+        loaded("CLAP laion_clap checkpoint (both branches)", written, load_s, reads,
+               named(parts, (text_f, audio_f)), named(parts, (text_b, audio_b)))
+        g = torch.Generator().manual_seed(32)
+        cfg = ClapTextConfig()
+        tok = torch.randint(3, cfg.vocab_size, (2, 32), generator=g)
+        tok[:, 0] = 0
+        tok[1, 20:] = cfg.pad_id
+        amask = (tok != cfg.pad_id).long().to(dev)
+        tok = tok.to(dev)
+        img = clap_mel_image(torch.from_numpy(lora_clip(CLAP_S, 48000, 7))[None].to(dev))
+        for label, f, m, x in (("CLAP text embedding of two prompts", text_f, text_b,
+                                (tok, amask)),
+                               (f"CLAP audio embedding of a {CLAP_S:g} s clip", audio_f, audio_b,
+                                (img,))):
+            e = compared(label, inference(lambda f=f, x=x: f(*x)),
+                         inference(lambda m=m, x=x: m(*x)))
+            expect(tuple(e.shape) == (x[0].shape[0], 512), f"{tag} {label}: {tuple(e.shape)}")
+        del text_b, audio_b, text_f, audio_f
+
+        # (d) charactr/vocos' pytorch_model.bin
+        with torch.device(dev):
+            vocos = fast_init(Vocos(VocosConfig(), in_dim=VOCOS_MELS), 251).eval()
+        vocos_f, vcfg = through_file(
+            f"Vocos pytorch_model.bin (VocosConfig(), {VOCOS_MELS} mel bins)", "pytorch_model.bin",
+            vocos_file_state(cpu_state(vocos), VOCOS_MELS, 252),
+            lambda q: C.load_vocos_checkpoint(q, device=dev), vocos)
+        expect(vcfg == VocosConfig(), f"{tag} Vocos's configuration read from the file: {vcfg}")
+        mel = torch.randn(1, MUSIC_VOCOS_FRAMES, VOCOS_MELS, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(13))
+        y = compared(f"Vocos decode of {MUSIC_VOCOS_FRAMES} frames",
+                     inference(lambda: vocos_f(mel)), inference(lambda: vocos(mel)))
+        expect(tuple(y.shape) == (1, (MUSIC_VOCOS_FRAMES - 1) * vcfg.hop),
+               f"{tag} Vocos output {tuple(y.shape)}")
+        del vocos, vocos_f, y
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"{tag} {len(files)} families, {sum(f['bytes'] for f in files.values()) / 2**30:.2f} "
+        f"GiB written in {sum(f['write_s'] for f in files.values()):.1f} s and loaded in "
+        f"{sum(f['load_s'] for f in files.values()):.1f} s; the path's launches {path}; "
+        f"phase {phase_s:.1f} s | {card}")
+    expect(path["K2"] > 0 or not cuda, f"{tag} K2 was not launched on the path")
+    return dict(launches=path, files=files, runs=runs, phase_s=phase_s)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -7379,7 +7818,7 @@ def main() -> int:
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
     diffused = composed = adapted = sung = loaded = listened = spoken_files = None
-    voiced_files = None
+    voiced_files = music_files = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "loaders", "long"} & set(phases)
     if need_chain:
@@ -7501,6 +7940,12 @@ def main() -> int:
         # just before each run and read just after (Zonos's two calls and
         # T3's forward launch K2; OpenVoice and Chatterbox's synthesize none)
         voiced_files = phase_loaders_voice(dev, card)["launches"]
+    if "loaders_music" in phases:
+        mark("loaders_music")
+        # this slice's path: each model loaded from its files, counts reset
+        # just before each run and read just after (stable-audio-open's
+        # generate launches the fp32 K2; ACE-Step, CLAP and Vocos none)
+        music_files = phase_loaders_music(dev, card)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -7522,6 +7967,7 @@ def main() -> int:
            "loaders_listen_launches": None if listened is None else listened[r["kernel"]],
            "loaders_speech_launches": None if spoken_files is None else spoken_files[r["kernel"]],
            "loaders_voice_launches": None if voiced_files is None else voiced_files[r["kernel"]],
+           "loaders_music_launches": None if music_files is None else music_files[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),

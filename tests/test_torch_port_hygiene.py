@@ -217,14 +217,17 @@ LOADERS = ("load_roformer_checkpoint", "load_rvc_checkpoint", "load_rmvpe_checkp
            "load_dia_checkpoint", "load_xtts_gpt_checkpoint", "load_xtts_conditioner_checkpoint",
            "load_xtts_perceiver_checkpoint", "load_xtts_hifigan_checkpoint",
            "load_xtts_speaker_checkpoint", "load_xtts_dvae_checkpoint",
-           "load_openvoice_checkpoint", "load_chatterbox_pipeline")
+           "load_openvoice_checkpoint", "load_chatterbox_pipeline", "load_t5_encoder",
+           "load_sao_dit_checkpoint", "load_acestep_dit_checkpoint",
+           "load_acestep_lyric_checkpoint", "load_dcae_checkpoint", "load_acestep_pipeline",
+           "load_clap_text_checkpoint", "load_clap_audio_checkpoint", "load_vocos_checkpoint")
 
 
 @pytest.mark.parametrize("name", LOADERS)
 def test_checkpoint_loaders_default_to_the_card(no_cuda, tmp_path, name):
     """Each loader of a checkpoint file or directory (the chain's formats,
-    those of Super Resolution, transcription, diarization and alignment, and
-    the speech and cloning engines') builds on
+    those of Super Resolution, transcription, diarization and alignment, the
+    speech and cloning engines' and the music models') builds on
     the card unless told otherwise: without one it raises before it reads
     the file (there is none here), and falls back neither to the CPU nor to
     random weights."""
@@ -596,6 +599,61 @@ def test_checkpoint_music_entry_points_default_to_the_card(no_cuda, tmp_path):
     assert pipe.device.type == "cpu" and lat.shape == (1, 2, 4, 4) and torch.isfinite(lat).all()
     hidden, mask = ACEStepTextEncoder(t5, str(spm), device="cpu")(["a a"])
     assert hidden.shape == (1, 3, 16) and mask.tolist() == [[1, 1, 1]]
+
+
+def test_music_state_loaders_and_stable_audio_pipeline_default_to_the_card(no_cuda, tmp_path):
+    """The music models' ``load_*_state`` functions load in place on the
+    module's device (the CPU here, with no card) and move nothing, and
+    ``load_stable_audio_pipeline`` raises without a card before it reads
+    its files, and ``FileNotFoundError`` on the CPU for absent ones."""
+    from audiolab_tpu_torch.models.acestep_dit import (
+        ACEStepDiT,
+        ACEStepDiTConfig,
+        LyricConformerEncoder,
+    )
+    from audiolab_tpu_torch.models.adamos_vocoder import AdamosConfig, AdamosVocoder
+    from audiolab_tpu_torch.models.stable_audio import NumberEmbedder
+    from audiolab_tpu_torch.models.stable_audio_dit import (
+        OobleckConfig,
+        OobleckDecoder,
+        SAODiTConfig,
+        StableAudioDiT,
+    )
+    from audiolab_tpu_torch.utils import convert
+
+    def make():
+        return (NumberEmbedder(features=8),
+                OobleckDecoder(OobleckConfig(out_channels=1, channels=2, latent_dim=4,
+                                             c_mults=(1, 2), strides=(2, 2))),
+                AdamosVocoder(AdamosConfig(input_channels=4, depths=(1,), dims=(4,),
+                                           upsample_rates=(2,), upsample_kernel_sizes=(4,),
+                                           resblock_kernel_sizes=(3,),
+                                           resblock_dilation_sizes=((1,),), num_mels=4,
+                                           upsample_initial_channel=4)),
+                StableAudioDiT(SAODiTConfig(io_channels=4, embed_dim=64, depth=1, num_heads=4,
+                                            cond_token_dim=16, global_cond_dim=32)),
+                ACEStepDiT(ACEStepDiTConfig(num_layers=1, num_attention_heads=2,
+                                            attention_head_dim=8, in_channels=2,
+                                            out_channels=2, patch_height=4,
+                                            lyric_hidden_size=16, ssl_latent_dims=())),
+                LyricConformerEncoder(dim=8, heads=2, ffn_dim=8, num_blocks=1))
+
+    src = make()
+    prefixes = ("conditioner.conditioners.seconds_start.embedder.", "pretransform.model.decoder.",
+                "vocoder.", "model.model.", "model.", "lyric_encoder.")
+    loads = (lambda m, sd: convert.load_sao_number_state(m, sd, "seconds_start"),
+             convert.load_oobleck_state, convert.load_adamos_state, convert.load_sao_dit_state,
+             convert.load_acestep_dit_state, convert.load_acestep_lyric_state)
+    for module, prefix, load, want in zip(make(), prefixes, loads, src):
+        got = load(module, {f"{prefix}{k}": v for k, v in want.state_dict().items()})
+        assert got is module
+        for k, v in got.state_dict().items():
+            assert v.device.type == "cpu" and torch.equal(v, want.state_dict()[k]), k
+    paths = [str(tmp_path / n) for n in ("model.safetensors", "t5.safetensors", "spiece.model")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.load_stable_audio_pipeline(*paths)
+    with pytest.raises(FileNotFoundError):
+        convert.load_stable_audio_pipeline(*paths, device="cpu")
 
 
 def test_yue_entry_points_default_to_the_card(no_cuda, tmp_path):

@@ -4,9 +4,11 @@ A dependency-free RIFF/WAVE reader and writer (PCM 8/16/24/32-bit and IEEE
 float 32/64 in, PCM 16/24 and float 32 out), copied from the JAX package's
 framework-free host code so that both packages write the same bytes, and
 :func:`read_audio` / :func:`write_audio`, which take every other container
-through an ffmpeg subprocess when the host has one.  The JAX package's
-native decoder is not part of the port.  Samples are float32
-``(channels, n)`` in [-1, 1].
+through an ffmpeg subprocess when the host has one.  :func:`read_wav`
+takes the native decoder (``audiolab_tpu_torch.native``) first, as the JAX
+package's does, and the numpy decoder where the native library is not built
+or does not take the format.  Samples are float32 ``(channels, n)`` in
+[-1, 1].
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import tempfile
 from dataclasses import dataclass
 
 import numpy as np
+
+from audiolab_tpu_torch import native
 
 _WAVE_FORMAT_PCM = 0x0001
 _WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -63,11 +67,16 @@ def _read_chunks(data: bytes):
 
 
 def read_wav(path: str | os.PathLike) -> AudioData:
-    """Decode a RIFF/WAVE file (PCM 8/16/24/32, float 32/64, extensible)."""
+    """Decode a RIFF/WAVE file (PCM 8/16/24/32, float 32/64, extensible):
+    by the native library where it is built and takes the format (PCM
+    16/24/32, float 32; the same samples bit for bit), else in numpy."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
         raise ValueError(f"{path}: not a RIFF/WAVE file")
+    decoded = native.wav_decode(data)
+    if decoded is not None:
+        return AudioData(*decoded)
 
     fmt = None
     pcm = None

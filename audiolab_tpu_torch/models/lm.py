@@ -114,6 +114,9 @@ class Attention(nn.Module):
         self.k_proj = nn.Linear(c.dim, c.n_kv_heads * hd, bias=False, dtype=dt)
         self.v_proj = nn.Linear(c.dim, c.n_kv_heads * hd, bias=False, dtype=dt)
         self.o_proj = nn.Linear(c.n_heads * hd, c.dim, bias=False, dtype=dt)
+        # the heads this module computes: all of them, or a tensor-parallel
+        # rank's share (parallel/tp.py)
+        self.n_heads, self.n_kv_heads = c.n_heads, c.n_kv_heads
         # made on the default device (a module built under ``torch.device``)
         self.register_buffer("freqs", torch.tensor(rope_freqs(c)), persistent=False)
 
@@ -123,9 +126,9 @@ class Attention(nn.Module):
         c = self.cfg
         b, t, _ = x.shape
         hd = c.head_dim
-        q = apply_rope(self.q_proj(x).reshape(b, t, c.n_heads, hd), pos, self.freqs)
-        k = apply_rope(self.k_proj(x).reshape(b, t, c.n_kv_heads, hd), pos, self.freqs)
-        v = self.v_proj(x).reshape(b, t, c.n_kv_heads, hd)
+        q = apply_rope(self.q_proj(x).reshape(b, t, self.n_heads, hd), pos, self.freqs)
+        k = apply_rope(self.k_proj(x).reshape(b, t, self.n_kv_heads, hd), pos, self.freqs)
+        v = self.v_proj(x).reshape(b, t, self.n_kv_heads, hd)
         if cache is None:
             kf, vf, attn_mask = k, v, mask
         else:
@@ -140,7 +143,7 @@ class Attention(nn.Module):
             if mask is not None:
                 attn_mask = attn_mask & mask
             idx.add_(t)
-        rep = c.n_heads // c.n_kv_heads
+        rep = self.n_heads // self.n_kv_heads
         if rep > 1:
             kf = kf.repeat_interleave(rep, dim=2)
             vf = vf.repeat_interleave(rep, dim=2)
@@ -149,7 +152,7 @@ class Attention(nn.Module):
             o = flash_attention(qh, kh, vh, causal=True)
         else:
             o = attention_reference(qh, kh, vh, causal=cache is None, mask=attn_mask)
-        return self.o_proj(o.transpose(1, 2).reshape(b, t, c.n_heads * hd))
+        return self.o_proj(o.transpose(1, 2).reshape(b, t, self.n_heads * hd))
 
 
 class MLP(nn.Module):

@@ -5,7 +5,10 @@
   vocals and instrumentals are blended (avg/median hybrid) and de-bled
   (residual subtraction with a cosine guard); or one N-stem member makes a
   multistem split whose stems sum to the input.  Everything stays on the
-  separator's device.
+  separator's device.  With a ``mesh`` over the ranks of a process group
+  (core/mesh.py) each batch of chunks is split over its ``dp`` axis: each
+  rank runs its shard and the batch is assembled on every rank (an
+  ``all_reduce`` of the shards laid in zeros).
 - :func:`vr_split` / :func:`vr_transform`: a VR net as a named two-stem
   split (the karaoke background-vocal pass) or as a per-stem transform.
 - The checkpoint-free DSP transforms of the per-stem chain (spectral gate,
@@ -19,6 +22,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -72,13 +76,23 @@ def debleed(target: torch.Tensor, other: torch.Tensor, alpha: float = 0.2,
 
 
 class StemSeparator:
-    """Chunked, batched ensemble separation on one device."""
+    """Chunked, batched ensemble separation on one device, or fanned out
+    over a mesh's ``dp`` axis."""
 
     def __init__(self, members: list[EnsembleMember], sr: int = 44100,
                  chunk_seconds: float = 8.0, overlap_seconds: float = 0.5,
                  device_batch: int = 8, matmul_precision: str = "bfloat16",
-                 device: str | torch.device = "cuda"):
-        self.device = resolve_device(device)
+                 device: str | torch.device = "cuda", mesh=None):
+        """``mesh``: a ``core.mesh.Mesh`` over the ranks of a process
+        group; chunk batches are split over its ``dp`` axis, and
+        ``device_batch`` is raised to a multiple of dp so that every shard
+        gets equal work.  Under a mesh the separator's device is the mesh's
+        (the rank's).  A one-process mesh of more than one slot raises
+        ``ValueError``: no rank runs its other shards."""
+        if mesh is not None and mesh.shape["dp"] > 1 and not mesh.distributed:
+            raise ValueError("the separator fans out over the ranks of a process group: "
+                             "start one rank a card (init_distributed) and pass get_mesh()")
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.members = members
         for m in members:
             if isinstance(m.apply_fn, torch.nn.Module):
@@ -86,8 +100,29 @@ class StemSeparator:
         self.sr = sr
         self.chunk_seconds = chunk_seconds
         self.overlap_seconds = overlap_seconds
+        self.mesh = mesh
+        if mesh is not None:
+            dp = mesh.shape["dp"]
+            device_batch = max(device_batch, dp)
+            device_batch += (-device_batch) % dp
         self.device_batch = device_batch
         self.matmul_precision = matmul_precision
+
+    def _apply(self, member: EnsembleMember, batch: torch.Tensor) -> dict:
+        """One chunk batch through the member, split over the mesh's dp:
+        this rank's shard, the batch assembled on every rank."""
+        dp = 1 if self.mesh is None else self.mesh.shape["dp"]
+        if dp == 1:
+            return member.apply_fn(batch)
+        per = batch.shape[0] // dp
+        c = self.mesh.coordinate("dp")
+        out = member.apply_fn(batch[c * per:(c + 1) * per])
+        full = {}
+        for stem, v in out.items():
+            full[stem] = v.new_zeros((dp * per,) + v.shape[1:])
+            full[stem][c * per:(c + 1) * per] = v
+            dist.all_reduce(full[stem], group=self.mesh.group("dp"))
+        return full
 
     def _run_member(self, member: EnsembleMember, audio: torch.Tensor) -> dict:
         """Chunk -> fixed-size batched calls -> crossfade stitch."""
@@ -99,11 +134,14 @@ class StemSeparator:
         # as 5 groups of 7, not 5 of 8 with 5 padded rows)
         n_groups = -(-plan.count // db)
         db = -(-plan.count // n_groups)
+        if self.mesh is not None:   # keep shards equal across the dp axis
+            dp = self.mesh.shape["dp"]
+            db += (-db) % dp
         pad = (-plan.count) % db
         chunks = extract_chunks(audio, plan)                     # (count, ch, chunk)
         if pad:
             chunks = torch.cat([chunks, chunks.new_zeros((pad,) + chunks.shape[1:])])
-        groups = [member.apply_fn(chunks[g:g + db]) for g in range(0, chunks.shape[0], db)]
+        groups = [self._apply(member, chunks[g:g + db]) for g in range(0, chunks.shape[0], db)]
         # stems in key order, as the JAX separator's jitted member graph
         # returns them (the order of a multistem split's files)
         out = {s: torch.cat([gr[s] for gr in groups])[: plan.count] for s in sorted(groups[0])}

@@ -31,13 +31,20 @@ def feature_matching_loss(real_fmaps, fake_fmaps):
     return loss * 2.0
 
 
-def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
-    """KL(q||p) between the posterior and the prior through the flow; the
-    mask broadcasts over the channel axis of its layout."""
+def kl_terms(z_p, logs_q, m_p, logs_p, z_mask):
+    """The masked KL sum and the mask's sum, whose ratio is
+    :func:`kl_loss` (a data-parallel step reduces each over the ranks)."""
     z_p = z_p.float()
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask), torch.sum(z_mask)
+
+
+def kl_loss(z_p, logs_q, m_p, logs_p, z_mask):
+    """KL(q||p) between the posterior and the prior through the flow; the
+    mask broadcasts over the channel axis of its layout."""
+    num, den = kl_terms(z_p, logs_q, m_p, logs_p, z_mask)
+    return num / den
 
 
 def mel_l1_loss(mel_real, mel_fake, c_mel: float = 45.0):

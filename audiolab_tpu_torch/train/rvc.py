@@ -8,7 +8,16 @@ gradients against the discriminator *before* this step's update (the
 discriminator frozen), then D's loss and gradients on the detached fake,
 then both updates.  It runs fp32 with TF32 off (core/precision.py), no AMP
 and no loss scaling, and launches no hand-written kernel: every op needs a
-gradient, and the kernels are forward-only.  One card, no data parallelism.
+gradient, and the kernels are forward-only.
+
+Under a ``dp`` mesh over ranks (``make_train_step(..., mesh=)``) each rank
+runs its equal shard of the global batch and the step equals the global
+one: the draws are the global batch's, each rank taking its rows; every
+gradient is averaged over the ranks (one ``all_reduce`` a network) before
+each optimizer's update, which is exact where DDP's hooks would expect one
+forward for each backward and this step runs D twice; the KL term, a ratio
+of two sums, reduces its numerator and its mask sum over the ranks.  Every
+rank reports the global batch's metrics.
 """
 
 from __future__ import annotations
@@ -17,8 +26,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from audiolab_tpu_torch.core.device import resolve_device
+from audiolab_tpu_torch.core.distributed import average_gradients, rows
 from audiolab_tpu_torch.kernels.mel import log_mel, mel_filterbank, mel_spectrogram
 from audiolab_tpu_torch.kernels.stft import stft
 from audiolab_tpu_torch.models.layers import pin, pinning
@@ -33,7 +44,7 @@ from audiolab_tpu_torch.train.losses import (
     discriminator_loss,
     feature_matching_loss,
     generator_adv_loss,
-    kl_loss,
+    kl_terms,
     mel_l1_loss,
 )
 
@@ -137,21 +148,39 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(word)
 
 
-def make_train_step(cfg: SynthesizerConfig, c_mel: float = 45.0, c_kl: float = 1.0):
+def make_train_step(cfg: SynthesizerConfig, c_mel: float = 45.0, c_kl: float = 1.0,
+                    mesh=None):
     """The train step.  batch keys (tensors on the state's device): phone
     (b, t, feat), phone_lengths (b,), pitch (b, t) int, pitchf (b, t),
     spec (b, t, spec_channels), spec_lengths (b,), wave (b, t * upp), sid
     (b,).  ``step(state, batch, seed, draws=None) -> (state, metrics)``: the
     draws come from :func:`step_generator` unless given; the learning rates
-    from the state's optimizers.  Metrics are 0-d tensors on the device."""
+    from the state's optimizers.  Metrics are 0-d tensors on the device.
+
+    ``mesh``: a ``core.mesh.Mesh`` over ranks whose ``dp`` axis has more
+    than one slot makes the step data-parallel: ``batch`` is this rank's
+    shard (every rank's of the same size), ``draws`` (when given) the
+    global batch's, and the state equal on every rank before the step
+    stays so after it."""
     sr = cfg.sr
+    dp = 1 if mesh is None else mesh.shape["dp"]
+    if dp > 1 and not mesh.distributed:
+        raise ValueError("the data-parallel step needs a mesh over the ranks of a process group")
+    group = mesh.group("dp") if dp > 1 else None
+    shard = mesh.coordinate("dp") if dp > 1 else 0
 
     def step(state: RVCTrainState, batch: dict, seed: int, draws: TrainDraws | None = None):
         gen, disc = state.gen, state.disc
+        b, t = batch["spec"].shape[:2]
         if draws is None:
-            b, t = batch["spec"].shape[:2]
-            draws = TrainDraws.sample(cfg, b, t, step_generator(
+            draws = TrainDraws.sample(cfg, b * dp, t, step_generator(
                 seed, state.step, batch["spec"].device))
+        if dp > 1:
+            if draws.starts.shape[0] != b * dp:
+                raise ValueError(f"draws for {draws.starts.shape[0]} rows, the global batch "
+                                 f"has {b * dp}")
+            draws = TrainDraws(*(rows(x, shard, dp) for x in (draws.posterior, draws.starts,
+                                                                  draws.sine)))
         state.g_opt.zero_grad(set_to_none=True)
         state.d_opt.zero_grad(set_to_none=True)
 
@@ -171,7 +200,15 @@ def make_train_step(cfg: SynthesizerConfig, c_mel: float = 45.0, c_kl: float = 1
         l_adv = generator_adv_loss(f_outs)
         l_fm = feature_matching_loss(r_fmaps, f_fmaps)
         l_mel = mel_l1_loss(mel_real, mel_fake, c_mel)
-        l_kl = c_kl * kl_loss(z_p, logs_q, m_p, logs_p, y_mask)
+        kl_num, kl_den = kl_terms(z_p, logs_q, m_p, logs_p, y_mask)
+        if dp > 1:
+            # the global mask sum; dp x this rank's sum over it, averaged
+            # with the other ranks' gradients, is the global ratio's
+            kl_den = kl_den.detach().clone()
+            dist.all_reduce(kl_den, group=group)
+            l_kl = c_kl * (dp * kl_num / kl_den)
+        else:
+            l_kl = c_kl * (kl_num / kl_den)
         g_total = l_adv + l_fm + l_mel + l_kl
         g_total.backward()
 
@@ -180,6 +217,14 @@ def make_train_step(cfg: SynthesizerConfig, c_mel: float = 45.0, c_kl: float = 1
         d_total = discriminator_loss(r_outs, f_outs)
         d_total.backward()
 
+        if dp > 1:
+            average_gradients(disc.parameters(), group)
+            average_gradients(gen.parameters(), group)
+            means = torch.stack([d_total, l_adv, l_fm, l_mel, c_kl * kl_num]).detach()
+            dist.all_reduce(means, group=group)
+            d_total, l_adv, l_fm, l_mel = means[:4] / dp
+            l_kl = means[4] / kl_den
+            g_total = l_adv + l_fm + l_mel + l_kl
         state.d_opt.step()
         state.g_opt.step()
         state.step += 1

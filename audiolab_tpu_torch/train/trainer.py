@@ -2,24 +2,34 @@
 reference: layouts/rvc_train.py:524-727 ``train1key`` and
 modules/rvc/infer/modules/train/train.py:254-788).
 
-One process on one card.  The reference's LossTracker EMA smoothing and
-best-checkpoint / early-stop logic (train.py:57-239) is the JAX package's
-small pure-python class, copied.
+One process on one card, or (under ``torchrun``, the default process
+group started by ``core.distributed.init_distributed``) one rank per card
+with the data-parallel step: every rank reads the same loader batches,
+takes its shard of each, and rank 0 alone writes the checkpoints, the
+exported voice and the state file while the others wait at a barrier.  The
+reference's LossTracker EMA smoothing and best-checkpoint / early-stop
+logic (train.py:57-239) is the JAX package's small pure-python class,
+copied.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import logging
+import sys
 import time
 from dataclasses import dataclass, field, replace
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from audiolab_tpu_torch.core.device import resolve_device
+from audiolab_tpu_torch.core.distributed import init_distributed, rank_device, rows, world_size
+from audiolab_tpu_torch.core.mesh import get_mesh
 from audiolab_tpu_torch.models.rvc.synthesizer import config_for
 from audiolab_tpu_torch.retrieval.index import FeatureIndex
 from audiolab_tpu_torch.train.checkpoint import (
@@ -81,8 +91,8 @@ class TrainRVCConfig:
     lr: float = 1e-4
     save_every_epoch: int = 5
     spk_id: int = 0
-    # kept so the JAX trainer's config carries over; read by nothing: one card
-    # takes no mesh, as the JAX trainer with one device takes none
+    # under a process group of more than one rank: shard each batch over the
+    # ranks (the batch size must divide by their count)
     use_mesh: bool = True
     early_stop: bool = True
     synth_overrides: dict = field(default_factory=dict)
@@ -130,6 +140,8 @@ def train_rvc(exp_dir: str, cfg: TrainRVCConfig | None = None, callback=None,
     small export.  ``lock``, when given, is held around building the state
     and around each step: a server passes its inference lock, because the
     card's TF32 flags and the seeded initialisers are process-wide.
+    Under a process group of more than one rank, ``device`` is the rank's
+    card and every rank returns the same metrics.
     Returns the last step's metrics."""
     dev = resolve_device(device)
     lock = lock or contextlib.nullcontext()
@@ -151,7 +163,18 @@ def train_rvc(exp_dir: str, cfg: TrainRVCConfig | None = None, callback=None,
                                          steps_per_epoch=steps_per_epoch, device=dev)
         if restore_train_state(mgr, state) is not None:
             log.info("resumed from step %d", state.step)
-    step_fn = make_train_step(synth_cfg)
+    world = world_size()
+    if world > 1 and not (cfg.use_mesh and cfg.batch_size % world == 0):
+        raise ValueError(f"{world} ranks need use_mesh and a batch size that divides by "
+                         f"them, not {cfg.batch_size}")
+    mesh = get_mesh() if world > 1 else None
+    shard = mesh.coordinate("dp") if mesh else 0
+    writer = shard == 0
+    step_fn = make_train_step(synth_cfg, mesh=mesh)
+
+    def wait() -> None:
+        if mesh:
+            dist.barrier()
 
     tracker = LossTracker()
     metrics: dict = {}
@@ -159,26 +182,73 @@ def train_rvc(exp_dir: str, cfg: TrainRVCConfig | None = None, callback=None,
     start_epoch = state.step // steps_per_epoch
     for epoch in range(start_epoch, cfg.epochs):
         for batch in loader.batches():
+            if mesh:
+                batch = {k: rows(v, shard, world) for k, v in batch.items()}
             with lock:
                 state, metrics = step_fn(state, batch, 1)
         vals = {k: float(v) for k, v in metrics.items()}
         gen_total = vals["loss_gen_total"]
         tracker.update(gen_total, state.step)
-        if callback:
+        if callback and writer:
             callback(epoch + 1, f"epoch {epoch + 1}: gen {gen_total:.3f} "
                      f"disc {vals['loss_disc']:.3f}", cfg.epochs)
-        log.info("epoch %d step %d gen %.3f disc %.3f mel %.3f (%.1fs)",
-                 epoch + 1, state.step, gen_total, vals["loss_disc"], vals["loss_mel"],
-                 time.time() - t_start)
-        if tracker.is_best:
+        if writer:
+            log.info("epoch %d step %d gen %.3f disc %.3f mel %.3f (%.1fs)",
+                     epoch + 1, state.step, gen_total, vals["loss_disc"], vals["loss_mel"],
+                     time.time() - t_start)
+        if tracker.is_best and writer:
             export_generator(str(exp / "model_best.npz"), state.gen, synth_cfg)
-        if (epoch + 1) % cfg.save_every_epoch == 0 or epoch + 1 == cfg.epochs:
+        if ((epoch + 1) % cfg.save_every_epoch == 0 or epoch + 1 == cfg.epochs) and writer:
             save_train_state(mgr, state.step, state)
+        wait()
         if cfg.early_stop and tracker.should_early_stop():
             log.info("early stop at epoch %d", epoch + 1)
             break
-    mgr.wait_until_finished()
-    export_generator(str(exp / "model_final.npz"), state.gen, synth_cfg)
     final = {k: float(v) for k, v in metrics.items()}
-    (exp / "train_state.json").write_text(json.dumps({"step": state.step, "metrics": final}))
+    if writer:
+        mgr.wait_until_finished()
+        export_generator(str(exp / "model_final.npz"), state.gen, synth_cfg)
+        (exp / "train_state.json").write_text(json.dumps({"step": state.step,
+                                                          "metrics": final}))
+    wait()
     return final
+
+
+def main(argv=None) -> int:
+    """Train a prepared experiment directory (its ``filelist.json``, from
+    :func:`prepare_dataset`), one rank per card under torchrun:
+
+        torchrun --nproc_per_node=4 -m audiolab_tpu_torch.train.trainer EXP_DIR \\
+            --batch-size 8 --epochs 20
+
+    or ``python -m audiolab_tpu_torch.train.trainer EXP_DIR`` on one card.
+    The process group comes from torchrun's environment
+    (``init_distributed``); rank 0 prints the last step's metrics as JSON."""
+    ap = argparse.ArgumentParser(prog="python -m audiolab_tpu_torch.train.trainer")
+    ap.add_argument("exp_dir")
+    ap.add_argument("--sr", type=int, default=48000)
+    ap.add_argument("--version", default="v2")
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--save-every-epoch", type=int, default=5)
+    ap.add_argument("--no-early-stop", action="store_true")
+    ap.add_argument("--synth-overrides", default="{}", help="JSON of SynthesizerConfig fields")
+    ap.add_argument("--device", default="cuda", help="cuda (NCCL) or cpu (gloo)")
+    args = ap.parse_args(argv)
+    started = not dist.is_initialized()
+    info = init_distributed(device=args.device)
+    device = rank_device() if info["process_count"] > 1 else args.device
+    cfg = TrainRVCConfig(sr=args.sr, version=args.version, batch_size=args.batch_size,
+                         epochs=args.epochs, save_every_epoch=args.save_every_epoch,
+                         early_stop=not args.no_early_stop,
+                         synth_overrides=json.loads(args.synth_overrides))
+    metrics = train_rvc(args.exp_dir, cfg, device=device)
+    if info["process_index"] == 0:
+        print(json.dumps(metrics))
+    if started and dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

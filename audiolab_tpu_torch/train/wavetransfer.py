@@ -15,8 +15,16 @@ Checkpoints are torch files through train/checkpoint.py's
 ``CheckpointManager`` (the JAX package's Orbax checkpoints are not read).
 ``generate`` and the super-resolution loader build the model from its
 config and read the newest checkpoint: unlike the JAX package they need no
-prepared WAVs and no template state.  The JAX trainer's data-parallel
-branch (several devices) is not ported: the port trains on one card.
+prepared WAVs and no template state.  Under a process group of more than
+one rank, whose count must divide the batch size as the JAX trainer's
+data-parallel branch asks of its devices, each rank takes its shard of
+every global batch and of every step's global draws, the gradients are
+averaged over the ranks before Adam (so the weights and the EMA stay equal
+on every rank), the reported loss is the global batch's, and rank 0 alone
+writes checkpoints while the others wait at a barrier.  A batch the ranks
+cannot split raises ``ValueError``: the JAX trainer then runs unsharded in
+its one process, but here each rank would train the whole batch and write
+the same checkpoints.
 
 Everything is fp32; on the card TF32 is off (core/precision.py).  The
 randomness is explicit: the batches come from a numpy generator (the JAX
@@ -38,11 +46,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from audiolab_tpu_torch.core.audio_io import read_audio, write_wav
 from audiolab_tpu_torch.core.chunking import extract_chunks, plan_chunks, stitch_chunks
 from audiolab_tpu_torch.core.device import resolve_device
+from audiolab_tpu_torch.core.distributed import average_gradients, rows, world_size
 from audiolab_tpu_torch.kernels.mel import log_mel, mel_spectrogram
 from audiolab_tpu_torch.kernels.resample import resample_poly_np
 from audiolab_tpu_torch.models.wavegrad import (
@@ -168,9 +178,17 @@ def train_model(
     gives a step's (noise level (b,), eps (b, n)) (default
     ``loss_draws(b, n, seed=step)``).  ``lock``, when given, is held around
     building the state and around each step (a server passes its inference
-    lock).  Returns the last checkpointed loss, the step count and the host
-    seconds of the first step run and of the later ones on average."""
+    lock).  Under a process group of more than one rank the step is
+    data-parallel (module docstring); ``draws`` then gives the global
+    batch's, and a ``cfg.batch_size`` that the ranks do not divide raises
+    ``ValueError``.  Returns the last
+    checkpointed loss, the step count and the host seconds of the first
+    step run and of the later ones on average."""
     cfg = cfg or WTConfig()
+    world = world_size()
+    if world > 1 and cfg.batch_size % world:
+        raise ValueError(f"{world} ranks need a batch size that divides by them, not "
+                         f"{cfg.batch_size}")
     dev = resolve_device(device)
     token = token or CancellationToken()
     lock = lock or contextlib.nullcontext()
@@ -193,6 +211,9 @@ def train_model(
             start = int(state["step"])
             log.info("wavetransfer resumed at step %d", start)
 
+    dp = world > 1
+    shard = dist.get_rank() if dp else 0
+    writer = shard == 0
     loss = float("nan")
     loss_t = torch.tensor(float("nan"))
     t0 = time.perf_counter()
@@ -205,9 +226,16 @@ def train_model(
         audio, mel = next(gen)
         with lock:
             scale, eps = draws(i, audio.shape[0], audio.shape[-1])
+            if dp:
+                audio, mel, scale, eps = (rows(x, shard, world) for x in (audio, mel, scale, eps))
             loss_t = diffusion_loss(model, audio, mel, scale, eps)
             opt.zero_grad(set_to_none=True)
             loss_t.backward()
+            if dp:
+                average_gradients(model.parameters())
+                loss_t = loss_t.detach().clone()
+                dist.all_reduce(loss_t)
+                loss_t /= world
             opt.step()
             _ema_update(ema, model, cfg.ema)
             ran += 1
@@ -216,11 +244,15 @@ def train_model(
                 t_first = time.perf_counter()
             if (i + 1) % cfg.ckpt_every == 0 or i + 1 == cfg.steps:
                 loss = float(loss_t.detach())
-                mgr.save(i + 1, {"step": i + 1, "params": model.state_dict(),
-                                 "opt": opt.state_dict(), "ema": ema})
-                if callback:
-                    callback(i + 1, f"step {i + 1}: loss {loss:.4f}", cfg.steps)
-                log.info("step %d loss %.4f (%.1fs)", i + 1, loss, time.perf_counter() - t0)
+                if writer:
+                    mgr.save(i + 1, {"step": i + 1, "params": model.state_dict(),
+                                     "opt": opt.state_dict(), "ema": ema})
+                    if callback:
+                        callback(i + 1, f"step {i + 1}: loss {loss:.4f}", cfg.steps)
+                    log.info("step %d loss %.4f (%.1fs)", i + 1, loss,
+                             time.perf_counter() - t0)
+                if dp:
+                    dist.barrier()
     last_loss = float(loss_t.detach())
     t_end = time.perf_counter()
     return {"loss": loss if np.isfinite(loss) else last_loss, "steps": cfg.steps,

@@ -5,7 +5,9 @@ engines of the LM core (Dia, XTTS, the LM), Chatterbox, transcription,
 multi-take alignment, WaveTransfer, Super Resolution's learned enhancers and
 music generation (Stable Audio, ACE-Step, YuE) at full width, loads the
 checkpoint formats of the chain, of the listening models, of the speech
-engines and of the music models, and checks the output.
+engines and of the music models, runs the parallel layer (a data-parallel
+training step and a tensor-parallel LM on two ranks sharing the card, the
+separator's fan-out) and the host utilities, and checks the output.
 
     python3 chip_smoke.py                          # every phase, one card
     python3 chip_smoke.py --phases card,kernels    # a subset
@@ -53,6 +55,10 @@ engines and of the music models, and checks the output.
     python3 chip_smoke.py --phases card,loaders_music  # stable-audio-open, the checkpoint
                                                    # ACE-Step's directory, CLAP and Vocos
                                                    # from files, each against its twin
+    python3 chip_smoke.py --phases card,parallel   # dp RVC step and tp LM core on two ranks
+                                                   # sharing the card, the separator's
+                                                   # fan-out, export, the native library,
+                                                   # the dry run
     python3 chip_smoke.py --profile DIR            # + profiler tables of one chain pass,
                                                    # of the separator family, of TTS, of
                                                    # a Dia call, an XTTS-v2 synthesize,
@@ -333,6 +339,20 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
              from the files, each bit-equal to its twin's with equal launches
              (on cuDNN's deterministic algorithms where the twin does not
              repeat on the default ones, with the spread printed)
+  parallel   the parallel layer and the host utilities: init_distributed as one
+             NCCL rank; the RVC GAN step at v2-48k, batch 8 split 4 + 4 with
+             the shards' lengths 366 and 300 frames, on two ranks sharing the
+             card over gloo, against the single-process step (step 1's
+             metrics, gradients and parameters, later metrics, seconds a
+             step); the LM core at YuE's stage-1 geometry under tp 2 on a
+             512-token prompt in the same ranks against the replicated and
+             fp32 forwards (16 K2 a rank, a profiler trace of rank 0's warm
+             forward naming k2h_kernel); StemSeparator(mesh=) with dp 2 in
+             the same ranks on the chain's members and the 60 s track (48
+             K1 a rank); the v2-48k synthesizer exported and reloaded
+             against eager infer; the native library built where the
+             script runs, against numpy (the WAV decode timed against the
+             numpy decoder); the dry run's four bodies on two gloo ranks
 
 The last lines are the kernels JSON, the card's name and power limit, and
 the device JSON.  Weights are random, seeded and filled by bench.py's rules
@@ -356,7 +376,7 @@ import numpy as np
 PHASES = ("card", "kernels", "separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
           "serve", "separators", "processors", "long", "train", "tts", "engines", "chatterbox",
           "transcribe", "diffusion", "music", "lora", "yue", "loaders", "loaders_listen",
-          "loaders_speech", "loaders_voice", "loaders_music")
+          "loaders_speech", "loaders_voice", "loaders_music", "parallel")
 SEP_SR, RVC_SR = 44100, 16000
 DUR_S = 60.0
 LONG_S = 240.0     # bench.py's 4-minute track
@@ -6291,6 +6311,42 @@ LOADERS_CLIP_S = 10.0     # the clip HTDemucs, MDX23C and the VR nets separate f
 FOLD_TOL = 1e-5           # of max|y|: folded against unfolded in fp64 (fp32-rounded folds)
 
 
+def vr_spreads(dev, label: str, run, card: str) -> dict:
+    """``run()`` (a VR split) twice under cuDNN's default algorithms and
+    twice under its deterministic ones: each pair's max|diff| of the stems.
+    Where the deterministic pair differs too, one profiled repeat under
+    each: the CUDA kernels only the default algorithms launch name the op
+    that does not repeat."""
+    import torch
+
+    spreads, kernels = {}, {}
+    modes = (("default", contextlib.nullcontext), ("deterministic", cudnn_deterministic))
+    for name, algos in modes:
+        with algos():
+            x, y = run(), run()
+        spreads[name] = max(float((x[k] - y[k]).abs().max()) for k in y)
+    peak = max(float(v.abs().max()) for v in y.values())
+    log(f"[loaders] {label} in memory twice: max|diff| {spreads['default']:.3e} under cuDNN's "
+        f"default algorithms, {spreads['deterministic']:.3e} under its deterministic ones "
+        f"(max|y| {peak:.4g}) | {card}")
+    if spreads["deterministic"] != 0.0:
+        for name, algos in modes:
+            with algos(), torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                run()
+                sync(dev)
+            kernels[name] = {e.key: e.self_device_time_total for e in prof.key_averages()
+                             if e.self_device_time_total > 0}
+        only = sorted(set(kernels["default"]) - set(kernels["deterministic"]),
+                      key=lambda k: -kernels["default"][k])
+        log(f"[loaders] {label}, CUDA kernels of one repeat under the default algorithms and "
+            f"not under the deterministic ones (device us): "
+            + "; ".join(f"{k[:110]} {kernels['default'][k]:.0f}" for k in only)
+            + f" | {card}")
+        spreads["default_only"] = only
+    return spreads
+
+
 def phase_loaders(dev, sep, vc, audio, card: str) -> dict:
     """The chain's checkpoint formats at full width, written here in the
     upstream containers and names from seeded modules and read back by the
@@ -6475,20 +6531,33 @@ def phase_loaders(dev, sep, vc, audio, card: str) -> dict:
                 for g in (got_vr, net_mem))
         separated = {}
         for label, (from_file, in_memory) in runs.items():
-            reset_counts()
-            t0 = time.perf_counter()
-            a = from_file()
-            sync(dev)
-            secs = time.perf_counter() - t0
-            member_launches = counts()
-            b = in_memory()
+            algos = contextlib.nullcontext()
+            spreads = None
+            if label.startswith("VR "):
+                # each VR net in memory twice under cuDNN's default algorithms
+                # and twice under its deterministic ones: the comparison runs
+                # on the deterministic ones where only they repeat
+                spreads = vr_spreads(dev, label, in_memory, card)
+                if spreads["default"] != 0.0 and spreads["deterministic"] == 0.0:
+                    algos = cudnn_deterministic()
+            with algos:
+                reset_counts()
+                t0 = time.perf_counter()
+                a = from_file()
+                sync(dev)
+                secs = time.perf_counter() - t0
+                member_launches = counts()
+                b = in_memory()
             d = max(float((a[k] - b[k]).abs().max()) for k in b)
             peak = max(float(v.abs().max()) for v in b.values())
             finite = all(bool(torch.isfinite(v).all()) for v in a.values())
-            separated[label] = dict(seconds=secs, max_abs_diff=d, launches=member_launches)
-            log(f"[loaders] {label} from its file on {LOADERS_CLIP_S:.0f} s: stems {sorted(a)} "
-                f"finite {finite}, {secs:.3f} s, launches {member_launches}; against the module in "
-                f"memory max|diff| {d:.3e} (tolerance {1e-6 * peak:.3e}: 1e-6 of max|y|)")
+            separated[label] = dict(seconds=secs, max_abs_diff=d, launches=member_launches,
+                                    spreads=spreads)
+            on = "" if isinstance(algos, contextlib.nullcontext) else "; cuDNN deterministic"
+            log(f"[loaders] {label} from its file on {LOADERS_CLIP_S:.0f} s{on}: stems "
+                f"{sorted(a)} finite {finite}, {secs:.3f} s, launches {member_launches}; against "
+                f"the module in memory max|diff| {d:.3e} (tolerance {1e-6 * peak:.3e}: 1e-6 of "
+                f"max|y|)")
             expect(set(a) == set(b) and finite, f"loaders {label}: stems")
             expect(d <= 1e-6 * peak, f"loaders {label}: differs from the module in memory")
     finally:
@@ -7775,6 +7844,683 @@ def phase_loaders_music(dev, card: str) -> dict:
     return dict(launches=path, files=files, runs=runs, phase_s=phase_s)
 
 
+PAR_LENGTHS = (366, 300)      # frames of the two shards' rows: the 3.7 s slice, and 3.0 s
+PAR_STEPS = 3                 # the cold step and two warm ones, each run
+PAR_PROMPT = 512              # tokens of the tp forward's prompt
+PAR_METRIC_TOL = 2 * 1e-4     # relative to the fp64 step, step 1 (twice train/check.py's GATE)
+PAR_EXACT_TOL = 1e-5          # the fp64 dp step against the fp64 global step: gradients (of
+                              # the gated max|g|) and metrics (relative); the mel loss's STFT
+                              # runs in fp32 in both (kernels/stft.py), so they part at fp32's
+                              # rounding there (1.4e-6 in a CPU rehearsal), far below a wrong
+                              # reduction (a mean of the shards' KL ratios: percents)
+PAR_LATER_TOL = 1e-2          # relative, the later steps (unpinned; Adam's near-zero elements)
+PAR_TP_RATIO = 1.5            # the tp forward's distance from fp32, over the replicated one's
+PAR_SEP_TOL = 1e-3            # of max|y|: the separator's stems, dp 2 against unsharded
+PAR_EXPORT_TOL = 1e-5         # of max|y|: the exported synthesizer against eager infer
+# the phase's sizes (a rehearsal on the CPU passes smaller ones): the
+# synthesizer (None: v2-48k), phase train's batch, the shards' frames, the
+# LM (None: YuE's stage 1), the prompt, the separator's members and track
+PAR_SIZES = dict(synth_kw=None, batch=TRAIN_BATCH, samples=TRAIN_SAMPLES, lengths=PAR_LENGTHS,
+                 lm_kw=None, prompt=PAR_PROMPT, sep_cfg=SEP_CFG, dur_s=DUR_S)
+
+
+def par_configs(sizes: dict):
+    """(the synthesizer's config, the LM's) of ``sizes``."""
+    from audiolab_tpu_torch.models.lm import LMConfig
+    from audiolab_tpu_torch.models.rvc.synthesizer import SynthesizerConfig, config_for
+    from audiolab_tpu_torch.models.yue import YuEConfig
+
+    synth = (SynthesizerConfig(**sizes["synth_kw"]) if sizes["synth_kw"]
+             else config_for(48000, "v2"))
+    lm = LMConfig(**sizes["lm_kw"]) if sizes["lm_kw"] else YuEConfig().stage1
+    return synth, lm
+
+
+def par_train_batch(dev, cfg, sizes: dict) -> dict:
+    """Phase ``train``'s batch with unequal lengths: the first half of the
+    rows (the first shard) 366 frames, the second half 300."""
+    import torch
+
+    b = sizes["batch"]
+    batch = train_batch(dev, cfg, b, sizes["samples"])
+    t = batch["spec"].shape[1]
+    first, second = sizes["lengths"]
+    lengths = torch.tensor([min(first, t)] * (b // 2) + [second] * (b // 2),
+                           dtype=torch.long, device=dev)
+    batch["phone_lengths"] = batch["spec_lengths"] = lengths
+    return batch
+
+
+def shard_pins(values: dict, index: int, count: int) -> dict:
+    """A rank's rows of pins recorded on the whole batch: the batch is the
+    first axis of every pin but the mel loss's STFT directions, stacked
+    (re, im) in front of it."""
+    from audiolab_tpu_torch.core.distributed import rows
+
+    return {kind: [rows(v.transpose(0, 1), index, count).transpose(0, 1) if kind == "phasor"
+                   else rows(v, index, count) for v in vs] for kind, vs in values.items()}
+
+
+def _rvc_steps(dev, cfg, batch, step, pins=None, dtype=None, steps: int = PAR_STEPS,
+               shards: int = 1) -> tuple:
+    """``steps`` steps from seed 0's weights (in ``dtype``, fp32 by
+    default); the first under ``pins`` (recorded when None, replayed when
+    the recorded values are given).  ``batch`` is one of ``shards`` equal
+    shards of the global batch (the draws are the global batch's).  Returns
+    (state, the pins, each step's metrics, each step's seconds, the state
+    after step 1: parameters and gradients on the CPU)."""
+    from audiolab_tpu_torch.models.layers import Pins, pinned
+    from audiolab_tpu_torch.models.rvc.synthesizer import TrainDraws
+    from audiolab_tpu_torch.train.rvc import create_train_state, step_generator
+
+    state, _, _ = create_train_state(cfg, seed=0, device=dev)
+    draws = None
+    if dtype is not None:
+        # the draws step 1 takes by default, in the step's type
+        state.gen.to(dtype)
+        state.disc.to(dtype)
+        batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+        b, t = batch["spec"].shape[:2]
+        d = TrainDraws.sample(cfg, b * shards, t, step_generator(0, 0, dev))
+        draws = TrainDraws(d.posterior.to(dtype), d.starts, d.sine.to(dtype))
+    record = pins is None
+    if record:
+        pins = Pins()
+    else:
+        rec, pins = pins, Pins()
+        pins.values = rec
+    losses, times, first = [], [], None
+    for i in range(steps):
+        ctx = pinned(pins, replay=not record) if i == 0 else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with ctx:
+            state, metrics = step(state, batch, 0, draws=draws)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            first = {f"{m}.{k}": (p.detach().cpu().clone(), p.grad.detach().cpu().clone())
+                     for m, net in (("gen", state.gen), ("disc", state.disc))
+                     for k, p in net.named_parameters()}
+    return state, pins, losses, times, first
+
+
+def _allowed(ref: dict) -> dict:
+    """Each gradient tensor's allowance against the fp64 step: its gated
+    max|g| (train/check.py) times GATE, or times twice the single-process
+    fp32 step's largest distance from fp64 over every tensor where that is
+    larger.  An fp32 step of this batch sits that far from exact at its
+    worst tensor, and which tensors a step's rounding lands on depends on
+    how it splits its sums: the dp step and the single process's, each
+    about 1.3e-3 of the gated max|g| away at their worst, on different
+    text-encoder tensors (the fp64 dp step is the fp64 global step to
+    within the fp32 STFT's rounding, :data:`PAR_EXACT_TOL`)."""
+    from audiolab_tpu_torch.train.check import GATE, gated_scale
+
+    peak = {k.split(".", 1)[1]: float(g.abs().max()) for k, g in ref["grads64"].items()}
+    scale = {k: gated_scale(k.split(".", 1)[1], peak) or 1.0 for k in ref["grads64"]}
+    worst = max(ref["err_single"][k] / scale[k] for k in scale)
+    return {k: max(GATE, 2 * worst) * scale[k] for k in scale}
+
+
+def _exactness(first64: dict, metrics64: dict, ref: dict) -> dict:
+    """The fp64 dp step's step 1 against the fp64 single-process step's:
+    the largest gradient difference over its tensor's gated max|g|, and the
+    largest relative metric difference."""
+    from audiolab_tpu_torch.train.check import gated_scale
+
+    peak = {k.split(".", 1)[1]: float(g.abs().max()) for k, g in ref["grads64"].items()}
+    errs = {k: float((g - ref["grads64"][k]).abs().max())
+            / (gated_scale(k.split(".", 1)[1], peak) or 1.0) for k, (_, g) in first64.items()}
+    at = max(errs, key=errs.get)
+    return dict(grad_err=errs[at], grad_at=at,
+                metric_err=max(abs(metrics64[k] - v) / abs(v)
+                               for k, v in ref["metrics64"].items()))
+
+
+def _against_reference(first: dict, ref: dict) -> dict:
+    """Step 1's gradients against the fp64 single-process step's, each
+    tensor's largest difference over its allowance (:func:`_allowed`; at
+    most 1 passes), and the parameters against the fp32 single-process
+    step's: the largest difference in units of lr, and the elements that
+    moved differently by more than 1e-2 lr while their fp64 gradient is
+    farther from 0 than the allowance (AdamW's first update is lr times the
+    gradient's sign, so only a gradient within rounding of 0 may take the
+    other sign)."""
+    allowed = _allowed(ref)
+    lr = ref["lr"]
+    worst_g, at_g, worst_p, at_p, stray = 0.0, "", 0.0, "", 0
+    for k, (p, g) in first.items():
+        g64, (p32, _) = ref["grads64"][k], ref["first32"][k]
+        eg = float((g.double() - g64).abs().max()) / allowed[k]
+        if eg > worst_g:
+            worst_g, at_g = eg, k
+        dp = (p - p32).abs()
+        ep = float(dp.max()) / lr
+        if ep > worst_p:
+            worst_p, at_p = ep, k
+        stray += int(((dp > 1e-2 * lr) & (g64.abs() > allowed[k])).sum())
+    return dict(grad_err=worst_g, grad_at=at_g, param_err_lr=worst_p, param_at=at_p,
+                stray=stray)
+
+
+def parallel_rank(rank: int, store: str, work: str, card: str, device: str,
+                  sizes: dict) -> dict:
+    """One of the two ranks sharing the card over gloo: (b) the
+    data-parallel RVC step on this rank's shard against the single-process
+    step the parent saved; (c) the LM core at YuE's stage-1 geometry under
+    tp = 2 against its replicated and fp32 forwards, K2 launches counted
+    just around the tp forward; (f) rank 0 traces a warm tp forward; (d)
+    ``StemSeparator(mesh=get_mesh())`` on the chain's two members and the
+    track, K1 launches counted around its first call, a second call timed,
+    rank 0 saving the stems for the parent to hold against the unsharded
+    separator."""
+    import copy
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from audiolab_tpu_torch.core.distributed import init_distributed, rank_device, rows
+    from audiolab_tpu_torch.core.mesh import get_mesh
+    from audiolab_tpu_torch.kernels import attention as A
+    from audiolab_tpu_torch.models.lm import TransformerLM
+    from audiolab_tpu_torch.parallel import shard_lm_params
+    from audiolab_tpu_torch.pipelines.separate import StemSeparator
+    from audiolab_tpu_torch.train.rvc import make_train_step
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+    from audiolab_tpu_torch.utils.profiling import trace
+
+    info = init_distributed(num_processes=2, process_id=rank, backend="gloo", device=device,
+                            init_method=store, timeout=1200)
+    dev = rank_device()
+    out: dict = {"info": info, "device": str(dev)}
+
+    # (b) the dp RVC step
+    cfg, lm_cfg = par_configs(sizes)
+    mesh = get_mesh()
+    shard, dp = mesh.coordinate("dp"), mesh.shape["dp"]
+    ref = torch.load(Path(work) / "single.pt", weights_only=False)
+    batch = {k: rows(v, shard, dp) for k, v in par_train_batch(dev, cfg, sizes).items()}
+    pins = shard_pins({k: [v.to(dev) for v in vs] for k, vs in ref["pins"].items()}, shard, dp)
+    step = make_train_step(cfg, mesh=mesh)
+    # step 1 in fp64: the dp decomposition against the fp64 global step
+    _, _, losses64, _, first64 = _rvc_steps(dev, cfg, batch, step, pins, dtype=torch.float64,
+                                            steps=1, shards=dp)
+    exact = _exactness(first64, losses64[0], ref)
+    del first64
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    state, replayed, losses, times, first = _rvc_steps(dev, cfg, batch, step, pins)
+    out["rvc"] = dict(losses=losses, times=times, flips=replayed.flips, fp64=exact,
+                      **_against_reference(first, ref))
+    del state, batch, pins, ref, first
+    torch.cuda.empty_cache()
+
+    # (c) the tp = 2 LM forward at YuE's stage-1 geometry, bf16
+    with torch.device(dev):
+        lm = fast_init(TransformerLM(lm_cfg), 40).eval()
+    toks = torch.randint(0, lm_cfg.vocab_size, (1, sizes["prompt"]), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    with torch.inference_mode():
+        ref_logits, _ = lm(toks)
+        with torch.device(dev):
+            f32 = TransformerLM(dataclasses.replace(lm_cfg, dtype="float32")).eval()
+        f32.load_state_dict({k: v.float() for k, v in lm.state_dict().items()})
+        exact, _ = f32(toks)
+        del f32
+        tp_mesh = get_mesh(2)
+        tp = shard_lm_params(copy.deepcopy(lm), tp_mesh)
+        del lm
+        torch.cuda.empty_cache()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, _ = tp(toks)
+        sync(dev)
+        cold = time.perf_counter() - t0
+        launches, hop = counts(), A.flash_attention_fwd.sm90_launches
+        warm = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            if i == 2 and rank == 0:
+                tdir = Path(work) / "trace"
+                with trace(str(tdir)):
+                    tp(toks)
+                    sync(dev)
+            else:
+                tp(toks)
+                sync(dev)
+            warm.append(time.perf_counter() - t0)
+    peak = float(exact.abs().max())
+    out["tp"] = dict(
+        launches=launches, hopper=hop, cold_s=cold, warm_s=warm,
+        heads=(tp.model.layers[0].self_attn.n_heads, tp.model.layers[0].self_attn.n_kv_heads),
+        err_replicated=float((logits.float() - ref_logits.float()).abs().max()),
+        err_tp_fp32=float((logits.float() - exact).abs().max()),
+        err_replicated_fp32=float((ref_logits.float() - exact).abs().max()), peak=peak,
+        finite=bool(torch.isfinite(logits).all()))
+    if rank == 0:
+        names = set()
+        for f in (Path(work) / "trace").glob("*.json"):
+            names |= {e.get("name", "") for e in json.loads(f.read_text())["traceEvents"]}
+        out["trace"] = dict(files=len(list((Path(work) / "trace").glob("*.json"))),
+                            k2h=sorted(n for n in names if "k2h_kernel" in n)[:3])
+    del tp, logits, ref_logits, exact
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) the separator's fan-out over the two ranks
+    sep = build_separator(dev, sizes["sep_cfg"])
+    fan = StemSeparator(sep.members, sr=sep.sr, chunk_seconds=sep.chunk_seconds,
+                        overlap_seconds=sep.overlap_seconds, device_batch=sep.device_batch,
+                        mesh=mesh)
+    audio = par_sep_audio(dev, sizes)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = fan.separate(audio, as_numpy=False)
+    sync(dev)
+    cold = time.perf_counter() - t0
+    launches, k1h = counts(), A.attention_nk1.sm90_launches
+    t0 = time.perf_counter()
+    fan.separate(audio, as_numpy=False)
+    sync(dev)
+    out["separate"] = dict(launches=launches, hopper=k1h, cold_s=cold,
+                           warm_s=time.perf_counter() - t0, device_batch=fan.device_batch)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in got.items()}, Path(work) / "fan.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def par_sep_audio(dev, sizes: dict):
+    """The fan-out's track: seeded stereo noise of ``sizes["dur_s"]``."""
+    import torch
+
+    return torch.from_numpy((0.1 * np.random.default_rng(0).standard_normal(
+        (2, int(sizes["dur_s"] * SEP_SR)))).astype(np.float32)).to(dev)
+
+
+def speechlike(seed: int, sr: int = 16000, hop: int = 160) -> np.ndarray:
+    """Two voiced stretches (a glide, a vibrato) of a harmonic sawtooth around
+    an aspirated gap, under an envelope (tests/test_f0_world.py's signal)."""
+    rng = np.random.default_rng(seed)
+    seg1 = 130.0 * 2.0 ** (np.linspace(0.0, 0.4, 140) / 2.0)
+    seg2 = 200.0 * 2.0 ** (0.4 * np.sin(2 * np.pi * np.arange(160) * hop / sr * 5.5) / 12.0)
+    truth = np.concatenate([seg1, np.zeros(50), seg2])
+    truth = truth * (1.0 + 0.003 * rng.standard_normal(len(truth)))
+    per_sample = np.repeat(np.where(truth > 0, truth, 1.0), hop)
+    phase = 2.0 * np.pi * np.cumsum(per_sample) / sr
+    x = sum(np.sin(h * phase) / h for h in range(1, 9))
+    x = x / np.abs(x).max()
+    x[140 * hop:190 * hop] = 0.02 * rng.standard_normal(50 * hop)
+    env = 0.4 + 0.6 * np.abs(np.sin(np.pi * np.arange(len(x)) / len(x)))
+    return (x * env).astype(np.float64)
+
+
+def wav_decode_ms(tmp: Path, native, read_wav, write_wav, seconds: float = DUR_S,
+                  repeats: int = 5) -> dict:
+    """``read_wav`` of a ``seconds`` stereo 44.1 kHz file (the chain's
+    track) in each subtype, the native decoder against the numpy one: the
+    median host milliseconds of ``repeats`` reads (the file in the page
+    cache, warm)."""
+    x = np.clip(0.4 * np.random.default_rng(1).standard_normal((2, int(seconds * SEP_SR))),
+                -1, 1).astype(np.float32)
+    out = {}
+    saved = native.wav_decode
+    for sub in ("PCM_16", "PCM_24", "FLOAT"):
+        p = tmp / f"long_{sub}.wav"
+        write_wav(p, x, SEP_SR, subtype=sub)
+        for name in ("native", "numpy"):
+            native.wav_decode = saved if name == "native" else (lambda data: None)
+            try:
+                times = []
+                for _ in range(repeats):
+                    t0 = time.perf_counter()
+                    read_wav(p)
+                    times.append(time.perf_counter() - t0)
+            finally:
+                native.wav_decode = saved
+            out[f"{sub}_{name}"] = float(np.median(times) * 1e3)
+    return out
+
+
+def phase_native(card: str) -> dict:
+    """(g) The port's native library built where the script runs (g++ at
+    first use), each function against its numpy counterpart."""
+    import tempfile
+
+    from audiolab_tpu_torch import native
+    from audiolab_tpu_torch.core.audio_io import read_wav, write_wav
+    from audiolab_tpu_torch.dsp.f0 import f0_dio, f0_harvest, stonemask
+    from audiolab_tpu_torch.kernels.resample import resample_poly_np
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    expect(ok, f"native: the library did not build: {native.unavailable_reason()}")
+    rec: dict = {"build_s": build_s, "library": str(native.library_path())}
+    rng = np.random.default_rng(0)
+    x = np.clip(0.4 * rng.standard_normal((2, 48000)), -1, 1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("PCM_16", "PCM_24", "FLOAT"):
+            p = Path(tmp) / f"{sub}.wav"
+            write_wav(p, x, 44100, subtype=sub)
+            nat, sr = native.wav_decode(p.read_bytes())
+            saved = native.wav_decode
+            native.wav_decode = lambda data: None
+            try:
+                py = read_wav(p)
+            finally:
+                native.wav_decode = saved
+            rec[f"decode_{sub}"] = bool(sr == py.sample_rate and np.array_equal(nat, py.samples))
+        rec["decode_ms"] = wav_decode_ms(Path(tmp), native, read_wav, write_wav)
+    data = native.wav_encode_pcm16(x, 44100)
+    rt, _ = native.wav_decode(data)
+    rec["encode_err"] = float(np.abs(rt - x).max())
+    y = native.resample(x[0], 160, 441)
+    ref = resample_poly_np(x[0], 44100, 16000)
+    n = min(len(y), len(ref))
+    rec["resample_len"], rec["resample_ref_len"] = len(y), len(ref)
+    rec["resample_err"] = float(np.abs(y[50:n - 50] - ref[50:n - 50]).max())
+    peak, rms = native.levels(x[0])
+    rec["levels_err"] = max(abs(peak - float(np.abs(x[0]).max())),
+                            abs(rms - float(np.sqrt(np.mean(x[0].astype(np.float64) ** 2)))))
+    h = 1469598103934665603
+    for byte in b"audiolab":
+        h = ((h ^ byte) * 1099511628211) & (2 ** 64 - 1)
+    rec["hash_ok"] = native.hash64(b"audiolab") == h
+    sig = speechlike(0)
+    for mode, fn in (("dio", f0_dio), ("harvest", f0_harvest)):
+        est, orc = fn(sig, sr=16000, hop=160), native.world_f0(sig, 16000, 160, mode=mode)
+        m = min(len(est), len(orc))
+        est, orc = est[:m], orc[:m]
+        both, either = (est > 0) & (orc > 0), (est > 0) | (orc > 0)
+        rel = np.abs(est[both] - orc[both]) / orc[both]
+        rec[f"{mode}_voicing"] = float(both.sum() / max(either.sum(), 1))
+        rec[f"{mode}_median_rel"] = float(np.median(rel))
+        rec[f"{mode}_p90_rel"] = float(np.percentile(rel, 90))
+    sig = speechlike(3)
+    raw = f0_dio(sig, sr=16000, hop=160, refine=False)
+    py, cc = stonemask(sig, raw, sr=16000, hop=160), native.world_stonemask(sig, raw, 16000, 160)
+    v = raw > 0
+    rec["stonemask_median_rel"] = float(np.median(np.abs(py[v] - cc[v]) / np.maximum(cc[v], 1e-6)))
+    log(f"[parallel] (g) native library built in {build_s:.2f} s ({rec['library']}): WAV decode "
+        f"bit-equal to numpy PCM16 {rec['decode_PCM_16']} PCM24 {rec['decode_PCM_24']} float "
+        f"{rec['decode_FLOAT']}; read_wav of {DUR_S:.0f} s stereo, native / numpy ms "
+        + ", ".join(f"{sub} {rec['decode_ms'][sub + '_native']:.2f} / "
+                    f"{rec['decode_ms'][sub + '_numpy']:.2f}"
+                    for sub in ("PCM_16", "PCM_24", "FLOAT"))
+        + f" (warm, median of 5); PCM16 round trip {rec['encode_err']:.2e}; resample 44.1 -> 16 "
+        f"kHz {rec['resample_len']} / {rec['resample_ref_len']} samples, interior "
+        f"{rec['resample_err']:.3e} from resample_poly_np; levels {rec['levels_err']:.2e}; "
+        f"hash64 {rec['hash_ok']}; WORLD oracle against dsp/f0.py: dio voicing "
+        f"{rec['dio_voicing']:.3f} median {rec['dio_median_rel']:.4f} p90 "
+        f"{rec['dio_p90_rel']:.4f}, harvest {rec['harvest_voicing']:.3f} / "
+        f"{rec['harvest_median_rel']:.4f} / {rec['harvest_p90_rel']:.4f}, stonemask median "
+        f"{rec['stonemask_median_rel']:.5f} | {card}")
+    expect(all(rec[f"decode_{s}"] for s in ("PCM_16", "PCM_24", "FLOAT")),
+           "native: WAV decode differs from numpy")
+    expect(rec["encode_err"] < 1e-4 and rec["resample_len"] == rec["resample_ref_len"]
+           and rec["resample_err"] < 5e-2 and rec["levels_err"] < 1e-6 and rec["hash_ok"],
+           f"native: {rec}")
+    expect(all(rec[f"{m}_voicing"] > 0.75 and rec[f"{m}_median_rel"] < 0.02
+               and rec[f"{m}_p90_rel"] < 0.08 for m in ("dio", "harvest"))
+           and rec["stonemask_median_rel"] < 0.01, f"native: WORLD oracle {rec}")
+    return rec
+
+
+def phase_parallel(dev, card: str, sizes: dict | None = None) -> dict:
+    """The parallel layer and the host utilities on the card.  (a)
+    ``init_distributed`` as one NCCL rank and an ``all_reduce``; (b) the RVC
+    GAN step at v2-48k, phase ``train``'s batch of 8 split 4 + 4 over two
+    ranks sharing the card over gloo, the shards' lengths 366 and 300
+    frames, against the single-process step on the same weights, batch and
+    draws (step 1's pins recorded by the single process, each rank
+    replaying its rows): step 1's metrics and gradients, the parameters
+    after it, later steps' metrics, seconds a step for both; (c) the LM core
+    at YuE's stage-1 geometry (2048 x 16 layers, 16 heads x 128, bf16)
+    under tp = 2 on a 512-token prompt in the same two ranks, against the
+    replicated forward and an fp32 one, the 16-bit K2 launches of each
+    rank's tp forward; (d) ``StemSeparator(mesh=get_mesh())`` with dp = 2
+    in the same two ranks on the chain's two members and the 60 s track
+    against the unsharded separator, K1 launches counted; (e)
+    ``export_rvc_synthesizer`` at v2-48k on the card, the loaded program
+    against eager ``infer``; (f) ``profiling.trace`` around a warm tp
+    forward of (c) on rank 0, the written trace naming ``k2h_kernel``; (g)
+    the native library built where the script runs, each function against
+    its numpy counterpart; (h) ``dryrun_multichip(2, backend="gloo")``.  Returns the
+    path's launches: K1 of (d) and the two ranks' K2 of (c).
+
+    ``sizes`` (default :data:`PAR_SIZES`): a rehearsal on the CPU passes
+    small ones; there (a) starts one gloo rank and the launch checks are
+    skipped."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from audiolab_tpu_torch.core.distributed import init_distributed, run_ranks
+    from audiolab_tpu_torch.dryrun import dryrun_multichip
+    from audiolab_tpu_torch.models.rvc.synthesizer import SynthesizerTrn
+    from audiolab_tpu_torch.train.check import GATE, gated_scale
+    from audiolab_tpu_torch.train.rvc import make_train_step
+    from audiolab_tpu_torch.utils.export import export_rvc_synthesizer, load_program
+    from audiolab_tpu_torch.utils.fast_init import fast_init
+
+    sizes = sizes or PAR_SIZES
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    rec: dict = {}
+    path = dict.fromkeys(KERNELS, 0)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_parallel_"))
+    try:
+        # (a) one NCCL rank
+        t0 = time.perf_counter()
+        info = init_distributed(num_processes=1, process_id=0, device=dev.type,
+                                init_method=f"file://{work}/nccl_store", timeout=300)
+        x = torch.full((4,), 2.0, device=dev)
+        dist.all_reduce(x)
+        backend = dist.get_backend()
+        dist.destroy_process_group()
+        rec["nccl"] = dict(info=info, backend=backend, s=time.perf_counter() - t0)
+        log(f"[parallel] (a) init_distributed as one rank: {info}, backend {backend}, "
+            f"all_reduce {x.tolist()} in {rec['nccl']['s']:.2f} s | {card}")
+        expect(backend == ("nccl" if cuda else "gloo")
+               and info == {"process_index": 0, "process_count": 1, "local_devices": 1,
+                            "global_devices": 1}
+               and x.tolist() == [2.0] * 4, "parallel (a): the NCCL rank")
+
+        # (b) the fp64 step records step 1's pins; the single-process fp32
+        # steps replay them; both steps' step 1 saved for the ranks
+        cfg, lm_cfg = par_configs(sizes)
+        batch = par_train_batch(dev, cfg, sizes)
+        step = make_train_step(cfg)
+        _, pins, losses64, times64, first64 = _rvc_steps(dev, cfg, batch, step,
+                                                         dtype=torch.float64, steps=1)
+        state, replayed, losses, times, first = _rvc_steps(dev, cfg, batch, step,
+                                                           pins=pins.values)
+        ref = {"pins": {k: [v.cpu() for v in vs] for k, vs in pins.values.items()},
+               "grads64": {k: g for k, (_, g) in first64.items()}, "first32": first,
+               "err_single": {k: float((first[k][1].double() - g).abs().max())
+                              for k, (_, g) in first64.items()},
+               "metrics64": losses64[0], "lr": state.g_opt.base_lr}
+        peak = {k.split(".", 1)[1]: float(g.abs().max()) for k, g in ref["grads64"].items()}
+        own = max(e / (GATE * gated_scale(k.split(".", 1)[1], peak))
+                  for k, e in ref["err_single"].items())
+        single_metric = max(abs(losses[0][k] - v) / abs(v) for k, v in losses64[0].items())
+        torch.save(ref, work / "single.pt")
+        single = dict(losses=losses, times=times, fp64_s=times64[0], flips=replayed.flips,
+                      metric_err=single_metric)
+        log(f"[parallel] (b) single process, batch {sizes['batch']}: the fp64 step in "
+            f"{times64[0]:.2f} s records step 1's pins; the fp32 step replays them "
+            f"({replayed.flips} leaky ReLU inputs on the other side): metrics "
+            f"{single_metric:.3e} relative from fp64, gradients at most {own:.3f} GATE of "
+            f"the gated max|g| (twice that is the ranks' allowance where it passes GATE) "
+            f"| {card}")
+        del state, pins, first, first64, batch, ref
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (b), (c), (f), (d): two ranks sharing the card over gloo
+        t0 = time.perf_counter()
+        ranks = run_ranks(parallel_rank, 2, (f"file://{work}/gloo_store", str(work), card,
+                                             dev.type, sizes), timeout=900)
+        ranks_s = time.perf_counter() - t0
+        for r, out in enumerate(ranks):
+            b = out["rvc"]
+            m_err = max(abs(b["losses"][0][k] - v) / abs(v) for k, v in losses64[0].items())
+            later = max(abs(b["losses"][i][k] - v) / abs(v) for i in range(1, PAR_STEPS)
+                        for k, v in losses[i].items())
+            b.update(metric_err=m_err, later_err=later)
+            e64 = b["fp64"]
+            log(f"[parallel] (b) rank {r}: the dp step 1 in fp64 against the global fp64 step: "
+                f"gradients {e64['grad_err']:.3e} of the gated max|g| (at {e64['grad_at']}), "
+                f"metrics {e64['metric_err']:.3e} relative (tolerance {PAR_EXACT_TOL:g}) | {card}")
+            expect(e64["grad_err"] <= PAR_EXACT_TOL and e64["metric_err"] <= PAR_EXACT_TOL,
+                   f"parallel (b): rank {r}'s fp64 dp step is not the global step")
+            log(f"[parallel] (b) rank {r} ({out['device']}, {out['info']}): dp step, batch "
+                f"{sizes['batch'] // 2} of the global {sizes['batch']} (lengths "
+                f"{sizes['lengths'][r]}), step 1 replaying its rows of the fp64 step's "
+                f"pins ({b['flips']} leaky ReLU inputs on the other side): metrics "
+                f"{m_err:.3e} relative from the fp64 step (tolerance {PAR_METRIC_TOL:g}), "
+                f"gradients at most {b['grad_err']:.3f} of their allowance (at {b['grad_at']}; "
+                f"the larger of GATE and twice the single process's largest fp32 distance, of "
+                f"the gated max|g|), parameters {b['param_err_lr']:.3f} lr from the "
+                f"single process's at {b['param_at']} ({b['stray']} elements moved "
+                f"differently with a gradient off 0), steps 2-{PAR_STEPS} metrics "
+                f"{later:.3e} from the single process's (tolerance "
+                f"{PAR_LATER_TOL:g}); seconds a step: cold {b['times'][0]:.3f}, warm "
+                + " / ".join(f"{t:.3f}" for t in b["times"][1:]) + f" | {card}")
+            expect(m_err <= PAR_METRIC_TOL and b["grad_err"] <= 1.0
+                   and b["param_err_lr"] <= 2.0 * (1 + 1e-3) and b["stray"] == 0
+                   and later <= PAR_LATER_TOL, f"parallel (b): rank {r} against the single "
+                   "process")
+        log(f"[parallel] (b) single process, batch {sizes['batch']}: cold "
+            f"{single['times'][0]:.3f} s, warm "
+            + " / ".join(f"{t:.3f}" for t in single["times"][1:]) + f" s a step; the two "
+            f"ranks' warm median {np.median(ranks[0]['rvc']['times'][1:]):.3f} / "
+            f"{np.median(ranks[1]['rvc']['times'][1:]):.3f} s (gloo, one card); the ranks' "
+            f"call {ranks_s:.1f} s | {card}")
+        rec["rvc"] = dict(single=single, ranks=[o["rvc"] for o in ranks], ranks_s=ranks_s)
+        for r, out in enumerate(ranks):
+            c = out["tp"]
+            ratio = c["err_tp_fp32"] / max(c["err_replicated_fp32"], 1e-30)
+            log(f"[parallel] (c) rank {r}: LM {lm_cfg.dim} x {lm_cfg.n_layers}, "
+                f"{lm_cfg.dtype}, under tp 2, {c['heads'][0]} of {lm_cfg.n_heads} heads a rank, "
+                f"{sizes['prompt']}-token prompt: logits "
+                f"max|diff| from the replicated forward {c['err_replicated']:.4e}, from fp32 "
+                f"{c['err_tp_fp32']:.4e} against the replicated forward's {c['err_replicated_fp32']:.4e} "
+                f"(ratio {ratio:.3f}, tolerance {PAR_TP_RATIO}; max|logits| {c['peak']:.3f}); "
+                f"launches {c['launches']} ({c['hopper']} K2 on the Hopper route); cold "
+                f"{c['cold_s']:.3f} s, warm " + " / ".join(f"{t * 1e3:.1f} ms" for t in c["warm_s"])
+                + f" | {card}")
+            expect(c["finite"] and c["heads"] == (lm_cfg.n_heads // 2, lm_cfg.n_kv_heads // 2)
+                   and ratio <= PAR_TP_RATIO, f"parallel (c): rank {r}")
+            if cuda:
+                expect(only(c["launches"], "K2", lm_cfg.n_layers)
+                       and c["hopper"] == lm_cfg.n_layers,
+                       f"parallel (c): rank {r}'s launches {c['launches']}")
+            for k in KERNELS:
+                path[k] += c["launches"][k]
+        rec["tp"] = [o["tp"] for o in ranks]
+        tr = ranks[0]["trace"]
+        log(f"[parallel] (f) profiling.trace around rank 0's warm tp forward: {tr['files']} "
+            f"trace file(s), kernels named k2h_kernel: {tr['k2h']} | {card}")
+        expect(tr["files"] >= 1 and (tr["k2h"] or not cuda),
+               "parallel (f): the trace names no k2h_kernel")
+        rec["trace"] = tr
+
+        # (d) the separator's fan-out over the two ranks, against the
+        # unsharded separator on the same track (its second call timed)
+        sep = build_separator(dev, sizes["sep_cfg"])
+        audio = par_sep_audio(dev, sizes)
+        phase_separator(dev, sep, audio, 48 if cuda else None)
+        want, _, plain_s = phase_separator(dev, sep, audio, 48 if cuda else None)
+        got = torch.load(work / "fan.pt", weights_only=True)
+        err = max(float((got[k] - want[k].cpu()).abs().max()) for k in want)
+        peak = max(float(v.abs().max()) for v in want.values())
+        fans = [o["separate"] for o in ranks]
+        log(f"[parallel] (d) StemSeparator(mesh=get_mesh()) over two ranks sharing the card "
+            f"(gloo), {sizes['dur_s']:.0f} s: device batch {fans[0]['device_batch']} split in "
+            f"two; rank 0's stems max|diff| from the unsharded separator {err:.3e} (tolerance "
+            f"{PAR_SEP_TOL * peak:.3e}: {PAR_SEP_TOL:g} of max|y|); cold "
+            + " / ".join(f"{f['cold_s']:.3f}" for f in fans) + " s, warm "
+            + " / ".join(f"{f['warm_s']:.3f}" for f in fans) + f" s against the unsharded "
+            f"{plain_s:.3f} s; launches a rank {[f['launches'] for f in fans]} "
+            f"({[f['hopper'] for f in fans]} K1 on the Hopper routes) | {card}")
+        expect(set(got) == set(want) and err <= PAR_SEP_TOL * peak, "parallel (d): stems")
+        for r, f in enumerate(fans):
+            if cuda:
+                expect(only(f["launches"], "K1", 48) and f["hopper"] == 48,
+                       f"parallel (d): rank {r}'s launches {f['launches']}")
+            for k in KERNELS:
+                path[k] += f["launches"][k]
+        rec["separate"] = dict(err=err, peak=peak, ranks=fans, plain_s=plain_s)
+        del sep, audio, got, want
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (e) the exported synthesizer
+        with torch.device(dev):
+            synth = fast_init(SynthesizerTrn(cfg), 0).eval()
+        t0 = time.perf_counter()
+        export_rvc_synthesizer(synth, cfg, str(work / "rvc.pt2"), frames=100, device=dev)
+        export_s = time.perf_counter() - t0
+        program = load_program(str(work / "rvc.pt2"))
+        g = np.random.default_rng(1)
+        args = (torch.from_numpy(g.standard_normal((1, 100, cfg.feat_channels)).astype(
+                    np.float32)).to(dev),
+                torch.full((1,), 100, dtype=torch.long, device=dev),
+                torch.from_numpy(g.integers(1, 255, (1, 100))).to(dev),
+                torch.from_numpy(g.uniform(100, 400, (1, 100)).astype(np.float32)).to(dev),
+                torch.zeros(1, dtype=torch.long, device=dev))
+        with torch.no_grad():
+            y = program(*args)
+            eager = [synth.infer(*args, None) for _ in range(3)]
+        ref = eager[0]
+        # eager infer itself differs run to run on the card (about 7e-9 of
+        # max|y| 8e-4 in a diagnostic call, under either cuDNN setting)
+        spread = max(float((a - b).abs().max()) for a in eager for b in eager)
+        err = float((y - ref).abs().max())
+        peak = float(ref.abs().max())
+        tol = max(PAR_EXPORT_TOL * peak, 2 * spread)
+        log(f"[parallel] (e) export_rvc_synthesizer, 100 frames, on {dev.type}: exported "
+            f"and saved in {export_s:.1f} s ({(work / 'rvc.pt2').stat().st_size / 2**20:.1f} "
+            f"MiB); eager infer three times: max|diff| {spread:.3e}; the loaded program "
+            f"against eager infer: bit-equal {torch.equal(y, ref)}, max|diff| {err:.3e} "
+            f"(tolerance {tol:.3e}: {PAR_EXPORT_TOL:g} of max|y| {peak:.3e}, or twice eager's "
+            f"spread) | {card}")
+        expect(tuple(y.shape) == tuple(ref.shape) == (1, 100 * cfg.upp) and err <= tol,
+               "parallel (e): the exported program")
+        rec["export"] = dict(err=err, peak=peak, export_s=export_s, spread=spread)
+        del synth, program
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (g) the native library
+        rec["native"] = phase_native(card)
+
+        # (h) the dry run, two ranks sharing the card over gloo
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(2, device=dev.type, backend="gloo")
+        dry_s = time.perf_counter() - t0
+        log(f"[parallel] (h) dryrun_multichip(2, backend='gloo') in {dry_s:.1f} s: ranks on "
+            f"{[d['device'] for d in dry]}, RVC metrics equal on both "
+            f"{dry[0]['rvc'] == dry[1]['rvc']}, tp forward {[d['tp_err'] for d in dry]} from "
+            f"the replicated one, separation {[d['sep_err'] for d in dry]} from the unsharded "
+            f"one, Zonos codes {len(dry[0]['zonos'])} rows | {card}")
+        expect(dry[0]["rvc"] == dry[1]["rvc"] and dry[0]["zonos"] == dry[1]["zonos"],
+               "parallel (h): the ranks disagree")
+        rec["dryrun_s"] = dry_s
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[parallel] launches on the path: {path}; phase {rec['phase_s']:.1f} s | {card}")
+    rec["launches"] = path
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -7818,7 +8564,7 @@ def main() -> int:
     main_launches = dict.fromkeys(KERNELS, 0)
     served = family = trained = spoken = processed = engines = chatter = heard = None
     diffused = composed = adapted = sung = loaded = listened = spoken_files = None
-    voiced_files = music_files = None
+    voiced_files = music_files = paralleled = None
     need_chain = {"separator", "rvc", "fidelity", "f0", "reference", "timing", "vr",
                   "serve", "separators", "processors", "loaders", "long"} & set(phases)
     if need_chain:
@@ -7946,6 +8692,12 @@ def main() -> int:
         # just before each run and read just after (stable-audio-open's
         # generate launches the fp32 K2; ACE-Step, CLAP and Vocos none)
         music_files = phase_loaders_music(dev, card)["launches"]
+    if "parallel" in phases:
+        mark("parallel")
+        # this slice's path: the separator's dp fan-out and each rank's tp
+        # forward of the LM core, counts reset just before each and read
+        # just after (the dp RVC step launches none)
+        paralleled = phase_parallel(dev, card)["launches"]
 
     log(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -7968,6 +8720,7 @@ def main() -> int:
            "loaders_speech_launches": None if spoken_files is None else spoken_files[r["kernel"]],
            "loaders_voice_launches": None if voiced_files is None else voiced_files[r["kernel"]],
            "loaders_music_launches": None if music_files is None else music_files[r["kernel"]],
+           "parallel_launches": None if paralleled is None else paralleled[r["kernel"]],
            "on_main_path": r["on_main_path"],
            "on_engines_path": r.get("on_engines_path", False),
            "on_chatterbox_path": r.get("on_chatterbox_path", False),

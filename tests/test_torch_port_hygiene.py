@@ -12,6 +12,7 @@
 """
 
 import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -703,3 +704,81 @@ def test_yue_entry_points_default_to_the_card(no_cuda, tmp_path):
     assert next(lm.parameters()).device.type == "cpu"
     dec = load_xcodec_checkpoint(str(xpath), xc, device="cpu")
     assert dec(torch.zeros(1, 1, 3, dtype=torch.long)).shape == (1, 6)
+
+
+def test_parallel_and_export_entry_points_default_to_the_card(no_cuda, monkeypatch, tmp_path):
+    """``export_rvc_synthesizer``, the dry run's ``entry``, ``local_mesh``,
+    ``get_mesh`` outside a process group and ``StemSeparator`` under such a
+    mesh raise without a card, and run on the CPU when asked;
+    ``dryrun_multichip`` under NCCL raises with fewer cards than ranks,
+    before it starts any."""
+    from audiolab_tpu_torch import dryrun
+    from audiolab_tpu_torch.core import distributed as TDist
+    from audiolab_tpu_torch.core.mesh import get_mesh, local_mesh
+    from audiolab_tpu_torch.pipelines.separate import StemSeparator
+    from audiolab_tpu_torch.utils.export import export_rvc_synthesizer
+
+    cfg = TSy.SynthesizerConfig(
+        spec_channels=129, inter_channels=8, hidden_channels=8, filter_channels=16, n_heads=2,
+        n_layers=1, upsample_initial_channel=16, spk_embed_dim=2, gin_channels=8,
+        feat_channels=16)
+    synth = TSy.SynthesizerTrn(cfg)
+    for call in (lambda: export_rvc_synthesizer(synth, cfg, str(tmp_path / "a.pt2")),
+                 dryrun.entry, lambda: dryrun.dryrun_multichip(2), lambda: local_mesh(2),
+                 get_mesh, lambda: StemSeparator([], mesh=local_mesh(2)),
+                 lambda: StemSeparator([], mesh=get_mesh())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert Path(export_rvc_synthesizer(synth.state_dict(), cfg, str(tmp_path / "b.pt2"),
+                                       frames=4, device="cpu")).exists()
+    cpu = StemSeparator([], mesh=local_mesh(1, device="cpu"))
+    assert cpu.device.type == "cpu" and get_mesh(device="cpu").devices[0].type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(TDist, "run_ranks", lambda *a, **k: pytest.fail("ranks started"))
+    with pytest.raises(RuntimeError, match="NCCL takes one rank per card"):
+        dryrun.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="NCCL takes one rank per card"):
+        TDist.init_distributed(num_processes=2, process_id=1, init_method="file:///dev/null",
+                               device="cuda")
+
+
+# a "file:line" the kernels line cites as the TPU kernel a port replaces
+CITATION = re.compile(r"^audiolab_tpu/[\w/]+\.py:\d+$")
+
+
+def _jax_package_paths(path: Path) -> list[str]:
+    """The string constants of a module (docstrings aside) that name a path
+    under ``audiolab_tpu/``, and the ``"audiolab_tpu"`` components it joins
+    into a path (``/`` or a ``join`` call)."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+
+    def component(n) -> bool:
+        return isinstance(n, ast.Constant) and n.value in ("audiolab_tpu", "audiolab_tpu/")
+
+    bad = [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+           and isinstance(n.value, str) and id(n) not in docs and "audiolab_tpu/" in n.value
+           and not CITATION.match(n.value)]
+    for n in ast.walk(tree):
+        if isinstance(n, ast.BinOp) and isinstance(n.op, ast.Div) and (
+                component(n.left) or component(n.right)):
+            bad.append(ast.unparse(n))
+        elif (isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+              and n.func.attr in ("join", "joinpath") and any(map(component, n.args))):
+            bad.append(ast.unparse(n))
+    return bad
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_reads_no_path_of_the_jax_package(path):
+    """No code of the port (docstrings aside) names a path under
+    ``audiolab_tpu/``: the port builds and reads its own files (the native
+    library's sources among them)."""
+    bad = _jax_package_paths(path)
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
